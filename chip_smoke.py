@@ -12,9 +12,10 @@ Phases, one JSON line each with its own ``seconds``:
             (120k Gaussians, SH 3) rendered from 8 orbit cameras at
             1297x840 through utils.ply_render.render_splats, and its first
             view's kernels held against their plain versions;
-  scene_1m  the 1M-Gaussian SH-3 synthetic scene at 1297x840, tile 16 and
-            32: render time, per-kernel time, plain time, library time and
-            the bound of each kernel.
+  scene_1m  the 1M-Gaussian SH-3 synthetic scene at 1297x840: tile 16 and
+            32 with the exact cutoff, tile 16 with the soft one; render
+            time, per-kernel time, plain time, library time and the bound
+            of each kernel, with each kernel held against its plain version.
 Then a line {"kernels": [...]} with each kernel's numbers, the card's name
 and power limit, and the result line. Any failed check raises, and the
 script exits non-zero without the result line.
@@ -38,6 +39,14 @@ N_SMALL = 20_000
 FWD_TOL = 1e-4  # kernel vs plain forward, max abs on colors and alpha
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+# raster_fwd's float32 operations per (pair, pixel), from csrc/raster_fwd.cu
+# with the per-Gaussian 0.5*ca and 0.5*cc hoisted: sigma and alpha (dx, dy,
+# three products, the three-term sum, exp, op*exp, min, two tests) for each
+# evaluated pair; 1 - alpha, T*(1 - alpha) and, exact only, its test for
+# each pair that passes the alpha test; the weight and CH multiply-adds for
+# each composited pair.
+FWD_OPS_EVALUATED = 15
+FWD_OPS_TESTED = {"exact": 3, "soft": 2}
 
 KERNELS = {
     "pack_rows": dict(source="gscodec_studio_tpu_torch/csrc/pack.cu",
@@ -128,8 +137,8 @@ class Stages:
         errs["expand"] = max(errs.get("expand", 0.0), 0.0)
         res["cull_bound_pairs"] = n_bound
 
-        ref = rv._fwd_plain(b.S, b.starts, self.masks, cfg,
-                            group_pixels=1 << 20)
+        ref, self.pair_counts = rv._fwd_plain(b.S, b.starts, self.masks,
+                                              cfg, with_counts=True)
         err = float((ref - self.out).abs().max())
         if not (math.isfinite(err) and err <= FWD_TOL):
             raise AssertionError(f"raster_fwd max abs err {err} > {FWD_TOL}")
@@ -144,6 +153,7 @@ def main():
         return 1
     from gscodec_studio_tpu_torch import native
     from gscodec_studio_tpu_torch.models.splats import from_jax_splats
+    from gscodec_studio_tpu_torch.ops.projection import fully_fused_projection
     from gscodec_studio_tpu_torch.ops import raster_v2 as rv
     from gscodec_studio_tpu_torch.rendering import (project_and_shade,
                                                     rasterization)
@@ -290,18 +300,32 @@ def main():
     t0 = time.perf_counter()
     scene = make_scene(n=N_1M, width=WIDTH, height=HEIGHT, seed=0)
     prep_1m = prepared(scene, WIDTH, HEIGHT)
+    means, quats, scales, opac, colors, vm, Ks = to_dev(*scene)
+    # rows that binning at tile 16 makes under three radius rules: 3-sigma
+    # circles, opacity-aware circles, and the opacity-aware ellipses that
+    # the path uses (the count before the expansion's ellipse cull)
+    binned_rows = {}
+    for rule, kw in (("circle_3sigma", {}),
+                     ("circle_opacity", dict(opacities=opac)),
+                     ("ellipse_opacity", dict(opacities=opac,
+                                              elliptical=True))):
+        radii, m2d = fully_fused_projection(means, None, quats, scales, vm,
+                                            Ks, WIDTH, HEIGHT, **kw)[:2]
+        binned_rows[rule] = int(rv.tile_counts(
+            m2d, radii, 16, -(-WIDTH // 16), -(-HEIGHT // 16))[3].sum())
     perf = {}
     rows_1m = []
-    for ts in (16, 32):
-        st = stages_for(prep_1m, WIDTH, HEIGHT, ts, "exact")
+    for ts, cutoff in ((16, "exact"), (32, "exact"), (16, "soft")):
+        st = stages_for(prep_1m, WIDTH, HEIGHT, ts, cutoff)
         cfg = st.cfg
-        means, quats, scales, opac, colors, vm, Ks = to_dev(*scene)
+        check = st.compare(errs)
         rv.reset_launch_counts()
 
         def render():
             return rasterization(means, quats, scales, opac, colors, vm, Ks,
                                  WIDTH, HEIGHT, sh_degree=3, tile_size=ts,
-                                 isect_capacity=cfg.cap, device=dev)
+                                 isect_capacity=cfg.cap, cutoff_mode=cutoff,
+                                 device=dev)
 
         img, alpha, meta = render()
         torch.cuda.synchronize()
@@ -325,7 +349,7 @@ def main():
         )
 
         n_isects = int(st.b.n_isects)
-        in_tiles = int(st.b.starts[cfg.n_tiles]) - int(st.b.starts[0])
+        pc = st.pair_counts
         L, n = cfg.cap, cfg.d_s
         M = cfg.C * cfg.n
         k = {}
@@ -353,35 +377,38 @@ def main():
             + 4 * (cfg.n_attr + 1) * L,
             ops=0,
         )
-        ops_per_pair = 23 + 2 * cfg.channels
         k["raster_fwd"] = dict(
             ms=cuda_ms(lambda: rv.raster_fwd(st.b.S, st.b.starts, st.masks,
                                              cfg), 10),
             plain_ms=cuda_ms(lambda: rv._fwd_plain(
-                st.b.S, st.b.starts, st.masks, cfg, group_pixels=1 << 20), 1),
+                st.b.S, st.b.starts, st.masks, cfg), 1),
             library_ms=None,
             bytes=4 * (6 + cfg.channels) * n_isects
             + 4 * (cfg.n_tiles_v + 1) + 4 * cfg.n_tiles
             + 4 * cfg.n_tiles * cfg.pixels * (cfg.channels + 1),
-            ops=ops_per_pair * in_tiles * cfg.pixels,
+            ops=FWD_OPS_EVALUATED * pc["evaluated"]
+            + FWD_OPS_TESTED[cutoff] * pc["tested"]
+            + (1 + 2 * cfg.channels) * pc["composited"],
+            pair_counts=pc,
         )
         for name, d in k.items():
             t_bytes = d["bytes"] / HBM_BYTES_PER_S * 1e3
             t_ops = d["ops"] / F32_OPS_PER_S * 1e3
             d["bound_ms"] = max(t_bytes, t_ops)
             d["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        check = st.compare(errs)
-        rows_1m.append(dict(tile_size=ts, n_isects=n_isects,
+        rows_1m.append(dict(tile_size=ts, cutoff=cutoff, n_isects=n_isects,
+                            rows_in_tiles=int(st.b.starts[cfg.n_tiles]
+                                              - st.b.starts[0]),
                             isect_capacity=cfg.cap, render_ms=render_ms,
                             stage_ms=stage_ms,
                             launches_per_render=launches_per_render,
                             kernels=k, check=check,
                             mean_alpha=float(alpha.mean())))
-        if ts == 16:
+        if (ts, cutoff) == (16, "exact"):
             perf = k
         del st
     emit({"phase": "scene_1m", "gaussians": N_1M, "width": WIDTH,
-          "height": HEIGHT, "runs": rows_1m,
+          "height": HEIGHT, "binned_rows_tile16": binned_rows, "runs": rows_1m,
           "seconds": time.perf_counter() - t0})
 
     emit({"kernels": [

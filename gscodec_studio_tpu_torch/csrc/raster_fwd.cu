@@ -17,9 +17,10 @@
 //   * a masked tile (or an empty run) writes colors 0 and alpha 0.
 // Output per pixel: colors[CH] then alpha = 1 - T_final.
 //
-// Bound on the H100: operations. Every (intersection, pixel of its tile)
-// pair costs ~20 + 2*CH flops and one exp, while the table is read once per
-// tile. Design: one block per tile, one thread per pixel; each 128-row chunk
+// Bound on the H100: operations. Each pixel evaluates sigma and alpha (~15
+// float32 operations, one exp) for every pair of its run up to its cutoff,
+// and composites (2*CH + 4 more) the pairs that pass the alpha test, while
+// the table is read once per tile. Design: one block per tile, one thread per pixel; each 128-row chunk
 // of the (6 + CH) attribute rows is staged through shared memory once and
 // read by all the tile's pixels as broadcasts. Accumulators live in
 // registers (the channel count is a template bound, CH <= 32).

@@ -384,9 +384,17 @@ def _composite(alpha, t_cur, cutoff):
     return w, torch.minimum(t_cur, t_new)
 
 
-def _fwd_plain(S, starts, masks, cfg: V2Cfg, group_pixels: int = 1 << 16):
+def _fwd_plain(S, starts, masks, cfg: V2Cfg, with_counts: bool = False):
     """Plain version of the tile-forward kernel: loops over the chunk index
-    and vectorises across tiles (``group_pixels`` tile pixels at a time)."""
+    and vectorises across tiles, a group of tiles at a time (2^20 tile
+    pixels on a card, 2^16 on the CPU).
+
+    With ``with_counts`` it returns (out, counts), where counts holds what
+    the kernel does on these inputs, per (pair, pixel): "evaluated" pairs
+    whose sigma and alpha are computed (in exact mode the pairs up to and
+    including the one that ends the pixel's chunk), "tested" pairs that
+    pass the alpha test and reach the transmittance step, and "composited"
+    pairs that add to the colors."""
     dev = S.device
     nT, P, ts, CH = cfg.n_tiles, cfg.pixels, cfg.tile_size, cfg.channels
     TW = cfg.tile_width
@@ -402,7 +410,9 @@ def _fwd_plain(S, starts, masks, cfg: V2Cfg, group_pixels: int = 1 << 16):
           + torch.div(p, ts, rounding_mode="floor")).to(torch.float32) + 0.5
     lane = torch.arange(K, device=dev)
     out = torch.empty((nT, P, CH + 1), dtype=torch.float32, device=dev)
-    group = max(1, group_pixels // P)
+    group = max(1, (1 << 20 if S.is_cuda else 1 << 16) // P)
+    counts = {k: torch.zeros((), dtype=torch.int64, device=dev)
+              for k in ("evaluated", "tested", "composited")}
     for g0 in range(0, nT, group):
         sl = slice(g0, min(nT, g0 + group))
         n = sl.stop - sl.start
@@ -431,8 +441,20 @@ def _fwd_plain(S, starts, masks, cfg: V2Cfg, group_pixels: int = 1 << 16):
             w, t_new = _composite(alpha, T[idx], cfg.cutoff)
             acc[idx] += torch.einsum("apk,cak->apc", w, chunk[6:6 + CH])
             T[idx] = t_new
+            if with_counts:
+                if cfg.cutoff == "soft":
+                    comp, seen = valid, inr.expand_as(valid)
+                else:  # up to the first valid pair that is not composited
+                    comp = w > 0.0  # a composited pair has alpha, T > 0
+                    stop = (valid & ~comp).to(torch.int32)
+                    seen = inr & ((torch.cumsum(stop, dim=-1) - stop) == 0)
+                counts["evaluated"] += seen.sum()
+                counts["tested"] += (seen & valid).sum()
+                counts["composited"] += comp.sum()
         out[sl, :, :CH] = acc
         out[sl, :, CH] = 1.0 - T[..., 0]
+    if with_counts:
+        return out, {k: int(v) for k, v in counts.items()}
     return out
 
 

@@ -206,3 +206,58 @@ def test_cutoff_rules_match_jax(cutoff):
         assert float(blue.min()) > 4e-3
     else:
         assert not blue.any()
+
+
+@pytest.mark.parametrize("cutoff", ["exact", "soft"])
+def test_fwd_pair_counts_follow_the_kernel_loop(rng, cutoff):
+    """The plain forward's pair counts, from which the tile-forward
+    kernel's operation bound is computed, equal a pair-by-pair walk of the
+    kernel's loop (vectorised over a tile's pixels). Four 16x16 tiles hold
+    runs longer than one 128-row chunk, so the exact cutoff ends pixels
+    inside a chunk and starts them again in the next."""
+    W = ts = 16
+    N = 700
+    m2, con, col, op, dep, rad, _ = make_2d_scene(rng, C=1, N=N, W=2 * W,
+                                                  H=2 * W)
+    cfg = tr.V2Cfg(C=1, tile_width=2, tile_height=2, tile_size=ts,
+                   channels=3, cap=4096, n=N, cutoff=cutoff)
+    b = tr._build_sorted(cfg, *map(torch.as_tensor, (
+        m2, con, col, op, dep, _elliptical(rng, rad))))
+    masks = torch.ones(cfg.n_tiles, dtype=torch.int32)
+    _, counts = tr._fwd_plain(b.S, b.starts, masks, cfg, with_counts=True)
+
+    S, starts = b.S.numpy(), b.starts.numpy().astype(np.int64)
+    K, eps, f32 = tr.K, tr.TRANSMITTANCE_EPS, np.float32
+    want = dict(evaluated=0, tested=0, composited=0)
+    p = np.arange(ts * ts)
+    for t in range(cfg.n_tiles):
+        off, end = starts[t], starts[t + 1]
+        assert end - off > K
+        px = ((t % 2) * ts + p % ts + 0.5).astype(f32)
+        py = ((t // 2) * ts + p // ts + 0.5).astype(f32)
+        T = np.ones(p.size, f32)
+        for c in range(off // K, -(-end // K)):
+            if cutoff == "soft" and not (T > eps).any():
+                break
+            live = np.ones(p.size, bool)
+            for k in range(max(off, c * K), min(end, (c + 1) * K)):
+                x, y, ca, cb, cc, o = S[:6, k]
+                dx, dy = x - px, y - py
+                sigma = ((f32(0.5) * ca) * (dx * dx)
+                         + (f32(0.5) * cc) * (dy * dy) + cb * (dx * dy))
+                alpha = np.minimum(f32(tr.MAX_ALPHA), o * np.exp(-sigma))
+                valid = live & (sigma >= 0) & (alpha >= f32(1 / 255))
+                want["evaluated"] += int(live.sum())
+                want["tested"] += int(valid.sum())
+                t_new = T * (f32(1) - alpha)
+                if cutoff == "exact":
+                    stop = valid & ~(t_new > eps)
+                    live &= ~stop
+                    valid &= ~stop
+                want["composited"] += int(valid.sum())
+                T = np.where(valid, t_new, T)
+    assert counts == want
+    assert 0 < want["composited"] <= want["tested"] < want["evaluated"]
+    # exact: some pixels end inside a chunk; soft composites every pair
+    # that passes the alpha test
+    assert (want["composited"] < want["tested"]) == (cutoff == "exact")
