@@ -7,7 +7,9 @@ Phases, one JSON line each with its own ``seconds``:
   device    nvidia-smi's name and power limit, torch and CUDA versions;
   build     the nvcc build of csrc/*.cu (route: plain-C .so + ctypes);
   kernels   each kernel against its plain PyTorch version on the card: a
-            20k-Gaussian scene at 320x240, tile 16 and 32, both cutoffs;
+            20k-Gaussian scene at 320x240, tile 16 and 32, both cutoffs,
+            the backward with absgrad off and on, and each backward kernel
+            run twice for the same bits;
   serve     the committed checkpoint results/garden_ab_f32/splats_final.npz
             (120k Gaussians, SH 3) rendered from 8 orbit cameras at
             1297x840 through utils.ply_render.render_splats, and its first
@@ -15,16 +17,28 @@ Phases, one JSON line each with its own ``seconds``:
   scene_1m  the 1M-Gaussian SH-3 synthetic scene at 1297x840: tile 16 and
             32 with the exact cutoff, tile 16 with the soft one; render
             time, per-kernel time, plain time, library time and the bound
-            of each kernel, with each kernel held against its plain version.
-Then a line {"kernels": [...]} with each kernel's numbers, the card's name
-and power limit, and the result line. Any failed check raises, and the
-script exits non-zero without the result line.
+            of each kernel, with each kernel held against its plain version;
+  train_1m  the same scene, tile 16, both cutoffs: forward + backward of
+            rendering.rasterization with a seeded cotangent (median ms,
+            Mpix/s, launches), and the backward kernels' time, bound, plain
+            and library times and errors at its shapes;
+  train     training.trainer.Runner with the default Config on the stand-in
+            of utils.scenes.checkpoint_stand_in (the checkpoint rendered
+            from 8 views at 1297x840, 7 to train, 1 held out), 30 steps with
+            refines at steps 10, 20 and 30 and SH degree 3 from step 15: loss,
+            held-out PSNR before and after, step ms, live counts, launches.
+Then a line {"kernels": [...]} with each kernel's numbers (launches from
+the train phase, the slice's main path), the card's name and power limit,
+and the result line. Any failed check raises, and the script exits
+non-zero without the result line.
 """
 
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -36,7 +50,11 @@ CHECKPOINT = ROOT / "results" / "garden_ab_f32" / "splats_final.npz"
 WIDTH, HEIGHT = 1297, 840
 N_1M = 1_000_000
 N_SMALL = 20_000
+DEVICE = "cuda"
+TRAIN_STEPS = 30
 FWD_TOL = 1e-4  # kernel vs plain forward, max abs on colors and alpha
+BWD_TOL = 1e-4  # kernel vs plain backward, relative to each row's max |.|
+SEGSUM_TOL = 1e-5  # kernel vs plain segment sums, relative to max |sum|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 # raster_fwd's float32 operations per (pair, pixel), from csrc/raster_fwd.cu
@@ -47,6 +65,12 @@ F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 # each composited pair.
 FWD_OPS_EVALUATED = 15
 FWD_OPS_TESTED = {"exact": 3, "soft": 2}
+# raster_bwd, from csrc/raster_bwd.cu: the forward's walk again (the same
+# evaluated and tested pairs), and for each composited (pair, pixel) the
+# weight, G (2*CH), the suffix term (2), 1/(1-alpha), v_alpha (5), v_sig
+# (2), the five geometry products (16), CH colour products, and one add
+# per gradient row for the sum over the tile's pixels (d_g).
+BWD_OPS_COMPOSITED = 27  # + 3*CH + d_g (+ 2 with absgrad)
 
 KERNELS = {
     "pack_rows": dict(source="gscodec_studio_tpu_torch/csrc/pack.cu",
@@ -55,7 +79,16 @@ KERNELS = {
                    replaces="gscodec_studio_tpu/ops/raster_v2.py:424"),
     "raster_fwd": dict(source="gscodec_studio_tpu_torch/csrc/raster_fwd.cu",
                        replaces="gscodec_studio_tpu/ops/raster_v2.py:883"),
+    "raster_bwd": dict(source="gscodec_studio_tpu_torch/csrc/raster_bwd.cu",
+                       replaces="gscodec_studio_tpu/ops/raster_v2.py:1025"),
+    "segsum_rows": dict(source="gscodec_studio_tpu_torch/csrc/segsum.cu",
+                        replaces="gscodec_studio_tpu/ops/raster_v2.py:1361"),
+    "unpack_rows": dict(source="gscodec_studio_tpu_torch/csrc/unpack.cu",
+                        replaces="gscodec_studio_tpu/ops/raster_v2.py:354"),
 }
+
+
+FWD_KERNELS = ("pack_rows", "expand", "raster_fwd")  # a render's kernels
 
 
 def emit(obj):
@@ -74,6 +107,67 @@ def cuda_ms(fn, reps):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def median_ms(fn, reps):
+    """Median device time of one ``fn`` call over ``reps`` calls after one
+    warm-up, each between its own pair of CUDA events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times)), times
+
+
+def bound(d):
+    """Adds bound_ms and bound_by to a kernel's dict of bytes and ops."""
+    t_bytes = d["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = d["ops"] / F32_OPS_PER_S * 1e3
+    d["bound_ms"] = max(t_bytes, t_ops)
+    d["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return d
+
+
+def device_profile(fn, reps=3):
+    """torch.profiler over ``reps`` calls of ``fn``: the device time by
+    kernel (top 12), their sum, the window's wall time and the device's
+    busy share (sum of kernel time over wall time: the kernels run on one
+    stream). Only device events count; the host-side operators that
+    launched them would count the same time twice. Records the error
+    instead if the profiler cannot trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+            if dev_us > 0 and str(ev.device_type).endswith("CUDA"):
+                rows.append((ev.key, dev_us / 1e3 / reps, ev.count // reps))
+        rows.sort(key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        return {"wall_ms_per_call": wall_ms / reps,
+                "device_ms_per_call": busy,
+                "device_busy_share": busy / (wall_ms / reps) if rows
+                else None,
+                "top": [{"name": n[:80], "ms": m, "calls": c}
+                        for n, m, c in rows[:12]]}
+    except Exception as e:  # the trace is a diagnostic, not a check
+        return {"error": repr(e)}
 
 
 def nvidia_smi():
@@ -146,6 +240,57 @@ class Stages:
         res["fwd_max_abs_err"] = err
         return res
 
+    def compare_bwd(self, errs, seed=0):
+        """The backward kernels against their plain versions on a seeded
+        cotangent of the tile outputs: raster_bwd with absgrad off and on
+        (BWD_TOL of each row's largest |value|), unpack_rows bit for bit,
+        segsum_rows within SEGSUM_TOL of the largest |sum|; each kernel run
+        twice gives the same bits. Keeps the absgrad-off inputs for
+        timing."""
+        rv, cfg, b = self.rv, self.cfg, self.b
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        self.v_tiles = torch.randn(self.out.shape, generator=g).to(
+            self.out.device)
+        res = {}
+        for absgrad in (False, True):
+            args = (b.S, b.starts, self.masks, self.out, self.v_tiles, cfg,
+                    absgrad)
+            gbuf = rv.raster_bwd(*args)
+            ref = rv._bwd_plain(*args)
+            scale = ref.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+            err = float(((gbuf - ref).abs() / scale).max())
+            if not (math.isfinite(err) and err <= BWD_TOL):
+                raise AssertionError(f"raster_bwd rel err {err} > {BWD_TOL}")
+            if not torch.equal(gbuf, rv.raster_bwd(*args)):
+                raise AssertionError("raster_bwd differs between two runs")
+            errs["raster_bwd"] = max(errs.get("raster_bwd", 0.0), err)
+            res[f"bwd_rel_err_absgrad_{int(absgrad)}"] = err
+            if not absgrad:
+                self.gbuf = gbuf
+        d_g = self.gbuf.shape[0]
+        self.inv_perm = rv._inverse(b.perm)
+        rows = rv.unpack_rows(self.gbuf, d_g, self.inv_perm)
+        if not (torch.equal(rows, rv._unpack_rows_plain(
+                self.gbuf, d_g, self.inv_perm))
+                and torch.equal(rows, rv.unpack_rows(self.gbuf, d_g,
+                                                     self.inv_perm))):
+            raise AssertionError("unpack_rows differs from its plain version "
+                                 "or between two runs")
+        errs["unpack_rows"] = max(errs.get("unpack_rows", 0.0), 0.0)
+        self.rows = rows
+        seg = rv.segsum_rows(rows, b.cum, b.n_isects)
+        ref = rv._segsum_plain(rows, b.cum, b.n_isects)
+        scale = max(float(ref.abs().max()), 1e-30)
+        err = float((seg - ref).abs().max()) / scale
+        if not (math.isfinite(err) and err <= SEGSUM_TOL):
+            raise AssertionError(f"segsum_rows rel err {err} > {SEGSUM_TOL}")
+        if not torch.equal(seg, rv.segsum_rows(rows, b.cum, b.n_isects)):
+            raise AssertionError("segsum_rows differs between two runs")
+        errs["segsum_rows"] = max(errs.get("segsum_rows", 0.0), err)
+        res["segsum_rel_err"] = err
+        self.seg = seg
+        return res
+
 
 def main():
     if not torch.cuda.is_available():
@@ -157,12 +302,14 @@ def main():
     from gscodec_studio_tpu_torch.ops import raster_v2 as rv
     from gscodec_studio_tpu_torch.rendering import (project_and_shade,
                                                     rasterization)
+    from gscodec_studio_tpu_torch.training.trainer import Config, Runner
     from gscodec_studio_tpu_torch.utils.ply_render import (orbit_cameras,
                                                            render_splats)
-    from gscodec_studio_tpu_torch.utils.scenes import make_scene
+    from gscodec_studio_tpu_torch.utils.scenes import (checkpoint_stand_in,
+                                                       make_scene)
 
     t_all = time.perf_counter()
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -222,11 +369,13 @@ def main():
         for cutoff in ("exact", "soft"):
             st = stages_for(prep_small, sw, sh, ts, cutoff)
             res = st.compare(errs)
+            res.update(st.compare_bwd(errs, seed=ts))
             cases.append(dict(tile_size=ts, cutoff=cutoff,
                               n_isects=int(st.b.n_isects), **res))
     torch.cuda.synchronize()
-    emit({"phase": "kernels", "cases": cases, "max_abs_err": errs,
-          "fwd_tol": FWD_TOL, "seconds": time.perf_counter() - t0})
+    emit({"phase": "kernels", "cases": cases, "max_err": errs,
+          "fwd_tol": FWD_TOL, "bwd_tol": BWD_TOL, "segsum_tol": SEGSUM_TOL,
+          "seconds": time.perf_counter() - t0})
 
     # 4. serve: the committed checkpoint through render_splats
     t0 = time.perf_counter()
@@ -275,7 +424,7 @@ def main():
     mean_alpha = float(torch.stack([a.mean() for _, a, _ in outs]).mean())
     if not mean_alpha > 0.05:
         raise AssertionError(f"serve mean alpha {mean_alpha} <= 0.05")
-    if min(serve_launches.values()) < 1:
+    if min(serve_launches[k] for k in FWD_KERNELS) < 1:
         raise AssertionError(f"a kernel did not launch: {serve_launches}")
     # view 0's kernels against their plain versions at the serve shapes
     vm0 = np.linalg.inv(cams[0]["camtoworld"])[None]
@@ -330,7 +479,7 @@ def main():
         img, alpha, meta = render()
         torch.cuda.synchronize()
         launches_per_render = dict(rv.LAUNCHES)
-        if min(launches_per_render.values()) < 1:
+        if min(launches_per_render[k] for k in FWD_KERNELS) < 1:
             raise AssertionError(f"a kernel did not launch: "
                                  f"{launches_per_render}")
         if int(meta["n_isects"]) != int(st.b.n_isects) or \
@@ -391,11 +540,8 @@ def main():
             + (1 + 2 * cfg.channels) * pc["composited"],
             pair_counts=pc,
         )
-        for name, d in k.items():
-            t_bytes = d["bytes"] / HBM_BYTES_PER_S * 1e3
-            t_ops = d["ops"] / F32_OPS_PER_S * 1e3
-            d["bound_ms"] = max(t_bytes, t_ops)
-            d["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        for d in k.values():
+            bound(d)
         rows_1m.append(dict(tile_size=ts, cutoff=cutoff, n_isects=n_isects,
                             rows_in_tiles=int(st.b.starts[cfg.n_tiles]
                                               - st.b.starts[0]),
@@ -411,10 +557,179 @@ def main():
           "height": HEIGHT, "binned_rows_tile16": binned_rows, "runs": rows_1m,
           "seconds": time.perf_counter() - t0})
 
+    # 6. train_1m: forward + backward at 1M, and the backward kernels
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(7)
+    ct_img = torch.randn((1, HEIGHT, WIDTH, 3), generator=g).to(dev)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (means, quats, scales, opac, colors)]
+    runs_bwd = []
+    for cutoff in ("exact", "soft"):
+        st = stages_for(prep_1m, WIDTH, HEIGHT, 16, cutoff)
+        cfg = st.cfg
+        fwd_check = st.compare(errs)
+        bwd_check = st.compare_bwd(errs, seed=16)
+
+        def forward():
+            return rasterization(*leaves, vm, Ks, WIDTH, HEIGHT, sh_degree=3,
+                                 tile_size=16, isect_capacity=cfg.cap,
+                                 cutoff_mode=cutoff, device=dev)[0]
+
+        def fwd_bwd():
+            for t in leaves:
+                t.grad = None
+            torch.autograd.backward(forward(), ct_img)
+
+        rv.reset_launch_counts()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        launches = dict(rv.LAUNCHES)
+        if min(launches.values()) < 1:
+            raise AssertionError(f"a kernel did not launch in fwd+bwd: "
+                                 f"{launches}")
+        if not all(bool(torch.isfinite(t.grad).all()) for t in leaves):
+            raise AssertionError("train_1m gradients are not finite")
+        fb_ms, fb_samples = median_ms(fwd_bwd, 5)
+        with torch.no_grad():
+            f_ms, _ = median_ms(forward, 5)
+        profile = device_profile(fwd_bwd)
+
+        CH, P, L = cfg.channels, cfg.pixels, cfg.cap
+        M = cfg.C * cfg.n
+        d_g = cfg.d_g(False)
+        n_isects = int(st.b.n_isects)
+        n_rows = int(st.b.starts[cfg.n_tiles] - st.b.starts[0])
+        pc = st.pair_counts
+        bwd_args = (st.b.S, st.b.starts, st.masks, st.out, st.v_tiles, cfg,
+                    False)
+        ids = rv.segment_ids(st.b.cum, st.b.n_isects)
+        rows_n = st.rows[:, :n_isects]
+        inv_order = rv._inverse(st.b.order)
+        k = {}
+        k["raster_bwd"] = bound(dict(
+            ms=cuda_ms(lambda: rv.raster_bwd(*bwd_args), 10),
+            plain_ms=cuda_ms(lambda: rv._bwd_plain(*bwd_args), 1),
+            library_ms=None,
+            bytes=4 * (6 + CH) * n_rows + 4 * (cfg.n_tiles_v + 1)
+            + 4 * cfg.n_tiles + 2 * 4 * cfg.n_tiles * P * (CH + 1)
+            + 4 * d_g * L,
+            ops=FWD_OPS_EVALUATED * pc["evaluated"]
+            + FWD_OPS_TESTED[cutoff] * pc["tested"]
+            + (BWD_OPS_COMPOSITED + 3 * CH + d_g) * pc["composited"],
+            pair_counts=pc))
+        k["segsum_rows"] = bound(dict(
+            ms=cuda_ms(lambda: rv.segsum_rows(st.rows, st.b.cum,
+                                              st.b.n_isects), 10),
+            plain_ms=cuda_ms(lambda: rv._segsum_plain(st.rows, st.b.cum,
+                                                      st.b.n_isects), 3),
+            library_ms=cuda_ms(lambda: torch.zeros(
+                (d_g, M), device=dev).index_add_(1, ids, rows_n), 10),
+            bytes=4 * d_g * n_isects + 4 * M + 4 * d_g * M,
+            ops=d_g * n_isects))
+        k["unpack_rows"] = bound(dict(
+            ms=cuda_ms(lambda: rv.unpack_rows(st.gbuf, d_g, st.inv_perm), 10),
+            plain_ms=cuda_ms(lambda: rv._unpack_rows_plain(
+                st.gbuf, d_g, st.inv_perm), 10),
+            library_ms=cuda_ms(lambda: torch.index_select(
+                st.gbuf, 1, st.inv_perm), 10),
+            bytes=(4 * d_g + 8 + 4 * d_g) * L, ops=0,
+            per_gaussian_ms=cuda_ms(lambda: rv.unpack_rows(
+                st.seg, d_g, inv_order), 10),
+            per_gaussian_library_ms=cuda_ms(lambda: torch.index_select(
+                st.seg, 1, inv_order), 10)))
+        runs_bwd.append(dict(
+            tile_size=16, cutoff=cutoff, n_isects=n_isects,
+            rows_in_tiles=n_rows, isect_capacity=L, fwd_bwd_ms=fb_ms,
+            fwd_bwd_ms_samples=fb_samples, fwd_ms=f_ms,
+            mpix_per_s=WIDTH * HEIGHT / (fb_ms * 1e-3) / 1e6,
+            launches_per_fwd_bwd=launches, kernels=k, profile=profile,
+            check=dict(fwd_check, **bwd_check)))
+        if cutoff == "exact":
+            perf.update(k)
+        del st
+    emit({"phase": "train_1m", "gaussians": N_1M, "width": WIDTH,
+          "height": HEIGHT, "runs": runs_bwd,
+          "seconds": time.perf_counter() - t0})
+
+    # 7. train: the port's Runner on the checkpoint stand-in
+    t0 = time.perf_counter()
+    parser, trainset, valset = checkpoint_stand_in(
+        CHECKPOINT, n_views=8, width=WIDTH, height=HEIGHT, device=dev)
+    data_s = time.perf_counter() - t0
+    stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_train_")  # eval's json
+    tcfg = Config(result_dir=stats_dir, refine_start_iter=5,
+                  refine_every=10, sh_degree_interval=5)
+    runner = Runner(tcfg, parser=parser, trainset=trainset, valset=valset,
+                    device=dev)
+    cap = runner.splats["means"].shape[0]
+    before = runner.eval("before")
+    steps = []
+    train_step = runner.train_step
+
+    def timed_step(idx, sh_degree):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = train_step(idx, sh_degree)  # ends in a host sync
+        e1.record()
+        e1.synchronize()
+        steps.append(dict(out, ms=e0.elapsed_time(e1), sh_degree=sh_degree))
+        return out
+
+    runner.train_step = timed_step
+    t1 = time.perf_counter()
+    rv.reset_launch_counts()
+    losses = runner.train(max_steps=TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    train_launches = dict(rv.LAUNCHES)
+    train_s = time.perf_counter() - t1
+    after = runner.eval("after")
+    # one more step of each training view under the profiler, after the
+    # measurements: which kernels a view's step spends its time in
+    step_profiles = {}
+    for view in range(len(trainset)):
+        prof = device_profile(lambda: train_step([view], 3), reps=1)
+        step_profiles[view] = dict(prof, top=prof.get("top", [])[:6])
+    refines = [e for e in runner.events if e["event"] == "refine"]
+    loss_first, loss_last = losses[:5], losses[-5:]
+    if not np.mean(loss_last) < np.mean(loss_first):
+        raise AssertionError(f"train loss did not fall: {losses}")
+    if not after["psnr"] > before["psnr"]:
+        raise AssertionError(f"held-out PSNR did not rise: {before} -> "
+                             f"{after}")
+    if min(train_launches.values()) < 1:
+        raise AssertionError(f"a kernel did not launch in training: "
+                             f"{train_launches}")
+    if runner.skipped_steps or len(refines) < 2 or \
+            max(s["sh_degree"] for s in steps) != 3:
+        raise AssertionError(f"skipped {runner.skipped_steps}, refines "
+                             f"{refines}, SH degrees "
+                             f"{sorted({s['sh_degree'] for s in steps})}")
+    emit({"phase": "train", "checkpoint": str(CHECKPOINT.relative_to(ROOT)),
+          "views": 8, "train_views": len(trainset), "width": WIDTH,
+          "height": HEIGHT, "steps": TRAIN_STEPS, "capacity": cap,
+          "isect_capacity": runner.isect_capacity(),
+          "cutoff_mode": tcfg.cutoff_mode, "tile_size": tcfg.tile_size,
+          "loss_first5": loss_first, "loss_last5": loss_last,
+          "psnr_before": before["psnr"], "psnr_after": after["psnr"],
+          "ssim_before": before["ssim"], "ssim_after": after["ssim"],
+          "step_ms_median": float(np.median([s["ms"] for s in steps])),
+          "step_ms": [s["ms"] for s in steps],
+          "n_isects": [s["n_isects"] for s in steps],
+          "events": runner.events, "skipped_steps": runner.skipped_steps,
+          "launches": train_launches,
+          "launches_per_step": {k: v / TRAIN_STEPS
+                                for k, v in train_launches.items()},
+          "view_order": runner.view_order, "step_profiles": step_profiles,
+          "stand_in_seconds": data_s, "train_seconds": train_s,
+          "seconds": time.perf_counter() - t0})
+    del runner, parser, trainset, valset
+    shutil.rmtree(stats_dir, ignore_errors=True)
+
     emit({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"],
-             launches=serve_launches[name], max_abs_err=errs[name],
+             launches=train_launches[name], max_abs_err=errs[name],
              ms=perf[name]["ms"], plain_ms=perf[name]["plain_ms"],
              bound_ms=perf[name]["bound_ms"],
              bound_by=perf[name]["bound_by"],

@@ -1,9 +1,17 @@
 """Static 3DGS splat parameters (port of
-gscodec_studio_tpu/models/splats.py, the parts that rendering needs)."""
+gscodec_studio_tpu/models/splats.py).
+
+For training, the splats are a dict of tensors at a static capacity
+``cap``: dead slots carry the opacity logit DEAD_OPACITY_LOGIT, render as
+nothing (the renderer culls opacities below 1/255) and are recycled by the
+densification strategy, as in the JAX package. ``SplatModel`` holds a
+trained scene for rendering.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -12,6 +20,91 @@ from torch import nn
 from gscodec_studio_tpu_torch.device import DeviceLike, resolve_device
 
 PARAM_NAMES = ("means", "quats", "scales", "opacities", "sh0", "shN")
+C0 = 0.28209479177387814  # SH DC basis
+DEAD_OPACITY_LOGIT = -15.0  # sigmoid(-15) ~ 3e-7: culled by the renderer
+
+# Per-parameter learning rates; the trainer multiplies means' by the scene
+# scale.
+PARAM_LRS = {
+    "means": 1.6e-4,
+    "scales": 5e-3,
+    "quats": 1e-3,
+    "opacities": 5e-2,
+    "sh0": 2.5e-3,
+    "shN": 2.5e-3 / 20,
+    "features": 2.5e-3,
+    "colors": 2.5e-3,
+}
+
+
+def rgb_to_sh(rgb):
+    return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh):
+    return sh * C0 + 0.5
+
+
+def knn_mean_dist(points: np.ndarray, k: int = 4) -> np.ndarray:
+    """sqrt(mean squared distance to the k-1 nearest neighbours), on the
+    host (initialisation only)."""
+    from scipy.spatial import cKDTree
+
+    d, _ = cKDTree(points).query(points, k=k)
+    return np.sqrt((d[:, 1:] ** 2).mean(axis=-1))
+
+
+def create_splats(
+    points: np.ndarray,  # [N, 3]
+    rgbs: Optional[np.ndarray] = None,  # [N, 3] in [0, 1]
+    cap: Optional[int] = None,
+    sh_degree: int = 3,
+    init_opacity: float = 0.1,
+    init_scale: float = 1.0,
+    generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+) -> Dict[str, torch.Tensor]:
+    """Splat parameters from a point cloud: ``cap`` >= N slots (default N),
+    the slots past N dead. Scales are the log of the k-NN distance times
+    ``init_scale``, opacities the logit of ``init_opacity``, sh0 from the
+    colours and shN zero; quaternions (every slot) and, when ``rgbs`` is
+    None, the colours are uniform draws from ``generator``."""
+    dev = resolve_device(device)
+    N = points.shape[0]
+    cap = N if cap is None else cap
+    if cap < N:
+        raise ValueError(f"capacity {cap} below {N} points")
+    if rgbs is None:
+        rgbs = torch.rand((N, 3), generator=generator, device=dev)
+    rgbs = torch.as_tensor(rgbs, dtype=torch.float32, device=dev)
+    dist = np.maximum(knn_mean_dist(np.asarray(points), 4), 1e-7)
+    scales = np.log(dist * init_scale)[:, None].repeat(3, axis=1)
+
+    def padded(x, fill=0.0):
+        out = torch.full((cap,) + tuple(x.shape[1:]), fill,
+                         dtype=torch.float32, device=dev)
+        out[:N] = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        return out
+
+    logit = math.log(init_opacity / (1 - init_opacity))
+    K = (sh_degree + 1) ** 2
+    sh0 = torch.zeros((cap, 1, 3), dtype=torch.float32, device=dev)
+    sh0[:N, 0] = rgb_to_sh(rgbs)
+    return {
+        "means": padded(points),
+        "scales": padded(scales, fill=-10.0),
+        "quats": torch.rand((cap, 4), generator=generator, device=dev),
+        "opacities": padded(np.full(N, logit, np.float32),
+                            fill=DEAD_OPACITY_LOGIT),
+        "sh0": sh0,
+        "shN": torch.zeros((cap, K - 1, 3), dtype=torch.float32,
+                           device=dev),
+    }
+
+
+def num_live(splats: Dict[str, torch.Tensor], eps: float = 0.005) -> int:
+    """Slots whose opacity exceeds the liveness threshold."""
+    return int((torch.sigmoid(splats["opacities"]) > eps).sum())
 
 # Log-scale floor inside the activation (the JAX package's LOG_SCALE_FLOOR):
 # exp(-15) is sub-pixel at any working distance, and flooring keeps

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("pack.cu", "expand.cu", "raster_fwd.cu")
+SOURCES = ("pack.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
+           "unpack.cu", "segsum.cu")
 # --fmad=false: the kernels' float expressions round exactly as their plain
 # PyTorch versions (and the JAX package) do, which keeps the expansion's
 # ellipse cull bit-identical to its plain version.
@@ -39,6 +40,10 @@ _SIGNATURES = {
     "gsc_expand": (_P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _P, _P,
                    _P),
     "gsc_raster_fwd": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "gsc_raster_bwd": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _P, _P),
+    "gsc_unpack_rows": (_P, _L, _I, _P, _L, _P, _P),
+    "gsc_segsum_rows": (_P, _L, _I, _P, _I, _P, _P, _P),
 }
 
 _lib = None

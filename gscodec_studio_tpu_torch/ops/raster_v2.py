@@ -1,4 +1,4 @@
-"""Fused tile rasterization, forward (port of
+"""Fused tile rasterization, forward and backward (port of
 gscodec_studio_tpu/ops/raster_v2.py).
 
 Pipeline, stage for stage as in the JAX package:
@@ -15,11 +15,21 @@ Pipeline, stage for stage as in the JAX package:
   6. tile-forward kernel: per-tile front-to-back compositing;
   7. tile-to-image assembly and backgrounds.
 
-Each kernel wrapper (``pack_rows``, ``expand``, ``raster_fwd``) launches its
-CUDA kernel for CUDA tensors and counts the launch in ``LAUNCHES``; for CPU
-tensors it runs the plain PyTorch version beside it (``_pack_rows_plain``,
-``_expand_plain``, ``_fwd_plain``), which the tests hold against the JAX
-package and ``chip_smoke.py`` holds the kernels against on the card.
+Backward (``_RasterCore.backward``):
+  8. tile-backward kernel: per-tile front-to-back recompute, writing each
+     in-range intersection's gradient rows at its own column of S;
+  9. unpack kernel through the inverse tile order: the rows back in
+     expansion order, where compacted id r owns [cum[r-1], cum[r]);
+ 10. segment-sum kernel over those ranges: per-Gaussian sums;
+ 11. unpack kernel through the inverse depth order: original order.
+
+Each kernel wrapper (``pack_rows``, ``expand``, ``raster_fwd``,
+``raster_bwd``, ``unpack_rows``, ``segsum_rows``) launches its CUDA kernel
+for CUDA tensors and counts the launch in ``LAUNCHES``; for CPU tensors it
+runs the plain PyTorch version beside it (``_pack_rows_plain``,
+``_expand_plain``, ``_fwd_plain``, ``_bwd_plain``, ``_unpack_rows_plain``,
+``_segsum_plain``), which the tests hold against the JAX package and
+``chip_smoke.py`` holds the kernels against on the card.
 """
 
 from __future__ import annotations
@@ -46,7 +56,8 @@ MAX_FWD_CHANNELS = 32  # the tile-forward kernel's register accumulators
 MAX_PACK_ROWS = 128  # pack.cu kMaxRows
 
 # Kernel launches since the last reset_launch_counts(), by wrapper.
-LAUNCHES = {"pack_rows": 0, "expand": 0, "raster_fwd": 0}
+LAUNCHES = {"pack_rows": 0, "expand": 0, "raster_fwd": 0, "raster_bwd": 0,
+            "unpack_rows": 0, "segsum_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -87,6 +98,10 @@ class V2Cfg:
     def d_s(self) -> int:
         # sorted table rows: attrs..., id
         return self.n_attr + 1
+
+    def d_g(self, absgrad: bool) -> int:
+        # gradient rows: x, y, ca, cb, cc, op, colors[CH] (, |x|, |y|)
+        return self.n_attr + (2 if absgrad else 0)
 
 
 def _stream() -> int:
@@ -491,26 +506,284 @@ def raster_fwd(S, starts, masks, cfg: V2Cfg):
 
 
 # ---------------------------------------------------------------------------
+# B2: tile backward (csrc/raster_bwd.cu)
+# ---------------------------------------------------------------------------
+
+
+def _bwd_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, absgrad: bool):
+    """Plain version of the tile-backward kernel: the JAX package's
+    front-to-back recompute (``_bwd_kernel`` without its MXU devices), over
+    the chunk index and vectorised across tiles as ``_fwd_plain`` is.
+    Returns the gradient rows [d_g, cap] in S's column order; columns no
+    tile reaches stay zero."""
+    dev = S.device
+    nT, P, ts, CH = cfg.n_tiles, cfg.pixels, cfg.tile_size, cfg.channels
+    TW = cfg.tile_width
+    gbuf = torch.zeros((cfg.d_g(absgrad), cfg.cap), dtype=torch.float32,
+                       device=dev)
+    st = starts.to(torch.int64)
+    off, end = st[:nT], st[1:nT + 1]
+    c0 = torch.div(off, K, rounding_mode="floor")
+    c1 = torch.where((end > off) & (masks > 0),
+                     torch.div(end + K - 1, K, rounding_mode="floor"), c0)
+    rem = torch.arange(nT, device=dev) % (TW * cfg.tile_height)
+    p = torch.arange(P, device=dev)
+    px = ((rem % TW)[:, None] * ts + p % ts).to(torch.float32) + 0.5
+    py = (torch.div(rem, TW, rounding_mode="floor")[:, None] * ts
+          + torch.div(p, ts, rounding_mode="floor")).to(torch.float32) + 0.5
+    lane = torch.arange(K, device=dev)
+    zero = torch.zeros((), device=dev)
+    group = max(1, (1 << 20 if S.is_cuda else 1 << 16) // P)
+    for g0 in range(0, nT, group):
+        sl = slice(g0, min(nT, g0 + group))
+        n = sl.stop - sl.start
+        T = torch.ones((n, P, 1), dtype=torch.float32, device=dev)
+        v_c = v_tiles[sl, :, :CH]
+        v_a = v_tiles[sl, :, CH:CH + 1]
+        t_final = 1.0 - tiles[sl, :, CH:CH + 1]
+        q = (tiles[sl, :, :CH] * v_c).sum(-1, keepdim=True)
+        nch = c1[sl] - c0[sl]
+        for j in range(int(nch.max()) if n else 0):
+            live = (nch > j) & (T.amax(dim=(1, 2)) > TRANSMITTANCE_EPS)
+            idx = live.nonzero().squeeze(1)
+            if idx.numel() == 0:
+                break
+            cols = ((c0[sl][idx] + j) * K)[:, None] + lane  # [A, K]
+            chunk = S[:, cols]  # [d_s, A, K]
+            xs, ys, ca, cb, cc, op = (chunk[i][:, None, :] for i in range(6))
+            dx = xs - px[sl][idx][:, :, None]  # [A, P, K]
+            dy = ys - py[sl][idx][:, :, None]
+            sigma = ((0.5 * ca) * (dx * dx) + (0.5 * cc) * (dy * dy)
+                     + cb * (dx * dy))
+            inr = (cols >= off[sl][idx, None]) & (cols < end[sl][idx, None])
+            alpha_raw = op * torch.exp(-sigma)
+            alpha = torch.clamp(alpha_raw, max=MAX_ALPHA)
+            valid = (sigma >= 0.0) & (alpha >= ALPHA_THRESHOLD) & inr[:, None]
+            alpha = torch.where(valid, alpha, zero)
+            t_cur = T[idx]
+            oma = 1.0 - alpha
+            excl = torch.cumprod(
+                torch.cat([torch.ones_like(oma[..., :1]), oma[..., :-1]],
+                          dim=-1), dim=-1)
+            t_prev = excl * t_cur
+            if cfg.cutoff == "soft":
+                m = None
+                w = alpha * t_prev
+                t_new = t_prev[..., -1:] * oma[..., -1:]
+            else:
+                t_incl = t_prev * oma
+                m = t_incl > TRANSMITTANCE_EPS
+                w = alpha * t_prev * m.to(alpha.dtype)
+                t_new = torch.minimum(t_cur, torch.where(
+                    m, t_incl, t_cur.expand_as(t_incl)).amin(
+                        dim=-1, keepdim=True))
+            vc = v_c[idx]
+            gpk = torch.einsum("apc,cak->apk", vc, chunk[6:6 + CH])
+            s = q[idx] - torch.cumsum(w * gpk, dim=-1)  # suffix color term
+            inv_oma = 1.0 / torch.where(oma > 0, oma, torch.ones_like(oma))
+            v_alpha = (t_prev * gpk - s * inv_oma
+                       + v_a[idx] * t_final[idx] * inv_oma)
+            if m is not None:
+                v_alpha = v_alpha * m.to(v_alpha.dtype)
+            dvalid = (valid & ~(alpha_raw > MAX_ALPHA)).to(alpha.dtype)
+            v_sig = -alpha * v_alpha * dvalid  # [A, P, K]
+            gx = v_sig * (ca * dx + cb * dy)
+            gy = v_sig * (cc * dy + cb * dx)
+            rows = [gx.sum(1), gy.sum(1), (v_sig * 0.5 * dx * dx).sum(1),
+                    (v_sig * dx * dy).sum(1), (v_sig * 0.5 * dy * dy).sum(1)]
+            op_k = chunk[5]
+            rows.append(torch.where(
+                op_k > 0.0,
+                -v_sig.sum(1) / torch.where(op_k > 0.0, op_k,
+                                            torch.ones_like(op_k)),
+                zero))
+            rows += list(torch.einsum("apc,apk->cak", vc, w).unbind(0))
+            if absgrad:
+                rows += [gx.abs().sum(1), gy.abs().sum(1)]
+            vals = torch.stack(rows)  # [d_g, A, K]
+            gbuf[:, cols[inr]] = vals[:, inr]
+            T[idx] = t_new
+            q[idx] = s[..., -1:]
+    return gbuf
+
+
+def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
+               absgrad: bool = False):
+    """Tile backward: the sorted table, the forward's tile outputs and their
+    cotangents [n_tiles, P, CH+1] -> per-intersection gradient rows
+    [d_g, cap] (x, y, ca, cb, cc, op, colors[CH], and |x|, |y| with
+    ``absgrad``), column j holding the gradient of S's column j. Columns no
+    tile reaches (early stop, masked tiles, the overflow tile, rows past
+    n_isects) are zero."""
+    tshape = (cfg.n_tiles, cfg.pixels, cfg.channels + 1)
+    if S.shape != (cfg.d_s, cfg.cap) or starts.shape != (cfg.n_tiles_v + 1,) \
+            or masks.shape != (cfg.n_tiles,) or tiles.shape != tshape \
+            or v_tiles.shape != tshape:
+        raise ValueError("raster_bwd: an input has the wrong shape")
+    if cfg.cutoff not in ("exact", "soft"):
+        raise ValueError(f"unknown cutoff {cfg.cutoff!r}")
+    if _on_cpu(S, "raster_bwd"):
+        return _bwd_plain(S, starts, masks, tiles, v_tiles, cfg, absgrad)
+    dev = S.device
+    if cfg.channels > MAX_FWD_CHANNELS:
+        raise NotImplementedError(
+            f"the tile-backward kernel takes at most {MAX_FWD_CHANNELS} "
+            f"channels, got {cfg.channels}")
+    if cfg.pixels > 1024:
+        raise ValueError("tile_size above 32 does not fit one CUDA block")
+    _check_cuda("raster_bwd S", S, torch.float32, dev)
+    _check_cuda("raster_bwd starts", starts, torch.int32, dev)
+    _check_cuda("raster_bwd masks", masks, torch.int32, dev)
+    _check_cuda("raster_bwd tiles", tiles, torch.float32, dev)
+    _check_cuda("raster_bwd v_tiles", v_tiles, torch.float32, dev)
+    gbuf = torch.zeros((cfg.d_g(absgrad), cfg.cap), dtype=torch.float32,
+                       device=dev)
+    err = native.lib().gsc_raster_bwd(
+        S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
+        tiles.data_ptr(), v_tiles.data_ptr(), cfg.n_tiles, cfg.tile_width,
+        cfg.tile_height, cfg.tile_size, cfg.channels,
+        int(cfg.cutoff == "soft"), int(absgrad), gbuf.data_ptr(), _stream(),
+    )
+    native.check(err, "gsc_raster_bwd")
+    LAUNCHES["raster_bwd"] += 1
+    return gbuf
+
+
+# ---------------------------------------------------------------------------
+# B9b: unpack rows (csrc/unpack.cu)
+# ---------------------------------------------------------------------------
+
+
+def _unpack_rows_plain(block: torch.Tensor, n: int,
+                       perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return (block[:n] if perm is None else block[:n, perm]).contiguous()
+
+
+def unpack_rows(block: torch.Tensor, n: int,
+                perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The first n rows of an f32 [R, L_src] block as one [n, L] tensor;
+    with ``perm`` (int64 [L]) column j is taken from column perm[j]."""
+    if block.ndim != 2 or block.dtype != torch.float32 \
+            or not 0 < n <= block.shape[0]:
+        raise ValueError(f"unpack_rows: {n} rows of a float32 [R, L] block")
+    if perm is not None and (perm.ndim != 1 or perm.dtype != torch.int64):
+        raise ValueError("unpack_rows: perm must be int64 [L]")
+    if _on_cpu(block, "unpack_rows"):
+        return _unpack_rows_plain(block, n, perm)
+    dev = block.device
+    _check_cuda("unpack_rows block", block, torch.float32, dev)
+    if perm is not None:
+        _check_cuda("unpack_rows perm", perm, torch.int64, dev)
+    L = block.shape[1] if perm is None else perm.shape[0]
+    out = torch.empty((n, L), dtype=torch.float32, device=dev)
+    err = native.lib().gsc_unpack_rows(
+        block.data_ptr(), block.shape[1], n,
+        None if perm is None else perm.data_ptr(), L, out.data_ptr(),
+        _stream(),
+    )
+    native.check(err, "gsc_unpack_rows")
+    LAUNCHES["unpack_rows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B4: segment sums (csrc/segsum.cu)
+# ---------------------------------------------------------------------------
+
+
+def segment_ids(cum: torch.Tensor, n_isects: torch.Tensor) -> torch.Tensor:
+    """The compacted id of each of the first n_isects expansion rows (int64
+    [n_isects]): row j belongs to the id r with cum[r-1] <= j < cum[r]."""
+    n = int(n_isects.reshape(-1)[0])
+    j = torch.arange(n, dtype=torch.int32, device=cum.device)
+    return torch.searchsorted(cum, j, right=True)
+
+
+def _segsum_plain(rows, cum, n_isects):
+    out = torch.zeros((rows.shape[0], cum.shape[0]), dtype=torch.float32,
+                      device=rows.device)
+    ids = segment_ids(cum, n_isects)
+    return out.index_add_(1, ids, rows[:, :ids.shape[0]])
+
+
+def segsum_rows(rows: torch.Tensor, cum: torch.Tensor,
+                n_isects: torch.Tensor) -> torch.Tensor:
+    """Per-id sums of rows in expansion order: f32 [d, L] -> [d, M], column
+    r summing the columns [min(cum[r-1], n_isects), min(cum[r], n_isects))
+    (cum[-1] read as 0). ``cum`` is the int32 inclusive count prefix [M];
+    a truncated list (total > cap) leaves the cut ids with partial sums and
+    every later id empty. Fixed order, no atomics."""
+    if rows.ndim != 2 or rows.dtype != torch.float32 or cum.ndim != 1:
+        raise ValueError("segsum_rows: rows float32 [d, L], cum [M]")
+    if _on_cpu(rows, "segsum_rows"):
+        return _segsum_plain(rows, cum, n_isects)
+    dev = rows.device
+    _check_cuda("segsum_rows rows", rows, torch.float32, dev)
+    _check_cuda("segsum_rows cum", cum, torch.int32, dev)
+    _check_cuda("segsum_rows n_isects", n_isects, torch.int32, dev)
+    d, M = rows.shape[0], cum.shape[0]
+    out = torch.empty((d, M), dtype=torch.float32, device=dev)
+    err = native.lib().gsc_segsum_rows(
+        rows.data_ptr(), rows.shape[1], d, cum.data_ptr(), M,
+        n_isects.data_ptr(), out.data_ptr(), _stream(),
+    )
+    native.check(err, "gsc_segsum_rows")
+    LAUNCHES["segsum_rows"] += 1
+    return out
+
+
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                             device=perm.device)
+    return inv
+
+
+def _reduce_grads(gbuf, perm, cum, order, n_isects) -> torch.Tensor:
+    """Per-intersection gradient rows [d_g, cap] in S's column order ->
+    per-Gaussian sums [d_g, M] in the original order. The expansion
+    enumerates intersections id-major, so after the inverse tile order the
+    rows of compacted id r lie in [cum[r-1], cum[r]) and the segment sums
+    need no id sort; the inverse depth order restores the input order."""
+    d_g = gbuf.shape[0]
+    rows = unpack_rows(gbuf, d_g, _inverse(perm))
+    seg = segsum_rows(rows, cum, n_isects)
+    return unpack_rows(seg, d_g, _inverse(order))
+
+
+# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
 
 class _RasterCore(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, means2d, conics, colors, opacities, depths, radii,
-                masks):
+    def forward(ctx, cfg, absgrad, means2d, conics, colors, opacities,
+                depths, radii, masks, ag_probe):
+        del ag_probe  # its gradient carries absgrad out of the backward
         b = _build_sorted(cfg, means2d, conics, colors, opacities, depths,
                           radii)
         tiles = raster_fwd(b.S, b.starts, masks, cfg)
         ctx.mark_non_differentiable(b.n_isects)
+        ctx.cfg, ctx.absgrad = cfg, absgrad
+        ctx.save_for_backward(b.S, b.starts, masks, tiles, b.cum, b.order,
+                              b.perm, b.n_isects)
         return tiles, b.n_isects
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "rasterize_to_pixels_v2 has no backward yet: its backward "
-            "kernels come with the port's training slice"
-        )
+    def backward(ctx, v_tiles, _):
+        S, starts, masks, tiles, cum, order, perm, n_isects = \
+            ctx.saved_tensors
+        cfg = ctx.cfg
+        gbuf = raster_bwd(S, starts, masks, tiles,
+                          v_tiles.to(torch.float32).contiguous(), cfg,
+                          ctx.absgrad)
+        g = _reduce_grads(gbuf, perm, cum, order, n_isects).T
+        C, N, CH = cfg.C, cfg.n, cfg.channels
+        v_ag = g[:, 6 + CH:8 + CH].reshape(C, N, 2) if ctx.absgrad else None
+        return (None, None, g[:, 0:2].reshape(C, N, 2),
+                g[:, 2:5].reshape(C, N, 3), g[:, 6:6 + CH].reshape(C, N, CH),
+                g[:, 5].reshape(C, N), None, None, None, v_ag)
 
 
 def rasterize_to_pixels_v2(
@@ -534,14 +807,14 @@ def rasterize_to_pixels_v2(
     geom_dtype: str = "f32",
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
-    """Fused binning + tile rasterization, forward.
+    """Differentiable fused binning + tile rasterization.
 
     Returns ([C,H,W,CH] colors, [C,H,W,1] alphas, meta) with
     meta["n_isects"] = min(total intersections, capacity) as an int32 [1]
     tensor. The capacity is ``isect_capacity`` rounded up to a multiple of
-    4096, as in the JAX package."""
-    if absgrad_probe is not None:
-        raise NotImplementedError("absgrad_probe is not ported yet")
+    4096, as in the JAX package. Gradients reach means2d, conics, colors,
+    opacities and backgrounds; with ``absgrad_probe`` ([C, N, 2] zeros) the
+    probe's gradient is the per-Gaussian sum of |per-pixel dL/d(x, y)|."""
     if grad_dtype != "f32" or attr_dtype != "f32" or geom_dtype != "f32":
         raise NotImplementedError("only f32 grad/attr/geom rows are ported")
     if log_composite:
@@ -569,7 +842,8 @@ def rasterize_to_pixels_v2(
         masks_arr = torch.as_tensor(masks, device=dev).reshape(
             cfg.n_tiles).to(torch.int32)
     tiles, n_isects = _RasterCore.apply(
-        cfg, means2d, conics, colors, opacities, depths, radii, masks_arr
+        cfg, absgrad_probe is not None, means2d, conics, colors, opacities,
+        depths, radii, masks_arr, absgrad_probe,
     )
 
     ts = tile_size

@@ -1,6 +1,9 @@
 """Top-level rendering API: ``rasterization()`` on the fused path (port of
 gscodec_studio_tpu/rendering.py): projection -> SH -> fused binning and
-tile rasterization, returning (render_colors, render_alphas, meta)."""
+tile rasterization, returning (render_colors, render_alphas, meta).
+Differentiable: gradients reach means, quats, scales, opacities, colors
+and backgrounds through autograd of the plain projection and SH and the
+rasterizer's backward kernels."""
 
 from __future__ import annotations
 
@@ -91,14 +94,19 @@ def rasterization(
     isect_capacity: Optional[int] = None,
     channel_chunk: int = 32,
     cutoff_mode: str = "exact",
+    means2d_probe=None,  # [C, N, 2] zeros
+    absgrad_probe=None,  # [C, N, 2] zeros
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
-    """Batched splat rendering, forward.
+    """Differentiable batched splat rendering.
 
     Returns (render_colors [C,H,W,X], render_alphas [C,H,W,1], meta). X
     follows ``render_mode``: RGB -> D, D/ED -> 1, RGB+D/RGB+ED -> D+1.
     Inputs may be arrays or tensors; they are moved to ``device`` (None
-    means the CUDA card)."""
+    means the CUDA card). ``means2d_probe`` is added to the projected
+    centers, so its gradient is dL/d means2d, the signal the densification
+    strategies read; ``absgrad_probe``'s gradient is the per-Gaussian sum
+    of |per-pixel dL/d means2d|."""
     if render_mode not in RENDER_MODES:
         raise ValueError(f"unknown render_mode {render_mode!r}")
     if rasterize_mode not in ("classic", "antialiased"):
@@ -121,6 +129,8 @@ def rasterization(
         camera_model=camera_model,
     )
     radii_scalar = radii.amax(dim=-1)
+    if means2d_probe is not None:
+        means2d = means2d + means2d_probe
 
     if render_mode in ("D", "ED"):
         colors_cn = depths[..., None]
@@ -148,7 +158,7 @@ def rasterization(
             means2d, conics, colors_cn[..., lo:lo + fused_chunk],
             opacities_cn, depths, radii, width, height, tile_size=tile_size,
             isect_capacity=isect_capacity, backgrounds=bgs,
-            cutoff_mode=cutoff_mode, device=dev,
+            absgrad_probe=absgrad_probe, cutoff_mode=cutoff_mode, device=dev,
         )
         chunks.append(img)
     render_colors = chunks[0] if len(chunks) == 1 else torch.cat(chunks, -1)

@@ -5,8 +5,12 @@ file imports no JAX, so it also runs on a machine without it:
     python3 -m pytest tests/test_torch_cuda.py -m cuda --noconftest \
         -o addopts= -p no:cacheprovider -q
 
-Tolerances: pack and expansion bit for bit (no pair of these seeds lies on
-the cull bound); tile forward max abs 1e-4 (summation order on the card).
+Tolerances: pack, expansion and unpack bit for bit (no pair of these
+seeds lies on the cull bound); tile forward max abs 1e-4 (summation order
+on the card); tile backward 1e-4 of each gradient row's largest |value|
+and segment sums 1e-5 of the largest |sum| (the kernels sum in another
+order than their plain versions); every backward kernel gives the same bits
+when it runs twice on the same inputs.
 """
 
 import numpy as np
@@ -105,8 +109,94 @@ def test_rasterization_on_card_matches_cpu(cuda):
     args = (means, quats, scales, opac, sh, vm[None], K, W, H)
     before = dict(tr.LAUNCHES)
     img, alp, meta = rasterization(*args, sh_degree=3, device=cuda)
-    assert all(tr.LAUNCHES[k] > before[k] for k in before)
+    assert all(tr.LAUNCHES[k] > before[k]
+               for k in ("pack_rows", "expand", "raster_fwd"))
     img_c, alp_c, meta_c = rasterization(*args, sh_degree=3, device="cpu")
     assert int(meta["n_isects"][0]) == int(meta_c["n_isects"][0]) > 0
     assert float((img.cpu() - img_c).abs().max()) <= 1e-4
     assert float((alp.cpu() - alp_c).abs().max()) <= 1e-4
+
+
+def _sorted_case(cuda, seed, ts, cutoff, CH=3):
+    m2, con, col, op, dep, radii = _scene(seed, CH=CH)
+    C, N = dep.shape
+    cfg = _cfg(C, N, 200, 136, ts, CH, cutoff)
+    b = tr._build_sorted(cfg, *[torch.as_tensor(x, device=cuda)
+                                for x in (m2, con, col, op, dep, radii)])
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    masks = (torch.rand(cfg.n_tiles, generator=g) > 0.2).to(
+        device=cuda, dtype=torch.int32)
+    tiles = tr.raster_fwd(b.S, b.starts, masks, cfg)
+    v_tiles = torch.randn(tiles.shape, generator=g).to(cuda)
+    return cfg, b, masks, tiles, v_tiles
+
+
+def _rows_close(out, ref, tol):
+    scale = ref.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    return float(((out - ref).abs() / scale).max()) <= tol
+
+
+def test_backward_kernel_matches_plain(cuda):
+    for ts in (16, 32):
+        for cutoff in ("exact", "soft"):
+            cfg, b, masks, tiles, v_tiles = _sorted_case(cuda, 5, ts, cutoff)
+            for absgrad in (False, True):
+                args = (b.S, b.starts, masks, tiles, v_tiles, cfg, absgrad)
+                out = tr.raster_bwd(*args)
+                ref = tr._bwd_plain(*args)
+                assert out.shape == (cfg.d_g(absgrad), cfg.cap)
+                assert _rows_close(out, ref, 1e-4), (ts, cutoff, absgrad)
+                assert torch.equal(out, tr.raster_bwd(*args))
+                assert float(out[:2].abs().max()) > 0
+
+
+def test_unpack_and_segsum_kernels_match_plain(cuda):
+    cfg, b, masks, tiles, v_tiles = _sorted_case(cuda, 6, 16, "exact")
+    gbuf = tr.raster_bwd(b.S, b.starts, masks, tiles, v_tiles, cfg, True)
+    inv = tr._inverse(b.perm)
+    for perm in (None, inv):
+        out = tr.unpack_rows(gbuf, gbuf.shape[0], perm)
+        assert torch.equal(out, tr._unpack_rows_plain(gbuf, gbuf.shape[0],
+                                                      perm))
+    rows = tr.unpack_rows(gbuf, gbuf.shape[0], inv)
+    seg = tr.segsum_rows(rows, b.cum, b.n_isects)
+    ref = tr._segsum_plain(rows, b.cum, b.n_isects)
+    scale = float(ref.abs().max())
+    assert scale > 0 and float((seg - ref).abs().max()) <= 1e-5 * scale
+    assert torch.equal(seg, tr.segsum_rows(rows, b.cum, b.n_isects))
+    # truncation: a capacity below the total leaves partial sums
+    cut = torch.full_like(b.n_isects, int(b.n_isects) // 2)
+    seg = tr.segsum_rows(rows, torch.clamp(b.cum, max=int(cut)), cut)
+    ref = tr._segsum_plain(rows, torch.clamp(b.cum, max=int(cut)), cut)
+    assert float((seg - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_rasterization_gradients_on_card_match_cpu(cuda):
+    rng = np.random.default_rng(7)
+    N, W, H = 3000, 160, 120
+    means = (rng.standard_normal((N, 3)) * [1.5, 1.0, 1.5]).astype(np.float32)
+    quats = rng.standard_normal((N, 4)).astype(np.float32)
+    scales = np.exp(rng.normal(-3.5, 0.5, (N, 3))).astype(np.float32)
+    opac = rng.random(N).astype(np.float32)
+    sh = (rng.standard_normal((N, 16, 3)) * 0.3).astype(np.float32)
+    vm = np.eye(4, dtype=np.float32)
+    vm[2, 3] = 5.0
+    K = np.array([[[150, 0, W / 2], [0, 150, H / 2], [0, 0, 1]]], np.float32)
+    ct = rng.standard_normal((1, H, W, 3)).astype(np.float32)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [torch.tensor(x, device=dev, requires_grad=True)
+                  for x in (means, quats, scales, opac, sh)]
+        probe = torch.zeros((1, N, 2), device=dev, requires_grad=True)
+        before = dict(tr.LAUNCHES)
+        img, _, _ = rasterization(*leaves, vm[None], K, W, H, sh_degree=3,
+                                  means2d_probe=probe, device=dev)
+        (img * torch.as_tensor(ct, device=dev)).sum().backward()
+        if dev.type == "cuda":
+            for name in ("raster_bwd", "segsum_rows"):
+                assert tr.LAUNCHES[name] == before[name] + 1
+            assert tr.LAUNCHES["unpack_rows"] == before["unpack_rows"] + 2
+        grads[dev.type] = [t.grad.cpu() for t in leaves + [probe]]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale

@@ -21,7 +21,9 @@ from gscodec_studio_tpu_torch.models import splats as tsplats
 from gscodec_studio_tpu_torch.ops import raster_v2 as tr
 from gscodec_studio_tpu_torch.ops.rasterize_ref import rasterize_to_pixels_ref
 from gscodec_studio_tpu_torch.rendering import rasterization
-from gscodec_studio_tpu_torch.utils.scenes import make_scene
+from gscodec_studio_tpu_torch.training.trainer import Config, Runner
+from gscodec_studio_tpu_torch.utils.scenes import (checkpoint_stand_in,
+                                                   make_scene)
 
 from tests.test_rasterize_pallas import make_2d_scene
 
@@ -43,19 +45,29 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
         "import gscodec_studio_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__,"
+        " p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'gscodec_studio_tpu']\n"
         "assert not bad, bad\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+    walked = set(out.stdout.split())
+    pkg = "gscodec_studio_tpu_torch."
+    assert {pkg + m for m in (
+        "ops.raster_v2", "rendering", "models.splats",
+        "optimizers.builders", "strategy.base", "strategy.ops",
+        "strategy.default", "training.losses", "training.trainer",
+        "utils.scenes")} <= walked
 
 
-def test_entry_points_default_to_cuda(rng, monkeypatch):
+def test_entry_points_default_to_cuda(rng, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     d = _splat_dict(rng, 10)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -68,6 +80,19 @@ def test_entry_points_default_to_cuda(rng, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         rasterization(d["means"], d["quats"], np.exp(d["scales"]),
                       np.full(10, 0.5, np.float32), col[0], vm, K, 48, 32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsplats.create_splats(d["means"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint_stand_in(ROOT / "results" / "garden_ab_f32"
+                            / "splats_final.npz", n_views=1)
+
+    class Parser:
+        points = d["means"]
+        points_rgb = np.full((10, 3), 128.0, np.float32)
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Runner(Config(result_dir=str(tmp_path)), parser=Parser(),
+               trainset=[], valset=[])
 
 
 def test_from_jax_splats_round_trip(rng):
@@ -122,16 +147,6 @@ def test_rasterize_ref_matches_jax(rng):
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-5)
-
-
-def test_backward_is_refused_until_the_training_slice(rng):
-    m2, con, col, op, dep, rad, _ = make_2d_scene(rng, N=40)
-    means2d = torch.tensor(m2, requires_grad=True)
-    img, alp, _ = tr.rasterize_to_pixels_v2(
-        means2d, con, col, op, dep, rad, 48, 32, isect_capacity=4096,
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="backward"):
-        img.sum().backward()
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
