@@ -245,7 +245,8 @@ class Stages:
         cotangent of the tile outputs: raster_bwd with absgrad off and on
         (BWD_TOL of each row's largest |value|), unpack_rows bit for bit,
         segsum_rows within SEGSUM_TOL of the largest |sum|; each kernel run
-        twice gives the same bits. Keeps the absgrad-off inputs for
+        twice gives the same bits. ``errs`` takes the largest absolute
+        errors, the result both kinds. Keeps the absgrad-off inputs for
         timing."""
         rv, cfg, b = self.rv, self.cfg, self.b
         g = torch.Generator(device="cpu").manual_seed(seed)
@@ -257,14 +258,17 @@ class Stages:
                     absgrad)
             gbuf = rv.raster_bwd(*args)
             ref = rv._bwd_plain(*args)
+            diff = (gbuf - ref).abs()
             scale = ref.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
-            err = float(((gbuf - ref).abs() / scale).max())
+            err = float((diff / scale).max())
             if not (math.isfinite(err) and err <= BWD_TOL):
                 raise AssertionError(f"raster_bwd rel err {err} > {BWD_TOL}")
             if not torch.equal(gbuf, rv.raster_bwd(*args)):
                 raise AssertionError("raster_bwd differs between two runs")
-            errs["raster_bwd"] = max(errs.get("raster_bwd", 0.0), err)
+            abs_err = float(diff.max())
+            errs["raster_bwd"] = max(errs.get("raster_bwd", 0.0), abs_err)
             res[f"bwd_rel_err_absgrad_{int(absgrad)}"] = err
+            res[f"bwd_max_abs_err_absgrad_{int(absgrad)}"] = abs_err
             if not absgrad:
                 self.gbuf = gbuf
         d_g = self.gbuf.shape[0]
@@ -280,14 +284,15 @@ class Stages:
         self.rows = rows
         seg = rv.segsum_rows(rows, b.cum, b.n_isects)
         ref = rv._segsum_plain(rows, b.cum, b.n_isects)
-        scale = max(float(ref.abs().max()), 1e-30)
-        err = float((seg - ref).abs().max()) / scale
+        abs_err = float((seg - ref).abs().max())
+        err = abs_err / max(float(ref.abs().max()), 1e-30)
         if not (math.isfinite(err) and err <= SEGSUM_TOL):
             raise AssertionError(f"segsum_rows rel err {err} > {SEGSUM_TOL}")
         if not torch.equal(seg, rv.segsum_rows(rows, b.cum, b.n_isects)):
             raise AssertionError("segsum_rows differs between two runs")
-        errs["segsum_rows"] = max(errs.get("segsum_rows", 0.0), err)
+        errs["segsum_rows"] = max(errs.get("segsum_rows", 0.0), abs_err)
         res["segsum_rel_err"] = err
+        res["segsum_max_abs_err"] = abs_err
         self.seg = seg
         return res
 
@@ -373,7 +378,7 @@ def main():
             cases.append(dict(tile_size=ts, cutoff=cutoff,
                               n_isects=int(st.b.n_isects), **res))
     torch.cuda.synchronize()
-    emit({"phase": "kernels", "cases": cases, "max_err": errs,
+    emit({"phase": "kernels", "cases": cases, "max_abs_err": errs,
           "fwd_tol": FWD_TOL, "bwd_tol": BWD_TOL, "segsum_tol": SEGSUM_TOL,
           "seconds": time.perf_counter() - t0})
 
