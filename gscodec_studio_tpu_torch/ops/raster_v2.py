@@ -399,20 +399,25 @@ def _composite(alpha, t_cur, cutoff):
     return w, torch.minimum(t_cur, t_new)
 
 
-def _fwd_plain(S, starts, masks, cfg: V2Cfg, with_counts: bool = False):
-    """Plain version of the tile-forward kernel: loops over the chunk index
-    and vectorises across tiles, a group of tiles at a time (2^20 tile
-    pixels on a card, 2^16 on the CPU).
+class _TileWalk(NamedTuple):
+    """What the plain tile walks share: each tile's run [off, end), its
+    chunk range [c0, c1) (empty for a masked tile), its pixel centres
+    [n_tiles, P], the lane offsets of a chunk, and how many tiles to
+    vectorise at a time (2^20 tile pixels on a card, 2^16 on the CPU)."""
 
-    With ``with_counts`` it returns (out, counts), where counts holds what
-    the kernel does on these inputs, per (pair, pixel): "evaluated" pairs
-    whose sigma and alpha are computed (in exact mode the pairs up to and
-    including the one that ends the pixel's chunk), "tested" pairs that
-    pass the alpha test and reach the transmittance step, and "composited"
-    pairs that add to the colors."""
+    off: torch.Tensor
+    end: torch.Tensor
+    c0: torch.Tensor
+    c1: torch.Tensor
+    px: torch.Tensor
+    py: torch.Tensor
+    lane: torch.Tensor
+    group: int
+
+
+def _tile_walk(S, starts, masks, cfg: V2Cfg) -> _TileWalk:
     dev = S.device
-    nT, P, ts, CH = cfg.n_tiles, cfg.pixels, cfg.tile_size, cfg.channels
-    TW = cfg.tile_width
+    nT, P, ts, TW = cfg.n_tiles, cfg.pixels, cfg.tile_size, cfg.tile_width
     st = starts.to(torch.int64)
     off, end = st[:nT], st[1:nT + 1]
     c0 = torch.div(off, K, rounding_mode="floor")
@@ -423,9 +428,25 @@ def _fwd_plain(S, starts, masks, cfg: V2Cfg, with_counts: bool = False):
     px = ((rem % TW)[:, None] * ts + p % ts).to(torch.float32) + 0.5
     py = (torch.div(rem, TW, rounding_mode="floor")[:, None] * ts
           + torch.div(p, ts, rounding_mode="floor")).to(torch.float32) + 0.5
-    lane = torch.arange(K, device=dev)
-    out = torch.empty((nT, P, CH + 1), dtype=torch.float32, device=dev)
     group = max(1, (1 << 20 if S.is_cuda else 1 << 16) // P)
+    return _TileWalk(off, end, c0, c1, px, py, torch.arange(K, device=dev),
+                     group)
+
+
+def _fwd_plain(S, starts, masks, cfg: V2Cfg, with_counts: bool = False):
+    """Plain version of the tile-forward kernel: loops over the chunk index
+    and vectorises across tiles, a group of tiles at a time (_tile_walk).
+
+    With ``with_counts`` it returns (out, counts), where counts holds what
+    the kernel does on these inputs, per (pair, pixel): "evaluated" pairs
+    whose sigma and alpha are computed (in exact mode the pairs up to and
+    including the one that ends the pixel's chunk), "tested" pairs that
+    pass the alpha test and reach the transmittance step, and "composited"
+    pairs that add to the colors."""
+    dev = S.device
+    nT, P, CH = cfg.n_tiles, cfg.pixels, cfg.channels
+    off, end, c0, c1, px, py, lane, group = _tile_walk(S, starts, masks, cfg)
+    out = torch.empty((nT, P, CH + 1), dtype=torch.float32, device=dev)
     counts = {k: torch.zeros((), dtype=torch.int64, device=dev)
               for k in ("evaluated", "tested", "composited")}
     for g0 in range(0, nT, group):
@@ -517,23 +538,11 @@ def _bwd_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, absgrad: bool):
     Returns the gradient rows [d_g, cap] in S's column order; columns no
     tile reaches stay zero."""
     dev = S.device
-    nT, P, ts, CH = cfg.n_tiles, cfg.pixels, cfg.tile_size, cfg.channels
-    TW = cfg.tile_width
+    nT, P, CH = cfg.n_tiles, cfg.pixels, cfg.channels
+    off, end, c0, c1, px, py, lane, group = _tile_walk(S, starts, masks, cfg)
     gbuf = torch.zeros((cfg.d_g(absgrad), cfg.cap), dtype=torch.float32,
                        device=dev)
-    st = starts.to(torch.int64)
-    off, end = st[:nT], st[1:nT + 1]
-    c0 = torch.div(off, K, rounding_mode="floor")
-    c1 = torch.where((end > off) & (masks > 0),
-                     torch.div(end + K - 1, K, rounding_mode="floor"), c0)
-    rem = torch.arange(nT, device=dev) % (TW * cfg.tile_height)
-    p = torch.arange(P, device=dev)
-    px = ((rem % TW)[:, None] * ts + p % ts).to(torch.float32) + 0.5
-    py = (torch.div(rem, TW, rounding_mode="floor")[:, None] * ts
-          + torch.div(p, ts, rounding_mode="floor")).to(torch.float32) + 0.5
-    lane = torch.arange(K, device=dev)
     zero = torch.zeros((), device=dev)
-    group = max(1, (1 << 20 if S.is_cuda else 1 << 16) // P)
     for g0 in range(0, nT, group):
         sl = slice(g0, min(nT, g0 + group))
         n = sl.stop - sl.start
