@@ -228,7 +228,7 @@ def test_strategy_ops_match_jax(rng):
     sel = torch.as_tensor(want)
     samples = jax.random.normal(jax.random.PRNGKey(3), (2, cap, 3))
     a, b = tops.split_to_slots(tp, tst, sel, dst,
-                               torch.as_tensor(np.asarray(samples)))
+                               torch.as_tensor(np.array(samples)))
     c, d = jops.split_to_slots(jp, jst, jnp.asarray(want), dst_j,
                                jax.random.PRNGKey(3))
     _assert_state_equal(a, b, c, d, approx=("means", "scales"))
@@ -267,7 +267,7 @@ def test_default_strategy_matches_jax(rng):
 
     key = jax.random.PRNGKey(7)
     k_split = jax.random.split(key)[1]
-    samples = torch.as_tensor(np.asarray(
+    samples = torch.as_tensor(np.array(
         jax.random.normal(k_split, (2, cap, 3))))
     for step in (4000,):  # after reset_every: the too-big prune applies too
         c, d, jstate2 = js.refine({k: jnp.asarray(v) for k, v in p.items()},
