@@ -26,7 +26,10 @@ Phases, one JSON line each with its own ``seconds``:
             of utils.scenes.checkpoint_stand_in (the checkpoint rendered
             from 8 views at 1297x840, 7 to train, 1 held out), 30 steps with
             refines at steps 10, 20 and 30 and SH degree 3 from step 15: loss,
-            held-out PSNR before and after, step ms, live counts, launches.
+            held-out PSNR before and after, step ms, live counts, launches;
+            then B2's time on each training view at the run's final
+            splats, SH degree and capacity, and the slowest view's kernels,
+            forward and backward, held against their plain versions.
 Then a line {"kernels": [...]} with each kernel's numbers (launches from
 the train phase, the slice's main path), the card's name and power limit,
 and the result line. Any failed check raises, and the script exits
@@ -50,7 +53,6 @@ CHECKPOINT = ROOT / "results" / "garden_ab_f32" / "splats_final.npz"
 WIDTH, HEIGHT = 1297, 840
 N_1M = 1_000_000
 N_SMALL = 20_000
-DEVICE = "cuda"
 TRAIN_STEPS = 30
 FWD_TOL = 1e-4  # kernel vs plain forward, max abs on colors and alpha
 BWD_TOL = 1e-4  # kernel vs plain backward, relative to each row's max |.|
@@ -139,19 +141,33 @@ def device_profile(fn, reps=3):
     kernel (top 12), their sum, the window's wall time and the device's
     busy share (sum of kernel time over wall time: the kernels run on one
     stream). Only device events count; the host-side operators that
-    launched them would count the same time twice. Records the error
-    instead if the profiler cannot trace."""
+    launched them would count the same time twice. If the profiler itself
+    fails to start, stop or be read, records its error instead; an error
+    raised by ``fn`` propagates."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:  # the trace is a diagnostic, not a check
+        return {"error": repr(e)}
+    stop_error = None
+    try:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        try:
+            prof.stop()
+        except Exception as e:
+            stop_error = {"error": repr(e)}
+    if stop_error is not None:
+        return stop_error
+    try:
         rows = []
         for ev in prof.key_averages():
             dev_us = getattr(ev, "self_device_time_total",
@@ -240,6 +256,12 @@ class Stages:
         res["fwd_max_abs_err"] = err
         return res
 
+    def cotangent(self, seed):
+        """A seeded standard-normal cotangent of the tile outputs."""
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        self.v_tiles = torch.randn(self.out.shape, generator=g).to(
+            self.out.device)
+
     def compare_bwd(self, errs, seed=0):
         """The backward kernels against their plain versions on a seeded
         cotangent of the tile outputs: raster_bwd with absgrad off and on
@@ -249,9 +271,7 @@ class Stages:
         errors, the result both kinds. Keeps the absgrad-off inputs for
         timing."""
         rv, cfg, b = self.rv, self.cfg, self.b
-        g = torch.Generator(device="cpu").manual_seed(seed)
-        self.v_tiles = torch.randn(self.out.shape, generator=g).to(
-            self.out.device)
+        self.cotangent(seed)
         res = {}
         for absgrad in (False, True):
             args = (b.S, b.starts, self.masks, self.out, self.v_tiles, cfg,
@@ -272,12 +292,11 @@ class Stages:
             if not absgrad:
                 self.gbuf = gbuf
         d_g = self.gbuf.shape[0]
-        self.inv_perm = rv._inverse(b.perm)
-        rows = rv.unpack_rows(self.gbuf, d_g, self.inv_perm)
-        if not (torch.equal(rows, rv._unpack_rows_plain(
-                self.gbuf, d_g, self.inv_perm))
+        rows = rv.unpack_rows(self.gbuf, d_g, b.perm)
+        if not (torch.equal(rows, rv._unpack_rows_plain(self.gbuf, d_g,
+                                                        b.perm))
                 and torch.equal(rows, rv.unpack_rows(self.gbuf, d_g,
-                                                     self.inv_perm))):
+                                                     b.perm))):
             raise AssertionError("unpack_rows differs from its plain version "
                                  "or between two runs")
         errs["unpack_rows"] = max(errs.get("unpack_rows", 0.0), 0.0)
@@ -302,7 +321,8 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from gscodec_studio_tpu_torch import native
-    from gscodec_studio_tpu_torch.models.splats import from_jax_splats
+    from gscodec_studio_tpu_torch.models.splats import (from_jax_splats,
+                                                        splat_activations)
     from gscodec_studio_tpu_torch.ops.projection import fully_fused_projection
     from gscodec_studio_tpu_torch.ops import raster_v2 as rv
     from gscodec_studio_tpu_torch.rendering import (project_and_shade,
@@ -314,7 +334,7 @@ def main():
                                                        make_scene)
 
     t_all = time.perf_counter()
-    dev = torch.device(DEVICE)
+    dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -343,6 +363,47 @@ def main():
         means, quats, scales, opac, colors, vm, Ks = to_dev(*scene)
         return project_and_shade(means, quats, scales, opac, colors, vm, Ks,
                                  width, height, sh_degree=3)
+
+    def check_training_views(runner, sh_degree, errs):
+        """The kernels on the training run's own inputs: each training
+        view at the run's splats, SH degree and intersection capacity. Times
+        B2 on every view with a seeded cotangent, then holds the slowest
+        view's kernels, forward and backward, against their plain
+        versions."""
+        tc = runner.cfg
+        sp = runner.splats
+        data = runner._device_trainset()
+        H, W = data["image"].shape[1:3]
+        with torch.no_grad():
+            means, quats, scales, opac = splat_activations(sp)
+            colors = torch.cat([sp["sh0"], sp["shN"]], 1)
+
+        def view_stages(i):
+            prep = project_and_shade(
+                means, quats, scales, opac, colors,
+                torch.linalg.inv(data["camtoworld"][i:i + 1]),
+                data["K"][i:i + 1], W, H, near_plane=tc.near_plane,
+                far_plane=tc.far_plane, sh_degree=sh_degree,
+                antialiased=tc.antialiased)
+            return stages_for(prep, W, H, tc.tile_size, tc.cutoff_mode,
+                              cap=runner.isect_capacity())
+
+        bwd_ms = []
+        with torch.no_grad():
+            for i in range(data["image"].shape[0]):
+                st = view_stages(i)
+                st.cotangent(seed=100 + i)
+                bwd_ms.append(cuda_ms(lambda: st.rv.raster_bwd(
+                    st.b.S, st.b.starts, st.masks, st.out, st.v_tiles,
+                    st.cfg, False), 2))
+                del st
+            view = int(np.argmax(bwd_ms))
+            st = view_stages(view)
+            res = st.compare(errs)
+            res.update(st.compare_bwd(errs, seed=100 + view))
+        return dict(view=view, sh_degree=sh_degree, raster_bwd_ms=bwd_ms,
+                    n_isects=int(st.b.n_isects), isect_capacity=st.cfg.cap,
+                    cutoff=st.cfg.cutoff, **res)
 
     def stages_for(prep, width, height, ts, cutoff, cap=None):
         radii, means2d, depths, conics, colors_cn, opac_cn, _ = prep
@@ -609,7 +670,6 @@ def main():
                     False)
         ids = rv.segment_ids(st.b.cum, st.b.n_isects)
         rows_n = st.rows[:, :n_isects]
-        inv_order = rv._inverse(st.b.order)
         k = {}
         k["raster_bwd"] = bound(dict(
             ms=cuda_ms(lambda: rv.raster_bwd(*bwd_args), 10),
@@ -632,16 +692,17 @@ def main():
             bytes=4 * d_g * n_isects + 4 * M + 4 * d_g * M,
             ops=d_g * n_isects))
         k["unpack_rows"] = bound(dict(
-            ms=cuda_ms(lambda: rv.unpack_rows(st.gbuf, d_g, st.inv_perm), 10),
+            ms=cuda_ms(lambda: rv.unpack_rows(st.gbuf, d_g, st.b.perm), 10),
             plain_ms=cuda_ms(lambda: rv._unpack_rows_plain(
-                st.gbuf, d_g, st.inv_perm), 10),
-            library_ms=cuda_ms(lambda: torch.index_select(
-                st.gbuf, 1, st.inv_perm), 10),
+                st.gbuf, d_g, st.b.perm), 10),
+            library_ms=cuda_ms(lambda: torch.empty_like(st.gbuf).index_copy_(
+                1, st.b.perm, st.gbuf), 10),
             bytes=(4 * d_g + 8 + 4 * d_g) * L, ops=0,
             per_gaussian_ms=cuda_ms(lambda: rv.unpack_rows(
-                st.seg, d_g, inv_order), 10),
-            per_gaussian_library_ms=cuda_ms(lambda: torch.index_select(
-                st.seg, 1, inv_order), 10)))
+                st.seg, d_g, st.b.order), 10),
+            per_gaussian_library_ms=cuda_ms(
+                lambda: torch.empty_like(st.seg).index_copy_(
+                    1, st.b.order, st.seg), 10)))
         runs_bwd.append(dict(
             tile_size=16, cutoff=cutoff, n_isects=n_isects,
             rows_in_tiles=n_rows, isect_capacity=L, fwd_bwd_ms=fb_ms,
@@ -689,6 +750,7 @@ def main():
     train_launches = dict(rv.LAUNCHES)
     train_s = time.perf_counter() - t1
     after = runner.eval("after")
+    train_check = check_training_views(runner, steps[-1]["sh_degree"], errs)
     # one more step of each training view under the profiler, after the
     # measurements: which kernels a view's step spends its time in
     step_profiles = {}
@@ -725,7 +787,8 @@ def main():
           "launches": train_launches,
           "launches_per_step": {k: v / TRAIN_STEPS
                                 for k, v in train_launches.items()},
-          "view_order": runner.view_order, "step_profiles": step_profiles,
+          "view_order": runner.view_order, "view_check": train_check,
+          "step_profiles": step_profiles,
           "stand_in_seconds": data_s, "train_seconds": train_s,
           "seconds": time.perf_counter() - t0})
     del runner, parser, trainset, valset

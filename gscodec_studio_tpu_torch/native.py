@@ -42,7 +42,7 @@ _SIGNATURES = {
     "gsc_raster_fwd": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "gsc_raster_bwd": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P),
-    "gsc_unpack_rows": (_P, _L, _I, _P, _L, _P, _P),
+    "gsc_unpack_rows": (_P, _L, _I, _P, _L, _P, _P, _P),
     "gsc_segsum_rows": (_P, _L, _I, _P, _I, _P, _P, _P),
 }
 

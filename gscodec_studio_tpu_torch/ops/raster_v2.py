@@ -18,10 +18,10 @@ Pipeline, stage for stage as in the JAX package:
 Backward (``_RasterCore.backward``):
   8. tile-backward kernel: per-tile front-to-back recompute, writing each
      in-range intersection's gradient rows at its own column of S;
-  9. unpack kernel through the inverse tile order: the rows back in
+  9. unpack kernel scattering through the tile order: the rows back in
      expansion order, where compacted id r owns [cum[r-1], cum[r]);
  10. segment-sum kernel over those ranges: per-Gaussian sums;
- 11. unpack kernel through the inverse depth order: original order.
+ 11. unpack kernel scattering through the depth order: original order.
 
 Each kernel wrapper (``pack_rows``, ``expand``, ``raster_fwd``,
 ``raster_bwd``, ``unpack_rows``, ``segsum_rows``) launches its CUDA kernel
@@ -664,31 +664,40 @@ def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
 
 
 def _unpack_rows_plain(block: torch.Tensor, n: int,
-                       perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return (block[:n] if perm is None else block[:n, perm]).contiguous()
+                       idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if idx is None:
+        return block[:n].contiguous()
+    out = torch.empty((n, idx.shape[0]), dtype=block.dtype,
+                      device=block.device)
+    out[:, idx] = block[:n, :idx.shape[0]]
+    return out
 
 
 def unpack_rows(block: torch.Tensor, n: int,
-                perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The first n rows of an f32 [R, L_src] block as one [n, L] tensor;
-    with ``perm`` (int64 [L]) column j is taken from column perm[j]."""
+    with ``idx`` (an int64 permutation of [0, L), L <= L_src) column j goes
+    to column idx[j]: the scatter that undoes pack_rows' gather by idx."""
     if block.ndim != 2 or block.dtype != torch.float32 \
             or not 0 < n <= block.shape[0]:
         raise ValueError(f"unpack_rows: {n} rows of a float32 [R, L] block")
-    if perm is not None and (perm.ndim != 1 or perm.dtype != torch.int64):
-        raise ValueError("unpack_rows: perm must be int64 [L]")
+    if idx is not None and (idx.ndim != 1 or idx.dtype != torch.int64
+                            or idx.shape[0] > block.shape[1]):
+        raise ValueError("unpack_rows: idx must be int64 [L], L <= L_src")
     if _on_cpu(block, "unpack_rows"):
-        return _unpack_rows_plain(block, n, perm)
+        return _unpack_rows_plain(block, n, idx)
     dev = block.device
     _check_cuda("unpack_rows block", block, torch.float32, dev)
-    if perm is not None:
-        _check_cuda("unpack_rows perm", perm, torch.int64, dev)
-    L = block.shape[1] if perm is None else perm.shape[0]
+    if idx is not None:
+        _check_cuda("unpack_rows idx", idx, torch.int64, dev)
+    L = block.shape[1] if idx is None else idx.shape[0]
     out = torch.empty((n, L), dtype=torch.float32, device=dev)
+    inv = None if idx is None else torch.empty(L, dtype=torch.int32,
+                                               device=dev)
     err = native.lib().gsc_unpack_rows(
         block.data_ptr(), block.shape[1], n,
-        None if perm is None else perm.data_ptr(), L, out.data_ptr(),
-        _stream(),
+        None if idx is None else idx.data_ptr(), L,
+        None if inv is None else inv.data_ptr(), out.data_ptr(), _stream(),
     )
     native.check(err, "gsc_unpack_rows")
     LAUNCHES["unpack_rows"] += 1
@@ -741,23 +750,17 @@ def segsum_rows(rows: torch.Tensor, cum: torch.Tensor,
     return out
 
 
-def _inverse(perm: torch.Tensor) -> torch.Tensor:
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
-                             device=perm.device)
-    return inv
-
-
 def _reduce_grads(gbuf, perm, cum, order, n_isects) -> torch.Tensor:
     """Per-intersection gradient rows [d_g, cap] in S's column order ->
     per-Gaussian sums [d_g, M] in the original order. The expansion
-    enumerates intersections id-major, so after the inverse tile order the
-    rows of compacted id r lie in [cum[r-1], cum[r]) and the segment sums
-    need no id sort; the inverse depth order restores the input order."""
+    enumerates intersections id-major, so once S's column j is scattered
+    back to expansion position perm[j] the rows of compacted id r lie in
+    [cum[r-1], cum[r]) and the segment sums need no id sort; scattering
+    the sums through the depth order restores the input order."""
     d_g = gbuf.shape[0]
-    rows = unpack_rows(gbuf, d_g, _inverse(perm))
+    rows = unpack_rows(gbuf, d_g, perm)
     seg = segsum_rows(rows, cum, n_isects)
-    return unpack_rows(seg, d_g, _inverse(order))
+    return unpack_rows(seg, d_g, order)
 
 
 # ---------------------------------------------------------------------------

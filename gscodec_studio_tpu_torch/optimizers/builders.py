@@ -38,16 +38,14 @@ def build_splat_optimizers(
     params: Dict[str, torch.Tensor],
     scene_scale: float = 1.0,
     batch_size: int = 1,
-    world_size: int = 1,
     max_steps: int = 30_000,
-    means_lr_decay: bool = True,
     visible_adam: bool = False,
 ) -> Tuple[Dict[str, AdamGroup], Dict[str, dict]]:
     """Returns ({name: AdamGroup}, {name: state})."""
     if visible_adam:
         raise NotImplementedError(
             "SelectiveAdam (visible_adam) is not ported yet: ROADMAP A6")
-    bs = batch_size * world_size
+    bs = batch_size
     sqrt_bs = math.sqrt(bs)
     b1 = 1 - bs * (1 - 0.9)
     b2 = 1 - bs * (1 - 0.999)
@@ -58,7 +56,7 @@ def build_splat_optimizers(
         decay = None
         if name == "means":
             lr = lr * scene_scale
-            decay = max_steps if means_lr_decay else None
+            decay = max_steps
         groups[name] = AdamGroup(lr, b1, b2, eps, decay)
         states[name] = {"count": 0, "exp_avg": torch.zeros_like(p),
                         "exp_avg_sq": torch.zeros_like(p)}
@@ -79,10 +77,8 @@ def adam_update(group: AdamGroup, state: dict, p: torch.Tensor,
     return new_p, {"count": c, "exp_avg": mu, "exp_avg_sq": nu}
 
 
-def apply_updates(groups, states, params, grads, visibility=None,
-                  visible_adam: bool = False):
-    """One optimizer step over the per-name groups -> (params, states).
-    ``visibility`` is for SelectiveAdam, which is not ported yet."""
+def apply_updates(groups, states, params, grads, visible_adam: bool = False):
+    """One optimizer step over the per-name groups -> (params, states)."""
     if visible_adam:
         raise NotImplementedError(
             "SelectiveAdam (visible_adam) is not ported yet: ROADMAP A6")

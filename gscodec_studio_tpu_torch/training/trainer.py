@@ -135,6 +135,7 @@ def check_ported(cfg: Config) -> None:
     later = [
         (cfg.strategy == "mcmc", "strategy='mcmc'", "A6"),
         (cfg.visible_adam, "visible_adam (SelectiveAdam)", "A6"),
+        (cfg.init_type != "sfm", f"init_type={cfg.init_type!r}", "A9"),
         (cfg.compression_sim, "compression_sim", "A7"),
         (cfg.pose_opt, "pose_opt", "A8"),
         (cfg.app_opt, "app_opt", "A8"),
@@ -180,12 +181,6 @@ class Runner:
 
         points = np.asarray(parser.points, np.float32)
         rgbs = np.asarray(parser.points_rgb, np.float32) / 255.0
-        if cfg.init_type == "random":
-            n = cfg.init_num_pts
-            points = ((torch.rand((n, 3), generator=self.generator,
-                                  device=dev) * 2 - 1)
-                      * 3.0 * self.scene_scale).cpu().numpy()
-            rgbs = torch.rand((n, 3), generator=self.generator, device=dev)
         n_init = points.shape[0]
         cap = max(cfg.capacity or 4 * n_init, n_init)
         overrides = {k: int(getattr(cfg, k)) for k in (

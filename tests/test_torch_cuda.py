@@ -153,12 +153,11 @@ def test_backward_kernel_matches_plain(cuda):
 def test_unpack_and_segsum_kernels_match_plain(cuda):
     cfg, b, masks, tiles, v_tiles = _sorted_case(cuda, 6, 16, "exact")
     gbuf = tr.raster_bwd(b.S, b.starts, masks, tiles, v_tiles, cfg, True)
-    inv = tr._inverse(b.perm)
-    for perm in (None, inv):
+    for perm in (None, b.perm):
         out = tr.unpack_rows(gbuf, gbuf.shape[0], perm)
         assert torch.equal(out, tr._unpack_rows_plain(gbuf, gbuf.shape[0],
                                                       perm))
-    rows = tr.unpack_rows(gbuf, gbuf.shape[0], inv)
+    rows = tr.unpack_rows(gbuf, gbuf.shape[0], b.perm)
     seg = tr.segsum_rows(rows, b.cum, b.n_isects)
     ref = tr._segsum_plain(rows, b.cum, b.n_isects)
     scale = float(ref.abs().max())

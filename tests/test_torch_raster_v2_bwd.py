@@ -182,10 +182,10 @@ def test_unpack_and_segsum_plain_match_jax(rng):
     ref = jr.unpack_rows(jnp.asarray(block), d + 1, interpret=True)
     got = tr.unpack_rows(torch.as_tensor(block), d + 1)
     np.testing.assert_array_equal(got.numpy(), np.stack(ref))
-    perm = rng.permutation(L)
+    perm = rng.permutation(L)  # scatter: column j goes to column perm[j]
     np.testing.assert_array_equal(
         tr.unpack_rows(torch.as_tensor(block), d, torch.as_tensor(perm)
-                       ).numpy(), block[:d, perm])
+                       ).numpy(), block[:d, np.argsort(perm)])
 
     nblk = -(-M // (128 * jr.SEG_G)) * jr.SEG_G
     idx = np.minimum(np.arange(1, nblk + 1) * 128 - 1, M - 1)

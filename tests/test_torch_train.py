@@ -360,7 +360,7 @@ def test_finite_gate_skips_a_poisoned_step(fake_scene, tmp_path):
     ("pose_opt", True), ("app_opt", True), ("use_bilateral_grid", True),
     ("depth_loss", True), ("mesh_devices", 2), ("grad_dtype", "bf16"),
     ("attr_dtype", "bf16"), ("log_composite", True),
-    ("rasterizer", "pallas"),
+    ("rasterizer", "pallas"), ("init_type", "random"),
 ])
 def test_unported_options_raise(field, value, tmp_path):
     cfg = dataclasses.replace(Config(result_dir=str(tmp_path)),
