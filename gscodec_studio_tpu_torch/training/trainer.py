@@ -197,8 +197,9 @@ class Runner:
         self.strategy_state = self.strategy.initialize_state(
             cap, self.scene_scale, device=dev)
         n_train = len(trainset) if trainset is not None else 0
-        self.view_order = torch.randperm(
-            n_train, generator=self.generator, device=dev).tolist()
+        # host-side ordering, the JAX Runner's own draw (not a device draw)
+        self.view_order = np.random.default_rng(cfg.seed).permutation(
+            n_train).tolist()
         self.skipped_steps = 0
         self.isect_cap_scale = 1
         self.events: List[dict] = []  # refines, resets, capacity changes

@@ -286,8 +286,45 @@ def test_default_strategy_matches_jax(rng):
     _assert_state_equal(a, b, c, d)
 
 
+def spy_jax_view_orders(monkeypatch):
+    """Records each permutation that the JAX trainer module draws with
+    numpy (its Runner.train's view order) into the returned list."""
+    import gscodec_studio_tpu.training.trainer as jtrainer
+
+    orders = []
+
+    class Rng:
+        def __init__(self, g):
+            self.g = g
+
+        def permutation(self, n):
+            out = self.g.permutation(n)
+            orders.append(out.tolist())
+            return out
+
+        def __getattr__(self, name):
+            return getattr(self.g, name)
+
+    class Random:
+        def default_rng(self, *a, **kw):
+            return Rng(np.random.default_rng(*a, **kw))
+
+        def __getattr__(self, name):
+            return getattr(np.random, name)
+
+    class Numpy:
+        random = Random()
+
+        def __getattr__(self, name):
+            return getattr(np, name)
+
+    monkeypatch.setattr(jtrainer, "np", Numpy())
+    return orders
+
+
 def test_runner_step_matches_jax(fake_scene, tmp_path, monkeypatch):
     parser, trainset, valset = fake_scene
+    jax_orders = spy_jax_view_orders(monkeypatch)
     # one tile per grid step: the same result, a faster interpret compile
     import gscodec_studio_tpu.ops.raster_v2 as jraster
 
@@ -305,8 +342,8 @@ def test_runner_step_matches_jax(fake_scene, tmp_path, monkeypatch):
     tr = Runner(Config(result_dir=str(tmp_path / "t"), **kw), parser=parser,
                 trainset=trainset, valset=valset, device="cpu")
     tr.splats = _to_torch(init)
-    tr.view_order = np.random.default_rng(42).permutation(
-        len(trainset)).tolist()  # the JAX runner's view order
+    # the same views in the same order as the JAX Runner, exactly
+    assert len(jax_orders) == 1 and tr.view_order == jax_orders[0]
     tloss = tr.train(log_every=0)
     assert tloss[0] == pytest.approx(jloss[0], rel=1e-6)
     for k in NAMES:
