@@ -42,7 +42,8 @@ from gscodec_studio_tpu_torch.training.losses import (combined_loss, psnr,
 class Config:
     """The JAX package's Config, field for field and default for default.
     Fields of options that are not ported yet are accepted at their
-    defaults; ``Runner`` raises for any other value."""
+    defaults; ``Runner`` raises for any other value, except save_steps,
+    tb_every and skip_probe, which it names once as ignored."""
 
     data_dir: str = "data/garden"
     data_factor: int = 4
@@ -94,17 +95,17 @@ class Config:
     depth_lambda: float = 1e-2
     depth_points_cap: int = 512
 
-    # Observability (TensorBoard logging is not ported; accepted)
+    # Observability (TensorBoard logging is not ported)
     tb_every: int = 100
     tb_histograms_every: int = 0
     eval_save_images: bool = False
 
     # Misc
     eval_steps: tuple = (7_000, 30_000)
-    save_steps: tuple = (7_000, 30_000)  # checkpoints are not ported yet
+    save_steps: tuple = (7_000, 30_000)
     seed: int = 42
     visible_adam: bool = False
-    skip_probe: bool = True  # the skip-fingerprint probe is not ported
+    skip_probe: bool = True
     # the JAX package's scan length; the port runs one step per iteration
     # and ignores it
     steps_per_dispatch: int = 25
@@ -146,6 +147,9 @@ def check_ported(cfg: Config) -> None:
         (cfg.log_composite, "log_composite", "A8b"),
         (cfg.mesh_devices > 1, f"mesh_devices={cfg.mesh_devices}", "A12"),
         (cfg.rasterizer != "fused", f"rasterizer={cfg.rasterizer!r}", "A13"),
+        (cfg.eval_save_images, "eval_save_images", "A8"),
+        (cfg.tb_histograms_every != 0,
+         f"tb_histograms_every={cfg.tb_histograms_every}", "A8"),
     ]
     for bad, what, item in later:
         if bad:
@@ -153,6 +157,15 @@ def check_ported(cfg: Config) -> None:
                 f"{what} is not ported yet: ROADMAP {item}")
     if cfg.strategy not in ("default", "mcmc"):
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
+    unhonoured = [what for on, what in (
+        (bool(cfg.save_steps), f"save_steps={tuple(cfg.save_steps)} "
+                               "(checkpoints)"),
+        (cfg.tb_every != 0, f"tb_every={cfg.tb_every} (TensorBoard scalars)"),
+        (cfg.skip_probe, "skip_probe=True (skipped-step fingerprints)"),
+    ) if on]
+    if unhonoured:
+        print("Runner: not ported yet, ignored (ROADMAP A8): "
+              + ", ".join(unhonoured), flush=True)
 
 
 def _tensor(x, dev) -> torch.Tensor:

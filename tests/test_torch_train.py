@@ -398,12 +398,27 @@ def test_finite_gate_skips_a_poisoned_step(fake_scene, tmp_path):
     ("depth_loss", True), ("mesh_devices", 2), ("grad_dtype", "bf16"),
     ("attr_dtype", "bf16"), ("log_composite", True),
     ("rasterizer", "pallas"), ("init_type", "random"),
+    ("eval_save_images", True), ("tb_histograms_every", 10),
 ])
 def test_unported_options_raise(field, value, tmp_path):
     cfg = dataclasses.replace(Config(result_dir=str(tmp_path)),
                               **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Runner(cfg, parser=object(), device="cpu")
+
+
+def test_unhonoured_defaults_are_named(fake_scene, tmp_path, capsys):
+    parser, trainset, valset = fake_scene
+    Runner(Config(result_dir=str(tmp_path), capacity=256), parser=parser,
+           trainset=trainset, valset=valset, device="cpu")
+    line, = [ln for ln in capsys.readouterr().out.splitlines()
+             if "ignored" in ln]
+    for name in ("save_steps", "tb_every", "skip_probe"):
+        assert name in line
+    Runner(Config(result_dir=str(tmp_path), capacity=256, save_steps=(),
+                  tb_every=0, skip_probe=False), parser=parser,
+           trainset=trainset, valset=valset, device="cpu")
+    assert "ignored" not in capsys.readouterr().out
 
 
 def test_config_fields_match_jax():
