@@ -31,6 +31,8 @@
 // fixed tree (skipped when no lane of the warp touched the pair), lane 0
 // stores the warp's partial in shared memory, and after every 32 pairs the
 // block adds the partials in warp order and writes whole rows of columns.
+// The cotangent's channels live in registers under a template bound (1, 2,
+// 3, 4, 8, 16, 32, 64 or 128), so CH <= 128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,9 +124,7 @@ __global__ void raster_bwd_kernel(const BwdArgs a) {
         if (k < lo || k >= hi) continue;  // the same for the whole block
         float gx = 0.0f, gy = 0.0f, ga = 0.0f, gb = 0.0f, gc = 0.0f;
         float gs = 0.0f;
-        float gcol[CHM];
-#pragma unroll
-        for (int j = 0; j < CHM; ++j) gcol[j] = 0.0f;
+        float gw = 0.0f;  // the pair's weight: its colour rows are gw * vc
         bool hit = false;
         if (live) {
           const float dx = chunk[k] - px;
@@ -160,8 +160,7 @@ __global__ void raster_bwd_kernel(const BwdArgs a) {
               gb = v_sig * dx * dy;
               gc = v_sig * 0.5f * dy * dy;
               gs = v_sig;
-#pragma unroll
-              for (int j = 0; j < CHM; ++j) gcol[j] = w * vc[j];
+              gw = w;
               tp = t_incl;
               hit = true;
             }
@@ -186,7 +185,7 @@ __global__ void raster_bwd_kernel(const BwdArgs a) {
 #pragma unroll
           for (int j = 0; j < CHM; ++j) {
             if (j < ch) {
-              const float v = warp_sum(gcol[j]);
+              const float v = warp_sum(gw * vc[j]);
               if (lane == 0) pw[(6 + j) * SUB] = v;
             }
           }
@@ -248,7 +247,7 @@ extern "C" int gsc_raster_bwd(const void* S, long long cap, const void* starts,
                               int ch, int soft, int absgrad, void* out,
                               void* stream) {
   const int P = tile_size * tile_size;
-  if (ch < 1 || ch > 32 || P < 1 || P > 1024 || n_tiles < 0) {
+  if (ch < 1 || ch > 128 || P < 1 || P > 1024 || n_tiles < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_tiles == 0) return (int)cudaGetLastError();
@@ -273,5 +272,7 @@ extern "C" int gsc_raster_bwd(const void* S, long long cap, const void* starts,
   if (ch <= 4) return (int)launch<4>(a, sf, n_tiles, st);
   if (ch <= 8) return (int)launch<8>(a, sf, n_tiles, st);
   if (ch <= 16) return (int)launch<16>(a, sf, n_tiles, st);
-  return (int)launch<32>(a, sf, n_tiles, st);
+  if (ch <= 32) return (int)launch<32>(a, sf, n_tiles, st);
+  if (ch <= 64) return (int)launch<64>(a, sf, n_tiles, st);
+  return (int)launch<128>(a, sf, n_tiles, st);
 }

@@ -23,7 +23,9 @@
 // the table is read once per tile. Design: one block per tile, one thread per pixel; each 128-row chunk
 // of the (6 + CH) attribute rows is staged through shared memory once and
 // read by all the tile's pixels as broadcasts. Accumulators live in
-// registers (the channel count is a template bound, CH <= 32).
+// registers: the channel count is rounded up to a template bound (1, 2, 3,
+// 4, 8, 16, 32, 64 or 128), so CH <= 128; wider renders bin once per 128
+// channels (rendering.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -118,11 +120,13 @@ cudaError_t launch(const FwdArgs& a, bool soft, int n_tiles,
                    cudaStream_t stream) {
   const int threads = a.tile_size * a.tile_size;
   const size_t smem = (size_t)(6 + a.ch) * K * sizeof(float);
-  if (soft) {
-    raster_fwd_kernel<CHM, true><<<n_tiles, threads, smem, stream>>>(a);
-  } else {
-    raster_fwd_kernel<CHM, false><<<n_tiles, threads, smem, stream>>>(a);
-  }
+  auto kernel = soft ? raster_fwd_kernel<CHM, true>
+                     : raster_fwd_kernel<CHM, false>;
+  // above 48 KB (CH > 90) only as opted-in dynamic shared memory
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_tiles, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -133,7 +137,7 @@ extern "C" int gsc_raster_fwd(const void* S, long long cap, const void* starts,
                               int tile_height, int tile_size, int ch, int soft,
                               void* out, void* stream) {
   const int P = tile_size * tile_size;
-  if (ch < 1 || ch > 32 || P < 1 || P > 1024 || n_tiles < 0) {
+  if (ch < 1 || ch > 128 || P < 1 || P > 1024 || n_tiles < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_tiles == 0) return (int)cudaGetLastError();
@@ -149,5 +153,7 @@ extern "C" int gsc_raster_fwd(const void* S, long long cap, const void* starts,
   if (ch <= 4) return (int)launch<4>(a, sf, n_tiles, st);
   if (ch <= 8) return (int)launch<8>(a, sf, n_tiles, st);
   if (ch <= 16) return (int)launch<16>(a, sf, n_tiles, st);
-  return (int)launch<32>(a, sf, n_tiles, st);
+  if (ch <= 32) return (int)launch<32>(a, sf, n_tiles, st);
+  if (ch <= 64) return (int)launch<64>(a, sf, n_tiles, st);
+  return (int)launch<128>(a, sf, n_tiles, st);
 }

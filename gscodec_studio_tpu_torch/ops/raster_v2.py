@@ -52,7 +52,7 @@ K = 128  # rows per chunk of the sorted table
 # capacity granularity (the JAX package's EXPAND_B * EXPAND_SB)
 CAP_BLOCK = 4096
 INT32_MAX = 2**31 - 1
-MAX_FWD_CHANNELS = 32  # the tile-forward kernel's register accumulators
+MAX_CHANNELS = 128  # the tile kernels' largest channel instantiation
 MAX_PACK_ROWS = 128  # pack.cu kMaxRows
 
 # Kernel launches since the last reset_launch_counts(), by wrapper.
@@ -505,9 +505,9 @@ def raster_fwd(S, starts, masks, cfg: V2Cfg):
     if _on_cpu(S, "raster_fwd"):
         return _fwd_plain(S, starts, masks, cfg)
     dev = S.device
-    if cfg.channels > MAX_FWD_CHANNELS:
+    if cfg.channels > MAX_CHANNELS:
         raise NotImplementedError(
-            f"the tile-forward kernel takes at most {MAX_FWD_CHANNELS} "
+            f"the tile-forward kernel takes at most {MAX_CHANNELS} "
             f"channels, got {cfg.channels}")
     if cfg.pixels > 1024:
         raise ValueError("tile_size above 32 does not fit one CUDA block")
@@ -634,9 +634,9 @@ def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
     if _on_cpu(S, "raster_bwd"):
         return _bwd_plain(S, starts, masks, tiles, v_tiles, cfg, absgrad)
     dev = S.device
-    if cfg.channels > MAX_FWD_CHANNELS:
+    if cfg.channels > MAX_CHANNELS:
         raise NotImplementedError(
-            f"the tile-backward kernel takes at most {MAX_FWD_CHANNELS} "
+            f"the tile-backward kernel takes at most {MAX_CHANNELS} "
             f"channels, got {cfg.channels}")
     if cfg.pixels > 1024:
         raise ValueError("tile_size above 32 does not fit one CUDA block")

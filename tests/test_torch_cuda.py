@@ -199,3 +199,48 @@ def test_rasterization_gradients_on_card_match_cpu(cuda):
     for a, b in zip(grads["cuda"], grads["cpu"]):
         scale = float(b.abs().max())
         assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale
+
+
+@pytest.mark.parametrize("CH", [40, 128])
+def test_wide_channel_kernels_match_plain(cuda, CH):
+    """B1 and B2 at the template bounds above 32 channels (64 and 128)."""
+    for cutoff in ("exact", "soft"):
+        cfg, b, masks, tiles, v_tiles = _sorted_case(cuda, 9, 16, cutoff,
+                                                     CH=CH)
+        ref = tr._fwd_plain(b.S, b.starts, masks, cfg)
+        assert float((tiles - ref).abs().max()) <= 1e-4, (CH, cutoff)
+        args = (b.S, b.starts, masks, tiles, v_tiles, cfg, False)
+        out = tr.raster_bwd(*args)
+        assert _rows_close(out, tr._bwd_plain(*args), 1e-4), (CH, cutoff)
+        assert torch.equal(out, tr.raster_bwd(*args))
+
+
+@pytest.mark.parametrize("D", [40, 130])
+def test_wide_renders_on_card_match_cpu(cuda, D):
+    """rasterization at D = 40 (one binning) and D = 130 (128 + 2),
+    forward and backward, on the card against the CPU."""
+    rng = np.random.default_rng(D)
+    N, W, H = 2000, 128, 96
+    means = (rng.standard_normal((N, 3)) * [1.5, 1.0, 1.5]).astype(np.float32)
+    quats = rng.standard_normal((N, 4)).astype(np.float32)
+    scales = np.exp(rng.normal(-3.5, 0.5, (N, 3))).astype(np.float32)
+    opac = rng.random(N).astype(np.float32)
+    colors = rng.random((N, D)).astype(np.float32)
+    vm = np.eye(4, dtype=np.float32)
+    vm[2, 3] = 5.0
+    K = np.array([[[120, 0, W / 2], [0, 120, H / 2], [0, 0, 1]]], np.float32)
+    ct = rng.standard_normal((1, H, W, D)).astype(np.float32)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [torch.tensor(x, device=dev, requires_grad=True)
+                  for x in (means, quats, scales, opac, colors)]
+        img, alp, _ = rasterization(*leaves, vm[None], K, W, H, device=dev)
+        (img * torch.as_tensor(ct, device=dev)).sum().backward()
+        outs[dev.type] = [img.detach().cpu(), alp.detach().cpu()] + [
+            t.grad.cpu() for t in leaves]
+    assert outs["cuda"][0].shape == (1, H, W, D)
+    for a, b in zip(outs["cuda"][:2], outs["cpu"][:2]):
+        assert float((a - b).abs().max()) <= 1e-4
+    for a, b in zip(outs["cuda"][2:], outs["cpu"][2:]):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale
