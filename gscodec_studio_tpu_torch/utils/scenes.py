@@ -11,6 +11,8 @@ import torch
 
 from gscodec_studio_tpu_torch.device import DeviceLike, resolve_device
 
+LIVE_OPACITY = 0.005  # models.splats.num_live's threshold
+
 
 def make_scene(n: int = 1_000_000, width: int = 1297, height: int = 840,
                seed: int = 0):
@@ -40,9 +42,9 @@ def make_scene(n: int = 1_000_000, width: int = 1297, height: int = 840,
 
 class StandInParser:
     """The training stand-in's scene: target views rendered from a trained
-    checkpoint, and its point cloud as the initialisation (the checkpoint's
-    means, coloured by clip(sh_to_rgb(sh0), 0, 1)), as an SfM parser gives
-    them. ``scene_scale`` is 1.1 x the largest distance of a camera centre
+    checkpoint, and its point cloud as the initialisation (the means of the
+    checkpoint's live Gaussians, coloured by clip(sh_to_rgb(sh0), 0, 1)),
+    as an SfM parser gives them. ``scene_scale`` is 1.1 x the largest distance of a camera centre
     from their mean, the JAX package's COLMAP Parser rule."""
 
     def __init__(self, points, points_rgb, cameras: List[dict],
@@ -82,7 +84,10 @@ def checkpoint_stand_in(path, n_views: int = 8, width: int = 1297,
     """(parser, trainset, valset) of the training stand-in: the checkpoint
     (the JAX package's npz splat dict) rendered from ``n_views`` orbit
     cameras with the port's forward as the targets, the last ``held_out``
-    views for validation."""
+    views for validation. The point cloud holds the live Gaussians only
+    (opacity above models.splats.num_live's 0.005): a trained checkpoint's
+    pruned and dead slots keep stale means, up to kilometres from the
+    scene, which are no scene points and would get k-NN scales to match."""
     from gscodec_studio_tpu_torch.models.splats import (from_jax_splats,
                                                         sh_to_rgb)
     from gscodec_studio_tpu_torch.utils.ply_render import (orbit_cameras,
@@ -100,9 +105,12 @@ def checkpoint_stand_in(path, n_views: int = 8, width: int = 1297,
         if int(meta["n_isects"][0]) >= cap:
             raise ValueError("a target view filled the intersection "
                              "capacity; raise isect_capacity")
-    sh0 = np.asarray(splats["sh0"], np.float32).reshape(-1, 3)
+    opacity = 1.0 / (1.0 + np.exp(-np.asarray(splats["opacities"],
+                                              np.float64).reshape(-1)))
+    live = opacity > LIVE_OPACITY
+    sh0 = np.asarray(splats["sh0"], np.float32).reshape(-1, 3)[live]
     rgb = np.clip(sh_to_rgb(sh0), 0.0, 1.0) * 255.0
-    parser = StandInParser(np.asarray(splats["means"], np.float32), rgb,
+    parser = StandInParser(np.asarray(splats["means"], np.float32)[live], rgb,
                            cams, [img for img, _, _ in outs])
     n_train = n_views - held_out
     return (parser, ViewDataset(parser, range(n_train)),

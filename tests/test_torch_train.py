@@ -432,7 +432,9 @@ def test_checkpoint_stand_in(tmp_path):
         CHECKPOINT, n_views=3, width=80, height=52, device="cpu")
     assert (len(trainset), len(valset)) == (2, 1)
     with np.load(CHECKPOINT) as z:
-        means, sh0 = z["means"], z["sh0"].reshape(-1, 3)
+        live = jax.nn.sigmoid(z["opacities"].reshape(-1)) > 0.005
+        means, sh0 = z["means"][live], z["sh0"].reshape(-1, 3)[live]
+    assert 0 < len(means) < len(live)  # dead and pruned slots are no points
     np.testing.assert_array_equal(parser.points, means)
     rgb = np.clip(np.asarray(jsplats.sh_to_rgb(jnp.asarray(sh0))), 0, 1)
     np.testing.assert_allclose(parser.points_rgb / 255.0, rgb, atol=1e-6)
