@@ -9,7 +9,9 @@ Phases, one JSON line each with its own ``seconds``:
   kernels   each kernel against its plain PyTorch version on the card: a
             20k-Gaussian scene at 320x240, tile 16 and 32, both cutoffs,
             the backward with absgrad off and on, and each backward kernel
-            run twice for the same bits;
+            run twice for the same bits; B1 and B2 at 40 channels; the
+            same scene as surfels (tile 16, both cutoffs) for the 2DGS tile
+            kernels B5 and B6 and the expansion's no-cull branch;
   serve     the committed checkpoint results/garden_ab_f32/splats_final.npz
             (120k Gaussians, SH 3) rendered from 8 orbit cameras at
             1297x840 through utils.ply_render.render_splats, and its first
@@ -22,6 +24,11 @@ Phases, one JSON line each with its own ``seconds``:
             rendering.rasterization with a seeded cotangent (median ms,
             Mpix/s, launches), and the backward kernels' time, bound, plain
             and library times and errors at its shapes;
+  train_1m_2dgs  the same scene's surfels through
+            rendering.rasterization_2dgs, tile 16, exact cutoff: forward and
+            forward + backward with a seeded cotangent on the colours,
+            alphas, normals and distortion (median ms, Mpix/s, launches),
+            and B5's and B6's time, bound, plain time and error;
   train     training.trainer.Runner with the default Config on the stand-in
             of utils.scenes.checkpoint_stand_in (the checkpoint rendered
             from 8 views at 1297x840, 7 to train, 1 held out), 30 steps with
@@ -29,11 +36,18 @@ Phases, one JSON line each with its own ``seconds``:
             held-out PSNR before and after, step ms, live counts, launches;
             then B2's time on each training view at the run's final
             splats, SH degree and capacity, and the slowest view's kernels,
-            forward and backward, held against their plain versions.
+            forward and backward, held against their plain versions;
+  train_2dgs  training.trainer_2dgs.Runner2DGS with the default Config2DGS
+            on the same stand-in, 30 steps with the train phase's refine
+            and SH settings and the normal and distortion losses from step
+            6 (the loss must fall from steps 6-10 to the last 5): loss,
+            held-out PSNR, step ms, launches; then B6 timed on each
+            training view and the slowest view's 2DGS kernels held against
+            their plain versions.
 Then a line {"kernels": [...]} with each kernel's numbers (launches from
-the train phase, the slice's main path), the card's name and power limit,
-and the result line. Any failed check raises, and the script exits
-non-zero without the result line.
+its main path: the train phase, and for B5 and B6 the train_2dgs phase),
+the card's name and power limit, and the result line. Any failed check
+raises, and the script exits non-zero without the result line.
 """
 
 import json
@@ -73,6 +87,22 @@ FWD_OPS_TESTED = {"exact": 3, "soft": 2}
 # (2), the five geometry products (16), CH colour products, and one add
 # per gradient row for the sum over the tile's pixels (d_g).
 BWD_OPS_COMPOSITED = 27  # + 3*CH + d_g (+ 2 with absgrad)
+# raster_fwd_2dgs, from csrc/raster_fwd_2dgs.cu: for each evaluated pair the
+# cross-product pair math (h_u, h_v: 12; cz, cx, cy: 9 and the cz test;
+# 1/cz, su, sv, gw3d: 6; dx, dy, gw2d: 6; sigma, exp, op*exp, min and the
+# alpha test: 6); the forward's transmittance step for each tested pair;
+# for each composited pair the weight, CB multiply-adds, w*z, the
+# distortion term (6), A and the median test (2).
+FWD2_OPS_EVALUATED = 41
+FWD2_OPS_COMPOSITED = 11  # + 2*CB
+# raster_bwd_2dgs, from csrc/raster_bwd_2dgs.cu: B5's walk again, and for
+# each composited (pair, pixel) w, w*z, P, S, SZ (7), G (2*CB), Dw (7), GD,
+# the suffix term (2), 1/(1-alpha), v_alpha (5), v_sig (2), the depth
+# chain's extra (4) and A, then CB colour products and one add per
+# gradient row (d_g = 12 + CB) for the sum over the tile's pixels; plus
+# the branch: 39 through the cross product (UV) or 4 to means2d (filter).
+BWD2_OPS_COMPOSITED = 30  # + 3*CB + d_g
+BWD2_OPS_UV, BWD2_OPS_FILTER = 39, 4
 
 KERNELS = {
     "pack_rows": dict(source="gscodec_studio_tpu_torch/csrc/pack.cu",
@@ -87,7 +117,17 @@ KERNELS = {
                         replaces="gscodec_studio_tpu/ops/raster_v2.py:1361"),
     "unpack_rows": dict(source="gscodec_studio_tpu_torch/csrc/unpack.cu",
                         replaces="gscodec_studio_tpu/ops/raster_v2.py:354"),
+    "raster_fwd_2dgs": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_fwd_2dgs.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2_2dgs.py:137"),
+    "raster_bwd_2dgs": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_bwd_2dgs.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2_2dgs.py:265"),
 }
+KERNELS_3DGS = ("pack_rows", "expand", "raster_fwd", "raster_bwd",
+                "segsum_rows", "unpack_rows")  # the 3DGS training step's
+KERNELS_2DGS = ("pack_rows", "expand", "raster_fwd_2dgs", "raster_bwd_2dgs",
+                "segsum_rows", "unpack_rows")  # the 2DGS training step's
 
 
 FWD_KERNELS = ("pack_rows", "expand", "raster_fwd")  # a render's kernels
@@ -216,7 +256,8 @@ class Stages:
         rv, cfg = self.rv, self.cfg
         res = {}
         b = self.b
-        table_p = rv._pack_rows_plain(self.attr_rows, cfg.n_attr, b.order)
+        table_p = rv._pack_rows_plain(self.attr_rows, cfg.n_attr_eff,
+                                      b.order)
         S_p = rv._pack_rows_plain(self.row_list, cfg.d_s, b.perm)
         if not (torch.equal(table_p, b.table) and torch.equal(S_p, b.S)):
             raise AssertionError("pack_rows kernel differs from its plain "
@@ -234,7 +275,7 @@ class Stages:
             # for a pair whose cull sides agree to float rounding
             lo = torch.minimum(b.tile[diff], tile_p[diff])
             hi = torch.maximum(b.tile[diff], tile_p[diff])
-            g = b.rows[cfg.n_attr, diff].to(torch.int64)
+            g = b.rows[cfg.n_attr_eff, diff].to(torch.int64)
             lhs, rhs = rv._cull_lhs_rhs(cfg, lo, b.table, g)
             on_bound = (lhs - rhs).abs() <= 1e-5 * torch.clamp(rhs.abs(),
                                                                  min=1.0)
@@ -316,6 +357,128 @@ class Stages:
         return res
 
 
+def channel_err(out, ref):
+    """Largest |out - ref| over each output channel's scale, max(1, its
+    largest |ref|): the depth, distortion and median channels are in scene
+    units, the colours and alpha in [0, 1]."""
+    d = (out - ref).abs().amax(dim=(0, 1))
+    scale = ref.abs().amax(dim=(0, 1)).clamp(min=1.0)
+    return float((d / scale).max())
+
+
+class Stages2DGS:
+    """One 2DGS binning + forward pass (the fused backend of
+    rendering.rasterization_2dgs), keeping each kernel's inputs and outputs
+    so each can be re-run, timed and compared."""
+
+    def __init__(self, rv, r2, cfg, zch, means2d, transforms, colors,
+                 opacities, depths, radii, masks):
+        self.rv, self.r2, self.cfg, self.zch = rv, r2, cfg, zch
+        self.masks = masks
+        self.b = r2._build_sorted_2dgs(cfg, means2d, transforms, colors,
+                                       opacities, depths, radii)
+        self.attr_rows = r2._attr_rows_2dgs(cfg, means2d, transforms,
+                                            colors, opacities)
+        self.out = r2.raster_fwd_2dgs(self.b.S, self.b.starts, masks, cfg,
+                                      zch)
+
+    def compare(self, errs):
+        """Pack and the no-cull expansion bit for bit against their plain
+        versions; B5 within FWD_TOL of each output channel's scale
+        (channel_err): the median and the cutoff decide alike, since T has
+        the same bits in both (the plain version walks the pairs in
+        order)."""
+        rv, r2, cfg, b = self.rv, self.r2, self.cfg, self.b
+        table_p = rv._pack_rows_plain(self.attr_rows, cfg.n_attr_eff,
+                                      b.order)
+        S_p = rv._pack_rows_plain(list(b.rows), cfg.d_s, b.perm)
+        if not (torch.equal(table_p, b.table) and torch.equal(S_p, b.S)):
+            raise AssertionError("pack_rows kernel differs from its plain "
+                                 "version (2DGS layout)")
+        tile_p, rows_p = rv._expand_plain(b.cum, b.base, b.nx, b.table,
+                                          b.n_isects, cfg)
+        if not (torch.equal(tile_p, b.tile) and torch.equal(rows_p, b.rows)):
+            raise AssertionError("expand kernel (cull=False) differs from "
+                                 "its plain version")
+        n = int(b.n_isects)
+        if int((b.tile[:n] == cfg.n_tiles).sum()):
+            raise AssertionError("a no-cull pair reached the overflow tile")
+        errs["pack_rows"] = max(errs.get("pack_rows", 0.0), 0.0)
+        errs["expand"] = max(errs.get("expand", 0.0), 0.0)
+        ref, self.pair_counts = r2._fwd_2dgs_plain(
+            b.S, b.starts, self.masks, cfg, self.zch, with_counts=True)
+        err = channel_err(self.out, ref)
+        if not (math.isfinite(err) and err <= FWD_TOL):
+            raise AssertionError(f"raster_fwd_2dgs err {err} > {FWD_TOL}")
+        abs_err = float((self.out - ref).abs().max())
+        errs["raster_fwd_2dgs"] = max(errs.get("raster_fwd_2dgs", 0.0),
+                                      abs_err)
+        median_equal = bool(torch.equal(self.out[..., -1], ref[..., -1]))
+        return {"fwd2_err": err, "fwd2_max_abs_err": abs_err,
+                "median_bits_equal": median_equal}
+
+    def compare_bwd(self, errs, seed=0):
+        """B6 against its plain version on a seeded cotangent of the tile
+        outputs (BWD_TOL of each row's largest |value|), twice for the same
+        bits. Keeps the inputs for timing."""
+        rv, r2, cfg, b = self.rv, self.r2, self.cfg, self.b
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        self.v_tiles = torch.randn(self.out.shape, generator=g).to(
+            self.out.device)
+        self.bwd_args = (b.S, b.starts, self.masks, self.out, self.v_tiles,
+                         cfg, self.zch)
+        gbuf = r2.raster_bwd_2dgs(*self.bwd_args)
+        ref = r2._bwd_2dgs_plain(*self.bwd_args)
+        diff = (gbuf - ref).abs()
+        scale = ref.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+        err = float((diff / scale).max())
+        if not (math.isfinite(err) and err <= BWD_TOL):
+            raise AssertionError(f"raster_bwd_2dgs rel err {err} > "
+                                 f"{BWD_TOL}")
+        if not torch.equal(gbuf, r2.raster_bwd_2dgs(*self.bwd_args)):
+            raise AssertionError("raster_bwd_2dgs differs between two runs")
+        abs_err = float(diff.max())
+        errs["raster_bwd_2dgs"] = max(errs.get("raster_bwd_2dgs", 0.0),
+                                      abs_err)
+        self.gbuf = gbuf
+        return {"bwd2_rel_err": err, "bwd2_max_abs_err": abs_err}
+
+    def kernel_numbers(self, cuda_ms, plain_reps=1):
+        """B5's and B6's time, plain time and bound at these inputs (B6 on
+        compare_bwd's cotangent)."""
+        cfg, b, r2 = self.cfg, self.b, self.r2
+        CB, P, L = cfg.channels, cfg.pixels, cfg.cap
+        n_rows = int(b.starts[cfg.n_tiles] - b.starts[0])
+        pc = self.pair_counts
+        fwd_args = (b.S, b.starts, self.masks, cfg, self.zch)
+        table_bytes = (4 * (12 + CB) * n_rows + 4 * (cfg.n_tiles_v + 1)
+                       + 4 * cfg.n_tiles)
+        tile_bytes = 4 * cfg.n_tiles * P * cfg.chp
+        d_g = cfg.d_g(False)
+        walk_ops = (FWD2_OPS_EVALUATED * pc["evaluated"]
+                    + FWD_OPS_TESTED[cfg.cutoff] * pc["tested"])
+        k = {}
+        k["raster_fwd_2dgs"] = bound(dict(
+            ms=cuda_ms(lambda: r2.raster_fwd_2dgs(*fwd_args), 10),
+            plain_ms=cuda_ms(lambda: r2._fwd_2dgs_plain(*fwd_args),
+                             plain_reps),
+            library_ms=None, bytes=table_bytes + tile_bytes,
+            ops=walk_ops + (FWD2_OPS_COMPOSITED + 2 * CB)
+            * pc["composited"], pair_counts=pc))
+        n_uv = pc["composited_uv"]
+        k["raster_bwd_2dgs"] = bound(dict(
+            ms=cuda_ms(lambda: r2.raster_bwd_2dgs(*self.bwd_args), 5),
+            plain_ms=cuda_ms(lambda: r2._bwd_2dgs_plain(*self.bwd_args),
+                             plain_reps),
+            library_ms=None,
+            bytes=table_bytes + 2 * tile_bytes + 4 * d_g * L,
+            ops=walk_ops + (BWD2_OPS_COMPOSITED + 3 * CB + d_g)
+            * pc["composited"] + BWD2_OPS_UV * n_uv
+            + BWD2_OPS_FILTER * (pc["composited"] - n_uv),
+            pair_counts=pc))
+        return k
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -325,9 +488,14 @@ def main():
                                                         splat_activations)
     from gscodec_studio_tpu_torch.ops.projection import fully_fused_projection
     from gscodec_studio_tpu_torch.ops import raster_v2 as rv
+    from gscodec_studio_tpu_torch.ops import raster_v2_2dgs as r2
     from gscodec_studio_tpu_torch.rendering import (project_and_shade,
-                                                    rasterization)
+                                                    project_and_shade_2dgs,
+                                                    rasterization,
+                                                    rasterization_2dgs)
     from gscodec_studio_tpu_torch.training.trainer import Config, Runner
+    from gscodec_studio_tpu_torch.training.trainer_2dgs import (Config2DGS,
+                                                                Runner2DGS)
     from gscodec_studio_tpu_torch.utils.ply_render import (orbit_cameras,
                                                            render_splats)
     from gscodec_studio_tpu_torch.utils.scenes import (checkpoint_stand_in,
@@ -405,6 +573,68 @@ def main():
                     n_isects=int(st.b.n_isects), isect_capacity=st.cfg.cap,
                     cutoff=st.cfg.cutoff, **res)
 
+    def check_training_views_2dgs(runner, sh_degree, errs):
+        """check_training_views for Runner2DGS: B6 timed on every training
+        view at the run's final splats and SH degree, then the slowest
+        view's B5, B6, pack and no-cull expansion held against their plain
+        versions. The capacity is sized from each view's count."""
+        tc = runner.cfg
+        sp = runner.splats
+        data = runner._device_trainset()
+        H, W = data["image"].shape[1:3]
+        with torch.no_grad():
+            means, quats, scales, opac = splat_activations(sp)
+            colors = torch.cat([sp["sh0"], sp["shN"]], 1)
+
+        def view_stages(i):
+            prep = project_and_shade_2dgs(
+                means, quats, scales, opac, colors,
+                torch.linalg.inv(data["camtoworld"][i:i + 1]),
+                data["K"][i:i + 1], W, H, near_plane=tc.near_plane,
+                far_plane=tc.far_plane, sh_degree=sh_degree)
+            return stages_2dgs(prep, W, H, "exact")
+
+        bwd_ms = []
+        with torch.no_grad():
+            for i in range(data["image"].shape[0]):
+                st = view_stages(i)
+                g = torch.Generator(device="cpu").manual_seed(200 + i)
+                v = torch.randn(st.out.shape, generator=g).to(dev)
+                bwd_ms.append(cuda_ms(lambda: st.r2.raster_bwd_2dgs(
+                    st.b.S, st.b.starts, st.masks, st.out, v, st.cfg,
+                    st.zch), 2))
+                del st, v
+            view = int(np.argmax(bwd_ms))
+            st = view_stages(view)
+            res = st.compare(errs)
+            res.update(st.compare_bwd(errs, seed=200 + view))
+        return dict(view=view, sh_degree=sh_degree, raster_bwd_2dgs_ms=bwd_ms,
+                    n_isects=int(st.b.n_isects), isect_capacity=st.cfg.cap,
+                    **res)
+
+    def stages_2dgs(prep, width, height, cutoff, cap=None, ts=16):
+        """Stages2DGS of project_and_shade_2dgs's outputs; the capacity,
+        unless given, 1.2x the binned rows of a first count."""
+        radii, means2d, depths, trans, normals, colors_cn, opac_cn = prep
+        C, N = depths.shape
+        TW, TH = -(-width // ts), -(-height // ts)
+        if cap is None:
+            _, _, _, cnt = rv.tile_counts(means2d, radii, ts, TW, TH)
+            cap = int(1.2 * int(cnt.sum())) + 1
+        cap = -(-cap // rv.CAP_BLOCK) * rv.CAP_BLOCK
+        colors_full = torch.cat([colors_cn, normals], -1).contiguous()
+        CB = colors_full.shape[-1]
+        cfg = r2.cfg_2dgs(C, TW, TH, ts, CB, cap, N, cutoff=cutoff)
+        masks = torch.ones(cfg.n_tiles, dtype=torch.int32, device=dev)
+        st = Stages2DGS(rv, r2, cfg, CB - 4, means2d.contiguous(),
+                        trans.contiguous(), colors_full,
+                        opac_cn.contiguous(), depths.contiguous(),
+                        radii.contiguous(), masks)
+        if int(st.b.n_isects) >= cfg.cap:
+            raise AssertionError(f"2DGS stages filled the capacity "
+                                 f"{cfg.cap}")
+        return st
+
     def stages_for(prep, width, height, ts, cutoff, cap=None):
         radii, means2d, depths, conics, colors_cn, opac_cn, _ = prep
         C, N = depths.shape
@@ -438,6 +668,30 @@ def main():
             res.update(st.compare_bwd(errs, seed=ts))
             cases.append(dict(tile_size=ts, cutoff=cutoff,
                               n_isects=int(st.b.n_isects), **res))
+    # B1 and B2 at 40 channels (the 64-channel instantiation)
+    g40 = torch.Generator(device="cpu").manual_seed(40)
+    colors40 = torch.rand(prep_small[4].shape[:2] + (40,),
+                          generator=g40).to(dev)
+    prep40 = prep_small[:4] + (colors40,) + prep_small[5:]
+    for cutoff in ("exact", "soft"):
+        st = stages_for(prep40, sw, sh, 16, cutoff)
+        res = st.compare(errs)
+        res.update(st.compare_bwd(errs, seed=40))
+        cases.append(dict(tile_size=16, cutoff=cutoff, channels=40,
+                          n_isects=int(st.b.n_isects), **res))
+    # B5, B6 and B3's no-cull branch on the same scene's surfels
+    means_s, quats_s, scales_s, opac_s, colors_s, vm_s, Ks_s = to_dev(
+        *small)
+    prep2_small = project_and_shade_2dgs(
+        means_s, quats_s, scales_s, opac_s, colors_s, vm_s, Ks_s, sw, sh,
+        sh_degree=3)
+    for cutoff in ("exact", "soft"):
+        st = stages_2dgs(prep2_small, sw, sh, cutoff)
+        res = st.compare(errs)
+        res.update(st.compare_bwd(errs, seed=2))
+        cases.append(dict(tile_size=16, cutoff=cutoff, surfels=True,
+                          n_isects=int(st.b.n_isects), **res))
+    del st
     torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "max_abs_err": errs,
           "fwd_tol": FWD_TOL, "bwd_tol": BWD_TOL, "segsum_tol": SEGSUM_TOL,
@@ -576,7 +830,8 @@ def main():
                 lambda: torch.index_select(st.b.rows, 1, st.b.perm), 10),
             bytes=(4 * n + 8 + 4 * n) * L, ops=0,
             table_ms=cuda_ms(
-                lambda: rv.pack_rows(st.attr_rows, cfg.n_attr, st.b.order),
+                lambda: rv.pack_rows(st.attr_rows, cfg.n_attr_eff,
+                                     st.b.order),
                 10),
             table_library_ms=cuda_ms(
                 lambda: torch.stack(st.attr_rows)[:, st.b.order], 10),
@@ -588,8 +843,8 @@ def main():
                 st.b.cum, st.b.base, st.b.nx, st.b.table, st.b.n_isects,
                 cfg), 3),
             library_ms=None,
-            bytes=(3 * 4 + 4 * cfg.n_attr) * M + 4 * L
-            + 4 * (cfg.n_attr + 1) * L,
+            bytes=(3 * 4 + 4 * cfg.n_attr_eff) * M + 4 * L
+            + 4 * (cfg.n_attr_eff + 1) * L,
             ops=0,
         )
         k["raster_fwd"] = dict(
@@ -650,7 +905,7 @@ def main():
         fwd_bwd()
         torch.cuda.synchronize()
         launches = dict(rv.LAUNCHES)
-        if min(launches.values()) < 1:
+        if min(launches[k] for k in KERNELS_3DGS) < 1:
             raise AssertionError(f"a kernel did not launch in fwd+bwd: "
                                  f"{launches}")
         if not all(bool(torch.isfinite(t.grad).all()) for t in leaves):
@@ -713,11 +968,92 @@ def main():
         if cutoff == "exact":
             perf.update(k)
         del st
+    # B1 and B2 at 40 channels at these shapes (the 64-channel
+    # instantiation; kernel times only)
+    g40 = torch.Generator(device="cpu").manual_seed(41)
+    colors40 = torch.rand(prep_1m[4].shape[:2] + (40,), generator=g40).to(
+        dev)
+    st = stages_for(prep_1m[:4] + (colors40,) + prep_1m[5:], WIDTH, HEIGHT,
+                    16, "exact")
+    st.cotangent(40)
+    wide40 = dict(
+        channels=40, n_isects=int(st.b.n_isects),
+        raster_fwd_ms=cuda_ms(lambda: rv.raster_fwd(
+            st.b.S, st.b.starts, st.masks, st.cfg), 5),
+        raster_bwd_ms=cuda_ms(lambda: rv.raster_bwd(
+            st.b.S, st.b.starts, st.masks, st.out, st.v_tiles, st.cfg,
+            False), 3))
+    del st, colors40
     emit({"phase": "train_1m", "gaussians": N_1M, "width": WIDTH,
-          "height": HEIGHT, "runs": runs_bwd,
+          "height": HEIGHT, "runs": runs_bwd, "wide40": wide40,
           "seconds": time.perf_counter() - t0})
 
-    # 7. train: the port's Runner on the checkpoint stand-in
+    # 7. train_1m_2dgs: the same scene's surfels through rasterization_2dgs
+    t0 = time.perf_counter()
+    prep2_1m = project_and_shade_2dgs(means, quats, scales, opac, colors, vm,
+                                      Ks, WIDTH, HEIGHT, sh_degree=3)
+    st = stages_2dgs(prep2_1m, WIDTH, HEIGHT, "exact")
+    cfg2 = st.cfg
+    check2 = st.compare(errs)
+    check2.update(st.compare_bwd(errs, seed=26))
+    g = torch.Generator(device="cpu").manual_seed(8)
+    cts = [torch.randn((1, HEIGHT, WIDTH, c), generator=g).to(dev)
+           for c in (3, 1, 3, 1)]
+    leaves2 = [t.detach().clone().requires_grad_(True)
+               for t in (means, quats, scales, opac, colors)]
+
+    def forward_2dgs():
+        return rasterization_2dgs(*leaves2, vm, Ks, WIDTH, HEIGHT,
+                                  sh_degree=3, tile_size=16,
+                                  isect_capacity=cfg2.cap,
+                                  rasterizer="fused", device=dev)
+
+    def fwd_bwd_2dgs():
+        for t in leaves2:
+            t.grad = None
+        out = forward_2dgs()
+        # colours, alphas, normals and distortion: the four kernel outputs
+        # that carry a gradient (the median has none)
+        torch.autograd.backward([out[0], out[1], out[2], out[4]], cts)
+
+    rv.reset_launch_counts()
+    fwd_bwd_2dgs()
+    torch.cuda.synchronize()
+    launches2 = dict(rv.LAUNCHES)
+    if min(launches2[k] for k in KERNELS_2DGS) < 1:
+        raise AssertionError(f"a kernel did not launch in the 2DGS "
+                             f"fwd+bwd: {launches2}")
+    if not all(bool(torch.isfinite(t.grad).all()) for t in leaves2):
+        raise AssertionError("train_1m_2dgs gradients are not finite")
+    with torch.no_grad():
+        out2 = forward_2dgs()
+    if int(out2[6]["n_isects"]) != int(st.b.n_isects) or not all(
+            bool(torch.isfinite(x).all()) for x in out2[:6]):
+        raise AssertionError("train_1m_2dgs render disagrees with its "
+                             "stages")
+    fb2_ms, fb2_samples = median_ms(fwd_bwd_2dgs, 5)
+    with torch.no_grad():
+        f2_ms, _ = median_ms(forward_2dgs, 5)
+    profile2 = device_profile(fwd_bwd_2dgs)
+    k2 = st.kernel_numbers(cuda_ms)
+    expand_no_cull_ms = cuda_ms(lambda: rv.expand(
+        st.b.cum, st.b.base, st.b.nx, st.b.table, st.b.n_isects, cfg2), 10)
+    perf.update(k2)
+    n_rows2 = int(st.b.starts[cfg2.n_tiles] - st.b.starts[0])
+    emit({"phase": "train_1m_2dgs", "gaussians": N_1M, "width": WIDTH,
+          "height": HEIGHT, "tile_size": 16, "cutoff": cfg2.cutoff,
+          "channels": cfg2.channels, "n_isects": int(st.b.n_isects),
+          "rows_in_tiles": n_rows2, "isect_capacity": cfg2.cap,
+          "fwd_bwd_ms": fb2_ms, "fwd_bwd_ms_samples": fb2_samples,
+          "fwd_ms": f2_ms,
+          "mpix_per_s": WIDTH * HEIGHT / (fb2_ms * 1e-3) / 1e6,
+          "launches_per_fwd_bwd": launches2, "kernels": k2,
+          "expand_no_cull_ms": expand_no_cull_ms,
+          "mean_alpha": float(out2[1].mean()), "profile": profile2,
+          "check": check2, "seconds": time.perf_counter() - t0})
+    del st, out2, leaves2, prep2_1m
+
+    # 8. train: the port's Runner on the checkpoint stand-in
     t0 = time.perf_counter()
     parser, trainset, valset = checkpoint_stand_in(
         CHECKPOINT, n_views=8, width=WIDTH, height=HEIGHT, device=dev)
@@ -732,11 +1068,11 @@ def main():
     steps = []
     train_step = runner.train_step
 
-    def timed_step(idx, sh_degree):
+    def timed_step(idx, sh_degree, step=0):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = train_step(idx, sh_degree)  # ends in a host sync
+        out = train_step(idx, sh_degree, step)  # ends in a host sync
         e1.record()
         e1.synchronize()
         steps.append(dict(out, ms=e0.elapsed_time(e1), sh_degree=sh_degree))
@@ -764,7 +1100,7 @@ def main():
     if not after["psnr"] > before["psnr"]:
         raise AssertionError(f"held-out PSNR did not rise: {before} -> "
                              f"{after}")
-    if min(train_launches.values()) < 1:
+    if min(train_launches[k] for k in KERNELS_3DGS) < 1:
         raise AssertionError(f"a kernel did not launch in training: "
                              f"{train_launches}")
     if runner.skipped_steps or len(refines) < 2 or \
@@ -791,13 +1127,78 @@ def main():
           "step_profiles": step_profiles,
           "stand_in_seconds": data_s, "train_seconds": train_s,
           "seconds": time.perf_counter() - t0})
+    del runner
+    shutil.rmtree(stats_dir, ignore_errors=True)
+
+    # 9. train_2dgs: the port's Runner2DGS on the same stand-in
+    t0 = time.perf_counter()
+    stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_train_2dgs_")
+    tcfg2 = Config2DGS(result_dir=stats_dir, refine_start_iter=5,
+                       refine_every=10, sh_degree_interval=5,
+                       normal_start_iter=5, dist_start_iter=5)
+    runner = Runner2DGS(tcfg2, parser=parser, trainset=trainset,
+                        valset=valset, device=dev)
+    before2 = runner.eval("before")
+    steps = []
+    train_step = runner.train_step
+    runner.train_step = timed_step
+    t1 = time.perf_counter()
+    rv.reset_launch_counts()
+    losses2 = runner.train(max_steps=TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    train2_launches = dict(rv.LAUNCHES)
+    train2_s = time.perf_counter() - t1
+    after2 = runner.eval("after")
+    train2_check = check_training_views_2dgs(runner, steps[-1]["sh_degree"],
+                                             errs)
+    refines2 = [e for e in runner.events if e["event"] == "refine"]
+    # the normal and distortion terms join the loss after step 5: the
+    # loss must fall from the first steps with them to the last
+    gated = losses2[tcfg2.normal_start_iter + 1:]
+    loss2_first, loss2_gated, loss2_last = losses2[:5], gated[:5], gated[-5:]
+    if not np.mean(loss2_last) < np.mean(loss2_gated):
+        raise AssertionError(f"2DGS train loss did not fall: {losses2}")
+    if not after2["psnr"] > before2["psnr"]:
+        raise AssertionError(f"2DGS held-out PSNR did not rise: {before2} "
+                             f"-> {after2}")
+    if min(train2_launches[k] for k in KERNELS_2DGS) < 1:
+        raise AssertionError(f"a kernel did not launch in 2DGS training: "
+                             f"{train2_launches}")
+    if runner.skipped_steps or len(refines2) < 2:
+        raise AssertionError(f"2DGS skipped {runner.skipped_steps}, "
+                             f"refines {refines2}")
+    emit({"phase": "train_2dgs",
+          "checkpoint": str(CHECKPOINT.relative_to(ROOT)), "views": 8,
+          "train_views": len(trainset), "width": WIDTH, "height": HEIGHT,
+          "steps": TRAIN_STEPS, "capacity": runner.splats["means"].shape[0],
+          "isect_capacity": runner.isect_capacity(),
+          "normal_start_iter": tcfg2.normal_start_iter,
+          "dist_start_iter": tcfg2.dist_start_iter,
+          "loss_first5": loss2_first, "loss_gated_first5": loss2_gated,
+          "loss_last5": loss2_last,
+          "psnr_before": before2["psnr"], "psnr_after": after2["psnr"],
+          "ssim_before": before2["ssim"], "ssim_after": after2["ssim"],
+          "step_ms_median": float(np.median([s["ms"] for s in steps])),
+          "step_ms": [s["ms"] for s in steps],
+          "n_isects": [s["n_isects"] for s in steps],
+          "events": runner.events, "skipped_steps": runner.skipped_steps,
+          "launches": train2_launches,
+          "launches_per_step": {k: v / TRAIN_STEPS
+                                for k, v in train2_launches.items()},
+          "view_check": train2_check, "train_seconds": train2_s,
+          "seconds": time.perf_counter() - t0})
     del runner, parser, trainset, valset
     shutil.rmtree(stats_dir, ignore_errors=True)
 
+    # launches from each kernel's main path: the 3DGS training run, and for
+    # the 2DGS tile kernels the 2DGS training run
+    main_path = dict(train_launches, raster_fwd_2dgs=train2_launches[
+        "raster_fwd_2dgs"], raster_bwd_2dgs=train2_launches[
+        "raster_bwd_2dgs"])
     emit({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"],
-             launches=train_launches[name], max_abs_err=errs[name],
+             launches=main_path[name], max_abs_err=errs[name],
              ms=perf[name]["ms"], plain_ms=perf[name]["plain_ms"],
              bound_ms=perf[name]["bound_ms"],
              bound_by=perf[name]["bound_by"],

@@ -9,6 +9,9 @@
 // TPU kernel does, and the conservative ellipse cull uses the same formula
 // in the same order (the library is built with --fmad=false), so the list,
 // order included, is the JAX package's: the tile sort that follows is stable.
+// The cull reads the 3DGS conic layout (x, y, ca, cb, cc, op in rows 0-5);
+// with cull = 0 (the 2DGS layout, the TPU kernel's `if cfg.cull:` branch)
+// every in-range pair keeps its tile and the overflow tile stays empty.
 //
 // Bound on the H100: bytes. Each output row reads one table column (the
 // same column for the neighbouring rows of one Gaussian, so the reads are
@@ -23,13 +26,43 @@ namespace {
 
 constexpr int kInt32Max = 2147483647;
 
+// Whether 0.5*lambda_min(conic)*dist(mean, tile)^2 already exceeds
+// ln(255*op) for Gaussian g: then its alpha can never reach 1/255 in the tile.
+__device__ bool misses_tile(const float* __restrict__ table, int M, int g,
+                            int tile, int tile_width, int tile_height,
+                            int tile_size) {
+  const float ts_f = (float)tile_size;
+  const int rem = tile % (tile_width * tile_height);
+  const float txt = (float)(rem % tile_width);
+  const float tyt = (float)(rem / tile_width);
+  const float xs = table[0 * (int64_t)M + g];
+  const float ys = table[1 * (int64_t)M + g];
+  const float ca = table[2 * (int64_t)M + g];
+  const float cb = table[3 * (int64_t)M + g];
+  const float cc = table[4 * (int64_t)M + g];
+  const float op = table[5 * (int64_t)M + g];
+  const float qx =
+      fminf(fmaxf(xs, txt * ts_f + 0.5f), txt * ts_f + ts_f - 0.5f);
+  const float qy =
+      fminf(fmaxf(ys, tyt * ts_f + 0.5f), tyt * ts_f + ts_f - 0.5f);
+  const float ex = xs - qx;
+  const float ey = ys - qy;
+  const float d2 = ex * ex + ey * ey;
+  const float half_tr = 0.5f * (ca + cc);
+  const float hd = 0.5f * (ca - cc);
+  const float lam_min =
+      fmaxf(half_tr - sqrtf(hd * hd + cb * cb + 1e-30f), 0.0f);
+  return !(0.5f * lam_min * d2 <= logf(fmaxf(255.0f * op, 1e-12f)));
+}
+
 __global__ void expand_kernel(const int* __restrict__ cum, int M,
                               const int* __restrict__ base,
                               const int* __restrict__ nx,
                               const float* __restrict__ table, int n_attr,
                               const int* __restrict__ n_isects_ptr, int64_t cap,
                               int tile_width, int tile_height, int tile_size,
-                              int n_tiles, int* __restrict__ tile_out,
+                              int n_tiles, int cull,
+                              int* __restrict__ tile_out,
                               float* __restrict__ rows_out) {
   const int64_t p = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (p >= cap) return;
@@ -56,31 +89,8 @@ __global__ void expand_kernel(const int* __restrict__ cum, int M,
   const float dy = floorf(rank / nxr);
   const float dx = rank - dy * nxr;
   int tile = (int)((float)base[g] + dy * (float)tile_width + dx);
-
-  // drop the pair when 0.5*lambda_min(conic)*dist(mean, tile)^2 already
-  // exceeds ln(255*op): its alpha can never reach 1/255 in the tile
-  const float ts_f = (float)tile_size;
-  const int rem = tile % (tile_width * tile_height);
-  const float txt = (float)(rem % tile_width);
-  const float tyt = (float)(rem / tile_width);
-  const float xs = table[0 * (int64_t)M + g];
-  const float ys = table[1 * (int64_t)M + g];
-  const float ca = table[2 * (int64_t)M + g];
-  const float cb = table[3 * (int64_t)M + g];
-  const float cc = table[4 * (int64_t)M + g];
-  const float op = table[5 * (int64_t)M + g];
-  const float qx =
-      fminf(fmaxf(xs, txt * ts_f + 0.5f), txt * ts_f + ts_f - 0.5f);
-  const float qy =
-      fminf(fmaxf(ys, tyt * ts_f + 0.5f), tyt * ts_f + ts_f - 0.5f);
-  const float ex = xs - qx;
-  const float ey = ys - qy;
-  const float d2 = ex * ex + ey * ey;
-  const float half_tr = 0.5f * (ca + cc);
-  const float hd = 0.5f * (ca - cc);
-  const float lam_min =
-      fmaxf(half_tr - sqrtf(hd * hd + cb * cb + 1e-30f), 0.0f);
-  if (!(0.5f * lam_min * d2 <= logf(fmaxf(255.0f * op, 1e-12f)))) {
+  if (cull && misses_tile(table, M, g, tile, tile_width, tile_height,
+                          tile_size)) {
     tile = n_tiles;
   }
 
@@ -97,8 +107,11 @@ extern "C" int gsc_expand(const void* cum, int M, const void* base,
                           const void* nx, const void* table, int n_attr,
                           const void* n_isects, long long cap, int tile_width,
                           int tile_height, int tile_size, int n_tiles,
-                          void* tile_out, void* rows_out, void* stream) {
-  if (M < 1 || n_attr < 6 || cap < 0) return (int)cudaErrorInvalidValue;
+                          int cull, void* tile_out, void* rows_out,
+                          void* stream) {
+  if (M < 1 || n_attr < (cull ? 6 : 1) || cap < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (cap > 0) {
     const int threads = 256;
     const int64_t blocks = (cap + threads - 1) / threads;
@@ -106,7 +119,7 @@ extern "C" int gsc_expand(const void* cum, int M, const void* base,
         static_cast<const int*>(cum), M, static_cast<const int*>(base),
         static_cast<const int*>(nx), static_cast<const float*>(table), n_attr,
         static_cast<const int*>(n_isects), (int64_t)cap, tile_width,
-        tile_height, tile_size, n_tiles, static_cast<int*>(tile_out),
+        tile_height, tile_size, n_tiles, cull, static_cast<int*>(tile_out),
         static_cast<float*>(rows_out));
   }
   return (int)cudaGetLastError();

@@ -20,7 +20,8 @@
 
 namespace {
 
-constexpr int kMaxRows = 128;
+// the widest table: 2DGS's 12 + 128 attribute rows and the id
+constexpr int kMaxRows = 144;
 
 struct Rows {
   const float* ptr[kMaxRows];

@@ -23,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("pack.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
-           "unpack.cu", "segsum.cu")
+           "unpack.cu", "segsum.cu", "raster_fwd_2dgs.cu",
+           "raster_bwd_2dgs.cu")
 # --fmad=false: the kernels' float expressions round exactly as their plain
 # PyTorch versions (and the JAX package) do, which keeps the expansion's
 # ellipse cull bit-identical to its plain version.
@@ -37,13 +38,17 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "gsc_pack_rows": (_P, _P, _I, _P, _L, _P, _I, _P),
-    "gsc_expand": (_P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _P, _P,
-                   _P),
+    "gsc_expand": (_P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P,
+                   _P, _P),
     "gsc_raster_fwd": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "gsc_raster_bwd": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P),
     "gsc_unpack_rows": (_P, _L, _I, _P, _L, _P, _P, _P),
     "gsc_segsum_rows": (_P, _L, _I, _P, _I, _P, _P, _P),
+    "gsc_raster_fwd_2dgs": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                            _P),
+    "gsc_raster_bwd_2dgs": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _P, _P),
 }
 
 _lib = None

@@ -53,11 +53,13 @@ K = 128  # rows per chunk of the sorted table
 CAP_BLOCK = 4096
 INT32_MAX = 2**31 - 1
 MAX_CHANNELS = 128  # the tile kernels' largest channel instantiation
-MAX_PACK_ROWS = 128  # pack.cu kMaxRows
+MAX_PACK_ROWS = 144  # pack.cu kMaxRows
 
-# Kernel launches since the last reset_launch_counts(), by wrapper.
+# Kernel launches since the last reset_launch_counts(), by wrapper (the
+# 2DGS tile kernels' wrappers in raster_v2_2dgs count here too).
 LAUNCHES = {"pack_rows": 0, "expand": 0, "raster_fwd": 0, "raster_bwd": 0,
-            "unpack_rows": 0, "segsum_rows": 0}
+            "unpack_rows": 0, "segsum_rows": 0, "raster_fwd_2dgs": 0,
+            "raster_bwd_2dgs": 0}
 
 
 def reset_launch_counts() -> None:
@@ -75,6 +77,14 @@ class V2Cfg:
     cap: int  # intersection capacity, a multiple of CAP_BLOCK
     n: int  # Gaussians per camera
     cutoff: str = "exact"  # or "soft": chunk-granular early termination
+    # The skeleton's generic geometry (the 2DGS kernels share it): attribute
+    # rows per Gaussian before the id row (0 means the 3DGS layout, 6 + CH),
+    # whether the expansion ellipse-culls (it reads the 3DGS conic layout x,
+    # y, ca, cb, cc, op at rows 0-5), and per-pixel outputs beyond the
+    # channels and alpha.
+    n_attr: int = 0
+    cull: bool = True
+    extra_out: int = 0
 
     @property
     def n_tiles(self) -> int:
@@ -90,18 +100,23 @@ class V2Cfg:
         return self.tile_size * self.tile_size
 
     @property
-    def n_attr(self) -> int:
-        # x, y, ca, cb, cc, op, colors[CH]
-        return 6 + self.channels
+    def n_attr_eff(self) -> int:
+        # 3DGS: x, y, ca, cb, cc, op, colors[CH]
+        return self.n_attr or (6 + self.channels)
 
     @property
     def d_s(self) -> int:
         # sorted table rows: attrs..., id
-        return self.n_attr + 1
+        return self.n_attr_eff + 1
 
     def d_g(self, absgrad: bool) -> int:
-        # gradient rows: x, y, ca, cb, cc, op, colors[CH] (, |x|, |y|)
-        return self.n_attr + (2 if absgrad else 0)
+        # gradient rows: one per attribute row (, |x|, |y|)
+        return self.n_attr_eff + (2 if absgrad else 0)
+
+    @property
+    def chp(self) -> int:
+        # per-pixel tile outputs: channels, alpha, extras
+        return self.channels + 1 + self.extra_out
 
 
 def _stream() -> int:
@@ -249,8 +264,10 @@ def _expand_plain(cum, base, nx, table, n_isects, cfg: V2Cfg):
     dx = rank - dy * nxr
     tile = (base[g].to(torch.float32) + dy * float(cfg.tile_width)
             + dx).to(torch.int32)
-    lhs, rhs = _cull_lhs_rhs(cfg, tile, table, g)
-    tile = torch.where(lhs <= rhs, tile, torch.full_like(tile, cfg.n_tiles))
+    if cfg.cull:
+        lhs, rhs = _cull_lhs_rhs(cfg, tile, table, g)
+        tile = torch.where(lhs <= rhs, tile,
+                           torch.full_like(tile, cfg.n_tiles))
     tile = torch.where(valid, tile, torch.full_like(tile, INT32_MAX))
     rows = torch.cat([table[:, g], g.to(torch.float32)[None]])
     rows = torch.where(valid[None], rows, torch.zeros((), device=dev))
@@ -263,10 +280,14 @@ def expand(cum, base, nx, table, n_isects, cfg: V2Cfg):
     int32 count prefix clamped to the capacity, ``base``/``nx`` the int32
     first tile and rect width, ``table`` f32 [n_attr, M], ``n_isects`` an
     int32 [1] tensor (min(total, cap)). Rows >= n_isects get key
-    INT32_MAX and zero rows."""
+    INT32_MAX and zero rows. With ``cfg.cull`` a pair whose conic ellipse
+    misses its tile (rows 0-5 read as x, y, ca, cb, cc, op) is keyed to the
+    overflow tile n_tiles; without it every in-range pair keeps its tile."""
     M = cum.shape[0]
-    if M < 1 or table.shape != (cfg.n_attr, M):
+    if M < 1 or table.shape != (cfg.n_attr_eff, M):
         raise ValueError(f"expand: table {tuple(table.shape)} for M={M}")
+    if cfg.cull and cfg.n_attr_eff < 6:
+        raise ValueError("expand: the ellipse cull reads 6 attribute rows")
     if _on_cpu(cum, "expand"):
         return _expand_plain(cum, base, nx, table, n_isects, cfg)
     dev = cum.device
@@ -278,13 +299,13 @@ def expand(cum, base, nx, table, n_isects, cfg: V2Cfg):
     if base.shape != (M,) or nx.shape != (M,) or n_isects.numel() != 1:
         raise ValueError("expand: base/nx must be [M], n_isects one value")
     tile = torch.empty(cfg.cap, dtype=torch.int32, device=dev)
-    rows = torch.empty((cfg.n_attr + 1, cfg.cap), dtype=torch.float32,
+    rows = torch.empty((cfg.n_attr_eff + 1, cfg.cap), dtype=torch.float32,
                        device=dev)
     err = native.lib().gsc_expand(
         cum.data_ptr(), M, base.data_ptr(), nx.data_ptr(), table.data_ptr(),
-        cfg.n_attr, n_isects.data_ptr(), cfg.cap, cfg.tile_width,
-        cfg.tile_height, cfg.tile_size, cfg.n_tiles, tile.data_ptr(),
-        rows.data_ptr(), _stream(),
+        cfg.n_attr_eff, n_isects.data_ptr(), cfg.cap, cfg.tile_width,
+        cfg.tile_height, cfg.tile_size, cfg.n_tiles, int(cfg.cull),
+        tile.data_ptr(), rows.data_ptr(), _stream(),
     )
     native.check(err, "gsc_expand")
     LAUNCHES["expand"] += 1
@@ -328,8 +349,8 @@ def _compact(cfg: V2Cfg, means2d, radii, depths):
 
 
 def _attr_rows(cfg: V2Cfg, means2d, conics, colors, opacities):
-    """The n_attr per-Gaussian rows (x, y, ca, cb, cc, op, colors[CH]) as
-    strided views of the contiguous inputs."""
+    """The 3DGS layout's per-Gaussian rows (x, y, ca, cb, cc, op,
+    colors[CH]) as strided views of the contiguous inputs."""
     M = cfg.C * cfg.n
     m2 = means2d.reshape(M, 2)
     c3 = conics.reshape(M, 3)
@@ -342,7 +363,7 @@ def _attr_rows(cfg: V2Cfg, means2d, conics, colors, opacities):
 class Binning(NamedTuple):
     """The sorted intersection table and every stage's output on the way."""
 
-    S: torch.Tensor  # [d_s, cap]: x, y, ca, cb, cc, op, colors[CH], id
+    S: torch.Tensor  # [d_s, cap]: the attribute rows, then the id
     starts: torch.Tensor  # int32 [n_tiles + 2]: each tile's first row
     n_isects: torch.Tensor  # int32 [1]: min(total, cap)
     order: torch.Tensor  # int64 [M]: compacted position -> original index
@@ -357,11 +378,23 @@ class Binning(NamedTuple):
 
 def _build_sorted(cfg: V2Cfg, means2d, conics, colors, opacities, depths,
                   radii) -> Binning:
-    """Compaction sort, pack, expansion, tile sort, pack, starts. S's
-    columns >= n_isects are zero."""
+    """The 3DGS attribute layout through the generic build."""
+    return _build_sorted_generic(
+        cfg, means2d, _attr_rows(cfg, means2d, conics, colors, opacities),
+        depths, radii)
+
+
+def _build_sorted_generic(cfg: V2Cfg, means2d, attr_rows, depths,
+                          radii) -> Binning:
+    """Compaction sort, pack, expansion, tile sort, pack, starts, for the
+    cfg.n_attr_eff per-Gaussian f32 rows ``attr_rows`` (each [C*N], may be
+    a strided view; the first two are x, y, and with cfg.cull rows 0-5 are
+    the 3DGS conic layout). S's columns >= n_isects are zero."""
+    if len(attr_rows) != cfg.n_attr_eff:
+        raise ValueError(f"{len(attr_rows)} attribute rows, expected "
+                         f"{cfg.n_attr_eff}")
     order, cum, base, nx, n_isects = _compact(cfg, means2d, radii, depths)
-    table = pack_rows(_attr_rows(cfg, means2d, conics, colors, opacities),
-                      cfg.n_attr, perm=order)
+    table = pack_rows(attr_rows, cfg.n_attr_eff, perm=order)
     tile, rows = expand(cum, base, nx, table, n_isects, cfg)
     tile_sorted, perm = torch.sort(tile, stable=True)
     S = pack_rows(list(rows), cfg.d_s, perm=perm)
@@ -500,6 +533,8 @@ def raster_fwd(S, starts, masks, cfg: V2Cfg):
     if S.shape != (cfg.d_s, cfg.cap) or starts.shape != (cfg.n_tiles_v + 1,) \
             or masks.shape != (cfg.n_tiles,):
         raise ValueError("raster_fwd: S, starts or masks has the wrong shape")
+    if cfg.n_attr:
+        raise ValueError("raster_fwd takes the 3DGS attribute layout")
     if cfg.cutoff not in ("exact", "soft"):
         raise ValueError(f"unknown cutoff {cfg.cutoff!r}")
     if _on_cpu(S, "raster_fwd"):
@@ -629,6 +664,8 @@ def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
             or masks.shape != (cfg.n_tiles,) or tiles.shape != tshape \
             or v_tiles.shape != tshape:
         raise ValueError("raster_bwd: an input has the wrong shape")
+    if cfg.n_attr:
+        raise ValueError("raster_bwd takes the 3DGS attribute layout")
     if cfg.cutoff not in ("exact", "soft"):
         raise ValueError(f"unknown cutoff {cfg.cutoff!r}")
     if _on_cpu(S, "raster_bwd"):

@@ -1,9 +1,10 @@
-"""Top-level rendering API: ``rasterization()`` on the fused path (port of
-gscodec_studio_tpu/rendering.py): projection -> SH -> fused binning and
-tile rasterization, returning (render_colors, render_alphas, meta).
-Differentiable: gradients reach means, quats, scales, opacities, colors
-and backgrounds through autograd of the plain projection and SH and the
-rasterizer's backward kernels."""
+"""Top-level rendering API (port of gscodec_studio_tpu/rendering.py):
+``rasterization()`` on the fused path, projection -> SH -> fused binning
+and tile rasterization, returning (render_colors, render_alphas, meta);
+``rasterization_2dgs()`` for surfels, with its fused and reference
+backends, and ``depth_to_normal()``. Differentiable: gradients reach
+means, quats, scales, opacities, colors and backgrounds through autograd
+of the plain projection and SH and the rasterizers' backward kernels."""
 
 from __future__ import annotations
 
@@ -13,7 +14,13 @@ import torch
 
 from gscodec_studio_tpu_torch.device import DeviceLike, resolve_device
 from gscodec_studio_tpu_torch.ops.projection import fully_fused_projection
+from gscodec_studio_tpu_torch.ops.projection_2dgs import (
+    fully_fused_projection_2dgs)
 from gscodec_studio_tpu_torch.ops.raster_v2 import rasterize_to_pixels_v2
+from gscodec_studio_tpu_torch.ops.raster_v2_2dgs import (
+    rasterize_to_pixels_2dgs_v2)
+from gscodec_studio_tpu_torch.ops.rasterize_ref_2dgs import (
+    rasterize_to_pixels_2dgs_ref)
 from gscodec_studio_tpu_torch.ops.sh import spherical_harmonics
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
@@ -54,19 +61,7 @@ def project_and_shade(means, quats, scales, opacities, colors, viewmats, Ks,
     if compensations is not None:
         opacities_cn = opacities_cn * compensations
 
-    if sh_degree is None:
-        colors_cn = colors[None].expand((C,) + colors.shape) \
-            if colors.ndim == 2 else colors
-    else:
-        campos = -torch.einsum("cij,ci->cj", viewmats[:, :3, :3],
-                               viewmats[:, :3, 3])
-        dirs = means[None, :, :] - campos[:, None, :]
-        shs = colors if colors.ndim == 4 else colors[None].expand(
-            (C,) + colors.shape)
-        colors_cn = spherical_harmonics(sh_degree, dirs, shs,
-                                        masks=radii_scalar > 0)
-        colors_cn = torch.clamp(colors_cn + 0.5, min=0.0)
-
+    colors_cn = _sh_colors(means, colors, viewmats, sh_degree, radii_scalar)
     return (radii, means2d, depths, conics, colors_cn, opacities_cn,
             compensations)
 
@@ -174,3 +169,170 @@ def rasterization(
         tile_size=tile_size, n_cameras=C, n_isects=vmeta["n_isects"],
     )
     return render_colors, render_alphas, meta
+
+
+def _sh_colors(means, colors, viewmats, sh_degree, radii_scalar):
+    """Per-camera colors [C, N, D]: the colors as given (broadcast over
+    the cameras) without ``sh_degree``, else the SH evaluated toward each
+    camera, + 0.5 and clipped at 0."""
+    C = viewmats.shape[0]
+    if sh_degree is None:
+        return colors[None].expand((C,) + colors.shape) \
+            if colors.ndim == 2 else colors
+    campos = -torch.einsum("cij,ci->cj", viewmats[:, :3, :3],
+                           viewmats[:, :3, 3])
+    dirs = means[None, :, :] - campos[:, None, :]
+    shs = colors if colors.ndim == 4 else colors[None].expand(
+        (C,) + colors.shape)
+    colors_cn = spherical_harmonics(sh_degree, dirs, shs,
+                                    masks=radii_scalar > 0)
+    return torch.clamp(colors_cn + 0.5, min=0.0)
+
+
+def project_and_shade_2dgs(means, quats, scales, opacities, colors,
+                           viewmats, Ks, width: int, height: int,
+                           near_plane: float = 0.01,
+                           far_plane: float = 1e10, radius_clip: float = 0.0,
+                           sh_degree: Optional[int] = None,
+                           elliptical: bool = True):
+    """The stages of ``rasterization_2dgs`` before binning, on tensors: the
+    surfel projection with opacity-aware radii (per-axis [C,N,2] with
+    ``elliptical``, the fused backend's, else [C,N]) and the 1/255 opacity
+    cull, the SH colors with the depth appended as the last channel, and
+    the per-camera opacities. Returns (radii, means2d, depths,
+    ray_transforms, normals, colors [C,N,D+1], opacities [C,N])."""
+    C = viewmats.shape[0]
+    N = means.shape[0]
+    radii, means2d, depths, ray_transforms, normals = (
+        fully_fused_projection_2dgs(
+            means, quats, scales, viewmats, Ks, width, height, near_plane,
+            far_plane, radius_clip, opacities=opacities,
+            elliptical=elliptical))
+    opac_ok = opacities[None, :] >= 1.0 / 255.0
+    radii = torch.where(opac_ok[..., None] if elliptical else opac_ok, radii,
+                        torch.zeros_like(radii))
+    radii_sc = radii.amax(dim=-1) if elliptical else radii
+    colors_cn = _sh_colors(means, colors, viewmats, sh_degree, radii_sc)
+    # the depth rides as the last channel, for the distortion and median
+    colors_cn = torch.cat([colors_cn, depths[..., None]], dim=-1)
+    return (radii, means2d, depths, ray_transforms, normals, colors_cn,
+            opacities[None, :].expand(C, N))
+
+
+def rasterization_2dgs(
+    means,  # [N, 3]
+    quats,  # [N, 4]
+    scales,  # [N, 3] (z ignored)
+    opacities,  # [N]
+    colors,  # [(C,) N, D] or SH [(C,) N, K, 3]
+    viewmats,  # [C, 4, 4]
+    Ks,  # [C, 3, 3]
+    width: int,
+    height: int,
+    near_plane: float = 0.01,
+    far_plane: float = 1e10,
+    radius_clip: float = 0.0,
+    sh_degree: Optional[int] = None,
+    tile_size: int = 16,
+    backgrounds=None,  # [C, D + 1]: the colors and the depth channel
+    render_mode: str = "RGB",
+    distloss: bool = False,
+    depth_mode: str = "expected",
+    rasterizer: str = "auto",
+    isect_capacity: Optional[int] = None,
+    log_composite: bool = False,
+    device: DeviceLike = None,
+):
+    """2DGS (surfel) rendering. Returns (render_colors, render_alphas,
+    render_normals, surf_normals, render_distort, render_median, meta).
+
+    Backends: ``"fused"``, the 2DGS tile kernels on raster_v2's binning
+    and reduction (ops/raster_v2_2dgs.py); ``"reference"``, the plain
+    O(C*N*H*W) oracle (ops/rasterize_ref_2dgs.py); ``"auto"``, fused on a
+    CUDA device and the reference on the CPU. ``distloss`` is accepted and
+    unused, as in the JAX package: the distortion is always rendered;
+    ``log_composite`` reaches the fused backend only, as there."""
+    del distloss
+    dev = resolve_device(device)
+    if rasterizer == "auto":
+        rasterizer = "fused" if dev.type == "cuda" else "reference"
+    if rasterizer not in ("fused", "reference"):
+        raise ValueError(f"unknown rasterizer {rasterizer!r}")
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    means, quats, scales, opacities = map(f32, (means, quats, scales,
+                                                opacities))
+    colors, viewmats, Ks = map(f32, (colors, viewmats, Ks))
+    C = viewmats.shape[0]
+    N = means.shape[0]
+    (radii, means2d, depths, ray_transforms, normals, colors_cn,
+     opacities_cn) = project_and_shade_2dgs(
+        means, quats, scales, opacities, colors, viewmats, Ks, width,
+        height, near_plane=near_plane, far_plane=far_plane,
+        radius_clip=radius_clip, sh_degree=sh_degree,
+        elliptical=rasterizer == "fused")
+    radii_sc = radii.amax(dim=-1) if radii.ndim == 3 else radii
+
+    if rasterizer == "fused":
+        cap = isect_capacity or _default_isect_capacity(C, N)
+        (render, alphas, render_normals, render_distort, render_median,
+         kmeta) = rasterize_to_pixels_2dgs_v2(
+            means2d, ray_transforms, colors_cn, opacities_cn, normals,
+            depths, radii, width, height, tile_size=tile_size,
+            isect_capacity=cap, backgrounds=backgrounds,
+            log_composite=log_composite, device=dev)
+        n_isects = kmeta["n_isects"]
+    else:
+        n_isects = torch.zeros((), dtype=torch.int32, device=dev)
+        render, alphas, render_normals, render_distort, render_median = (
+            rasterize_to_pixels_2dgs_ref(
+                means2d, ray_transforms, colors_cn, opacities_cn, normals,
+                depths, radii_sc, width, height, tile_size,
+                None if backgrounds is None else f32(backgrounds)))
+    render_colors, accum_depth = render[..., :-1], render[..., -1:]
+    if render_mode in ("ED", "RGB+ED"):
+        accum_depth = accum_depth / torch.clamp(alphas, min=1e-10)
+    depth_out = render_median if depth_mode == "median" else accum_depth
+    surf_normals = depth_to_normal(depth_out, viewmats, Ks)
+
+    meta = dict(
+        radii=radii_sc, means2d=means2d, depths=depths,
+        ray_transforms=ray_transforms, normals=normals, width=width,
+        height=height, n_cameras=C, gradient_2dgs=means2d,
+        n_isects=n_isects,
+    )
+    if render_mode in ("RGB+D", "RGB+ED"):
+        render_colors = torch.cat([render_colors, depth_out], dim=-1)
+    elif render_mode in ("D", "ED"):
+        render_colors = depth_out
+    return (render_colors, alphas, render_normals, surf_normals,
+            render_distort, render_median, meta)
+
+
+def depth_to_normal(depths, viewmats, Ks):
+    """Per-pixel camera-frame normals [C, H, W, 3] from central
+    differences of the un-projected depth map [C, H, W, 1]; the one-pixel
+    border is zero."""
+    C, H, W, _ = depths.shape
+    fx = Ks[:, 0, 0][:, None, None]
+    fy = Ks[:, 1, 1][:, None, None]
+    cx = Ks[:, 0, 2][:, None, None]
+    cy = Ks[:, 1, 2][:, None, None]
+    xs = torch.arange(W, dtype=depths.dtype,
+                      device=depths.device)[None, None, :] + 0.5
+    ys = torch.arange(H, dtype=depths.dtype,
+                      device=depths.device)[None, :, None] + 0.5
+    z = depths[..., 0]
+    X = (xs - cx) / fx * z
+    Y = (ys - cy) / fy * z
+    pts = torch.stack([X, Y, z], dim=-1)  # [C, H, W, 3]
+    dx = pts[:, 1:-1, 2:] - pts[:, 1:-1, :-2]
+    dy = pts[:, 2:, 1:-1] - pts[:, :-2, 1:-1]
+    n = torch.linalg.cross(dx, dy, dim=-1)
+    # rsqrt of the clamped squared norm: finite gradients at n == 0, where
+    # a bare norm's NaN gradient would poison the whole backward pass
+    n = n * torch.rsqrt(torch.clamp((n * n).sum(-1, keepdim=True),
+                                    min=1e-12))
+    return torch.nn.functional.pad(n, (0, 0, 1, 1, 1, 1))

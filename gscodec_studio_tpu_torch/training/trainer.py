@@ -4,7 +4,8 @@ trains the default configuration on one CUDA card.
 
 A step: activations -> ``rendering.rasterization`` (projection, SH, fused
 binning and the rasterizer's forward and backward kernels) -> L1 + SSIM
-loss -> autograd -> the densification statistics from the means2d probe's
+loss (these two in ``Runner.render_loss``, which the 2DGS runner
+overrides) -> autograd -> the densification statistics from the means2d probe's
 gradient -> per-group Adam. A finite-step gate skips a step whose loss or
 any gradient is not finite and counts it. Between steps the loop runs the
 default strategy's refine and opacity reset, the SH-degree schedule and
@@ -131,7 +132,7 @@ class Config:
     shN_ada_mask_opt: bool = False
 
 
-def check_ported(cfg: Config) -> None:
+def check_ported(cfg: Config, rasterizers=("fused",)) -> None:
     """Raise NotImplementedError for an option of a later slice."""
     later = [
         (cfg.strategy == "mcmc", "strategy='mcmc'", "A6"),
@@ -146,7 +147,8 @@ def check_ported(cfg: Config) -> None:
         (cfg.attr_dtype != "f32", f"attr_dtype={cfg.attr_dtype!r}", "A8b"),
         (cfg.log_composite, "log_composite", "A8b"),
         (cfg.mesh_devices > 1, f"mesh_devices={cfg.mesh_devices}", "A12"),
-        (cfg.rasterizer != "fused", f"rasterizer={cfg.rasterizer!r}", "A13"),
+        (cfg.rasterizer not in rasterizers, f"rasterizer={cfg.rasterizer!r}",
+         "A13"),
         (cfg.eval_save_images, "eval_save_images", "A8"),
         (cfg.tb_histograms_every != 0,
          f"tb_histograms_every={cfg.tb_histograms_every}", "A8"),
@@ -179,9 +181,11 @@ class Runner:
     ``points_rgb`` [N, 3] in 0..255 and ``scene_scale``; the datasets give
     dicts with "camtoworld", "K" and "image" [H, W, 3] in [0, 1]."""
 
+    rasterizers = ("fused",)  # the cfg.rasterizer values this runner takes
+
     def __init__(self, cfg: Config, parser=None, trainset=None, valset=None,
                  device: DeviceLike = None):
-        check_ported(cfg)
+        check_ported(cfg, self.rasterizers)
         if parser is None:
             raise NotImplementedError(
                 "the COLMAP dataset loader is not ported yet: ROADMAP A9; "
@@ -234,19 +238,16 @@ class Runner:
         base = self.cfg.isect_capacity or max(cap * 4, 1 << 20)
         return base * self.isect_cap_scale
 
-    def train_step(self, idx: List[int], sh_degree: int) -> dict:
-        """One step on the training views ``idx``. Returns the loss, the
-        intersection count and whether the finite gate skipped the step;
-        a skipped step leaves every parameter, moment and statistic as it
-        was."""
+    def render_loss(self, params: Dict[str, torch.Tensor], c2w, Ks, target,
+                    sh_degree: int, step: int):
+        """The step's forward: render the views and score them against
+        ``target`` [B, H, W, 3]. Returns (loss, meta, probe): ``probe`` is
+        the tensor whose gradient the strategy reads (dL/d means2d, or with
+        absgrad the per-Gaussian sums of |per-pixel dL/d means2d|)."""
+        del step  # the 3DGS loss has no schedule
         cfg = self.cfg
         dev = self.device
-        data = self._device_trainset()
-        sel = torch.as_tensor(idx, device=dev)
-        c2w, Ks, target = (data[k][sel] for k in ("camtoworld", "K", "image"))
         B, H, W = target.shape[:3]
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in self.splats.items()}
         means, quats, scales, opac = splat_activations(params)
         colors = torch.cat([params["sh0"], params["shN"]], 1)
         bkgd = (torch.rand((B, 3), generator=self.generator, device=dev)
@@ -268,9 +269,24 @@ class Runner:
             loss = loss + cfg.opacity_reg * opac.abs().mean()
         if cfg.scale_reg > 0:
             loss = loss + cfg.scale_reg * scales.abs().mean()
+        return loss, meta, probe if ag_probe is None else ag_probe
+
+    def train_step(self, idx: List[int], sh_degree: int,
+                   step: int = 0) -> dict:
+        """Step ``step`` (0-based) on the training views ``idx``. Returns
+        the loss, the intersection count and whether the finite gate
+        skipped the step; a skipped step leaves every parameter, moment and
+        statistic as it was."""
+        dev = self.device
+        data = self._device_trainset()
+        sel = torch.as_tensor(idx, device=dev)
+        c2w, Ks, target = (data[k][sel] for k in ("camtoworld", "K", "image"))
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in self.splats.items()}
+        loss, meta, probe = self.render_loss(params, c2w, Ks, target,
+                                             sh_degree, step)
         names = list(params)
-        probes = [probe] if ag_probe is None else [ag_probe]
-        grads = torch.autograd.grad(loss, [params[k] for k in names] + probes)
+        grads = torch.autograd.grad(loss, [params[k] for k in names] + [probe])
         param_grads = dict(zip(names, grads[:len(names)]))
         ok = torch.isfinite(loss)
         for g in param_grads.values():
@@ -305,7 +321,7 @@ class Runner:
         for step0 in range(max_steps):
             sh_degree = min(step0 // cfg.sh_degree_interval, cfg.sh_degree)
             idx = [order[(step0 * B + j) % len(order)] for j in range(B)]
-            out = self.train_step(idx, sh_degree)
+            out = self.train_step(idx, sh_degree, step0)
             step = step0 + 1
             if out["skipped"]:
                 print(f"step {step}: step REJECTED (non-finite loss or "

@@ -1,0 +1,95 @@
+"""2DGS trainer (port of gscodec_studio_tpu/training/trainer_2dgs.py):
+surfel splats with the normal-consistency and distortion losses.
+
+The static trainer's loop, with ``rendering.rasterization_2dgs`` as the
+render and the loss
+  combined_loss(render, target)
+  + normal_lambda * (step > normal_start_iter)
+    * mean(1 - <normalize(render_normals), surf_normals>)
+  + dist_lambda * (step > dist_start_iter) * mean(render_distort).
+Densification, Adam, the finite gate, the capacity and evaluation are the
+3DGS ``Runner``'s. Three behaviours of the JAX Runner2DGS are reproduced,
+not repaired: its strategy reads a zero means2d gradient (so refines only
+prune and reset), its loss drops ``opacity_reg``, ``scale_reg`` and
+``random_bkgd``, and the median depth carries no gradient.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from gscodec_studio_tpu_torch.models.splats import splat_activations
+from gscodec_studio_tpu_torch.rendering import rasterization_2dgs
+from gscodec_studio_tpu_torch.training.losses import combined_loss
+from gscodec_studio_tpu_torch.training.trainer import (Config, Runner,
+                                                       _tensor)
+
+
+@dataclass
+class Config2DGS(Config):
+    normal_lambda: float = 5e-2
+    normal_start_iter: int = 7_000
+    dist_lambda: float = 1e-2
+    dist_start_iter: int = 3_000
+
+
+class Runner2DGS(Runner):
+    """The 3DGS Runner with the 2DGS render and loss. ``cfg.rasterizer``
+    "fused" selects the 2DGS tile kernels; "reference" and "pallas" the
+    plain oracle (the only other 2DGS backend), as in the JAX package."""
+
+    rasterizers = ("fused", "pallas", "reference")
+
+    def _rasterizer_2dgs(self) -> str:
+        return "fused" if self.cfg.rasterizer == "fused" else "reference"
+
+    def render_loss(self, params, c2w, Ks, target, sh_degree: int,
+                    step: int):
+        cfg = self.cfg
+        dev = self.device
+        B, H, W = target.shape[:3]
+        means, quats, scales, opac = splat_activations(params)
+        colors = torch.cat([params["sh0"], params["shN"]], 1)
+        (render, _, render_n, surf_n, distort, _, meta) = rasterization_2dgs(
+            means, quats, scales, opac, colors, torch.linalg.inv(c2w), Ks,
+            W, H, sh_degree=sh_degree, near_plane=cfg.near_plane,
+            far_plane=cfg.far_plane, rasterizer=self._rasterizer_2dgs(),
+            isect_capacity=self.isect_capacity(), device=dev)
+        # The JAX Runner2DGS never feeds its probe to the rasterizer: it
+        # adds 0 * probe.sum() to the render
+        # (gscodec_studio_tpu/training/trainer_2dgs.py:67), so the
+        # v_means2d it hands the strategy (:89) is identically zero, the
+        # default strategy's grad2d never grows, and refines only prune and
+        # reset. Reproduced, not repaired.
+        probe = torch.zeros((B, means.shape[0], 2), device=dev,
+                            requires_grad=True)
+        render = render + 0.0 * probe.sum()
+        loss = combined_loss(render, target, cfg.ssim_lambda)
+        gate_n = float(step > cfg.normal_start_iter)
+        # the camera-frame splat normal field against the depth's normals
+        nc = render_n * torch.rsqrt(torch.clamp(
+            (render_n * render_n).sum(-1, keepdim=True), min=1e-12))
+        normal_err = 1.0 - (nc * surf_n).sum(-1)
+        loss = loss + cfg.normal_lambda * gate_n * normal_err.mean()
+        gate_d = float(step > cfg.dist_start_iter)
+        loss = loss + cfg.dist_lambda * gate_d * distort.mean()
+        return loss, meta, probe
+
+    def render_view(self, camtoworld, K, width: int, height: int,
+                    sh_degree: Optional[int] = None) -> torch.Tensor:
+        """[H, W, 3] render of the current splats, clipped to [0, 1]."""
+        sh = self.cfg.sh_degree if sh_degree is None else sh_degree
+        dev = self.device
+        with torch.no_grad():
+            means, quats, scales, opac = splat_activations(self.splats)
+            colors = torch.cat([self.splats["sh0"], self.splats["shN"]], 1)
+            viewmat = torch.linalg.inv(_tensor(camtoworld, dev))
+            render, *_ = rasterization_2dgs(
+                means, quats, scales, opac, colors, viewmat[None],
+                _tensor(K, dev)[None], width, height, sh_degree=sh,
+                rasterizer=self._rasterizer_2dgs(),
+                isect_capacity=self.isect_capacity(), device=dev)
+        return torch.clamp(render[0, ..., :3], 0.0, 1.0)

@@ -7,10 +7,11 @@ file imports no JAX, so it also runs on a machine without it:
 
 Tolerances: pack, expansion and unpack bit for bit (no pair of these
 seeds lies on the cull bound); tile forward max abs 1e-4 (summation order
-on the card); tile backward 1e-4 of each gradient row's largest |value|
-and segment sums 1e-5 of the largest |sum| (the kernels sum in another
-order than their plain versions); every backward kernel gives the same bits
-when it runs twice on the same inputs.
+on the card; for 2DGS relative to each output channel's max(1, |largest|),
+the median bit for bit); tile backward 1e-4 of each gradient row's largest
+|value| and segment sums 1e-5 of the largest |sum| (the kernels sum in
+another order than their plain versions); every backward kernel gives the
+same bits when it runs twice on the same inputs.
 """
 
 import numpy as np
@@ -69,7 +70,7 @@ def test_expand_kernel_matches_plain(cuda):
     for ts in (16, 32):
         cfg = _cfg(C, N, 200, 136, ts, 3)
         order, cum, base, nx, n_isects = tr._compact(cfg, t[0], rad, t[4])
-        table = tr.pack_rows(tr._attr_rows(cfg, *t[:4]), cfg.n_attr, order)
+        table = tr.pack_rows(tr._attr_rows(cfg, *t[:4]), cfg.n_attr_eff, order)
         tile, rows = tr.expand(cum, base, nx, table, n_isects, cfg)
         tile_p, rows_p = tr._expand_plain(cum, base, nx, table, n_isects,
                                           cfg)
@@ -242,5 +243,116 @@ def test_wide_renders_on_card_match_cpu(cuda, D):
     for a, b in zip(outs["cuda"][:2], outs["cpu"][:2]):
         assert float((a - b).abs().max()) <= 1e-4
     for a, b in zip(outs["cuda"][2:], outs["cpu"][2:]):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale
+
+
+def _surfel_case(cuda, seed, cutoff, N=3000, W=200, H=136):
+    """Projected surfels of a seeded scene, binned for the 2DGS kernels."""
+    from gscodec_studio_tpu_torch.ops import raster_v2_2dgs as t2
+    from gscodec_studio_tpu_torch.rendering import project_and_shade_2dgs
+
+    rng = np.random.default_rng(seed)
+    means = (rng.standard_normal((N, 3)) * [1.5, 1.0, 1.5]).astype(np.float32)
+    quats = rng.standard_normal((N, 4)).astype(np.float32)
+    scales = np.exp(rng.normal(-3.0, 0.5, (N, 3))).astype(np.float32)
+    opac = rng.random(N).astype(np.float32)
+    colors = rng.random((N, 3)).astype(np.float32)
+    vm = np.eye(4, dtype=np.float32)
+    vm[2, 3] = 5.0
+    K = np.array([[[150, 0, W / 2], [0, 150, H / 2], [0, 0, 1]]], np.float32)
+    t = [torch.as_tensor(x, device=cuda) for x in (means, quats, scales,
+                                                   opac, colors)]
+    radii, m2, dep, trans, nrm, col, op = project_and_shade_2dgs(
+        *t, torch.as_tensor(vm[None], device=cuda),
+        torch.as_tensor(K, device=cuda), W, H)
+    colors_full = torch.cat([col, nrm], -1).contiguous()
+    CB = colors_full.shape[-1]
+    cfg = t2.cfg_2dgs(1, -(-W // 16), -(-H // 16), 16, CB, 1 << 17, N,
+                      cutoff=cutoff)
+    b = t2._build_sorted_2dgs(cfg, m2.contiguous(), trans.contiguous(),
+                              colors_full, op.contiguous(), dep.contiguous(),
+                              radii.contiguous())
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    masks = (torch.rand(cfg.n_tiles, generator=g) > 0.2).to(
+        device=cuda, dtype=torch.int32)
+    return t2, cfg, b, masks, g
+
+
+def test_no_cull_expand_kernel_matches_plain(cuda):
+    t2, cfg, b, masks, _ = _surfel_case(cuda, 12, "exact")
+    n = int(b.n_isects[0])
+    assert n > 1000 and not cfg.cull
+    tile_p, rows_p = tr._expand_plain(b.cum, b.base, b.nx, b.table,
+                                      b.n_isects, cfg)
+    assert torch.equal(b.tile, tile_p) and torch.equal(b.rows, rows_p)
+    assert int((b.tile[:n] == cfg.n_tiles).sum()) == 0
+
+
+def test_2dgs_kernels_match_plain(cuda):
+    """B5 within 1e-4 of each output channel's scale (max(1, |largest|)),
+    the median bit for bit; B6 within 1e-4 of each gradient row's largest
+    |value| and the same bits twice."""
+    for cutoff in ("exact", "soft"):
+        t2, cfg, b, masks, g = _surfel_case(cuda, 13, cutoff)
+        zch = cfg.channels - 4
+        before = dict(tr.LAUNCHES)
+        out = t2.raster_fwd_2dgs(b.S, b.starts, masks, cfg, zch)
+        assert tr.LAUNCHES["raster_fwd_2dgs"] == \
+            before["raster_fwd_2dgs"] + 1
+        ref = t2._fwd_2dgs_plain(b.S, b.starts, masks, cfg, zch)
+        scale = ref.abs().amax(dim=(0, 1)).clamp(min=1.0)
+        assert float(((out - ref).abs().amax(dim=(0, 1)) / scale).max()) \
+            <= 1e-4, cutoff
+        assert torch.equal(out[..., -1], ref[..., -1]), cutoff
+        assert float(out[..., cfg.channels].max()) > 0.5
+        v_tiles = torch.randn(out.shape, generator=g).to(cuda)
+        args = (b.S, b.starts, masks, out, v_tiles, cfg, zch)
+        gbuf = t2.raster_bwd_2dgs(*args)
+        assert gbuf.shape == (12 + cfg.channels, cfg.cap)
+        assert _rows_close(gbuf, t2._bwd_2dgs_plain(*args), 1e-4), cutoff
+        assert torch.equal(gbuf, t2.raster_bwd_2dgs(*args))
+        assert float(gbuf[:11].abs().max()) > 0
+
+
+def test_rasterization_2dgs_on_card_matches_cpu(cuda):
+    from gscodec_studio_tpu_torch.rendering import rasterization_2dgs
+
+    rng = np.random.default_rng(14)
+    N, W, H = 3000, 160, 120
+    means = (rng.standard_normal((N, 3)) * [1.5, 1.0, 1.5]).astype(np.float32)
+    quats = rng.standard_normal((N, 4)).astype(np.float32)
+    scales = np.exp(rng.normal(-3.0, 0.5, (N, 3))).astype(np.float32)
+    opac = rng.random(N).astype(np.float32)
+    sh = (rng.standard_normal((N, 16, 3)) * 0.3).astype(np.float32)
+    vm = np.eye(4, dtype=np.float32)
+    vm[2, 3] = 5.0
+    K = np.array([[[150, 0, W / 2], [0, 150, H / 2], [0, 0, 1]]], np.float32)
+    cts = [rng.standard_normal((1, H, W, c)).astype(np.float32)
+           for c in (3, 1, 3, 1)]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [torch.tensor(x, device=dev, requires_grad=True)
+                  for x in (means, quats, scales, opac, sh)]
+        before = dict(tr.LAUNCHES)
+        out = rasterization_2dgs(*leaves, vm[None], K, W, H, sh_degree=3,
+                                 rasterizer="fused", device=dev)
+        loss = sum((o * torch.as_tensor(c, device=dev)).sum()
+                   for o, c in zip((out[0], out[1], out[2], out[4]), cts))
+        loss.backward()
+        if dev.type == "cuda":
+            for name in ("raster_fwd_2dgs", "raster_bwd_2dgs", "expand"):
+                assert tr.LAUNCHES[name] == before[name] + 1, name
+        outs[dev.type] = ([o.detach().cpu() for o in out[:6]],
+                          [t.grad.cpu() for t in leaves])
+    # the projection's products round differently on the card, which can
+    # move a pair across the 1/255 alpha test or the 1e-4 cutoff: the
+    # image tolerance of test_torch_rendering (5e-3 at most, 99.9% within
+    # 1e-4), relative to max(1, the output's largest |value|)
+    for a, b in zip(outs["cuda"][0], outs["cpu"][0]):
+        d = (a - b).abs() / max(1.0, float(b.abs().max()))
+        assert float(d.max()) <= 5e-3
+        assert float((d <= 1e-4).float().mean()) >= 0.999
+    for a, b in zip(outs["cuda"][1], outs["cpu"][1]):
         scale = float(b.abs().max())
         assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale

@@ -20,8 +20,13 @@ from gscodec_studio_tpu.ops.rasterize_ref import (
 from gscodec_studio_tpu_torch.models import splats as tsplats
 from gscodec_studio_tpu_torch.ops import raster_v2 as tr
 from gscodec_studio_tpu_torch.ops.rasterize_ref import rasterize_to_pixels_ref
-from gscodec_studio_tpu_torch.rendering import rasterization
+from gscodec_studio_tpu_torch.ops.raster_v2_2dgs import (
+    rasterize_to_pixels_2dgs_v2)
+from gscodec_studio_tpu_torch.rendering import (rasterization,
+                                                rasterization_2dgs)
 from gscodec_studio_tpu_torch.training.trainer import Config, Runner
+from gscodec_studio_tpu_torch.training.trainer_2dgs import (Config2DGS,
+                                                            Runner2DGS)
 from gscodec_studio_tpu_torch.utils.scenes import (checkpoint_stand_in,
                                                    make_scene)
 
@@ -64,7 +69,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "ops.raster_v2", "rendering", "models.splats",
         "optimizers.builders", "strategy.base", "strategy.ops",
         "strategy.default", "training.losses", "training.trainer",
-        "utils.scenes")} <= walked
+        "utils.scenes", "ops.projection_2dgs", "ops.rasterize_ref_2dgs",
+        "ops.raster_v2_2dgs", "training.trainer_2dgs")} <= walked
 
 
 def test_entry_points_default_to_cuda(rng, monkeypatch, tmp_path):
@@ -81,6 +87,13 @@ def test_entry_points_default_to_cuda(rng, monkeypatch, tmp_path):
         rasterization(d["means"], d["quats"], np.exp(d["scales"]),
                       np.full(10, 0.5, np.float32), col[0], vm, K, 48, 32)
     with pytest.raises(RuntimeError, match="CUDA"):
+        rasterization_2dgs(d["means"], d["quats"], np.exp(d["scales"]),
+                           np.full(10, 0.5, np.float32), col[0], vm, K, 48,
+                           32)
+    M = np.tile(np.eye(3, dtype=np.float32), (1, 10, 1, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rasterize_to_pixels_2dgs_v2(m2, M, col, op, col, dep, rad, 48, 32)
+    with pytest.raises(RuntimeError, match="CUDA"):
         tsplats.create_splats(d["means"])
     with pytest.raises(RuntimeError, match="CUDA"):
         checkpoint_stand_in(ROOT / "results" / "garden_ab_f32"
@@ -93,6 +106,9 @@ def test_entry_points_default_to_cuda(rng, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         Runner(Config(result_dir=str(tmp_path)), parser=Parser(),
                trainset=[], valset=[])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Runner2DGS(Config2DGS(result_dir=str(tmp_path)), parser=Parser(),
+                   trainset=[], valset=[])
 
 
 def test_from_jax_splats_round_trip(rng):
