@@ -443,7 +443,7 @@ class Stages2DGS:
         self.gbuf = gbuf
         return {"bwd2_rel_err": err, "bwd2_max_abs_err": abs_err}
 
-    def kernel_numbers(self, cuda_ms, plain_reps=1):
+    def kernel_numbers(self, cuda_ms):
         """B5's and B6's time, plain time and bound at these inputs (B6 on
         compare_bwd's cotangent)."""
         cfg, b, r2 = self.cfg, self.b, self.r2
@@ -460,16 +460,14 @@ class Stages2DGS:
         k = {}
         k["raster_fwd_2dgs"] = bound(dict(
             ms=cuda_ms(lambda: r2.raster_fwd_2dgs(*fwd_args), 10),
-            plain_ms=cuda_ms(lambda: r2._fwd_2dgs_plain(*fwd_args),
-                             plain_reps),
+            plain_ms=cuda_ms(lambda: r2._fwd_2dgs_plain(*fwd_args), 1),
             library_ms=None, bytes=table_bytes + tile_bytes,
             ops=walk_ops + (FWD2_OPS_COMPOSITED + 2 * CB)
             * pc["composited"], pair_counts=pc))
         n_uv = pc["composited_uv"]
         k["raster_bwd_2dgs"] = bound(dict(
             ms=cuda_ms(lambda: r2.raster_bwd_2dgs(*self.bwd_args), 5),
-            plain_ms=cuda_ms(lambda: r2._bwd_2dgs_plain(*self.bwd_args),
-                             plain_reps),
+            plain_ms=cuda_ms(lambda: r2._bwd_2dgs_plain(*self.bwd_args), 1),
             library_ms=None,
             bytes=table_bytes + 2 * tile_bytes + 4 * d_g * L,
             ops=walk_ops + (BWD2_OPS_COMPOSITED + 3 * CB + d_g)

@@ -30,7 +30,7 @@ they run the plain versions beside them (``_fwd_2dgs_plain``,
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 

@@ -236,7 +236,6 @@ def rasterization_2dgs(
     tile_size: int = 16,
     backgrounds=None,  # [C, D + 1]: the colors and the depth channel
     render_mode: str = "RGB",
-    distloss: bool = False,
     depth_mode: str = "expected",
     rasterizer: str = "auto",
     isect_capacity: Optional[int] = None,
@@ -249,10 +248,14 @@ def rasterization_2dgs(
     Backends: ``"fused"``, the 2DGS tile kernels on raster_v2's binning
     and reduction (ops/raster_v2_2dgs.py); ``"reference"``, the plain
     O(C*N*H*W) oracle (ops/rasterize_ref_2dgs.py); ``"auto"``, fused on a
-    CUDA device and the reference on the CPU. ``distloss`` is accepted and
-    unused, as in the JAX package: the distortion is always rendered;
-    ``log_composite`` reaches the fused backend only, as there."""
-    del distloss
+    CUDA device and the reference on the CPU. The distortion is always
+    rendered (the JAX signature's unused ``distloss`` is not taken);
+    ``depth_mode`` "median" takes the surface normals from the median
+    depth; ``log_composite`` reaches the fused backend only, as in JAX."""
+    if render_mode not in RENDER_MODES:
+        raise ValueError(f"unknown render_mode {render_mode!r}")
+    if depth_mode not in ("expected", "median"):
+        raise ValueError(f"unknown depth_mode {depth_mode!r}")
     dev = resolve_device(device)
     if rasterizer == "auto":
         rasterizer = "fused" if dev.type == "cuda" else "reference"

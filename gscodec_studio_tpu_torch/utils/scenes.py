@@ -44,8 +44,9 @@ class StandInParser:
     """The training stand-in's scene: target views rendered from a trained
     checkpoint, and its point cloud as the initialisation (the means of the
     checkpoint's live Gaussians, coloured by clip(sh_to_rgb(sh0), 0, 1)),
-    as an SfM parser gives them. ``scene_scale`` is 1.1 x the largest distance of a camera centre
-    from their mean, the JAX package's COLMAP Parser rule."""
+    as an SfM parser gives them. ``scene_scale`` is 1.1 x the largest
+    distance of a camera centre from their mean, the JAX package's COLMAP
+    Parser rule."""
 
     def __init__(self, points, points_rgb, cameras: List[dict],
                  images: List[torch.Tensor]):

@@ -26,7 +26,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from gscodec_studio_tpu.ops import raster_v2 as jr
 from gscodec_studio_tpu.ops.projection_2dgs import (
     fully_fused_projection_2dgs as jprojection)
 from gscodec_studio_tpu.ops.raster_v2_2dgs import (
@@ -229,10 +228,13 @@ def test_rasterization_2dgs_matches_jax(surfels):
             (0.3 + 0.5 * rng.random(n)).astype(np.float32),
             (rng.standard_normal((n, 4, 3)) * 0.3).astype(np.float32),
             scene["viewmats"][:1], scene["Ks"][:1]]
-    kw = dict(sh_degree=1, render_mode="RGB+ED", isect_capacity=8192)
     names = ("colors", "alphas", "normals", "surf_normals", "distort",
              "median")
-    for backend in ("reference", "fused"):
+    for backend, depth_mode in (("reference", "median"),
+                                ("fused", "expected")):
+        kw = dict(sh_degree=1, render_mode="RGB+ED", isect_capacity=8192,
+                  depth_mode=depth_mode)
+
         def render(*a):
             out = jrasterization_2dgs(*a, W, H, rasterizer=backend, **kw)
             return out[:6], out[6]["radii"]
