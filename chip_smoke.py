@@ -43,11 +43,26 @@ Phases, one JSON line each with its own ``seconds``:
             6 (the loss must fall from steps 6-10 to the last 5): loss,
             held-out PSNR, step ms, launches; then B6 timed on each
             training view and the slowest view's 2DGS kernels held against
-            their plain versions.
-Then a line {"kernels": [...]} with each kernel's numbers (launches from
-its main path: the train phase, and for B5 and B6 the train_2dgs phase),
-the card's name and power limit, and the result line. Any failed check
-raises, and the script exits non-zero without the result line.
+            their plain versions;
+  train_ladder  the garden ladder's recipe (examples/garden_benchmark.py,
+            results/garden_ladder_r5/stats.json) through Runner on the same
+            stand-in: MCMC at a capacity of 120,000, the compression
+            simulation with the entropy models and the shN mask, opacity
+            and scale regularisers, grad_dtype "bf16" (the packed-pair
+            branches of the tile backward and the segment sums), 30 steps,
+            the entropy and mask gates moved to step 5: loss, held-out
+            PSNR, step ms, the allocated count after each refine, the bits
+            term, per-view profiled steps; then the packed kernels on the
+            slowest view's own inputs against their plain versions;
+  train_2dgs_mcmc  Runner2DGS at strategy "mcmc" on the same stand-in,
+            20 steps: loss, skipped steps, the allocated count.
+The kernels and train_1m phases also hold the packed-pair branches (B2p,
+B4p) against their plain versions, and train_1m times the bf16 case beside
+the f32 one. Then a line {"kernels": [...]} with each kernel's numbers
+(launches from its main path: the train phase, for B5 and B6 the
+train_2dgs phase, for B2p and B4p the train_ladder phase), the card's name
+and power limit, and the result line. Any failed check raises, and the
+script exits non-zero without the result line.
 """
 
 import json
@@ -68,9 +83,20 @@ WIDTH, HEIGHT = 1297, 840
 N_1M = 1_000_000
 N_SMALL = 20_000
 TRAIN_STEPS = 30
+LADDER_CAP = 120_000  # the checkpoint's slot count
+LADDER_GATE = 5  # the entropy and mask gates' step in the ladder phase
+MCMC_2DGS_STEPS = 20
 FWD_TOL = 1e-4  # kernel vs plain forward, max abs on colors and alpha
 BWD_TOL = 1e-4  # kernel vs plain backward, relative to each row's max |.|
 SEGSUM_TOL = 1e-5  # kernel vs plain segment sums, relative to max |sum|
+# packed pairs: each half within one bf16 step (2^-7 of its value) of the
+# plain version's half, plus the f32 branch's tolerance; the packed segment
+# sums (the same truncated summands in another order) within 1e-6 of each
+# row's largest |sum|; bf16 gradients within 1.5e-2 of each gradient's
+# scale of the f32 ones (the JAX package's own bound, tests/test_raster_v2.py)
+BF16_STEP = 2.0 ** -7
+SEGSUM_PACKED_TOL = 1e-6
+BF16_GRAD_TOL = 1.5e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 # raster_fwd's float32 operations per (pair, pixel), from csrc/raster_fwd.cu
@@ -123,11 +149,19 @@ KERNELS = {
     "raster_bwd_2dgs": dict(
         source="gscodec_studio_tpu_torch/csrc/raster_bwd_2dgs.cu",
         replaces="gscodec_studio_tpu/ops/raster_v2_2dgs.py:265"),
+    "raster_bwd_packed": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_bwd.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2.py:998"),
+    "segsum_rows_packed": dict(
+        source="gscodec_studio_tpu_torch/csrc/segsum.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2.py:1412"),
 }
 KERNELS_3DGS = ("pack_rows", "expand", "raster_fwd", "raster_bwd",
                 "segsum_rows", "unpack_rows")  # the 3DGS training step's
 KERNELS_2DGS = ("pack_rows", "expand", "raster_fwd_2dgs", "raster_bwd_2dgs",
                 "segsum_rows", "unpack_rows")  # the 2DGS training step's
+KERNELS_LADDER = ("pack_rows", "expand", "raster_fwd", "raster_bwd_packed",
+                  "segsum_rows_packed", "unpack_rows")  # grad_dtype "bf16"
 
 
 FWD_KERNELS = ("pack_rows", "expand", "raster_fwd")  # a render's kernels
@@ -354,6 +388,68 @@ class Stages:
         res["segsum_rel_err"] = err
         res["segsum_max_abs_err"] = abs_err
         self.seg = seg
+        res.update(self.compare_packed(errs))
+        return res
+
+    def compare_packed(self, errs):
+        """The packed-pair branches against their plain versions on
+        compare_bwd's cotangent: raster_bwd(packed=True) is the f32
+        branch's output truncated, bit for bit, and each half lies within
+        BF16_STEP of its value plus BWD_TOL of its row's scale from the plain
+        version's half (absgrad off and on), the share of bit-equal words
+        reported; the unpack moves the words bit for bit; the packed
+        segment sums lie within SEGSUM_PACKED_TOL of each row's largest
+        |sum|; each kernel twice gives the same bits. Keeps the absgrad-off
+        inputs for timing."""
+        rv, cfg, b = self.rv, self.cfg, self.b
+        res = {}
+        for absgrad in (False, True):
+            args = (b.S, b.starts, self.masks, self.out, self.v_tiles, cfg,
+                    absgrad)
+            gp = rv.raster_bwd(*args, packed=True)
+            if not torch.equal(gp, rv._pack_grad_rows(
+                    rv.raster_bwd(*args), cfg.n_attr_eff, absgrad)):
+                raise AssertionError("raster_bwd packed branch is not the "
+                                     "f32 branch truncated")
+            if not torch.equal(gp, rv.raster_bwd(*args, packed=True)):
+                raise AssertionError("raster_bwd packed differs between two "
+                                     "runs")
+            ref = rv._bwd_packed_plain(*args)
+            h = torch.cat(rv.unpack_pairs(gp))
+            hr = torch.cat(rv.unpack_pairs(ref))
+            scale = hr.abs().amax(dim=1, keepdim=True)
+            diff = (h - hr).abs()
+            tol = BF16_STEP * hr.abs() + BWD_TOL * (1 + BF16_STEP) * scale
+            if not bool((diff <= tol).all()):
+                raise AssertionError("raster_bwd packed halves differ from "
+                                     "plain by more than a bf16 step")
+            abs_err = float(diff.max())
+            errs["raster_bwd_packed"] = max(
+                errs.get("raster_bwd_packed", 0.0), abs_err)
+            res[f"packed_bit_equal_share_absgrad_{int(absgrad)}"] = float(
+                (gp == ref).float().mean())
+            res[f"packed_max_abs_err_absgrad_{int(absgrad)}"] = abs_err
+            if not absgrad:
+                self.gpk = gp
+        d = self.gpk.shape[0]
+        rows = rv.unpack_rows(self.gpk, d, b.perm)
+        if not torch.equal(rows, rv._unpack_rows_plain(self.gpk, d, b.perm)):
+            raise AssertionError("unpack_rows moves packed words unlike its "
+                                 "plain version")
+        seg = rv.segsum_rows(rows, b.cum, b.n_isects)
+        ref = rv._segsum_plain(rows, b.cum, b.n_isects)
+        diff = (seg - ref).abs()
+        err = float((diff / ref.abs().amax(dim=1, keepdim=True).clamp(
+            min=1e-30)).max())
+        if not (math.isfinite(err) and err <= SEGSUM_PACKED_TOL):
+            raise AssertionError(f"segsum_rows packed rel err {err} > "
+                                 f"{SEGSUM_PACKED_TOL}")
+        if not torch.equal(seg, rv.segsum_rows(rows, b.cum, b.n_isects)):
+            raise AssertionError("segsum_rows packed differs between two runs")
+        errs["segsum_rows_packed"] = max(errs.get("segsum_rows_packed", 0.0),
+                                         float(diff.max()))
+        res["segsum_packed_rel_err"] = err
+        self.prows, self.pseg = rows, seg
         return res
 
 
@@ -530,12 +626,12 @@ def main():
         return project_and_shade(means, quats, scales, opac, colors, vm, Ks,
                                  width, height, sh_degree=3)
 
-    def check_training_views(runner, sh_degree, errs):
+    def check_training_views(runner, sh_degree, errs, packed=False):
         """The kernels on the training run's own inputs: each training
         view at the run's splats, SH degree and intersection capacity. Times
-        B2 on every view with a seeded cotangent, then holds the slowest
-        view's kernels, forward and backward, against their plain
-        versions."""
+        B2 (with ``packed``, its packed-pair branch) on every view with a
+        seeded cotangent, then holds the slowest view's kernels, forward and
+        backward (both branches), against their plain versions."""
         tc = runner.cfg
         sp = runner.splats
         data = runner._device_trainset()
@@ -561,7 +657,7 @@ def main():
                 st.cotangent(seed=100 + i)
                 bwd_ms.append(cuda_ms(lambda: st.rv.raster_bwd(
                     st.b.S, st.b.starts, st.masks, st.out, st.v_tiles,
-                    st.cfg, False), 2))
+                    st.cfg, False, packed=packed), 2))
                 del st
             view = int(np.argmax(bwd_ms))
             st = view_stages(view)
@@ -876,10 +972,116 @@ def main():
           "height": HEIGHT, "binned_rows_tile16": binned_rows, "runs": rows_1m,
           "seconds": time.perf_counter() - t0})
 
+    def raster_grads(cfg, grad_dtype):
+        """The rasterizer's gradients (means2d, conics, colours, opacities)
+        at train_1m's projected inputs under a seeded cotangent."""
+        radii, m2d, depths, conics, colors_cn, opac_cn = prep_1m[:6]
+        xs = [x.detach().clone().requires_grad_(True)
+              for x in (m2d, conics, colors_cn, opac_cn)]
+        img, alpha, _ = rv.rasterize_to_pixels_v2(
+            *xs, depths, radii, WIDTH, HEIGHT, tile_size=16,
+            isect_capacity=cfg.cap, cutoff_mode=cfg.cutoff,
+            grad_dtype=grad_dtype, device=dev)
+        torch.autograd.backward([img, alpha], [ct_img, ct_alpha])
+        return [x.grad for x in xs]
+
+    def bf16_case(st, leaves, bwd_args, ids):
+        """grad_dtype "bf16" at train_1m's shapes (exact cutoff): fwd+bwd
+        median and profile, the rasterizer's gradient rows against the f32
+        case's (checked), the leaves' gradients against the last f32 call's
+        (reported), and the packed branches' and the unpacks' times beside
+        their f32 branches'."""
+        cfg = st.cfg
+        f32_grads = [t.grad.clone() for t in leaves]
+
+        def fwd_bwd16():
+            for t in leaves:
+                t.grad = None
+            out = rasterization(*leaves, vm, Ks, WIDTH, HEIGHT, sh_degree=3,
+                                tile_size=16, isect_capacity=cfg.cap,
+                                cutoff_mode=cfg.cutoff, grad_dtype="bf16",
+                                device=dev)[0]
+            torch.autograd.backward(out, ct_img)
+
+        rv.reset_launch_counts()
+        fwd_bwd16()
+        torch.cuda.synchronize()
+        launches = dict(rv.LAUNCHES)
+        if min(launches[k] for k in KERNELS_LADDER) < 1 or \
+                launches["raster_bwd"] or launches["segsum_rows"]:
+            raise AssertionError(f"the bf16 fwd+bwd did not take the packed "
+                                 f"branches: {launches}")
+        # reported: the leaves' gradients through projection and SH
+        leaf_err = {name: float((t.grad - g).abs().max() / g.abs().max())
+                    for name, t, g in zip(("means", "quats", "scales",
+                                           "opacities", "colors"), leaves,
+                                          f32_grads)}
+        # checked: the rasterizer's gradient rows (x, y, ca, cb, cc, the
+        # colours, opacity), each against its own scale in the f32 case
+        raster = {gd: raster_grads(cfg, gd) for gd in ("f32", "bf16")}
+        row_err = {}
+        for name, a, b_ in zip(("means2d", "conics", "colors", "opacities"),
+                               raster["bf16"], raster["f32"]):
+            a, b_ = a.reshape(a.shape[1], -1), b_.reshape(b_.shape[1], -1)
+            row_err[name] = ((a - b_).abs().amax(0)
+                             / b_.abs().amax(0).clamp(min=1e-30)).tolist()
+            if not all(math.isfinite(e) and e <= BF16_GRAD_TOL
+                       for e in row_err[name]):
+                raise AssertionError(f"bf16 {name} gradient rows off the f32 "
+                                     f"ones by {row_err[name]} of their scale")
+        fb_ms, fb_samples = median_ms(fwd_bwd16, 5)
+        profile = device_profile(fwd_bwd16)
+        CH, P, L, M = cfg.channels, cfg.pixels, cfg.cap, cfg.C * cfg.n
+        n_isects = int(st.b.n_isects)
+        n_rows = int(st.b.starts[cfg.n_tiles] - st.b.starts[0])
+        pc = st.pair_counts
+        d_g, d_p = cfg.d_g(False), cfg.d_gp(False)
+        halves = torch.cat(rv.unpack_pairs(st.prows))[:, :n_isects]
+        seg_pairs = rv.repack_sums(st.pseg, cfg.n_attr_eff, False)
+        k = {}
+        k["raster_bwd_packed"] = bound(dict(
+            ms=cuda_ms(lambda: rv.raster_bwd(*bwd_args, packed=True), 10),
+            plain_ms=cuda_ms(lambda: rv._bwd_packed_plain(*bwd_args), 1),
+            library_ms=None,
+            bytes=4 * (6 + CH) * n_rows + 4 * (cfg.n_tiles_v + 1)
+            + 4 * cfg.n_tiles + 2 * 4 * cfg.n_tiles * P * (CH + 1)
+            + 4 * d_p * L,
+            ops=FWD_OPS_EVALUATED * pc["evaluated"]
+            + FWD_OPS_TESTED[cfg.cutoff] * pc["tested"]
+            + (BWD_OPS_COMPOSITED + 3 * CH + d_g) * pc["composited"],
+            pair_counts=pc))
+        k["segsum_rows_packed"] = bound(dict(
+            ms=cuda_ms(lambda: rv.segsum_rows(st.prows, st.b.cum,
+                                              st.b.n_isects), 10),
+            plain_ms=cuda_ms(lambda: rv._segsum_plain(
+                st.prows, st.b.cum, st.b.n_isects), 3),
+            library_ms=cuda_ms(lambda: torch.zeros(
+                (2 * d_p, M), device=dev).index_add_(1, ids, halves), 10),
+            bytes=4 * d_p * n_isects + 4 * M + 4 * 2 * d_p * M,
+            ops=2 * d_p * n_isects))
+        unpack_ms = dict(
+            packed_rows=d_p,
+            packed_ms=cuda_ms(lambda: rv.unpack_rows(st.gpk, d_p, st.b.perm),
+                              10),
+            f32_ms=cuda_ms(lambda: rv.unpack_rows(st.gbuf, d_g, st.b.perm),
+                           10),
+            per_gaussian_packed_rows=seg_pairs.shape[0],
+            per_gaussian_packed_ms=cuda_ms(lambda: rv.unpack_rows(
+                seg_pairs, seg_pairs.shape[0], st.b.order), 10),
+            per_gaussian_f32_ms=cuda_ms(lambda: rv.unpack_rows(
+                st.seg, d_g, st.b.order), 10))
+        return dict(fwd_bwd_ms=fb_ms, fwd_bwd_ms_samples=fb_samples,
+                    mpix_per_s=WIDTH * HEIGHT / (fb_ms * 1e-3) / 1e6,
+                    launches_per_fwd_bwd=launches,
+                    raster_row_err_vs_f32=row_err, grad_tol=BF16_GRAD_TOL,
+                    leaf_grad_err_vs_f32=leaf_err, kernels=k, unpack=unpack_ms,
+                    profile=profile)
+
     # 6. train_1m: forward + backward at 1M, and the backward kernels
     t0 = time.perf_counter()
     g = torch.Generator(device="cpu").manual_seed(7)
     ct_img = torch.randn((1, HEIGHT, WIDTH, 3), generator=g).to(dev)
+    ct_alpha = torch.randn((1, HEIGHT, WIDTH, 1), generator=g).to(dev)
     leaves = [t.detach().clone().requires_grad_(True)
               for t in (means, quats, scales, opac, colors)]
     runs_bwd = []
@@ -956,15 +1158,18 @@ def main():
             per_gaussian_library_ms=cuda_ms(
                 lambda: torch.empty_like(st.seg).index_copy_(
                     1, st.b.order, st.seg), 10)))
-        runs_bwd.append(dict(
+        run = dict(
             tile_size=16, cutoff=cutoff, n_isects=n_isects,
             rows_in_tiles=n_rows, isect_capacity=L, fwd_bwd_ms=fb_ms,
             fwd_bwd_ms_samples=fb_samples, fwd_ms=f_ms,
             mpix_per_s=WIDTH * HEIGHT / (fb_ms * 1e-3) / 1e6,
             launches_per_fwd_bwd=launches, kernels=k, profile=profile,
-            check=dict(fwd_check, **bwd_check)))
+            check=dict(fwd_check, **bwd_check))
         if cutoff == "exact":
             perf.update(k)
+            run["bf16"] = bf16_case(st, leaves, bwd_args, ids)
+            perf.update(run["bf16"]["kernels"])
+        runs_bwd.append(run)
         del st
     # B1 and B2 at 40 channels at these shapes (the 64-channel
     # instantiation; kernel times only)
@@ -1185,14 +1390,154 @@ def main():
                                 for k, v in train2_launches.items()},
           "view_check": train2_check, "train_seconds": train2_s,
           "seconds": time.perf_counter() - t0})
+    del runner
+    shutil.rmtree(stats_dir, ignore_errors=True)
+
+    # 10. train_ladder: the garden ladder's recipe on the same stand-in
+    t0 = time.perf_counter()
+    stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_ladder_")
+    lcfg = Config(result_dir=stats_dir, strategy="mcmc",
+                  mcmc_cap_max=LADDER_CAP, opacity_reg=0.01, scale_reg=0.01,
+                  compression_sim=True, entropy_model_opt=True,
+                  shN_ada_mask_opt=True, rd_lambda=0.01, grad_dtype="bf16",
+                  refine_start_iter=5, refine_every=10, sh_degree_interval=5)
+    runner = Runner(lcfg, parser=parser, trainset=trainset, valset=valset,
+                    device=dev)
+    sim = runner.compression_sim
+    print(f"train_ladder: entropy_steps {sim.entropy_steps} and "
+          f"ada_mask_start {sim.ada_mask_start} moved to {LADDER_GATE}, so "
+          f"that the entropy models and the shN mask carry gradient within "
+          f"{TRAIN_STEPS} steps", flush=True)
+    sim.entropy_steps = {k: LADDER_GATE for k in sim.entropy_steps}
+    sim.ada_mask_start = LADDER_GATE
+    sim_init = {k: v.clone() for k, v in runner.sim_params.items()}
+    n_init = int(runner.strategy_state["allocated"].sum())
+    before_l = runner.eval("before")
+    steps = []
+    train_step = runner.train_step
+    runner.train_step = timed_step
+    t1 = time.perf_counter()
+    rv.reset_launch_counts()
+    losses_l = runner.train(max_steps=TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    ladder_launches = dict(rv.LAUNCHES)
+    ladder_s = time.perf_counter() - t1
+    after_l = runner.eval("after")
+    ladder_check = check_training_views(runner, steps[-1]["sh_degree"], errs,
+                                        packed=True)
+    moved = {k: float((v - sim_init[k]).abs().max())
+             for k, v in runner.sim_params.items()}
+    skipped_l = runner.skipped_steps
+    step_profiles_l = {}
+    for view in range(len(trainset)):
+        prof = device_profile(lambda: train_step([view], 3, TRAIN_STEPS),
+                              reps=1)
+        step_profiles_l[view] = dict(prof, top=prof.get("top", [])[:8])
+    refines_l = [e for e in runner.events if e["event"] == "refine"]
+    # ceil(1.05 n) in float32, as the strategy computes it
+    want_alloc, n = [], n_init
+    for _ in refines_l:
+        n = min(LADDER_CAP, int(np.ceil(np.float32(n) * np.float32(1.05))))
+        want_alloc.append(n)
+    alloc = [e["allocated"] for e in refines_l]
+    gated_l = losses_l[LADDER_GATE + 1:]
+    bits = [s_["bits"] for s_ in steps[:TRAIN_STEPS]]
+    if not np.mean(gated_l[-5:]) < np.mean(gated_l[:5]):
+        raise AssertionError(f"ladder loss did not fall: {losses_l}")
+    if not after_l["psnr"] > before_l["psnr"]:
+        raise AssertionError(f"ladder held-out PSNR did not rise: {before_l} "
+                             f"-> {after_l}")
+    if skipped_l or [e["step"] for e in refines_l] != [
+            10, 20, 30] or alloc != want_alloc:
+        raise AssertionError(f"ladder skipped {skipped_l}, "
+                             f"refines {refines_l}, allocated {alloc} "
+                             f"against {want_alloc}")
+    if not all(e["live"] <= e["allocated"] for e in refines_l):
+        raise AssertionError(f"ladder live above allocated: {refines_l}")
+    if not (all(math.isfinite(b_) for b_ in bits)
+            and min(bits[LADDER_GATE + 1:]) > 0):
+        raise AssertionError(f"ladder bits not finite and positive: {bits}")
+    if min(moved.values()) <= 0:
+        raise AssertionError(f"a sim parameter did not move: {moved}")
+    if min(ladder_launches[k] for k in KERNELS_LADDER) < 1 or \
+            ladder_launches["raster_bwd"] or ladder_launches["segsum_rows"]:
+        raise AssertionError(f"the ladder did not take the packed branches: "
+                             f"{ladder_launches}")
+    emit({"phase": "train_ladder",
+          "checkpoint": str(CHECKPOINT.relative_to(ROOT)), "views": 8,
+          "train_views": len(trainset), "width": WIDTH, "height": HEIGHT,
+          "steps": TRAIN_STEPS, "capacity": LADDER_CAP,
+          "isect_capacity": runner.isect_capacity(),
+          "grad_dtype": lcfg.grad_dtype, "cutoff_mode": lcfg.cutoff_mode,
+          "entropy_and_mask_gate": LADDER_GATE,
+          "loss_first5": losses_l[:5], "loss_gated_first5": gated_l[:5],
+          "loss_last5": gated_l[-5:],
+          "psnr_before": before_l["psnr"], "psnr_after": after_l["psnr"],
+          "ssim_before": before_l["ssim"], "ssim_after": after_l["ssim"],
+          "step_ms_median": float(np.median([s_["ms"] for s_ in
+                                             steps[:TRAIN_STEPS]])),
+          "step_ms": [s_["ms"] for s_ in steps[:TRAIN_STEPS]], "bits": bits,
+          "rd_term": [lcfg.rd_lambda * b_ for b_ in bits],
+          "sim_aux": [s_["sim_aux"] for s_ in steps[:TRAIN_STEPS]],
+          "n_isects": [s_["n_isects"] for s_ in steps[:TRAIN_STEPS]],
+          "allocated_initial": n_init, "allocated": alloc,
+          "allocated_expected": want_alloc, "events": runner.events,
+          "skipped_steps": skipped_l,
+          "sim_params_max_move": moved, "launches": ladder_launches,
+          "launches_per_step": {k: v / TRAIN_STEPS
+                                for k, v in ladder_launches.items()},
+          "view_check": ladder_check, "step_profiles": step_profiles_l,
+          "train_seconds": ladder_s, "seconds": time.perf_counter() - t0})
+    del runner
+    shutil.rmtree(stats_dir, ignore_errors=True)
+
+    # 11. train_2dgs_mcmc: Runner2DGS under MCMC on the same stand-in
+    t0 = time.perf_counter()
+    stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_2dgs_mcmc_")
+    mcfg = Config2DGS(result_dir=stats_dir, strategy="mcmc",
+                      mcmc_cap_max=LADDER_CAP, refine_start_iter=5,
+                      refine_every=10, sh_degree_interval=5,
+                      normal_start_iter=5, dist_start_iter=5)
+    runner = Runner2DGS(mcfg, parser=parser, trainset=trainset,
+                        valset=valset, device=dev)
+    n_init2 = int(runner.strategy_state["allocated"].sum())
+    steps = []
+    train_step = runner.train_step
+    runner.train_step = timed_step
+    rv.reset_launch_counts()
+    losses_m = runner.train(max_steps=MCMC_2DGS_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    mcmc2_launches = dict(rv.LAUNCHES)
+    refines_m = [e for e in runner.events if e["event"] == "refine"]
+    gated_m = losses_m[mcfg.normal_start_iter + 1:]
+    alloc_m = [e["allocated"] for e in refines_m]
+    if not np.mean(gated_m[-5:]) < np.mean(gated_m[:5]):
+        raise AssertionError(f"2DGS MCMC loss did not fall: {losses_m}")
+    if runner.skipped_steps or len(refines_m) != 2 or \
+            not n_init2 < alloc_m[0] < alloc_m[1]:
+        raise AssertionError(f"2DGS MCMC skipped {runner.skipped_steps}, "
+                             f"refines {refines_m}")
+    if min(mcmc2_launches[k] for k in KERNELS_2DGS) < 1:
+        raise AssertionError(f"a kernel did not launch in 2DGS MCMC: "
+                             f"{mcmc2_launches}")
+    emit({"phase": "train_2dgs_mcmc", "steps": MCMC_2DGS_STEPS,
+          "capacity": LADDER_CAP, "loss_first5": losses_m[:5],
+          "loss_gated_first5": gated_m[:5], "loss_last5": gated_m[-5:],
+          "step_ms_median": float(np.median([s_["ms"] for s_ in steps])),
+          "allocated_initial": n_init2, "allocated": alloc_m,
+          "events": runner.events, "skipped_steps": runner.skipped_steps,
+          "launches": mcmc2_launches, "seconds": time.perf_counter() - t0})
     del runner, parser, trainset, valset
     shutil.rmtree(stats_dir, ignore_errors=True)
 
-    # launches from each kernel's main path: the 3DGS training run, and for
-    # the 2DGS tile kernels the 2DGS training run
+    # launches from each kernel's main path: the 3DGS training run, for the
+    # 2DGS tile kernels the 2DGS training run, for the packed-pair branches
+    # the ladder run
     main_path = dict(train_launches, raster_fwd_2dgs=train2_launches[
         "raster_fwd_2dgs"], raster_bwd_2dgs=train2_launches[
-        "raster_bwd_2dgs"])
+        "raster_bwd_2dgs"], raster_bwd_packed=ladder_launches[
+        "raster_bwd_packed"], segsum_rows_packed=ladder_launches[
+        "segsum_rows_packed"])
     emit({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"],

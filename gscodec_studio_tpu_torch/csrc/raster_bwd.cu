@@ -33,6 +33,18 @@
 // block adds the partials in warp order and writes whole rows of columns.
 // The cotangent's channels live in registers under a template bound (1, 2,
 // 3, 4, 8, 16, 32, 64 or 128), so CH <= 128.
+//
+// Packed-pair branch (``packed``; replaces raster_v2.py:_write_grad_rows
+// with cfg.grad_packed, and _pack_pair): the gradient rows are stored as
+// 32-bit words holding two truncated-bf16 values, (row 2i in the high
+// half | row 2i + 1 in the low half); an odd last attribute row pairs with
+// 0, and with absgrad one (|x|, |y|) word follows: ceil((6 + ch) / 2)
+// (+ 1) rows of words. The pack happens only at the final write, after the
+// block has added its warp partials in warp order, so each half is the f32
+// branch's value with its low 16 bits cut. The truncation is integer
+// masking and shifting (u & 0xFFFF0000, u >> 16): __float2bfloat16 rounds
+// to nearest even and would give other bits. The words are stored as
+// integers; no float operation touches them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,13 +65,28 @@ struct BwdArgs {
   const int* masks;  // [n_tiles] 0 disables a tile
   const float* tiles;  // [n_tiles, P, ch + 1] forward outputs
   const float* v_tiles;  // [n_tiles, P, ch + 1] their cotangents
-  int tile_width, tile_height, tile_size, ch, d_g, absgrad;
-  float* out;  // [d_g, cap], zero-filled by the caller
+  int tile_width, tile_height, tile_size, ch, d_g, absgrad, packed;
+  float* out;  // [d_g, cap] (packed: uint32 [d_gp, cap]), zero-filled
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  return v;
+}
+
+// The block's sum of value row r's warp partials for pair slot kk (the
+// pair at chunk position k), in warp order; the opacity row (5) becomes
+// -sum / op, 0 where op <= 0.
+__device__ __forceinline__ float block_sum(const float* part, int n_warps,
+                                           int d_g, int r, int kk,
+                                           const float* chunk, int k) {
+  float v = 0.0f;
+  for (int w = 0; w < n_warps; ++w) v += part[(w * d_g + r) * SUB + kk];
+  if (r == 5) {
+    const float op = chunk[5 * K + k];
+    v = op > 0.0f ? -v / op : 0.0f;
+  }
   return v;
 }
 
@@ -202,18 +229,36 @@ __global__ void raster_bwd_kernel(const BwdArgs a) {
         }
       }
       __syncthreads();
-      // the block's sum of the warp partials, in warp order
-      for (int i = p; i < d_g * SUB; i += blockDim.x) {
-        const int r = i / SUB;
-        const int k = s0 + i % SUB;
-        if (k < lo || k >= hi) continue;
-        float v = 0.0f;
-        for (int w = 0; w < n_warps; ++w) v += part[(w * d_g) * SUB + i];
-        if (r == 5) {
-          const float op = chunk[5 * K + k];
-          v = op > 0.0f ? -v / op : 0.0f;
+      if (a.packed) {
+        // two value rows per word: ra in the high half, rb in the low
+        const int n_attr = 6 + ch;
+        const int n_vp = (n_attr + 1) / 2;
+        const int n_out = n_vp + a.absgrad;
+        uint32_t* outw = reinterpret_cast<uint32_t*>(a.out);
+        for (int i = p; i < n_out * SUB; i += blockDim.x) {
+          const int r = i / SUB;
+          const int kk = i % SUB;
+          const int k = s0 + kk;
+          if (k < lo || k >= hi) continue;
+          const int ra = r < n_vp ? 2 * r : n_attr;
+          const int rb = r < n_vp ? (2 * r + 1 < n_attr ? 2 * r + 1 : -1)
+                                  : n_attr + 1;
+          const float va = block_sum(part, n_warps, d_g, ra, kk, chunk, k);
+          const float vb =
+              rb < 0 ? 0.0f
+                     : block_sum(part, n_warps, d_g, rb, kk, chunk, k);
+          outw[(int64_t)r * a.cap + col0 + k] =
+              (__float_as_uint(va) & 0xFFFF0000u) |
+              (__float_as_uint(vb) >> 16);
         }
-        a.out[(int64_t)r * a.cap + col0 + k] = v;
+      } else {
+        for (int i = p; i < d_g * SUB; i += blockDim.x) {
+          const int r = i / SUB;
+          const int k = s0 + i % SUB;
+          if (k < lo || k >= hi) continue;
+          a.out[(int64_t)r * a.cap + col0 + k] =
+              block_sum(part, n_warps, d_g, r, i % SUB, chunk, k);
+        }
       }
       __syncthreads();
     }
@@ -244,8 +289,8 @@ extern "C" int gsc_raster_bwd(const void* S, long long cap, const void* starts,
                               const void* masks, const void* tiles,
                               const void* v_tiles, int n_tiles,
                               int tile_width, int tile_height, int tile_size,
-                              int ch, int soft, int absgrad, void* out,
-                              void* stream) {
+                              int ch, int soft, int absgrad, int packed,
+                              void* out, void* stream) {
   const int P = tile_size * tile_size;
   if (ch < 1 || ch > 128 || P < 1 || P > 1024 || n_tiles < 0) {
     return (int)cudaErrorInvalidValue;
@@ -263,6 +308,7 @@ extern "C" int gsc_raster_bwd(const void* S, long long cap, const void* starts,
                   ch,
                   6 + ch + (absgrad ? 2 : 0),
                   absgrad ? 1 : 0,
+                  packed ? 1 : 0,
                   static_cast<float*>(out)};
   cudaStream_t st = (cudaStream_t)stream;
   const bool sf = soft != 0;

@@ -1,6 +1,7 @@
-// Row unpack: the first n rows of an attr-major [R, L_src] block into one
-// [n, L] block, optionally scattering the columns through a permutation
-// (out[:, idx[j]] = block[:, j]).
+// Row unpack: the first n rows of an attr-major [R, L_src] block of 4-byte
+// words (f32, or packed pairs) into one [n, L] block, optionally
+// scattering the columns through a permutation (out[:, idx[j]] =
+// block[:, j]).
 //
 // Replaces gscodec_studio_tpu/ops/raster_v2.py:_unpack_kernel /
 // unpack_rows and, with an index, the two payload sorts of the JAX
@@ -19,6 +20,11 @@
 // row), then one thread per output column gathers, reading the inverse
 // once and writing every row coalesced across the warp. Each output
 // column is written by exactly one thread.
+//
+// The kernel moves 4-byte words and never reads them as floats: the
+// packed-pair gradient rows (csrc/raster_bwd.cu, grad_dtype "bf16") go
+// through it with every bit kept, as the JAX package bitcasts them to int32
+// before its sorts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,9 +37,10 @@ __global__ void invert_kernel(const int64_t* __restrict__ idx, int64_t L,
   if (j < L) inv[idx[j]] = (int32_t)j;
 }
 
-__global__ void unpack_kernel(const float* __restrict__ block, int64_t L_src,
-                              int n, const int32_t* __restrict__ inv,
-                              int64_t L, float* __restrict__ out) {
+__global__ void unpack_kernel(const uint32_t* __restrict__ block,
+                              int64_t L_src, int n,
+                              const int32_t* __restrict__ inv, int64_t L,
+                              uint32_t* __restrict__ out) {
   const int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (j >= L) return;
   const int64_t src = inv ? (int64_t)inv[j] : j;
@@ -58,9 +65,9 @@ extern "C" int gsc_unpack_rows(const void* block, long long L_src, int n,
           static_cast<const int64_t*>(idx), (int64_t)L,
           static_cast<int32_t*>(inv));
     unpack_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-        static_cast<const float*>(block), (int64_t)L_src, n,
+        static_cast<const uint32_t*>(block), (int64_t)L_src, n,
         idx ? static_cast<const int32_t*>(inv) : nullptr, (int64_t)L,
-        static_cast<float*>(out));
+        static_cast<uint32_t*>(out));
   }
   return (int)cudaGetLastError();
 }

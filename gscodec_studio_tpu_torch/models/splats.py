@@ -156,6 +156,48 @@ def from_jax_splats(d: Dict[str, np.ndarray],
     })
 
 
+def from_jax_sim_params(tree: Dict, device: DeviceLike = None
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's flat sim_params (compression_sim/simulation.py) from the
+    JAX package's sim_params pytree as numpy arrays: {"entropy": {attr:
+    {"matrices": [...], "biases": [...], "factors": [...]}}, "ada_mask":
+    [cap]}. Also takes the pytrees of its optax Adam moments (mu, nu),
+    which have the same structure."""
+    dev = resolve_device(device)
+    out = {}
+    for attr, model in tree.get("entropy", {}).items():
+        for part in ("matrices", "biases", "factors"):
+            for i, a in enumerate(model[part]):
+                out[f"entropy.{attr}.{part}.{i}"] = torch.as_tensor(
+                    np.array(a), dtype=torch.float32, device=dev)
+    if "ada_mask" in tree:
+        out["ada_mask"] = torch.as_tensor(np.array(tree["ada_mask"]),
+                                          dtype=torch.float32, device=dev)
+    return out
+
+
+def from_jax_adam_state(count, mu: Dict, nu: Dict,
+                        device: DeviceLike = None) -> Dict[str, dict]:
+    """The port's Adam states of the sim parameters ({name: {"count",
+    "exp_avg", "exp_avg_sq"}}) from an optax ScaleByAdamState's count and
+    moment pytrees, as numpy arrays."""
+    mu_t = from_jax_sim_params(mu, device)
+    nu_t = from_jax_sim_params(nu, device)
+    return {k: {"count": int(np.array(count)), "exp_avg": mu_t[k],
+                "exp_avg_sq": nu_t[k]} for k in mu_t}
+
+
+def from_jax_mcmc_state(state: Dict, device: DeviceLike = None
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's MCMC strategy state from the JAX package's ("allocated"
+    bool [cap], "scene_scale"), as numpy arrays."""
+    dev = resolve_device(device)
+    return {"allocated": torch.as_tensor(np.array(state["allocated"]),
+                                         dtype=torch.bool, device=dev),
+            "scene_scale": torch.as_tensor(np.array(state["scene_scale"]),
+                                           dtype=torch.float32, device=dev)}
+
+
 def splat_activations(
     splats,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:

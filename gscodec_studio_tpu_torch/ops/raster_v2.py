@@ -23,6 +23,13 @@ Backward (``_RasterCore.backward``):
  10. segment-sum kernel over those ranges: per-Gaussian sums;
  11. unpack kernel scattering through the depth order: original order.
 
+With ``grad_dtype="bf16"`` the gradient rows travel as packed pairs, as in
+the JAX package: step 8 stores each two values of an intersection as one
+32-bit word (truncated-bf16 high half, truncated-bf16 low half), step 9
+moves the words, step 10 sums the high and the low halves apart in f32,
+and the per-Gaussian sums are truncated to pairs again for step 11. The
+values that reach autograd are truncated bf16.
+
 Each kernel wrapper (``pack_rows``, ``expand``, ``raster_fwd``,
 ``raster_bwd``, ``unpack_rows``, ``segsum_rows``) launches its CUDA kernel
 for CUDA tensors and counts the launch in ``LAUNCHES``; for CPU tensors it
@@ -56,10 +63,12 @@ MAX_CHANNELS = 128  # the tile kernels' largest channel instantiation
 MAX_PACK_ROWS = 144  # pack.cu kMaxRows
 
 # Kernel launches since the last reset_launch_counts(), by wrapper (the
-# 2DGS tile kernels' wrappers in raster_v2_2dgs count here too).
+# 2DGS tile kernels' wrappers in raster_v2_2dgs count here too; the
+# packed-pair branches of raster_bwd and segsum_rows count apart).
 LAUNCHES = {"pack_rows": 0, "expand": 0, "raster_fwd": 0, "raster_bwd": 0,
             "unpack_rows": 0, "segsum_rows": 0, "raster_fwd_2dgs": 0,
-            "raster_bwd_2dgs": 0}
+            "raster_bwd_2dgs": 0, "raster_bwd_packed": 0,
+            "segsum_rows_packed": 0}
 
 
 def reset_launch_counts() -> None:
@@ -112,6 +121,15 @@ class V2Cfg:
     def d_g(self, absgrad: bool) -> int:
         # gradient rows: one per attribute row (, |x|, |y|)
         return self.n_attr_eff + (2 if absgrad else 0)
+
+    @property
+    def n_vpairs(self) -> int:
+        # packed rows of the attribute gradients (an odd last pairs with 0)
+        return (self.n_attr_eff + 1) // 2
+
+    def d_gp(self, absgrad: bool) -> int:
+        # packed gradient rows: the value pairs (, one (|x|, |y|) pair)
+        return self.n_vpairs + (1 if absgrad else 0)
 
     @property
     def chp(self) -> int:
@@ -562,6 +580,42 @@ def raster_fwd(S, starts, masks, cfg: V2Cfg):
 
 
 # ---------------------------------------------------------------------------
+# Packed pairs: two truncated-bf16 values in one 32-bit word
+# ---------------------------------------------------------------------------
+
+
+def pack_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two f32 tensors -> int32 words holding (trunc-bf16(a) in the high
+    half | trunc-bf16(b) in the low half): the JAX package's _pack_pair.
+    Truncation keeps the top 16 bits (sign, exponent, 7 mantissa bits);
+    rounding (torch's .to(torch.bfloat16), CUDA's __float2bfloat16) would
+    give other bits. Only integer operations touch the words."""
+    ua = a.contiguous().view(torch.int32)
+    ub = b.contiguous().view(torch.int32)
+    # -65536 is 0xFFFF0000; >> is arithmetic on int32, so mask after it
+    return (ua & -65536) | ((ub >> 16) & 0xFFFF)
+
+
+def unpack_pairs(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int32 words -> (high half, low half) as f32 (each exact bf16)."""
+    return (w & -65536).view(torch.float32), (w << 16).view(torch.float32)
+
+
+def _pack_grad_rows(vals: torch.Tensor, n_attr: int,
+                    absgrad: bool) -> torch.Tensor:
+    """f32 gradient rows [d_g, L] -> the packed layout int32
+    [ceil(n_attr / 2) (+ 1), L]: rows (0, 1), (2, 3), ..., an odd last
+    row with 0, then with absgrad one (|x|, |y|) row."""
+    rows = []
+    for i in range(0, n_attr, 2):
+        b = vals[i + 1] if i + 1 < n_attr else torch.zeros_like(vals[i])
+        rows.append(pack_pairs(vals[i], b))
+    if absgrad:
+        rows.append(pack_pairs(vals[n_attr], vals[n_attr + 1]))
+    return torch.stack(rows)
+
+
+# ---------------------------------------------------------------------------
 # B2: tile backward (csrc/raster_bwd.cu)
 # ---------------------------------------------------------------------------
 
@@ -651,14 +705,24 @@ def _bwd_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, absgrad: bool):
     return gbuf
 
 
+def _bwd_packed_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
+                     absgrad: bool):
+    """Plain version of the tile-backward kernel's packed-pair branch."""
+    return _pack_grad_rows(
+        _bwd_plain(S, starts, masks, tiles, v_tiles, cfg, absgrad),
+        cfg.n_attr_eff, absgrad)
+
+
 def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
-               absgrad: bool = False):
+               absgrad: bool = False, packed: bool = False):
     """Tile backward: the sorted table, the forward's tile outputs and their
     cotangents [n_tiles, P, CH+1] -> per-intersection gradient rows
     [d_g, cap] (x, y, ca, cb, cc, op, colors[CH], and |x|, |y| with
     ``absgrad``), column j holding the gradient of S's column j. Columns no
     tile reaches (early stop, masked tiles, the overflow tile, rows past
-    n_isects) are zero."""
+    n_isects) are zero. With ``packed`` the rows come as packed pairs,
+    int32 [d_gp, cap] (_pack_grad_rows' layout): the same f32 sums,
+    truncated at the final write."""
     tshape = (cfg.n_tiles, cfg.pixels, cfg.channels + 1)
     if S.shape != (cfg.d_s, cfg.cap) or starts.shape != (cfg.n_tiles_v + 1,) \
             or masks.shape != (cfg.n_tiles,) or tiles.shape != tshape \
@@ -669,6 +733,9 @@ def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
     if cfg.cutoff not in ("exact", "soft"):
         raise ValueError(f"unknown cutoff {cfg.cutoff!r}")
     if _on_cpu(S, "raster_bwd"):
+        if packed:
+            return _bwd_packed_plain(S, starts, masks, tiles, v_tiles, cfg,
+                                     absgrad)
         return _bwd_plain(S, starts, masks, tiles, v_tiles, cfg, absgrad)
     dev = S.device
     if cfg.channels > MAX_CHANNELS:
@@ -682,16 +749,21 @@ def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
     _check_cuda("raster_bwd masks", masks, torch.int32, dev)
     _check_cuda("raster_bwd tiles", tiles, torch.float32, dev)
     _check_cuda("raster_bwd v_tiles", v_tiles, torch.float32, dev)
-    gbuf = torch.zeros((cfg.d_g(absgrad), cfg.cap), dtype=torch.float32,
-                       device=dev)
+    if packed:
+        gbuf = torch.zeros((cfg.d_gp(absgrad), cfg.cap), dtype=torch.int32,
+                           device=dev)
+    else:
+        gbuf = torch.zeros((cfg.d_g(absgrad), cfg.cap), dtype=torch.float32,
+                           device=dev)
     err = native.lib().gsc_raster_bwd(
         S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
         tiles.data_ptr(), v_tiles.data_ptr(), cfg.n_tiles, cfg.tile_width,
         cfg.tile_height, cfg.tile_size, cfg.channels,
-        int(cfg.cutoff == "soft"), int(absgrad), gbuf.data_ptr(), _stream(),
+        int(cfg.cutoff == "soft"), int(absgrad), int(packed), gbuf.data_ptr(),
+        _stream(),
     )
     native.check(err, "gsc_raster_bwd")
-    LAUNCHES["raster_bwd"] += 1
+    LAUNCHES["raster_bwd_packed" if packed else "raster_bwd"] += 1
     return gbuf
 
 
@@ -704,31 +776,35 @@ def _unpack_rows_plain(block: torch.Tensor, n: int,
                        idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     if idx is None:
         return block[:n].contiguous()
-    out = torch.empty((n, idx.shape[0]), dtype=block.dtype,
+    words = block.view(torch.int32)  # move bits, never float values
+    out = torch.empty((n, idx.shape[0]), dtype=torch.int32,
                       device=block.device)
-    out[:, idx] = block[:n, :idx.shape[0]]
-    return out
+    out[:, idx] = words[:n, :idx.shape[0]]
+    return out.view(block.dtype)
 
 
 def unpack_rows(block: torch.Tensor, n: int,
                 idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The first n rows of an f32 [R, L_src] block as one [n, L] tensor;
-    with ``idx`` (an int64 permutation of [0, L), L <= L_src) column j goes
-    to column idx[j]: the scatter that undoes pack_rows' gather by idx."""
-    if block.ndim != 2 or block.dtype != torch.float32 \
+    """The first n rows of an f32 or int32 [R, L_src] block as one [n, L]
+    tensor of its dtype; with ``idx`` (an int64 permutation of [0, L),
+    L <= L_src) column j goes to column idx[j]: the scatter that undoes
+    pack_rows' gather by idx. Only 4-byte words move: packed pairs keep
+    their bits."""
+    if block.ndim != 2 or block.dtype not in (torch.float32, torch.int32) \
             or not 0 < n <= block.shape[0]:
-        raise ValueError(f"unpack_rows: {n} rows of a float32 [R, L] block")
+        raise ValueError(f"unpack_rows: {n} rows of a float32 or int32 "
+                         f"[R, L] block")
     if idx is not None and (idx.ndim != 1 or idx.dtype != torch.int64
                             or idx.shape[0] > block.shape[1]):
         raise ValueError("unpack_rows: idx must be int64 [L], L <= L_src")
     if _on_cpu(block, "unpack_rows"):
         return _unpack_rows_plain(block, n, idx)
     dev = block.device
-    _check_cuda("unpack_rows block", block, torch.float32, dev)
+    _check_cuda("unpack_rows block", block, block.dtype, dev)
     if idx is not None:
         _check_cuda("unpack_rows idx", idx, torch.int64, dev)
     L = block.shape[1] if idx is None else idx.shape[0]
-    out = torch.empty((n, L), dtype=torch.float32, device=dev)
+    out = torch.empty((n, L), dtype=block.dtype, device=dev)
     inv = None if idx is None else torch.empty(L, dtype=torch.int32,
                                                device=dev)
     err = native.lib().gsc_unpack_rows(
@@ -755,6 +831,9 @@ def segment_ids(cum: torch.Tensor, n_isects: torch.Tensor) -> torch.Tensor:
 
 
 def _segsum_plain(rows, cum, n_isects):
+    if rows.dtype == torch.int32:  # packed pairs: high halves, low halves
+        hi, lo = unpack_pairs(rows)
+        rows = torch.cat([hi, lo])
     out = torch.zeros((rows.shape[0], cum.shape[0]), dtype=torch.float32,
                       device=rows.device)
     ids = segment_ids(cum, n_isects)
@@ -767,23 +846,28 @@ def segsum_rows(rows: torch.Tensor, cum: torch.Tensor,
     r summing the columns [min(cum[r-1], n_isects), min(cum[r], n_isects))
     (cum[-1] read as 0). ``cum`` is the int32 inclusive count prefix [M];
     a truncated list (total > cap) leaves the cut ids with partial sums and
-    every later id empty. Fixed order, no atomics."""
-    if rows.ndim != 2 or rows.dtype != torch.float32 or cum.ndim != 1:
-        raise ValueError("segsum_rows: rows float32 [d, L], cum [M]")
+    every later id empty. Fixed order, no atomics. Packed pairs (int32
+    [d, L]) give f32 [2d, M]: the sums of the high halves, then those of
+    the low halves."""
+    if rows.ndim != 2 or rows.dtype not in (torch.float32, torch.int32) \
+            or cum.ndim != 1:
+        raise ValueError("segsum_rows: rows float32 or int32 [d, L], cum [M]")
     if _on_cpu(rows, "segsum_rows"):
         return _segsum_plain(rows, cum, n_isects)
     dev = rows.device
-    _check_cuda("segsum_rows rows", rows, torch.float32, dev)
+    packed = rows.dtype == torch.int32
+    _check_cuda("segsum_rows rows", rows, rows.dtype, dev)
     _check_cuda("segsum_rows cum", cum, torch.int32, dev)
     _check_cuda("segsum_rows n_isects", n_isects, torch.int32, dev)
     d, M = rows.shape[0], cum.shape[0]
-    out = torch.empty((d, M), dtype=torch.float32, device=dev)
+    out = torch.empty(((2 if packed else 1) * d, M), dtype=torch.float32,
+                      device=dev)
     err = native.lib().gsc_segsum_rows(
         rows.data_ptr(), rows.shape[1], d, cum.data_ptr(), M,
-        n_isects.data_ptr(), out.data_ptr(), _stream(),
+        n_isects.data_ptr(), int(packed), out.data_ptr(), _stream(),
     )
     native.check(err, "gsc_segsum_rows")
-    LAUNCHES["segsum_rows"] += 1
+    LAUNCHES["segsum_rows_packed" if packed else "segsum_rows"] += 1
     return out
 
 
@@ -800,6 +884,37 @@ def _reduce_grads(gbuf, perm, cum, order, n_isects) -> torch.Tensor:
     return unpack_rows(seg, d_g, order)
 
 
+def _reduce_grads_packed(gpk, perm, cum, order, n_isects, n_attr: int,
+                         absgrad: bool) -> torch.Tensor:
+    """_reduce_grads for packed pairs (int32 [d_gp, cap]) -> the
+    per-Gaussian sums [d_g, M] in the original order, each truncated to
+    bf16 as the JAX package's reduction leaves them: the segment sums
+    come as f32 high and low halves, and are packed again as pairs, in
+    value order, for the scatter through the depth order."""
+    rows = unpack_rows(gpk, gpk.shape[0], perm)
+    pairs = repack_sums(segsum_rows(rows, cum, n_isects), n_attr, absgrad)
+    hi, lo = unpack_pairs(unpack_rows(pairs, pairs.shape[0], order))
+    n = n_attr + (2 if absgrad else 0)
+    return torch.stack([hi, lo], 1).reshape(2 * pairs.shape[0], -1)[:n]
+
+
+def repack_sums(seg: torch.Tensor, n_attr: int,
+                absgrad: bool) -> torch.Tensor:
+    """Packed segment sums f32 [2d, M] (the high halves' sums, then the low
+    halves') -> the per-Gaussian values packed again as pairs in value
+    order, int32 [ceil(n / 2), M]: (0, 1), (2, 3), ..., with absgrad
+    (..., |x|, |y|) continuing the sequence."""
+    d = seg.shape[0] // 2
+    vals = [seg[(i % 2) * d + i // 2] for i in range(n_attr)]
+    if absgrad:
+        vals += [seg[d - 1], seg[2 * d - 1]]
+    n = len(vals)
+    return torch.stack([
+        pack_pairs(vals[i], vals[i + 1] if i + 1 < n
+                   else torch.zeros_like(vals[i]))
+        for i in range(0, n, 2)])
+
+
 # ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
@@ -807,14 +922,14 @@ def _reduce_grads(gbuf, perm, cum, order, n_isects) -> torch.Tensor:
 
 class _RasterCore(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, absgrad, means2d, conics, colors, opacities,
-                depths, radii, masks, ag_probe):
+    def forward(ctx, cfg, absgrad, packed, means2d, conics, colors,
+                opacities, depths, radii, masks, ag_probe):
         del ag_probe  # its gradient carries absgrad out of the backward
         b = _build_sorted(cfg, means2d, conics, colors, opacities, depths,
                           radii)
         tiles = raster_fwd(b.S, b.starts, masks, cfg)
         ctx.mark_non_differentiable(b.n_isects)
-        ctx.cfg, ctx.absgrad = cfg, absgrad
+        ctx.cfg, ctx.absgrad, ctx.packed = cfg, absgrad, packed
         ctx.save_for_backward(b.S, b.starts, masks, tiles, b.cum, b.order,
                               b.perm, b.n_isects)
         return tiles, b.n_isects
@@ -826,11 +941,15 @@ class _RasterCore(torch.autograd.Function):
         cfg = ctx.cfg
         gbuf = raster_bwd(S, starts, masks, tiles,
                           v_tiles.to(torch.float32).contiguous(), cfg,
-                          ctx.absgrad)
-        g = _reduce_grads(gbuf, perm, cum, order, n_isects).T
+                          ctx.absgrad, ctx.packed)
+        if ctx.packed:
+            g = _reduce_grads_packed(gbuf, perm, cum, order, n_isects,
+                                     cfg.n_attr_eff, ctx.absgrad).T
+        else:
+            g = _reduce_grads(gbuf, perm, cum, order, n_isects).T
         C, N, CH = cfg.C, cfg.n, cfg.channels
         v_ag = g[:, 6 + CH:8 + CH].reshape(C, N, 2) if ctx.absgrad else None
-        return (None, None, g[:, 0:2].reshape(C, N, 2),
+        return (None, None, None, g[:, 0:2].reshape(C, N, 2),
                 g[:, 2:5].reshape(C, N, 3), g[:, 6:6 + CH].reshape(C, N, CH),
                 g[:, 5].reshape(C, N), None, None, None, v_ag)
 
@@ -863,11 +982,18 @@ def rasterize_to_pixels_v2(
     tensor. The capacity is ``isect_capacity`` rounded up to a multiple of
     4096, as in the JAX package. Gradients reach means2d, conics, colors,
     opacities and backgrounds; with ``absgrad_probe`` ([C, N, 2] zeros) the
-    probe's gradient is the per-Gaussian sum of |per-pixel dL/d(x, y)|."""
-    if grad_dtype != "f32" or attr_dtype != "f32" or geom_dtype != "f32":
-        raise NotImplementedError("only f32 grad/attr/geom rows are ported")
+    probe's gradient is the per-Gaussian sum of |per-pixel dL/d(x, y)|.
+    ``grad_dtype="bf16"`` carries the per-intersection gradients as packed
+    pairs of truncated bf16 values; the gradients are then truncated bf16
+    sums of truncated bf16 terms."""
+    if grad_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown grad_dtype {grad_dtype!r}")
+    if attr_dtype != "f32" or geom_dtype != "f32":
+        raise NotImplementedError(
+            "only f32 attribute and geometry rows are ported: ROADMAP A8b")
     if log_composite:
-        raise NotImplementedError("log_composite is not ported yet")
+        raise NotImplementedError(
+            "log_composite is not ported yet: ROADMAP A8b")
     if cutoff_mode not in ("exact", "soft"):
         raise ValueError(f"unknown cutoff_mode {cutoff_mode!r}")
     dev = resolve_device(device)
@@ -891,7 +1017,8 @@ def rasterize_to_pixels_v2(
         masks_arr = torch.as_tensor(masks, device=dev).reshape(
             cfg.n_tiles).to(torch.int32)
     tiles, n_isects = _RasterCore.apply(
-        cfg, absgrad_probe is not None, means2d, conics, colors, opacities,
+        cfg, absgrad_probe is not None, grad_dtype == "bf16", means2d,
+        conics, colors, opacities,
         depths, radii, masks_arr, absgrad_probe,
     )
 

@@ -89,6 +89,7 @@ def rasterization(
     isect_capacity: Optional[int] = None,
     channel_chunk: int = 32,
     cutoff_mode: str = "exact",
+    grad_dtype: str = "f32",
     means2d_probe=None,  # [C, N, 2] zeros
     absgrad_probe=None,  # [C, N, 2] zeros
     device: DeviceLike = None,
@@ -101,7 +102,8 @@ def rasterization(
     means the CUDA card). ``means2d_probe`` is added to the projected
     centers, so its gradient is dL/d means2d, the signal the densification
     strategies read; ``absgrad_probe``'s gradient is the per-Gaussian sum
-    of |per-pixel dL/d means2d|."""
+    of |per-pixel dL/d means2d|. ``grad_dtype`` ("f32" or "bf16") is the
+    fused rasterizer's gradient-row type (ops/raster_v2.py)."""
     if render_mode not in RENDER_MODES:
         raise ValueError(f"unknown render_mode {render_mode!r}")
     if rasterize_mode not in ("classic", "antialiased"):
@@ -153,7 +155,8 @@ def rasterization(
             means2d, conics, colors_cn[..., lo:lo + fused_chunk],
             opacities_cn, depths, radii, width, height, tile_size=tile_size,
             isect_capacity=isect_capacity, backgrounds=bgs,
-            absgrad_probe=absgrad_probe, cutoff_mode=cutoff_mode, device=dev,
+            absgrad_probe=absgrad_probe, cutoff_mode=cutoff_mode,
+            grad_dtype=grad_dtype, device=dev,
         )
         chunks.append(img)
     render_colors = chunks[0] if len(chunks) == 1 else torch.cat(chunks, -1)

@@ -1,1 +1,2 @@
 from gscodec_studio_tpu_torch.strategy.default import DefaultStrategy  # noqa: F401
+from gscodec_studio_tpu_torch.strategy.mcmc import MCMCStrategy  # noqa: F401

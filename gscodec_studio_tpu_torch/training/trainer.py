@@ -1,15 +1,20 @@
 """Static 3DGS trainer (port of gscodec_studio_tpu/training/trainer.py):
 ``Config`` with every field of the JAX package's, and a ``Runner`` that
-trains the default configuration on one CUDA card.
+trains on one CUDA card with the default or the MCMC strategy, optionally
+under the compression simulation (the garden ladder's recipe).
 
-A step: activations -> ``rendering.rasterization`` (projection, SH, fused
-binning and the rasterizer's forward and backward kernels) -> L1 + SSIM
-loss (these two in ``Runner.render_loss``, which the 2DGS runner
-overrides) -> autograd -> the densification statistics from the means2d probe's
-gradient -> per-group Adam. A finite-step gate skips a step whose loss or
-any gradient is not finite and counts it. Between steps the loop runs the
-default strategy's refine and opacity reset, the SH-degree schedule and
-the adaptive intersection capacity.
+A step: the compression simulation (fake quantization, entropy bits, the
+shN mask) -> activations -> ``rendering.rasterization`` (projection, SH,
+fused binning and the rasterizer's forward and backward kernels, the
+gradient rows in f32 or packed bf16 pairs) -> L1 + SSIM loss (these two in
+``Runner.render_loss``, which the 2DGS runner overrides), the
+regularisers and rd_lambda * bits -> autograd -> the densification
+statistics from the means2d probe's gradient -> per-group Adam, the sim
+parameters' Adam, and with MCMC the position noise. A finite-step gate
+skips a step whose loss or any gradient is not finite and counts it.
+Between steps the loop runs the strategy's refine (and the default
+strategy's opacity reset), the SH-degree schedule and the adaptive
+intersection capacity.
 
 The port loops in Python, one step per iteration; the JAX package's
 ``lax.scan`` chunks (``steps_per_dispatch``) were a TPU dispatch device.
@@ -28,13 +33,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from gscodec_studio_tpu_torch.compression_sim import CompressionSimulation
 from gscodec_studio_tpu_torch.device import DeviceLike, resolve_device
 from gscodec_studio_tpu_torch.models.splats import (create_splats, num_live,
                                                     splat_activations)
 from gscodec_studio_tpu_torch.optimizers import (apply_updates,
                                                  build_splat_optimizers)
 from gscodec_studio_tpu_torch.rendering import rasterization
-from gscodec_studio_tpu_torch.strategy import DefaultStrategy
+from gscodec_studio_tpu_torch.strategy import DefaultStrategy, MCMCStrategy
 from gscodec_studio_tpu_torch.training.losses import (combined_loss, psnr,
                                                       ssim)
 
@@ -74,7 +80,7 @@ class Config:
     scale_reg: float = 0.0
     random_bkgd: bool = False
 
-    # Strategy ("mcmc" is not ported yet)
+    # Strategy: "default" | "mcmc"
     strategy: str = "default"
     mcmc_cap_max: int = 1_000_000
     refine_start_iter: Optional[int] = None
@@ -124,7 +130,7 @@ class Config:
     mesh_devices: int = 0
     exchange_cap: Optional[int] = None
 
-    # Compression simulation (not ported yet)
+    # Compression simulation ("gaussian_model" is not ported yet)
     compression_sim: bool = False
     rd_lambda: float = 0.01
     entropy_model_opt: bool = False
@@ -135,15 +141,15 @@ class Config:
 def check_ported(cfg: Config, rasterizers=("fused",)) -> None:
     """Raise NotImplementedError for an option of a later slice."""
     later = [
-        (cfg.strategy == "mcmc", "strategy='mcmc'", "A6"),
         (cfg.visible_adam, "visible_adam (SelectiveAdam)", "A6"),
         (cfg.init_type != "sfm", f"init_type={cfg.init_type!r}", "A9"),
-        (cfg.compression_sim, "compression_sim", "A7"),
+        (cfg.compression_sim and cfg.entropy_model_opt
+         and cfg.entropy_model_type == "gaussian_model",
+         "entropy_model_type='gaussian_model' (hash_grid.py)", "A7"),
         (cfg.pose_opt, "pose_opt", "A8"),
         (cfg.app_opt, "app_opt", "A8"),
         (cfg.use_bilateral_grid, "use_bilateral_grid", "A8"),
         (cfg.depth_loss, "depth_loss", "A8"),
-        (cfg.grad_dtype != "f32", f"grad_dtype={cfg.grad_dtype!r}", "A8b"),
         (cfg.attr_dtype != "f32", f"attr_dtype={cfg.attr_dtype!r}", "A8b"),
         (cfg.log_composite, "log_composite", "A8b"),
         (cfg.mesh_devices > 1, f"mesh_devices={cfg.mesh_devices}", "A12"),
@@ -159,6 +165,8 @@ def check_ported(cfg: Config, rasterizers=("fused",)) -> None:
                 f"{what} is not ported yet: ROADMAP {item}")
     if cfg.strategy not in ("default", "mcmc"):
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
+    if cfg.grad_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown grad_dtype {cfg.grad_dtype!r}")
     unhonoured = [what for on, what in (
         (bool(cfg.save_steps), f"save_steps={tuple(cfg.save_steps)} "
                                "(checkpoints)"),
@@ -177,11 +185,12 @@ def _tensor(x, dev) -> torch.Tensor:
 
 
 class Runner:
-    """Trains the default configuration. ``parser`` gives ``points`` [N, 3],
+    """Trains a 3DGS scene. ``parser`` gives ``points`` [N, 3],
     ``points_rgb`` [N, 3] in 0..255 and ``scene_scale``; the datasets give
     dicts with "camtoworld", "K" and "image" [H, W, 3] in [0, 1]."""
 
     rasterizers = ("fused",)  # the cfg.rasterizer values this runner takes
+    injects_noise = True  # MCMC's per-step position noise
 
     def __init__(self, cfg: Config, parser=None, trainset=None, valset=None,
                  device: DeviceLike = None):
@@ -199,11 +208,17 @@ class Runner:
         points = np.asarray(parser.points, np.float32)
         rgbs = np.asarray(parser.points_rgb, np.float32) / 255.0
         n_init = points.shape[0]
-        cap = max(cfg.capacity or 4 * n_init, n_init)
+        if cfg.strategy == "mcmc":
+            cap = cfg.mcmc_cap_max
+            strategy = MCMCStrategy(cap_max=cap)
+        else:
+            cap = cfg.capacity or 4 * n_init
+            strategy = DefaultStrategy()
+        cap = max(cap, n_init)
         overrides = {k: int(getattr(cfg, k)) for k in (
             "refine_start_iter", "refine_stop_iter", "refine_every")
             if getattr(cfg, k) is not None}
-        self.strategy = replace(DefaultStrategy(), **overrides)
+        self.strategy = replace(strategy, **overrides)
         self.splats = create_splats(
             points, rgbs, cap=cap, sh_degree=cfg.sh_degree,
             init_opacity=cfg.init_opa, init_scale=cfg.init_scale,
@@ -211,8 +226,25 @@ class Runner:
         self.groups, self.opt_states = build_splat_optimizers(
             self.splats, scene_scale=self.scene_scale,
             batch_size=cfg.batch_size, max_steps=cfg.max_steps)
-        self.strategy_state = self.strategy.initialize_state(
-            cap, self.scene_scale, device=dev)
+        if cfg.strategy == "mcmc":
+            self.strategy_state = self.strategy.initialize_state(
+                cap, self.scene_scale, n_init=n_init, device=dev)
+        else:
+            self.strategy_state = self.strategy.initialize_state(
+                cap, self.scene_scale, device=dev)
+        self.compression_sim = None
+        self.sim_params: Dict[str, torch.Tensor] = {}
+        self.sim_groups, self.sim_states = {}, {}
+        if cfg.compression_sim:
+            self.compression_sim = CompressionSimulation(
+                entropy_model_opt=cfg.entropy_model_opt,
+                shN_ada_mask_opt=cfg.shN_ada_mask_opt,
+                entropy_model_type=cfg.entropy_model_type, cap=cap,
+                max_steps=cfg.max_steps)
+            sim_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+            self.sim_params = self.compression_sim.init_params(sim_gen, dev)
+            self.sim_groups, self.sim_states = \
+                self.compression_sim.build_optimizer(self.sim_params)
         n_train = len(trainset) if trainset is not None else 0
         # host-side ordering, the JAX Runner's own draw (not a device draw)
         self.view_order = np.random.default_rng(cfg.seed).permutation(
@@ -255,15 +287,15 @@ class Runner:
         cap = means.shape[0]
         probe = torch.zeros((B, cap, 2), device=dev, requires_grad=True)
         ag_probe = (torch.zeros((B, cap, 2), device=dev, requires_grad=True)
-                    if self.strategy.absgrad else None)
+                    if getattr(self.strategy, "absgrad", False) else None)
         img, _, meta = rasterization(
             means, quats, scales, opac, colors, torch.linalg.inv(c2w), Ks,
             W, H, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
             sh_degree=sh_degree, tile_size=cfg.tile_size, backgrounds=bkgd,
             rasterize_mode="antialiased" if cfg.antialiased else "classic",
             isect_capacity=self.isect_capacity(),
-            cutoff_mode=cfg.cutoff_mode, means2d_probe=probe,
-            absgrad_probe=ag_probe, device=dev)
+            cutoff_mode=cfg.cutoff_mode, grad_dtype=cfg.grad_dtype,
+            means2d_probe=probe, absgrad_probe=ag_probe, device=dev)
         loss = combined_loss(img, target, cfg.ssim_lambda)
         if cfg.opacity_reg > 0:
             loss = loss + cfg.opacity_reg * opac.abs().mean()
@@ -271,30 +303,50 @@ class Runner:
             loss = loss + cfg.scale_reg * scales.abs().mean()
         return loss, meta, probe if ag_probe is None else ag_probe
 
+    def _position_noise(self, shape) -> torch.Tensor:
+        """MCMC's standard-normal draw for one step's position noise."""
+        return torch.randn(shape, generator=self.generator,
+                           device=self.device)
+
     def train_step(self, idx: List[int], sh_degree: int,
                    step: int = 0) -> dict:
         """Step ``step`` (0-based) on the training views ``idx``. Returns
         the loss, the intersection count and whether the finite gate
         skipped the step; a skipped step leaves every parameter, moment and
         statistic as it was."""
+        cfg = self.cfg
         dev = self.device
         data = self._device_trainset()
         sel = torch.as_tensor(idx, device=dev)
         c2w, Ks, target = (data[k][sel] for k in ("camtoworld", "K", "image"))
         params = {k: v.detach().requires_grad_(True)
                   for k, v in self.splats.items()}
-        loss, meta, probe = self.render_loss(params, c2w, Ks, target,
+        sim_params = {k: v.detach().requires_grad_(True)
+                      for k, v in self.sim_params.items()}
+        sim = self.compression_sim
+        rparams = params
+        if sim is not None:
+            rparams, bits, aux = sim.simulate(params, sim_params, step,
+                                              self.generator)
+        loss, meta, probe = self.render_loss(rparams, c2w, Ks, target,
                                              sh_degree, step)
-        names = list(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in names] + [probe])
+        if sim is not None:
+            loss = loss + (cfg.rd_lambda * bits + aux)
+        names, snames = list(params), list(sim_params)
+        leaves = ([params[k] for k in names] + [sim_params[k] for k in snames]
+                  + [probe])
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
         param_grads = dict(zip(names, grads[:len(names)]))
+        sim_grads = dict(zip(snames, grads[len(names):-1]))
         ok = torch.isfinite(loss)
-        for g in param_grads.values():
+        for g in grads[:-1]:
             ok = ok & torch.isfinite(g).all()
-        # the step's one host sync: loss, gate and intersection count
-        stats = torch.cat([loss.detach().double().reshape(1),
-                           ok.double().reshape(1),
-                           meta["n_isects"].double().reshape(1)]).tolist()
+        # the step's one host sync: loss, gate, intersection count and the
+        # simulation's bits and auxiliary loss
+        extra = [] if sim is None else [bits, aux]
+        stats = torch.cat([x.detach().double().reshape(1) for x in (
+            loss, ok, meta["n_isects"], *extra)]).tolist()
         skipped = not stats[1]
         if skipped:
             self.skipped_steps += 1
@@ -303,8 +355,21 @@ class Runner:
                 self.strategy_state, meta, grads[-1])
             self.splats, self.opt_states = apply_updates(
                 self.groups, self.opt_states, self.splats, param_grads)
-        return {"loss": stats[0], "n_isects": int(stats[2]),
-                "skipped": skipped}
+            if sim is not None:
+                self.sim_params, self.sim_states = apply_updates(
+                    self.sim_groups, self.sim_states, self.sim_params,
+                    sim_grads)
+            if isinstance(self.strategy, MCMCStrategy) and \
+                    self.injects_noise:
+                self.splats = self.strategy.inject_noise(
+                    self.splats,
+                    self._position_noise(self.splats["means"].shape),
+                    self.groups["means"].lr_at(step))
+        out = {"loss": stats[0], "n_isects": int(stats[2]),
+               "skipped": skipped}
+        if sim is not None:
+            out["bits"], out["sim_aux"] = stats[3], stats[4]
+        return out
 
     # -- loop ----------------------------------------------------------------
 
@@ -331,7 +396,8 @@ class Runner:
             if (strat.refine_start_iter < step < strat.refine_stop_iter
                     and step % strat.refine_every == 0):
                 self._refine(step)
-            if step % strat.reset_every == 0 and \
+            if isinstance(strat, DefaultStrategy) and \
+                    step % strat.reset_every == 0 and \
                     step < strat.refine_stop_iter:
                 self.splats, self.opt_states = strat.maybe_reset_opacity(
                     self.splats, self.opt_states, step)
@@ -354,8 +420,11 @@ class Runner:
         # the same finite gate as the step, on the refined parameters
         if all(bool(torch.isfinite(v).all()) for v in new[0].values()):
             self.splats, self.opt_states, self.strategy_state = new
-            self.events.append({"step": step, "event": "refine",
-                                "live": num_live(self.splats)})
+            event = {"step": step, "event": "refine",
+                     "live": num_live(self.splats)}
+            if "allocated" in self.strategy_state:
+                event["allocated"] = int(self.strategy_state["allocated"].sum())
+            self.events.append(event)
         else:
             print(f"step {step}: refine REJECTED (non-finite parameters)",
                   flush=True)

@@ -7,11 +7,14 @@ render and the loss
   + normal_lambda * (step > normal_start_iter)
     * mean(1 - <normalize(render_normals), surf_normals>)
   + dist_lambda * (step > dist_start_iter) * mean(render_distort).
-Densification, Adam, the finite gate, the capacity and evaluation are the
-3DGS ``Runner``'s. Three behaviours of the JAX Runner2DGS are reproduced,
-not repaired: its strategy reads a zero means2d gradient (so refines only
-prune and reset), its loss drops ``opacity_reg``, ``scale_reg`` and
-``random_bkgd``, and the median depth carries no gradient.
+Densification (the default or the MCMC strategy), Adam, the finite gate,
+the capacity and evaluation are the 3DGS ``Runner``'s. Four behaviours of
+the JAX Runner2DGS are reproduced, not repaired: its strategy reads a zero
+means2d gradient (so the default strategy's refines only prune and
+reset), its loss drops ``opacity_reg``, ``scale_reg`` and ``random_bkgd``,
+the median depth carries no gradient, and under MCMC it relocates and
+grows but adds no position noise. It refuses ``compression_sim``, which the
+JAX Runner2DGS carries without applying.
 """
 
 from __future__ import annotations
@@ -42,6 +45,19 @@ class Runner2DGS(Runner):
     plain oracle (the only other 2DGS backend), as in the JAX package."""
 
     rasterizers = ("fused", "pallas", "reference")
+    # The JAX Runner2DGS's step never calls inject_noise
+    # (gscodec_studio_tpu/training/trainer_2dgs.py:47-108): under MCMC its
+    # surfels relocate and grow but do not random-walk. Reproduced, not
+    # repaired.
+    injects_noise = False
+
+    def __init__(self, cfg, *args, **kwargs):
+        if cfg.compression_sim:
+            raise NotImplementedError(
+                "compression_sim in Runner2DGS (the JAX Runner2DGS carries "
+                "the simulation's state but its step never applies it) is "
+                "not ported: ROADMAP A7")
+        super().__init__(cfg, *args, **kwargs)
 
     def _rasterizer_2dgs(self) -> str:
         return "fused" if self.cfg.rasterizer == "fused" else "reference"

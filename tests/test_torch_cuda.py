@@ -11,7 +11,12 @@ on the card; for 2DGS relative to each output channel's max(1, |largest|),
 the median bit for bit); tile backward 1e-4 of each gradient row's largest
 |value| and segment sums 1e-5 of the largest |sum| (the kernels sum in
 another order than their plain versions); every backward kernel gives the
-same bits when it runs twice on the same inputs.
+same bits when it runs twice on the same inputs. The packed-pair
+branches (grad_dtype "bf16"): the packed tile backward is the f32 branch's
+output truncated, bit for bit, and each half lies within one bf16 step
+(2^-7 of its value) plus the f32 tolerance of its plain version's half;
+the packed segment sums within 1e-6 of each row's largest |sum| (the same
+summands in another order); the unpack of packed words bit for bit.
 """
 
 import numpy as np
@@ -171,6 +176,55 @@ def test_unpack_and_segsum_kernels_match_plain(cuda):
     assert float((seg - ref).abs().max()) <= 1e-5 * scale
 
 
+def _halves(words):
+    hi, lo = tr.unpack_pairs(words)
+    return torch.cat([hi, lo])
+
+
+@pytest.mark.parametrize("CH", [3, 4])  # 9 and 10 attribute rows
+def test_packed_backward_kernel_matches_plain(cuda, CH):
+    for ts in (16, 32):
+        for cutoff in ("exact", "soft"):
+            cfg, b, masks, tiles, v_tiles = _sorted_case(cuda, 8, ts, cutoff,
+                                                         CH)
+            for absgrad in (False, True):
+                args = (b.S, b.starts, masks, tiles, v_tiles, cfg, absgrad)
+                out = tr.raster_bwd(*args, packed=True)
+                assert out.dtype == torch.int32
+                assert out.shape == (cfg.d_gp(absgrad), cfg.cap)
+                assert torch.equal(out, tr.raster_bwd(*args, packed=True))
+                # the f32 branch's sums, truncated at the final write
+                f32 = tr.raster_bwd(*args)
+                assert torch.equal(out, tr._pack_grad_rows(
+                    f32, cfg.n_attr_eff, absgrad))
+                ref = tr._bwd_packed_plain(*args)
+                h, hr = _halves(out), _halves(ref)
+                scale = hr.abs().amax(dim=1, keepdim=True)
+                tol = 2.0 ** -7 * hr.abs() + 1e-4 * (1 + 2.0 ** -7) * scale
+                assert bool(((h - hr).abs() <= tol).all())
+                assert float((out == ref).float().mean()) > 0.9
+                assert float(h[:2].abs().max()) > 0
+
+
+def test_packed_unpack_and_segsum_kernels_match_plain(cuda):
+    cfg, b, masks, tiles, v_tiles = _sorted_case(cuda, 9, 16, "exact")
+    packed = tr.raster_bwd(b.S, b.starts, masks, tiles, v_tiles, cfg, True,
+                           packed=True)
+    d = packed.shape[0]
+    rows = tr.unpack_rows(packed, d, b.perm)
+    assert rows.dtype == torch.int32
+    assert torch.equal(rows, tr._unpack_rows_plain(packed, d, b.perm))
+    seg = tr.segsum_rows(rows, b.cum, b.n_isects)
+    assert seg.shape == (2 * d, cfg.C * cfg.n)
+    ref = tr._segsum_plain(rows, b.cum, b.n_isects)
+    assert _rows_close(seg, ref, 1e-6)
+    assert torch.equal(seg, tr.segsum_rows(rows, b.cum, b.n_isects))
+    cut = torch.full_like(b.n_isects, int(b.n_isects) // 2)
+    cum = torch.clamp(b.cum, max=int(cut))
+    assert _rows_close(tr.segsum_rows(rows, cum, cut),
+                       tr._segsum_plain(rows, cum, cut), 1e-6)
+
+
 def test_rasterization_gradients_on_card_match_cpu(cuda):
     rng = np.random.default_rng(7)
     N, W, H = 3000, 160, 120
@@ -200,6 +254,42 @@ def test_rasterization_gradients_on_card_match_cpu(cuda):
     for a, b in zip(grads["cuda"], grads["cpu"]):
         scale = float(b.abs().max())
         assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale
+
+
+def test_bf16_rasterization_gradients_on_card_match_cpu(cuda):
+    """grad_dtype="bf16" through the packed branches on the card against
+    the plain versions on the CPU: within 1e-2 of each gradient's scale, as
+    a sum that differs in its last f32 bits may truncate one bf16 step
+    (2^-7 of its value) apart."""
+    rng = np.random.default_rng(8)
+    N, W, H = 3000, 160, 120
+    means = (rng.standard_normal((N, 3)) * [1.5, 1.0, 1.5]).astype(np.float32)
+    quats = rng.standard_normal((N, 4)).astype(np.float32)
+    scales = np.exp(rng.normal(-3.5, 0.5, (N, 3))).astype(np.float32)
+    opac = rng.random(N).astype(np.float32)
+    sh = (rng.standard_normal((N, 16, 3)) * 0.3).astype(np.float32)
+    vm = np.eye(4, dtype=np.float32)
+    vm[2, 3] = 5.0
+    K = np.array([[[150, 0, W / 2], [0, 150, H / 2], [0, 0, 1]]], np.float32)
+    ct = rng.standard_normal((1, H, W, 3)).astype(np.float32)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [torch.tensor(x, device=dev, requires_grad=True)
+                  for x in (means, quats, scales, opac, sh)]
+        before = dict(tr.LAUNCHES)
+        img, _, _ = rasterization(*leaves, vm[None], K, W, H, sh_degree=3,
+                                  grad_dtype="bf16", device=dev)
+        (img * torch.as_tensor(ct, device=dev)).sum().backward()
+        if dev.type == "cuda":
+            for name in ("raster_bwd_packed", "segsum_rows_packed"):
+                assert tr.LAUNCHES[name] == before[name] + 1
+            for name in ("raster_bwd", "segsum_rows"):
+                assert tr.LAUNCHES[name] == before[name]
+            assert tr.LAUNCHES["unpack_rows"] == before["unpack_rows"] + 2
+        grads[dev.type] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= 1e-2 * scale
 
 
 @pytest.mark.parametrize("CH", [40, 128])

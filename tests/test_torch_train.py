@@ -393,16 +393,19 @@ def test_finite_gate_skips_a_poisoned_step(fake_scene, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("strategy", "mcmc"), ("compression_sim", True), ("visible_adam", True),
-    ("pose_opt", True), ("app_opt", True), ("use_bilateral_grid", True),
-    ("depth_loss", True), ("mesh_devices", 2), ("grad_dtype", "bf16"),
-    ("attr_dtype", "bf16"), ("log_composite", True),
+    ("entropy_model_type", "gaussian_model"), ("rasterizer", "reference"),
+    ("visible_adam", True), ("pose_opt", True), ("app_opt", True),
+    ("use_bilateral_grid", True), ("depth_loss", True), ("mesh_devices", 2),
+    ("mesh_devices", 4), ("attr_dtype", "bf16"), ("log_composite", True),
     ("rasterizer", "pallas"), ("init_type", "random"),
     ("eval_save_images", True), ("tb_histograms_every", 10),
 ])
 def test_unported_options_raise(field, value, tmp_path):
+    # the hash-grid entropy model is reached only with its models on
+    sim = (dict(compression_sim=True, entropy_model_opt=True)
+           if field == "entropy_model_type" else {})
     cfg = dataclasses.replace(Config(result_dir=str(tmp_path)),
-                              **{field: value})
+                              **{field: value}, **sim)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Runner(cfg, parser=object(), device="cpu")
 

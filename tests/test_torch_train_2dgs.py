@@ -181,7 +181,8 @@ def test_jax_splats_render_identically(jax_runs):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("strategy", "mcmc"), ("log_composite", True)])
+    ("attr_dtype", "bf16"), ("log_composite", True),
+    ("compression_sim", True)])
 def test_unported_options_raise_2dgs(field, value, tmp_path):
     cfg = dataclasses.replace(Config2DGS(result_dir=str(tmp_path)),
                               **{field: value})
