@@ -80,20 +80,21 @@ def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
     return _LowerBound.apply(x, bound)
 
 
-def _likelihood(params: Dict, xt: torch.Tensor, q_step: float,
-                sign_grad: bool) -> torch.Tensor:
+def _likelihood(params: Dict, xt: torch.Tensor,
+                q_step: float) -> torch.Tensor:
+    """sigmoid(c(x + Q/2)) - sigmoid(c(x - Q/2)), evaluated on the side of
+    the sigmoid's centre where it does not lose precision (sign's
+    gradient is zero, as the JAX package's stop_gradient makes it)."""
     lower = _logits_cumulative(params, xt - 0.5 * q_step)
     upper = _logits_cumulative(params, xt + 0.5 * q_step)
     sign = -torch.sign(lower + upper)
-    if not sign_grad:
-        sign = sign.detach()
     return torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
 
 
 def factorized_bits(params: Dict, x: torch.Tensor,
                     q_step: float) -> torch.Tensor:
     """x [N, C] quantized values -> estimated bits [N, C]."""
-    likelihood = _likelihood(params, x.T[:, None, :], q_step, False)
+    likelihood = _likelihood(params, x.T[:, None, :], q_step)
     bits = -torch.log2(lower_bound(likelihood, LIKELIHOOD_BOUND))
     return bits[:, 0, :].T
 
@@ -106,5 +107,5 @@ def factorized_likelihood_table(params: Dict, symbols: torch.Tensor,
     x = lower_bd + symbols.to(torch.float32) * q_step
     C = params["matrices"][0].shape[0]
     xt = x[None, None, :].expand(C, 1, x.shape[0])
-    likelihood = _likelihood(params, xt, q_step, True)
+    likelihood = _likelihood(params, xt, q_step)
     return torch.clamp(likelihood[:, 0, :], min=LIKELIHOOD_BOUND)
