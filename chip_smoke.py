@@ -10,8 +10,12 @@ Phases, one JSON line each with its own ``seconds``:
             20k-Gaussian scene at 320x240, tile 16 and 32, both cutoffs,
             the backward with absgrad off and on, and each backward kernel
             run twice for the same bits; B1 and B2 at 40 channels; the
-            same scene as surfels (tile 16, both cutoffs) for the 2DGS tile
-            kernels B5 and B6 and the expansion's no-cull branch;
+            sorted table's precision branches on the same scene, tile 16
+            and 32, both cutoffs: attr_dtype "bf16", geom_dtype "u16",
+            log_composite, and all three (each case's backward also with
+            packed gradient rows); the same scene as surfels (tile 16, both
+            cutoffs) for the 2DGS tile kernels B5 and B6, in the product
+            and the log branch, and the expansion's no-cull branch;
   serve     the committed checkpoint results/garden_ab_f32/splats_final.npz
             (120k Gaussians, SH 3) rendered from 8 orbit cameras at
             1297x840 through utils.ply_render.render_splats, and its first
@@ -28,7 +32,18 @@ Phases, one JSON line each with its own ``seconds``:
             rendering.rasterization_2dgs, tile 16, exact cutoff: forward and
             forward + backward with a seeded cotangent on the colours,
             alphas, normals and distortion (median ms, Mpix/s, launches),
-            and B5's and B6's time, bound, plain time and error;
+            and B5's and B6's time, bound, plain time and error; the same
+            with log_composite (B5/B6's log branch);
+  bench_1m  bench.py's default configuration through the port: the same
+            scene, tile 32, soft cutoff, grad_dtype "bf16", attr_dtype
+            "bf16", log_composite, capacity 1.2x the probed elliptical rows,
+            the loss mean((img - 0.5)^2) + 0.1 mean(alpha) backward to the
+            means: fwd+bwd median ms and Mpix/s, beside the same call with
+            every knob at f32/off and with geom_dtype "u16" (and the count
+            of binned centres outside [-4096, 4096) px); each new branch's
+            kernel time, launches, bound and plain time beside the f32
+            branch's, every kernel held against its plain version on these
+            inputs;
   train     training.trainer.Runner with the default Config on the stand-in
             of utils.scenes.checkpoint_stand_in (the checkpoint rendered
             from 8 views at 1297x840, 7 to train, 1 held out), 30 steps with
@@ -54,17 +69,25 @@ Phases, one JSON line each with its own ``seconds``:
             PSNR, step ms, the allocated count after each refine, the bits
             term, per-view profiled steps; then the packed kernels on the
             slowest view's own inputs against their plain versions;
+  train_packed  the ladder's recipe with attr_dtype "bf16" and
+            log_composite (examples/garden_benchmark.py --attr_dtype bf16
+            --log_composite) as train_ladder runs it: loss, held-out PSNR,
+            step ms, skipped steps; then the slowest view's kernels against
+            their plain versions;
   train_2dgs_mcmc  Runner2DGS at strategy "mcmc" on the same stand-in,
             20 steps: loss, skipped steps, the allocated count.
 The kernels and train_1m phases also hold the packed-pair branches (B2p,
 B4p) against their plain versions, and train_1m times the bf16 case beside
 the f32 one. Then a line {"kernels": [...]} with each kernel's numbers
 (launches from its main path: the train phase, for B5 and B6 the
-train_2dgs phase, for B2p and B4p the train_ladder phase), the card's name
+train_2dgs phase, for B2p and B4p the train_ladder phase, for the precision
+branches of B3, B1 and B2 one fwd+bwd of bench_1m, for B5/B6's log branch
+one fwd+bwd of train_1m_2dgs's log leg), the card's name
 and power limit, and the result line. Any failed check raises, and the
 script exits non-zero without the result line.
 """
 
+import dataclasses
 import json
 import math
 import shutil
@@ -129,6 +152,13 @@ FWD2_OPS_COMPOSITED = 11  # + 2*CB
 # the branch: 39 through the cross product (UV) or 4 to means2d (filter).
 BWD2_OPS_COMPOSITED = 30  # + 3*CB + d_g
 BWD2_OPS_UV, BWD2_OPS_FILTER = 39, 4
+# the log scan (csrc/tile_common.cuh and the tile kernels' LOG branches), in
+# place of FWD_OPS_TESTED in all four tile kernels: -alpha, log1p, two bf16
+# roundings, l - l1, the two running sums and their sum (8); incl - l, exp
+# and T*exp for T_prev (3); exact only, T*exp(incl), its test and the min
+# (4). The packed rows add no float operation to a pair: they are unpacked
+# once per staged column, and cut the bytes read.
+LOG_OPS_TESTED = {"exact": 15, "soft": 11}
 
 KERNELS = {
     "pack_rows": dict(source="gscodec_studio_tpu_torch/csrc/pack.cu",
@@ -155,6 +185,27 @@ KERNELS = {
     "segsum_rows_packed": dict(
         source="gscodec_studio_tpu_torch/csrc/segsum.cu",
         replaces="gscodec_studio_tpu/ops/raster_v2.py:1412"),
+    "expand_packed": dict(
+        source="gscodec_studio_tpu_torch/csrc/expand.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2.py:520"),
+    "raster_fwd_unpack": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_fwd.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2.py:782"),
+    "raster_fwd_log": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_fwd.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2.py:931"),
+    "raster_bwd_unpack": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_bwd.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2.py:766"),
+    "raster_bwd_log": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_bwd.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2.py:1131"),
+    "raster_fwd_2dgs_log": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_fwd_2dgs.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2_2dgs.py:184"),
+    "raster_bwd_2dgs_log": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_bwd_2dgs.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2_2dgs.py:353"),
 }
 KERNELS_3DGS = ("pack_rows", "expand", "raster_fwd", "raster_bwd",
                 "segsum_rows", "unpack_rows")  # the 3DGS training step's
@@ -162,6 +213,19 @@ KERNELS_2DGS = ("pack_rows", "expand", "raster_fwd_2dgs", "raster_bwd_2dgs",
                 "segsum_rows", "unpack_rows")  # the 2DGS training step's
 KERNELS_LADDER = ("pack_rows", "expand", "raster_fwd", "raster_bwd_packed",
                   "segsum_rows_packed", "unpack_rows")  # grad_dtype "bf16"
+# bench.py's configuration (and train_packed's): bf16 attribute pairs, the
+# log scan and packed gradient rows; the f32 branches must not launch
+KERNELS_BENCH = ("pack_rows", "expand_packed", "raster_fwd_unpack",
+                 "raster_fwd_log", "raster_bwd_packed", "raster_bwd_unpack",
+                 "raster_bwd_log", "segsum_rows_packed", "unpack_rows")
+F32_BRANCHES = ("expand", "raster_fwd", "raster_bwd", "segsum_rows")
+# the sorted table's precision cases of the kernels phase
+PRECISION_CASES = {
+    "attr_bf16": dict(attr_dtype="bf16"),
+    "geom_u16": dict(geom_dtype="u16"),
+    "log": dict(log_composite=True),
+    "all": dict(attr_dtype="bf16", geom_dtype="u16", log_composite=True),
+}
 
 
 FWD_KERNELS = ("pack_rows", "expand", "raster_fwd")  # a render's kernels
@@ -169,6 +233,18 @@ FWD_KERNELS = ("pack_rows", "expand", "raster_fwd")  # a render's kernels
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def note_err(errs, keys, err):
+    for key in keys:
+        errs[key] = max(errs.get(key, 0.0), err)
+
+
+def tested_ops(cfg):
+    """Float operations per tested (pair, pixel) of the transmittance
+    step, in the scan that cfg selects."""
+    return (LOG_OPS_TESTED if cfg.log_composite else
+            FWD_OPS_TESTED)[cfg.cutoff]
 
 
 def cuda_ms(fn, reps):
@@ -183,6 +259,18 @@ def cuda_ms(fn, reps):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def once_ms(fn):
+    """Device time of one ``fn`` call, with no warm-up (for the plain
+    versions at the 1M shapes, whose first call the checks have made)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1)
 
 
 def median_ms(fn, reps):
@@ -293,14 +381,16 @@ class Stages:
         table_p = rv._pack_rows_plain(self.attr_rows, cfg.n_attr_eff,
                                       b.order)
         S_p = rv._pack_rows_plain(self.row_list, cfg.d_s, b.perm)
-        if not (torch.equal(table_p, b.table) and torch.equal(S_p, b.S)):
+        # packed rows hold words (some read as NaN): compare the bits
+        if not (torch.equal(table_p, b.table) and torch.equal(
+                S_p.view(torch.int32), b.S.view(torch.int32))):
             raise AssertionError("pack_rows kernel differs from its plain "
                                  "version")
         errs["pack_rows"] = max(errs.get("pack_rows", 0.0), 0.0)
 
         tile_p, rows_p = rv._expand_plain(b.cum, b.base, b.nx,
                                           b.table, b.n_isects, cfg)
-        if not torch.equal(rows_p, b.rows):
+        if not torch.equal(rows_p.view(torch.int32), b.rows.view(torch.int32)):
             raise AssertionError("expand kernel rows differ from plain")
         diff = (tile_p != b.tile).nonzero().squeeze(1)
         n_bound = 0
@@ -309,7 +399,7 @@ class Stages:
             # for a pair whose cull sides agree to float rounding
             lo = torch.minimum(b.tile[diff], tile_p[diff])
             hi = torch.maximum(b.tile[diff], tile_p[diff])
-            g = b.rows[cfg.n_attr_eff, diff].to(torch.int64)
+            g = b.rows[cfg.idrow, diff].to(torch.int64)
             lhs, rhs = rv._cull_lhs_rhs(cfg, lo, b.table, g)
             on_bound = (lhs - rhs).abs() <= 1e-5 * torch.clamp(rhs.abs(),
                                                                  min=1.0)
@@ -319,7 +409,8 @@ class Stages:
                     f"expand kernel keys differ off the cull bound at "
                     f"{diff.numel()} rows")
             n_bound = int(diff.numel())
-        errs["expand"] = max(errs.get("expand", 0.0), 0.0)
+        note_err(errs, rv.launch_keys("expand", [(
+            cfg.geom_packed or cfg.attr_packed, "_packed")]), 0.0)
         res["cull_bound_pairs"] = n_bound
 
         ref, self.pair_counts = rv._fwd_plain(b.S, b.starts, self.masks,
@@ -327,7 +418,8 @@ class Stages:
         err = float((ref - self.out).abs().max())
         if not (math.isfinite(err) and err <= FWD_TOL):
             raise AssertionError(f"raster_fwd max abs err {err} > {FWD_TOL}")
-        errs["raster_fwd"] = max(errs.get("raster_fwd", 0.0), err)
+        note_err(errs, rv.launch_keys("raster_fwd", rv._input_branches(cfg)),
+                 err)
         res["fwd_max_abs_err"] = err
         return res
 
@@ -337,7 +429,7 @@ class Stages:
         self.v_tiles = torch.randn(self.out.shape, generator=g).to(
             self.out.device)
 
-    def compare_bwd(self, errs, seed=0):
+    def compare_bwd(self, errs, seed=0, absgrads=(False, True)):
         """The backward kernels against their plain versions on a seeded
         cotangent of the tile outputs: raster_bwd with absgrad off and on
         (BWD_TOL of each row's largest |value|), unpack_rows bit for bit,
@@ -348,7 +440,8 @@ class Stages:
         rv, cfg, b = self.rv, self.cfg, self.b
         self.cotangent(seed)
         res = {}
-        for absgrad in (False, True):
+        keys = rv.launch_keys("raster_bwd", rv._input_branches(cfg))
+        for absgrad in absgrads:
             args = (b.S, b.starts, self.masks, self.out, self.v_tiles, cfg,
                     absgrad)
             gbuf = rv.raster_bwd(*args)
@@ -361,7 +454,7 @@ class Stages:
             if not torch.equal(gbuf, rv.raster_bwd(*args)):
                 raise AssertionError("raster_bwd differs between two runs")
             abs_err = float(diff.max())
-            errs["raster_bwd"] = max(errs.get("raster_bwd", 0.0), abs_err)
+            note_err(errs, keys, abs_err)
             res[f"bwd_rel_err_absgrad_{int(absgrad)}"] = err
             res[f"bwd_max_abs_err_absgrad_{int(absgrad)}"] = abs_err
             if not absgrad:
@@ -388,10 +481,10 @@ class Stages:
         res["segsum_rel_err"] = err
         res["segsum_max_abs_err"] = abs_err
         self.seg = seg
-        res.update(self.compare_packed(errs))
+        res.update(self.compare_packed(errs, absgrads))
         return res
 
-    def compare_packed(self, errs):
+    def compare_packed(self, errs, absgrads=(False, True)):
         """The packed-pair branches against their plain versions on
         compare_bwd's cotangent: raster_bwd(packed=True) is the f32
         branch's output truncated, bit for bit, and each half lies within
@@ -403,7 +496,7 @@ class Stages:
         inputs for timing."""
         rv, cfg, b = self.rv, self.cfg, self.b
         res = {}
-        for absgrad in (False, True):
+        for absgrad in absgrads:
             args = (b.S, b.starts, self.masks, self.out, self.v_tiles, cfg,
                     absgrad)
             gp = rv.raster_bwd(*args, packed=True)
@@ -507,8 +600,8 @@ class Stages2DGS:
         if not (math.isfinite(err) and err <= FWD_TOL):
             raise AssertionError(f"raster_fwd_2dgs err {err} > {FWD_TOL}")
         abs_err = float((self.out - ref).abs().max())
-        errs["raster_fwd_2dgs"] = max(errs.get("raster_fwd_2dgs", 0.0),
-                                      abs_err)
+        note_err(errs, rv.launch_keys(
+            "raster_fwd_2dgs", [(cfg.log_composite, "_log")]), abs_err)
         median_equal = bool(torch.equal(self.out[..., -1], ref[..., -1]))
         return {"fwd2_err": err, "fwd2_max_abs_err": abs_err,
                 "median_bits_equal": median_equal}
@@ -534,15 +627,16 @@ class Stages2DGS:
         if not torch.equal(gbuf, r2.raster_bwd_2dgs(*self.bwd_args)):
             raise AssertionError("raster_bwd_2dgs differs between two runs")
         abs_err = float(diff.max())
-        errs["raster_bwd_2dgs"] = max(errs.get("raster_bwd_2dgs", 0.0),
-                                      abs_err)
+        note_err(errs, rv.launch_keys(
+            "raster_bwd_2dgs", [(cfg.log_composite, "_log")]), abs_err)
         self.gbuf = gbuf
         return {"bwd2_rel_err": err, "bwd2_max_abs_err": abs_err}
 
     def kernel_numbers(self, cuda_ms):
         """B5's and B6's time, plain time and bound at these inputs (B6 on
-        compare_bwd's cotangent)."""
+        compare_bwd's cotangent), under their branch's keys."""
         cfg, b, r2 = self.cfg, self.b, self.r2
+        sfx = "_log" if cfg.log_composite else ""
         CB, P, L = cfg.channels, cfg.pixels, cfg.cap
         n_rows = int(b.starts[cfg.n_tiles] - b.starts[0])
         pc = self.pair_counts
@@ -552,16 +646,16 @@ class Stages2DGS:
         tile_bytes = 4 * cfg.n_tiles * P * cfg.chp
         d_g = cfg.d_g(False)
         walk_ops = (FWD2_OPS_EVALUATED * pc["evaluated"]
-                    + FWD_OPS_TESTED[cfg.cutoff] * pc["tested"])
+                    + tested_ops(cfg) * pc["tested"])
         k = {}
-        k["raster_fwd_2dgs"] = bound(dict(
+        k["raster_fwd_2dgs" + sfx] = bound(dict(
             ms=cuda_ms(lambda: r2.raster_fwd_2dgs(*fwd_args), 10),
             plain_ms=cuda_ms(lambda: r2._fwd_2dgs_plain(*fwd_args), 1),
             library_ms=None, bytes=table_bytes + tile_bytes,
             ops=walk_ops + (FWD2_OPS_COMPOSITED + 2 * CB)
             * pc["composited"], pair_counts=pc))
         n_uv = pc["composited_uv"]
-        k["raster_bwd_2dgs"] = bound(dict(
+        k["raster_bwd_2dgs" + sfx] = bound(dict(
             ms=cuda_ms(lambda: r2.raster_bwd_2dgs(*self.bwd_args), 5),
             plain_ms=cuda_ms(lambda: r2._bwd_2dgs_plain(*self.bwd_args), 1),
             library_ms=None,
@@ -628,10 +722,11 @@ def main():
 
     def check_training_views(runner, sh_degree, errs, packed=False):
         """The kernels on the training run's own inputs: each training
-        view at the run's splats, SH degree and intersection capacity. Times
-        B2 (with ``packed``, its packed-pair branch) on every view with a
-        seeded cotangent, then holds the slowest view's kernels, forward and
-        backward (both branches), against their plain versions."""
+        view at the run's splats, SH degree, intersection capacity and
+        sorted-table precision. Times B2 (with ``packed``, its packed-pair
+        branch) on every view with a seeded cotangent, then holds the
+        slowest view's kernels, forward and backward (both branches),
+        against their plain versions."""
         tc = runner.cfg
         sp = runner.splats
         data = runner._device_trainset()
@@ -648,7 +743,9 @@ def main():
                 far_plane=tc.far_plane, sh_degree=sh_degree,
                 antialiased=tc.antialiased)
             return stages_for(prep, W, H, tc.tile_size, tc.cutoff_mode,
-                              cap=runner.isect_capacity())
+                              cap=runner.isect_capacity(),
+                              attr_dtype=tc.attr_dtype,
+                              log_composite=tc.log_composite)
 
         bwd_ms = []
         with torch.no_grad():
@@ -706,7 +803,8 @@ def main():
                     n_isects=int(st.b.n_isects), isect_capacity=st.cfg.cap,
                     **res)
 
-    def stages_2dgs(prep, width, height, cutoff, cap=None, ts=16):
+    def stages_2dgs(prep, width, height, cutoff, cap=None, ts=16,
+                    log_composite=False):
         """Stages2DGS of project_and_shade_2dgs's outputs; the capacity,
         unless given, 1.2x the binned rows of a first count."""
         radii, means2d, depths, trans, normals, colors_cn, opac_cn = prep
@@ -718,7 +816,8 @@ def main():
         cap = -(-cap // rv.CAP_BLOCK) * rv.CAP_BLOCK
         colors_full = torch.cat([colors_cn, normals], -1).contiguous()
         CB = colors_full.shape[-1]
-        cfg = r2.cfg_2dgs(C, TW, TH, ts, CB, cap, N, cutoff=cutoff)
+        cfg = r2.cfg_2dgs(C, TW, TH, ts, CB, cap, N, cutoff=cutoff,
+                          log_composite=log_composite)
         masks = torch.ones(cfg.n_tiles, dtype=torch.int32, device=dev)
         st = Stages2DGS(rv, r2, cfg, CB - 4, means2d.contiguous(),
                         trans.contiguous(), colors_full,
@@ -729,7 +828,9 @@ def main():
                                  f"{cfg.cap}")
         return st
 
-    def stages_for(prep, width, height, ts, cutoff, cap=None):
+    def stages_for(prep, width, height, ts, cutoff, cap=None, **knobs):
+        """Stages of project_and_shade's outputs; ``knobs`` are V2Cfg's
+        precision fields."""
         radii, means2d, depths, conics, colors_cn, opac_cn, _ = prep
         C, N = depths.shape
         TW, TH = -(-width // ts), -(-height // ts)
@@ -739,7 +840,7 @@ def main():
         cap = -(-cap // rv.CAP_BLOCK) * rv.CAP_BLOCK
         cfg = rv.V2Cfg(C=C, tile_width=TW, tile_height=TH, tile_size=ts,
                        channels=colors_cn.shape[-1], cap=cap, n=N,
-                       cutoff=cutoff)
+                       cutoff=cutoff, **knobs)
         masks = torch.ones(cfg.n_tiles, dtype=torch.int32, device=dev)
         f = [x.contiguous() for x in (means2d, conics, colors_cn, opac_cn,
                                       depths)]
@@ -773,18 +874,31 @@ def main():
         res.update(st.compare_bwd(errs, seed=40))
         cases.append(dict(tile_size=16, cutoff=cutoff, channels=40,
                           n_isects=int(st.b.n_isects), **res))
+    # the sorted table's precision branches of B3, B1 and B2 (the backward
+    # also with packed gradient rows)
+    for name, knobs in PRECISION_CASES.items():
+        for ts in (16, 32):
+            for cutoff in ("exact", "soft"):
+                st = stages_for(prep_small, sw, sh, ts, cutoff, **knobs)
+                res = st.compare(errs)
+                res.update(st.compare_bwd(errs, seed=ts))
+                cases.append(dict(tile_size=ts, cutoff=cutoff, knobs=name,
+                                  n_isects=int(st.b.n_isects), **res))
     # B5, B6 and B3's no-cull branch on the same scene's surfels
     means_s, quats_s, scales_s, opac_s, colors_s, vm_s, Ks_s = to_dev(
         *small)
     prep2_small = project_and_shade_2dgs(
         means_s, quats_s, scales_s, opac_s, colors_s, vm_s, Ks_s, sw, sh,
         sh_degree=3)
-    for cutoff in ("exact", "soft"):
-        st = stages_2dgs(prep2_small, sw, sh, cutoff)
-        res = st.compare(errs)
-        res.update(st.compare_bwd(errs, seed=2))
-        cases.append(dict(tile_size=16, cutoff=cutoff, surfels=True,
-                          n_isects=int(st.b.n_isects), **res))
+    for log_composite in (False, True):
+        for cutoff in ("exact", "soft"):
+            st = stages_2dgs(prep2_small, sw, sh, cutoff,
+                             log_composite=log_composite)
+            res = st.compare(errs)
+            res.update(st.compare_bwd(errs, seed=2))
+            cases.append(dict(tile_size=16, cutoff=cutoff, surfels=True,
+                              log_composite=log_composite,
+                              n_isects=int(st.b.n_isects), **res))
     del st
     torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "max_abs_err": errs,
@@ -1241,8 +1355,50 @@ def main():
     k2 = st.kernel_numbers(cuda_ms)
     expand_no_cull_ms = cuda_ms(lambda: rv.expand(
         st.b.cum, st.b.base, st.b.nx, st.b.table, st.b.n_isects, cfg2), 10)
+    # the no-cull branch's bound: B3's bytes at these shapes
+    expand_no_cull = bound(dict(
+        ms=expand_no_cull_ms, ops=0,
+        bytes=(12 + 4 * cfg2.n_attr_eff) * cfg2.C * cfg2.n + 4 * cfg2.cap
+        + 4 * cfg2.d_s * cfg2.cap))
     perf.update(k2)
     n_rows2 = int(st.b.starts[cfg2.n_tiles] - st.b.starts[0])
+
+    # the log scan's leg: rasterization_2dgs(log_composite=True), B5/B6's
+    # log branch held against its plain version on its own inputs
+    del st
+    st = stages_2dgs(prep2_1m, WIDTH, HEIGHT, "exact", cap=cfg2.cap,
+                     log_composite=True)
+    check2_log = st.compare(errs)
+    check2_log.update(st.compare_bwd(errs, seed=27))
+
+    def fwd_bwd_2dgs_log():
+        for t in leaves2:
+            t.grad = None
+        out = rasterization_2dgs(*leaves2, vm, Ks, WIDTH, HEIGHT,
+                                 sh_degree=3, tile_size=16,
+                                 isect_capacity=cfg2.cap, rasterizer="fused",
+                                 log_composite=True, device=dev)
+        torch.autograd.backward([out[0], out[1], out[2], out[4]], cts)
+
+    rv.reset_launch_counts()
+    fwd_bwd_2dgs_log()
+    torch.cuda.synchronize()
+    launches2_log = dict(rv.LAUNCHES)
+    if min(launches2_log[k] for k in ("raster_fwd_2dgs_log",
+                                      "raster_bwd_2dgs_log")) < 1 or \
+            launches2_log["raster_fwd_2dgs"] or \
+            launches2_log["raster_bwd_2dgs"]:
+        raise AssertionError(f"the 2DGS log fwd+bwd did not take the log "
+                             f"branches: {launches2_log}")
+    if not all(bool(torch.isfinite(t.grad).all()) for t in leaves2):
+        raise AssertionError("train_1m_2dgs log gradients are not finite")
+    fb2l_ms, fb2l_samples = median_ms(fwd_bwd_2dgs_log, 5)
+    k2_log = st.kernel_numbers(cuda_ms)
+    perf.update(k2_log)
+    log_leg = dict(fwd_bwd_ms=fb2l_ms, fwd_bwd_ms_samples=fb2l_samples,
+                   mpix_per_s=WIDTH * HEIGHT / (fb2l_ms * 1e-3) / 1e6,
+                   launches_per_fwd_bwd=launches2_log, kernels=k2_log,
+                   n_isects=int(st.b.n_isects), check=check2_log)
     emit({"phase": "train_1m_2dgs", "gaussians": N_1M, "width": WIDTH,
           "height": HEIGHT, "tile_size": 16, "cutoff": cfg2.cutoff,
           "channels": cfg2.channels, "n_isects": int(st.b.n_isects),
@@ -1251,12 +1407,162 @@ def main():
           "fwd_ms": f2_ms,
           "mpix_per_s": WIDTH * HEIGHT / (fb2_ms * 1e-3) / 1e6,
           "launches_per_fwd_bwd": launches2, "kernels": k2,
-          "expand_no_cull_ms": expand_no_cull_ms,
+          "expand_no_cull": expand_no_cull,
           "mean_alpha": float(out2[1].mean()), "profile": profile2,
-          "check": check2, "seconds": time.perf_counter() - t0})
+          "check": check2, "log_composite": log_leg,
+          "seconds": time.perf_counter() - t0})
     del st, out2, leaves2, prep2_1m
 
-    # 8. train: the port's Runner on the checkpoint stand-in
+    # 8. bench_1m: bench.py's default configuration through the port
+    t0 = time.perf_counter()
+    ts_b = 32
+    twb, thb = -(-WIDTH // ts_b), -(-HEIGHT // ts_b)
+    # bench.py's probe: the opacity-aware elliptical rows at its tile size
+    radii_b, m2d_b = fully_fused_projection(
+        means, None, quats, scales, vm, Ks, WIDTH, HEIGHT, opacities=opac,
+        elliptical=True)[:2]
+    cnt_b = rv.tile_counts(m2d_b, radii_b, ts_b, twb, thb)[3]
+    binned_rows_b = int(cnt_b.sum())
+    cap_b = int(binned_rows_b * 1.2)
+    # the centres that u16 positions clip: binned, outside [-4096, 4096) px
+    outside_b = int(((cnt_b > 0) & ((m2d_b < -4096.0)
+                                    | (m2d_b >= 4096.0)).any(-1)).sum())
+    del radii_b, m2d_b, cnt_b
+    legs = {
+        "bench": dict(grad_dtype="bf16", attr_dtype="bf16",
+                      log_composite=True, geom_dtype="f32"),
+        "f32": dict(grad_dtype="f32", attr_dtype="f32", log_composite=False,
+                    geom_dtype="f32"),
+        "u16": dict(grad_dtype="bf16", attr_dtype="bf16",
+                    log_composite=True, geom_dtype="u16"),
+    }
+    means_b = means.detach().clone().requires_grad_(True)
+
+    def bench_fwd_bwd(knobs):
+        def run():
+            means_b.grad = None
+            img, alpha, meta = rasterization(
+                means_b, quats, scales, opac, colors, vm, Ks, WIDTH, HEIGHT,
+                sh_degree=3, isect_capacity=cap_b, cutoff_mode="soft",
+                tile_size=ts_b, device=dev, **knobs)
+            loss = torch.mean((img - 0.5) ** 2) + 0.1 * torch.mean(alpha)
+            loss.backward()
+            return loss, meta
+        return run
+
+    legs_out, grads_b = {}, {}
+    for leg, knobs in legs.items():
+        run = bench_fwd_bwd(knobs)
+        rv.reset_launch_counts()
+        loss, meta = run()
+        torch.cuda.synchronize()
+        launches = dict(rv.LAUNCHES)
+        want, off = (KERNELS_3DGS, [k for k in launches if k not in
+                                    KERNELS_3DGS]) if leg == "f32" else (
+            KERNELS_BENCH, F32_BRANCHES)
+        if min(launches[k] for k in want) < 1 or any(launches[k]
+                                                     for k in off):
+            raise AssertionError(f"bench_1m {leg} leg launched {launches}")
+        n_b = int(meta["n_isects"])
+        if not (math.isfinite(float(loss)) and n_b < cap_b and
+                bool(torch.isfinite(means_b.grad).all())):
+            raise AssertionError(f"bench_1m {leg}: loss {float(loss)}, "
+                                 f"n_isects {n_b} of {cap_b}")
+        grads_b[leg] = means_b.grad.clone()
+        ms, samples = median_ms(run, 10)
+        legs_out[leg] = dict(knobs=knobs, fwd_bwd_ms=ms,
+                             fwd_bwd_ms_samples=samples,
+                             mpix_per_s=WIDTH * HEIGHT / (ms * 1e-3) / 1e6,
+                             n_isects=n_b, loss=float(loss),
+                             launches_per_fwd_bwd=launches)
+    bench_launches = legs_out["bench"]["launches_per_fwd_bwd"]
+    # reported: the means' gradients against the f32 leg's
+    g_scale = float(grads_b["f32"].abs().max())
+    for leg in ("bench", "u16"):
+        legs_out[leg]["means_grad_err_vs_f32"] = float(
+            (grads_b[leg] - grads_b["f32"]).abs().max()) / g_scale
+    legs_out["u16"]["binned_centres_outside_u16_range"] = outside_b
+    legs_out["bench"]["profile"] = device_profile(
+        bench_fwd_bwd(legs["bench"]))
+    del grads_b
+
+    def tile_numbers(st):
+        """B3's, B1's and B2's (f32 and packed gradient rows) time, plain
+        time and bound at a Stages' inputs, in its cfg's branches (B2 on
+        compare_bwd's cotangent)."""
+        cfg, b = st.cfg, st.b
+        CH, P, L, M = cfg.channels, cfg.pixels, cfg.cap, cfg.C * cfg.n
+        n_rows = int(b.starts[cfg.n_tiles] - b.starts[0])
+        pc = st.pair_counts
+        walk = (FWD_OPS_EVALUATED * pc["evaluated"]
+                + tested_ops(cfg) * pc["tested"])
+        table_bytes = (4 * cfg.n_srows * n_rows + 4 * (cfg.n_tiles_v + 1)
+                       + 4 * cfg.n_tiles)
+        tile_bytes = 4 * cfg.n_tiles * P * (CH + 1)
+        bwd_args = (b.S, b.starts, st.masks, st.out, st.v_tiles, cfg, False)
+        bwd_ops = walk + (BWD_OPS_COMPOSITED + 3 * CH + cfg.d_g(False)) \
+            * pc["composited"]
+        exp_args = (b.cum, b.base, b.nx, b.table, b.n_isects, cfg)
+        return dict(
+            expand=bound(dict(
+                ms=cuda_ms(lambda: rv.expand(*exp_args), 10),
+                plain_ms=once_ms(lambda: rv._expand_plain(*exp_args)),
+                library_ms=None, ops=0,
+                bytes=(12 + 4 * cfg.n_attr_eff) * M + 4 * L
+                + 4 * cfg.d_s * L)),
+            raster_fwd=bound(dict(
+                ms=cuda_ms(lambda: rv.raster_fwd(b.S, b.starts, st.masks,
+                                                 cfg), 10),
+                plain_ms=once_ms(lambda: rv._fwd_plain(b.S, b.starts,
+                                                       st.masks, cfg)),
+                library_ms=None, bytes=table_bytes + tile_bytes,
+                ops=walk + (1 + 2 * CH) * pc["composited"],
+                pair_counts=pc)),
+            raster_bwd=bound(dict(
+                ms=cuda_ms(lambda: rv.raster_bwd(*bwd_args), 10),
+                plain_ms=once_ms(lambda: rv._bwd_plain(*bwd_args)),
+                library_ms=None, ops=bwd_ops,
+                bytes=table_bytes + 2 * tile_bytes + 4 * cfg.d_g(False) * L)),
+            raster_bwd_packed=bound(dict(
+                ms=cuda_ms(lambda: rv.raster_bwd(*bwd_args, packed=True), 10),
+                plain_ms=once_ms(lambda: rv._bwd_packed_plain(*bwd_args)),
+                library_ms=None, ops=bwd_ops,
+                bytes=table_bytes + 2 * tile_bytes
+                + 4 * cfg.d_gp(False) * L)))
+
+    # each branch's kernels on these inputs: against their plain versions
+    # (B2 with f32 and packed gradient rows), then timed beside the f32
+    # branch's
+    configs_b = {"f32": {}, "attr_bf16": dict(attr_dtype="bf16"),
+                 "log": dict(log_composite=True),
+                 "bench": dict(attr_dtype="bf16", log_composite=True),
+                 "u16": dict(attr_dtype="bf16", log_composite=True,
+                             geom_dtype="u16")}
+    kern_b, checks_b = {}, {}
+    for name, knobs in configs_b.items():
+        st = stages_for(prep_1m, WIDTH, HEIGHT, ts_b, "soft", cap=cap_b,
+                        **knobs)
+        checks_b[name] = st.compare(errs)
+        checks_b[name].update(st.compare_bwd(errs, seed=32,
+                                             absgrads=(False,)))
+        checks_b[name]["n_isects"] = int(st.b.n_isects)
+        kern_b[name] = tile_numbers(st)
+        del st
+    # the kernel table's rows of the new branches: each alone
+    perf["expand_packed"] = kern_b["attr_bf16"]["expand"]
+    perf["raster_fwd_unpack"] = kern_b["attr_bf16"]["raster_fwd"]
+    perf["raster_bwd_unpack"] = kern_b["attr_bf16"]["raster_bwd"]
+    perf["raster_fwd_log"] = kern_b["log"]["raster_fwd"]
+    perf["raster_bwd_log"] = kern_b["log"]["raster_bwd"]
+    emit({"phase": "bench_1m", "gaussians": N_1M, "width": WIDTH,
+          "height": HEIGHT, "tile_size": ts_b, "cutoff": "soft",
+          "binned_rows": binned_rows_b, "isect_capacity": cap_b,
+          "legs": legs_out, "kernels_by_config": kern_b,
+          "checks_by_config": checks_b,
+          "seconds": time.perf_counter() - t0})
+    del means_b
+
+    # 9. train: the port's Runner on the checkpoint stand-in
     t0 = time.perf_counter()
     parser, trainset, valset = checkpoint_stand_in(
         CHECKPOINT, n_views=8, width=WIDTH, height=HEIGHT, device=dev)
@@ -1333,7 +1639,7 @@ def main():
     del runner
     shutil.rmtree(stats_dir, ignore_errors=True)
 
-    # 9. train_2dgs: the port's Runner2DGS on the same stand-in
+    # 10. train_2dgs: the port's Runner2DGS on the same stand-in
     t0 = time.perf_counter()
     stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_train_2dgs_")
     tcfg2 = Config2DGS(result_dir=stats_dir, refine_start_iter=5,
@@ -1393,7 +1699,7 @@ def main():
     del runner
     shutil.rmtree(stats_dir, ignore_errors=True)
 
-    # 10. train_ladder: the garden ladder's recipe on the same stand-in
+    # 11. train_ladder: the garden ladder's recipe on the same stand-in
     t0 = time.perf_counter()
     stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_ladder_")
     lcfg = Config(result_dir=stats_dir, strategy="mcmc",
@@ -1491,7 +1797,64 @@ def main():
     del runner
     shutil.rmtree(stats_dir, ignore_errors=True)
 
-    # 11. train_2dgs_mcmc: Runner2DGS under MCMC on the same stand-in
+    # 12. train_packed: the ladder's recipe with bf16 attribute rows and
+    # the log scan (garden_benchmark.py --attr_dtype bf16 --log_composite)
+    t0 = time.perf_counter()
+    stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_packed_")
+    pcfg = dataclasses.replace(lcfg, result_dir=stats_dir, attr_dtype="bf16",
+                               log_composite=True)
+    runner = Runner(pcfg, parser=parser, trainset=trainset, valset=valset,
+                    device=dev)
+    sim = runner.compression_sim
+    sim.entropy_steps = {k: LADDER_GATE for k in sim.entropy_steps}
+    sim.ada_mask_start = LADDER_GATE
+    before_p = runner.eval("before")
+    steps = []
+    train_step = runner.train_step
+    runner.train_step = timed_step
+    t1 = time.perf_counter()
+    rv.reset_launch_counts()
+    losses_p = runner.train(max_steps=TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    packed_launches = dict(rv.LAUNCHES)
+    packed_s = time.perf_counter() - t1
+    after_p = runner.eval("after")
+    packed_check = check_training_views(runner, steps[-1]["sh_degree"], errs,
+                                        packed=True)
+    gated_p = losses_p[LADDER_GATE + 1:]
+    if not np.mean(gated_p[-5:]) < np.mean(gated_p[:5]):
+        raise AssertionError(f"packed ladder loss did not fall: {losses_p}")
+    if not after_p["psnr"] > before_p["psnr"]:
+        raise AssertionError(f"packed ladder held-out PSNR did not rise: "
+                             f"{before_p} -> {after_p}")
+    if runner.skipped_steps:
+        raise AssertionError(f"packed ladder skipped "
+                             f"{runner.skipped_steps} steps")
+    if min(packed_launches[k] for k in KERNELS_BENCH) < 1 or any(
+            packed_launches[k] for k in F32_BRANCHES):
+        raise AssertionError(f"the packed ladder did not take the precision "
+                             f"branches: {packed_launches}")
+    emit({"phase": "train_packed", "steps": TRAIN_STEPS,
+          "capacity": LADDER_CAP, "isect_capacity": runner.isect_capacity(),
+          "attr_dtype": pcfg.attr_dtype, "log_composite": pcfg.log_composite,
+          "grad_dtype": pcfg.grad_dtype, "cutoff_mode": pcfg.cutoff_mode,
+          "entropy_and_mask_gate": LADDER_GATE,
+          "loss_first5": losses_p[:5], "loss_gated_first5": gated_p[:5],
+          "loss_last5": gated_p[-5:],
+          "psnr_before": before_p["psnr"], "psnr_after": after_p["psnr"],
+          "ssim_before": before_p["ssim"], "ssim_after": after_p["ssim"],
+          "step_ms_median": float(np.median([s_["ms"] for s_ in steps])),
+          "step_ms": [s_["ms"] for s_ in steps],
+          "n_isects": [s_["n_isects"] for s_ in steps],
+          "skipped_steps": runner.skipped_steps, "launches": packed_launches,
+          "launches_per_step": {k: v / TRAIN_STEPS
+                                for k, v in packed_launches.items()},
+          "view_check": packed_check, "train_seconds": packed_s,
+          "seconds": time.perf_counter() - t0})
+    del runner
+    shutil.rmtree(stats_dir, ignore_errors=True)
+
+    # 13. train_2dgs_mcmc: Runner2DGS under MCMC on the same stand-in
     t0 = time.perf_counter()
     stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_2dgs_mcmc_")
     mcfg = Config2DGS(result_dir=stats_dir, strategy="mcmc",
@@ -1532,12 +1895,19 @@ def main():
 
     # launches from each kernel's main path: the 3DGS training run, for the
     # 2DGS tile kernels the 2DGS training run, for the packed-pair branches
-    # the ladder run
+    # the ladder run, for the sorted table's precision branches one fwd+bwd
+    # of bench_1m's bench.py configuration, for B5/B6's log branch one of
+    # train_1m_2dgs's log leg
     main_path = dict(train_launches, raster_fwd_2dgs=train2_launches[
         "raster_fwd_2dgs"], raster_bwd_2dgs=train2_launches[
         "raster_bwd_2dgs"], raster_bwd_packed=ladder_launches[
         "raster_bwd_packed"], segsum_rows_packed=ladder_launches[
         "segsum_rows_packed"])
+    for name in ("expand_packed", "raster_fwd_unpack", "raster_fwd_log",
+                 "raster_bwd_unpack", "raster_bwd_log"):
+        main_path[name] = bench_launches[name]
+    for name in ("raster_fwd_2dgs_log", "raster_bwd_2dgs_log"):
+        main_path[name] = launches2_log[name]
     emit({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"],

@@ -13,14 +13,26 @@
 // with cull = 0 (the 2DGS layout, the TPU kernel's `if cfg.cull:` branch)
 // every in-range pair keeps its tile and the overflow tile stays empty.
 //
+//
+// Packed branch (the 3DGS layout; replaces the `cfg.geom_packed` and
+// `cfg.attr_packed` writes at raster_v2.py:520-541): with geom_packed the
+// (x, y) rows become one u16 position word; with attr_packed the values
+// after the position (ca, cb, cc, op, colors) become truncated-bf16 pairs
+// (ca, cb), (cc, op), (c0, c1), ..., an odd last value paired with 0
+// (tile_common.cuh). The cull reads the f32 table in both branches, so its
+// decisions do not change; only the written rows are packed.
+//
 // Bound on the H100: bytes. Each output row reads one table column (the
 // same column for the neighbouring rows of one Gaussian, so the reads are
-// mostly broadcasts) and writes 1 + n_attr + 1 words, coalesced across the
-// warp. The search adds log2(M) dependent loads that hit L2 after the first
-// warps. Design: one thread per output row; no shared memory, no atomics.
+// mostly broadcasts) and writes 1 + n_srows + 1 words (n_srows = n_attr in
+// the f32 branch), coalesced across the warp. The search adds log2(M)
+// dependent loads that hit L2 after the first warps. Design: one thread
+// per output row; no shared memory, no atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_common.cuh"
 
 namespace {
 
@@ -61,7 +73,8 @@ __global__ void expand_kernel(const int* __restrict__ cum, int M,
                               const float* __restrict__ table, int n_attr,
                               const int* __restrict__ n_isects_ptr, int64_t cap,
                               int tile_width, int tile_height, int tile_size,
-                              int n_tiles, int cull,
+                              int n_tiles, int cull, int geom_packed,
+                              int attr_packed, int n_srows,
                               int* __restrict__ tile_out,
                               float* __restrict__ rows_out) {
   const int64_t p = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -69,7 +82,7 @@ __global__ void expand_kernel(const int* __restrict__ cum, int M,
   const int n_isects = *n_isects_ptr;
   if (p >= n_isects) {
     tile_out[p] = kInt32Max;
-    for (int r = 0; r <= n_attr; ++r) rows_out[r * cap + p] = 0.0f;
+    for (int r = 0; r <= n_srows; ++r) rows_out[r * cap + p] = 0.0f;
     return;
   }
   // first g with cum[g] > p: the Gaussian whose run [cum[g-1], cum[g]) holds p
@@ -95,10 +108,37 @@ __global__ void expand_kernel(const int* __restrict__ cum, int M,
   }
 
   tile_out[p] = tile;
-  for (int r = 0; r < n_attr; ++r) {
-    rows_out[r * cap + p] = table[r * (int64_t)M + g];
+  if (!geom_packed && !attr_packed) {
+    for (int r = 0; r < n_attr; ++r) {
+      rows_out[r * cap + p] = table[r * (int64_t)M + g];
+    }
+  } else {
+    uint32_t* words = reinterpret_cast<uint32_t*>(rows_out);
+    const float x = table[g];
+    const float y = table[(int64_t)M + g];
+    int r = 0;
+    if (geom_packed) {
+      words[p] = gsc::pack_u16_xy(x, y);
+      r = 1;
+    } else {
+      rows_out[p] = x;
+      rows_out[cap + p] = y;
+      r = 2;
+    }
+    if (attr_packed) {
+      for (int a = 2; a < n_attr; a += 2) {
+        const float va = table[a * (int64_t)M + g];
+        const float vb = a + 1 < n_attr ? table[(a + 1) * (int64_t)M + g]
+                                        : 0.0f;
+        words[r++ * cap + p] = gsc::pack_pair(va, vb);
+      }
+    } else {
+      for (int a = 2; a < n_attr; ++a) {
+        rows_out[r++ * cap + p] = table[a * (int64_t)M + g];
+      }
+    }
   }
-  rows_out[n_attr * cap + p] = (float)g;
+  rows_out[n_srows * cap + p] = (float)g;
 }
 
 }  // namespace
@@ -107,11 +147,15 @@ extern "C" int gsc_expand(const void* cum, int M, const void* base,
                           const void* nx, const void* table, int n_attr,
                           const void* n_isects, long long cap, int tile_width,
                           int tile_height, int tile_size, int n_tiles,
-                          int cull, void* tile_out, void* rows_out,
-                          void* stream) {
-  if (M < 1 || n_attr < (cull ? 6 : 1) || cap < 0) {
+                          int cull, int geom_packed, int attr_packed,
+                          void* tile_out, void* rows_out, void* stream) {
+  if (M < 1 || n_attr < (cull ? 6 : 1) || cap < 0 ||
+      ((geom_packed || attr_packed) && n_attr < 6)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int nval = n_attr - 2;
+  const int n_srows = (geom_packed ? 1 : 2) +
+                      (attr_packed ? (nval + 1) / 2 : nval);
   if (cap > 0) {
     const int threads = 256;
     const int64_t blocks = (cap + threads - 1) / threads;
@@ -119,8 +163,8 @@ extern "C" int gsc_expand(const void* cum, int M, const void* base,
         static_cast<const int*>(cum), M, static_cast<const int*>(base),
         static_cast<const int*>(nx), static_cast<const float*>(table), n_attr,
         static_cast<const int*>(n_isects), (int64_t)cap, tile_width,
-        tile_height, tile_size, n_tiles, cull, static_cast<int*>(tile_out),
-        static_cast<float*>(rows_out));
+        tile_height, tile_size, n_tiles, cull, geom_packed, attr_packed,
+        n_srows, static_cast<int*>(tile_out), static_cast<float*>(rows_out));
   }
   return (int)cudaGetLastError();
 }

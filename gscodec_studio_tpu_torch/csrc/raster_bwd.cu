@@ -45,9 +45,22 @@
 // masking and shifting (u & 0xFFFF0000, u >> 16): __float2bfloat16 rounds
 // to nearest even and would give other bits. The words are stored as
 // integers; no float operation touches them.
+//
+// Precision branches of the inputs (replace the `cfg.attr_packed`,
+// `cfg.geom_packed` and `cfg.log_composite` paths of _bwd_kernel: the
+// readers :766-813 and _composite_log at :1131-1136), the forward's
+// (csrc/raster_fwd.cu): packed rows of S are unpacked into the f32 layout
+// as the chunk is staged (runtime), and LOG (template) walks the log-space
+// scan, T_prev = T * exp(incl - l) in v_alpha and the weight, the exact
+// cutoff on T * exp(incl). They compose with the packed-pair output. The
+// gradients are those of the unpacked values, and reach the f32 inputs
+// unchanged, as the JAX custom VJP sends them. The f32, product branch is
+// the code it was.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_common.cuh"
 
 namespace {
 
@@ -59,13 +72,14 @@ constexpr float kMaxAlpha = 0.999f;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct BwdArgs {
-  const float* S;  // [>= 6 + ch, cap] sorted attribute rows
+  const float* S;  // [>= n_srows, cap] sorted attribute rows
   int64_t cap;
   const int* starts;  // [n_tiles + 2] first row of each tile's run
   const int* masks;  // [n_tiles] 0 disables a tile
   const float* tiles;  // [n_tiles, P, ch + 1] forward outputs
   const float* v_tiles;  // [n_tiles, P, ch + 1] their cotangents
   int tile_width, tile_height, tile_size, ch, d_g, absgrad, packed;
+  int geom_packed, attr_packed;
   float* out;  // [d_g, cap] (packed: uint32 [d_gp, cap]), zero-filled
 };
 
@@ -90,7 +104,7 @@ __device__ __forceinline__ float block_sum(const float* part, int n_warps,
   return v;
 }
 
-template <int CHM, bool SOFT>
+template <int CHM, bool SOFT, bool LOG>
 __global__ void raster_bwd_kernel(const BwdArgs a) {
   extern __shared__ float sm[];
   const int ch = a.ch;
@@ -113,7 +127,6 @@ __global__ void raster_bwd_kernel(const BwdArgs a) {
   const int rem = t % (a.tile_width * a.tile_height);
   const float px = (float)((rem % a.tile_width) * ts + p % ts) + 0.5f;
   const float py = (float)((rem / a.tile_width) * ts + p / ts) + 0.5f;
-  const int nrows = 6 + ch;
 
   float vc[CHM];
   float q = 0.0f, v_a = 0.0f, t_final = 1.0f;
@@ -137,13 +150,13 @@ __global__ void raster_bwd_kernel(const BwdArgs a) {
   for (int c = c0; c < c1; ++c) {
     if (!__syncthreads_or(T > kTransmittanceEps)) break;
     const int64_t col0 = (int64_t)c * K;
-    for (int i = p; i < nrows * K; i += blockDim.x) {
-      chunk[i] = a.S[(i / K) * a.cap + col0 + (i % K)];
-    }
+    gsc::stage_chunk_3dgs(chunk, a.S, a.cap, col0, ch, a.geom_packed,
+                          a.attr_packed, p, blockDim.x);
     __syncthreads();
     const int lo = max(off - c * K, 0);
     const int hi = min(end - c * K, K);
-    float tp = T;
+    float tp = T;  // LOG: the last passing T * exp(incl) (exact cutoff)
+    float s1 = 0.0f, s2 = 0.0f;  // LOG: the chunk's running sums
     bool live = pix;  // exact: the pixel takes pairs until its cutoff
     for (int s0 = (lo / SUB) * SUB; s0 < hi; s0 += SUB) {
       for (int kk = 0; kk < SUB; ++kk) {
@@ -166,11 +179,20 @@ __global__ void raster_bwd_kernel(const BwdArgs a) {
           const float alpha = fminf(kMaxAlpha, alpha_raw);
           if (sigma >= 0.0f && alpha >= kAlphaThreshold) {
             const float oma = 1.0f - alpha;
-            const float t_incl = tp * oma;
+            float t_prev, t_incl;
+            if (LOG) {
+              float l;
+              const float incl = gsc::log_scan_step(alpha, s1, s2, l);
+              t_prev = T * expf(incl - l);
+              t_incl = SOFT ? 0.0f : T * expf(incl);
+            } else {
+              t_prev = tp;
+              t_incl = tp * oma;
+            }
             if (!SOFT && !(t_incl > kTransmittanceEps)) {
               live = false;
             } else {
-              const float w = alpha * tp;
+              const float w = alpha * t_prev;
               float G = 0.0f;
 #pragma unroll
               for (int j = 0; j < CHM; ++j) {
@@ -178,7 +200,8 @@ __global__ void raster_bwd_kernel(const BwdArgs a) {
               }
               q = q - w * G;  // the suffix term after this pair
               const float inv_oma = 1.0f / oma;
-              const float v_alpha = tp * G - q * inv_oma + va_tf * inv_oma;
+              const float v_alpha =
+                  t_prev * G - q * inv_oma + va_tf * inv_oma;
               const float v_sig =
                   alpha_raw > kMaxAlpha ? 0.0f : -alpha * v_alpha;
               gx = v_sig * (ca * dx + cb * dy);
@@ -188,7 +211,7 @@ __global__ void raster_bwd_kernel(const BwdArgs a) {
               gc = v_sig * 0.5f * dy * dy;
               gs = v_sig;
               gw = w;
-              tp = t_incl;
+              tp = LOG ? fminf(tp, t_incl) : t_incl;
               hit = true;
             }
           }
@@ -247,9 +270,7 @@ __global__ void raster_bwd_kernel(const BwdArgs a) {
           const float vb =
               rb < 0 ? 0.0f
                      : block_sum(part, n_warps, d_g, rb, kk, chunk, k);
-          outw[(int64_t)r * a.cap + col0 + k] =
-              (__float_as_uint(va) & 0xFFFF0000u) |
-              (__float_as_uint(vb) >> 16);
+          outw[(int64_t)r * a.cap + col0 + k] = gsc::pack_pair(va, vb);
         }
       } else {
         for (int i = p; i < d_g * SUB; i += blockDim.x) {
@@ -262,20 +283,22 @@ __global__ void raster_bwd_kernel(const BwdArgs a) {
       }
       __syncthreads();
     }
-    T = tp;
+    T = (LOG && SOFT) ? T * expf(s1 + s2) : tp;
   }
 }
 
 template <int CHM>
-cudaError_t launch(const BwdArgs& a, bool soft, int n_tiles,
+cudaError_t launch(const BwdArgs& a, bool soft, bool log, int n_tiles,
                    cudaStream_t stream) {
   const int P = a.tile_size * a.tile_size;
   const int threads = (P + 31) / 32 * 32;
   const size_t smem = ((size_t)(6 + a.ch) * K +
                        (size_t)(threads / 32) * a.d_g * SUB) *
                       sizeof(float);
-  auto kernel = soft ? raster_bwd_kernel<CHM, true>
-                     : raster_bwd_kernel<CHM, false>;
+  auto kernel = log ? (soft ? raster_bwd_kernel<CHM, true, true>
+                            : raster_bwd_kernel<CHM, false, true>)
+                    : (soft ? raster_bwd_kernel<CHM, true, false>
+                            : raster_bwd_kernel<CHM, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -290,7 +313,8 @@ extern "C" int gsc_raster_bwd(const void* S, long long cap, const void* starts,
                               const void* v_tiles, int n_tiles,
                               int tile_width, int tile_height, int tile_size,
                               int ch, int soft, int absgrad, int packed,
-                              void* out, void* stream) {
+                              int log_composite, int geom_packed,
+                              int attr_packed, void* out, void* stream) {
   const int P = tile_size * tile_size;
   if (ch < 1 || ch > 128 || P < 1 || P > 1024 || n_tiles < 0) {
     return (int)cudaErrorInvalidValue;
@@ -309,16 +333,19 @@ extern "C" int gsc_raster_bwd(const void* S, long long cap, const void* starts,
                   6 + ch + (absgrad ? 2 : 0),
                   absgrad ? 1 : 0,
                   packed ? 1 : 0,
+                  geom_packed ? 1 : 0,
+                  attr_packed ? 1 : 0,
                   static_cast<float*>(out)};
   cudaStream_t st = (cudaStream_t)stream;
   const bool sf = soft != 0;
-  if (ch <= 1) return (int)launch<1>(a, sf, n_tiles, st);
-  if (ch <= 2) return (int)launch<2>(a, sf, n_tiles, st);
-  if (ch <= 3) return (int)launch<3>(a, sf, n_tiles, st);
-  if (ch <= 4) return (int)launch<4>(a, sf, n_tiles, st);
-  if (ch <= 8) return (int)launch<8>(a, sf, n_tiles, st);
-  if (ch <= 16) return (int)launch<16>(a, sf, n_tiles, st);
-  if (ch <= 32) return (int)launch<32>(a, sf, n_tiles, st);
-  if (ch <= 64) return (int)launch<64>(a, sf, n_tiles, st);
-  return (int)launch<128>(a, sf, n_tiles, st);
+  const bool lg = log_composite != 0;
+  if (ch <= 1) return (int)launch<1>(a, sf, lg, n_tiles, st);
+  if (ch <= 2) return (int)launch<2>(a, sf, lg, n_tiles, st);
+  if (ch <= 3) return (int)launch<3>(a, sf, lg, n_tiles, st);
+  if (ch <= 4) return (int)launch<4>(a, sf, lg, n_tiles, st);
+  if (ch <= 8) return (int)launch<8>(a, sf, lg, n_tiles, st);
+  if (ch <= 16) return (int)launch<16>(a, sf, lg, n_tiles, st);
+  if (ch <= 32) return (int)launch<32>(a, sf, lg, n_tiles, st);
+  if (ch <= 64) return (int)launch<64>(a, sf, lg, n_tiles, st);
+  return (int)launch<128>(a, sf, lg, n_tiles, st);
 }

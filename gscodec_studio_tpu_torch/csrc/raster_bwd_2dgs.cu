@@ -24,6 +24,12 @@
 // column j is out[r * cap + j], d_g = 12 + CB rows (x, y, m00..m22, op,
 // colors[CB]); columns no tile reaches stay at the caller's zeros.
 //
+// LOG (template; replaces the `cfg.log_composite` path at
+// raster_v2_2dgs.py:353): B5's log-space scan (T_prev = T * exp(incl - l),
+// the exact cutoff on T * exp(incl)), and then, as the JAX kernel does at
+// :363-364, the suffix term's T_incl in product form, T_prev * (1 - alpha),
+// not the log value. The product branch is the code it was.
+//
 // Bound on the H100: operations. Each pixel re-evaluates B5's pairs and,
 // for each pair it composites, ~2*CB + 75 more operations of gradient
 // arithmetic; the sums over the tile's pixels are d_g values per
@@ -39,6 +45,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_common.cuh"
 
 namespace {
 
@@ -70,7 +78,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int CBM, bool SOFT>
+template <int CBM, bool SOFT, bool LOG>
 __global__ void raster_bwd_2dgs_kernel(const Bwd2Args a) {
   extern __shared__ float sm[];
   const int cb = a.cb;
@@ -128,7 +136,8 @@ __global__ void raster_bwd_2dgs_kernel(const Bwd2Args a) {
     __syncthreads();
     const int lo = max(off - c * K, 0);
     const int hi = min(end - c * K, K);
-    float tp = T;
+    float tp = T;  // LOG: the last passing T * exp(incl) (exact cutoff)
+    float s1 = 0.0f, s2 = 0.0f;  // LOG: the chunk's running sums
     bool live = pix;  // exact: the pixel takes pairs until its cutoff
     for (int s0 = (lo / SUB) * SUB; s0 < hi; s0 += SUB) {
       for (int kk = 0; kk < SUB; ++kk) {
@@ -165,14 +174,25 @@ __global__ void raster_bwd_2dgs_kernel(const Bwd2Args a) {
           const float alpha = fminf(kMaxAlpha, alpha_raw);
           if (cz != 0.0f && alpha >= kAlphaThreshold) {
             const float oma = 1.0f - alpha;
-            const float t_incl = tp * oma;
-            if (!SOFT && !(t_incl > kTransmittanceEps)) {
+            float t_prev, t_incl, t_test;
+            if (LOG) {
+              float l;
+              const float incl = gsc::log_scan_step(alpha, s1, s2, l);
+              t_prev = T * expf(incl - l);
+              t_incl = t_prev * oma;  // the suffix term's, product form
+              t_test = SOFT ? 0.0f : T * expf(incl);
+            } else {
+              t_prev = tp;
+              t_incl = tp * oma;
+              t_test = t_incl;
+            }
+            if (!SOFT && !(t_test > kTransmittanceEps)) {
               live = false;
             } else {
-              const float w = alpha * tp;
+              const float w = alpha * t_prev;
               const float z = zs[k];
               const float wz = w * z;
-              const float P_i = 1.0f - tp;
+              const float P_i = 1.0f - t_prev;
               const float S_i = fmaxf(t_incl - t_final, 0.0f);
               const float SZ_i = wz_total - A - wz;
               float G = 0.0f;
@@ -184,7 +204,8 @@ __global__ void raster_bwd_2dgs_kernel(const Bwd2Args a) {
               const float GD = G + Dw;
               q = q - w * GD;  // the suffix term after this pair
               const float inv_oma = 1.0f / oma;
-              const float v_alpha = tp * GD - q * inv_oma + va_tf * inv_oma;
+              const float v_alpha =
+                  t_prev * GD - q * inv_oma + va_tf * inv_oma;
               const float v_sig =
                   alpha_raw > kMaxAlpha ? 0.0f : -alpha * v_alpha;
               if (gw3d <= gw2d) {
@@ -219,7 +240,7 @@ __global__ void raster_bwd_2dgs_kernel(const Bwd2Args a) {
               gw = w;
               gz = 2.0f * v_d * w * (P_i - S_i);
               A += wz;
-              tp = t_incl;
+              tp = LOG ? fminf(tp, t_test) : t_incl;
               hit = true;
             }
           }
@@ -269,20 +290,22 @@ __global__ void raster_bwd_2dgs_kernel(const Bwd2Args a) {
       }
       __syncthreads();
     }
-    T = tp;
+    T = (LOG && SOFT) ? T * expf(s1 + s2) : tp;
   }
 }
 
 template <int CBM>
-cudaError_t launch(const Bwd2Args& a, bool soft, int n_tiles,
+cudaError_t launch(const Bwd2Args& a, bool soft, bool log, int n_tiles,
                    cudaStream_t stream) {
   const int P = a.tile_size * a.tile_size;
   const int threads = (P + 31) / 32 * 32;
   const size_t smem = ((size_t)(kACOL + a.cb) * K +
                        (size_t)(threads / 32) * a.d_g * SUB) *
                       sizeof(float);
-  auto kernel = soft ? raster_bwd_2dgs_kernel<CBM, true>
-                     : raster_bwd_2dgs_kernel<CBM, false>;
+  auto kernel = log ? (soft ? raster_bwd_2dgs_kernel<CBM, true, true>
+                            : raster_bwd_2dgs_kernel<CBM, false, true>)
+                    : (soft ? raster_bwd_2dgs_kernel<CBM, true, false>
+                            : raster_bwd_2dgs_kernel<CBM, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -297,8 +320,8 @@ extern "C" int gsc_raster_bwd_2dgs(const void* S, long long cap,
                                    const void* tiles, const void* v_tiles,
                                    int n_tiles, int tile_width,
                                    int tile_height, int tile_size, int cb,
-                                   int zch, int soft, void* out,
-                                   void* stream) {
+                                   int zch, int soft, int log_composite,
+                                   void* out, void* stream) {
   const int P = tile_size * tile_size;
   if (cb < 4 || cb > 128 || zch < 0 || zch >= cb - 3 || P < 1 || P > 1024 ||
       n_tiles < 0) {
@@ -320,10 +343,11 @@ extern "C" int gsc_raster_bwd_2dgs(const void* S, long long cap,
                    static_cast<float*>(out)};
   cudaStream_t st = (cudaStream_t)stream;
   const bool sf = soft != 0;
-  if (cb <= 4) return (int)launch<4>(a, sf, n_tiles, st);
-  if (cb <= 8) return (int)launch<8>(a, sf, n_tiles, st);
-  if (cb <= 16) return (int)launch<16>(a, sf, n_tiles, st);
-  if (cb <= 32) return (int)launch<32>(a, sf, n_tiles, st);
-  if (cb <= 64) return (int)launch<64>(a, sf, n_tiles, st);
-  return (int)launch<128>(a, sf, n_tiles, st);
+  const bool lg = log_composite != 0;
+  if (cb <= 4) return (int)launch<4>(a, sf, lg, n_tiles, st);
+  if (cb <= 8) return (int)launch<8>(a, sf, lg, n_tiles, st);
+  if (cb <= 16) return (int)launch<16>(a, sf, lg, n_tiles, st);
+  if (cb <= 32) return (int)launch<32>(a, sf, lg, n_tiles, st);
+  if (cb <= 64) return (int)launch<64>(a, sf, lg, n_tiles, st);
+  return (int)launch<128>(a, sf, lg, n_tiles, st);
 }

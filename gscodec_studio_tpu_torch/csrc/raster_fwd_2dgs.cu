@@ -19,6 +19,13 @@
 // Output per pixel: colors[CB] (user channels with the depth at zch, then
 // three normal channels), alpha = 1 - T_final, distortion, median.
 //
+// LOG (template; replaces the `cfg.log_composite` path at
+// raster_v2_2dgs.py:184): the transmittance scan in log space, as B1's
+// (csrc/tile_common.cuh): T_prev = T * exp(incl - l) feeds the weight, the
+// distortion's (1 - T_prev) and the median's T_prev > 0.5; the exact cutoff
+// tests T * exp(incl) > 1e-4; the soft cutoff ends the chunk at
+// T * exp(s1 + s2). The product branch is the code it was.
+//
 // Bound on the H100: operations. Each pixel evaluates the cross-product
 // pair math (~35 float32 operations, one division, one exp) for every pair
 // of its run up to its cutoff, and composites (2*CB + 12 more) the pairs
@@ -30,6 +37,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_common.cuh"
 
 namespace {
 
@@ -52,7 +61,7 @@ struct Fwd2Args {
   float* out;  // [n_tiles, tile_size^2, cb + 3]
 };
 
-template <int CBM, bool SOFT>
+template <int CBM, bool SOFT, bool LOG>
 __global__ void raster_fwd_2dgs_kernel(const Fwd2Args a) {
   extern __shared__ float sm[];  // [(12 + cb) * K]
   const int t = blockIdx.x;
@@ -89,7 +98,8 @@ __global__ void raster_fwd_2dgs_kernel(const Fwd2Args a) {
     __syncthreads();
     const int lo = max(off - c * K, 0);
     const int hi = min(end - c * K, K);
-    float tp = T;
+    float tp = T;  // LOG: the last passing T * exp(incl) (exact cutoff)
+    float s1 = 0.0f, s2 = 0.0f;  // LOG: the chunk's running sums
     for (int k = lo; k < hi; ++k) {
       const float* m = sm + kAM * K + k;  // M[i] at m[i * K]
       const float hu_x = px * m[6 * K] - m[0];
@@ -113,20 +123,33 @@ __global__ void raster_fwd_2dgs_kernel(const Fwd2Args a) {
       const float alpha = fminf(kMaxAlpha, sm[kAOP * K + k] * expf(-sigma));
       if (!(alpha >= kAlphaThreshold)) continue;
       const float oma = 1.0f - alpha;
-      if (!SOFT && !(tp * oma > kTransmittanceEps)) break;
-      const float w = alpha * tp;
+      float t_prev;
+      if (LOG) {
+        float l;
+        const float incl = gsc::log_scan_step(alpha, s1, s2, l);
+        t_prev = T * expf(incl - l);
+        if (!SOFT) {
+          const float t_incl = T * expf(incl);
+          if (!(t_incl > kTransmittanceEps)) break;
+          tp = fminf(tp, t_incl);
+        }
+      } else {
+        if (!SOFT && !(tp * oma > kTransmittanceEps)) break;
+        t_prev = tp;
+      }
+      const float w = alpha * t_prev;
 #pragma unroll
       for (int j = 0; j < CBM; ++j) {
         if (j < cb) acc[j] += w * sm[(kACOL + j) * K + k];
       }
       const float z = zs[k];
       const float wz = w * z;
-      dist += 2.0f * (wz * (1.0f - tp) - w * A);
+      dist += 2.0f * (wz * (1.0f - t_prev) - w * A);
       A += wz;
-      if (tp > 0.5f) med = z;
-      tp = tp * oma;
+      if (t_prev > 0.5f) med = z;
+      if (!LOG) tp = tp * oma;
     }
-    T = tp;
+    T = (LOG && SOFT) ? T * expf(s1 + s2) : tp;
   }
 
   float* o = a.out + ((int64_t)t * P + p) * (cb + 3);
@@ -140,12 +163,14 @@ __global__ void raster_fwd_2dgs_kernel(const Fwd2Args a) {
 }
 
 template <int CBM>
-cudaError_t launch(const Fwd2Args& a, bool soft, int n_tiles,
+cudaError_t launch(const Fwd2Args& a, bool soft, bool log, int n_tiles,
                    cudaStream_t stream) {
   const int threads = a.tile_size * a.tile_size;
   const size_t smem = (size_t)(kACOL + a.cb) * K * sizeof(float);
-  auto kernel = soft ? raster_fwd_2dgs_kernel<CBM, true>
-                     : raster_fwd_2dgs_kernel<CBM, false>;
+  auto kernel = log ? (soft ? raster_fwd_2dgs_kernel<CBM, true, true>
+                            : raster_fwd_2dgs_kernel<CBM, false, true>)
+                    : (soft ? raster_fwd_2dgs_kernel<CBM, true, false>
+                            : raster_fwd_2dgs_kernel<CBM, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -159,8 +184,8 @@ extern "C" int gsc_raster_fwd_2dgs(const void* S, long long cap,
                                    const void* starts, const void* masks,
                                    int n_tiles, int tile_width,
                                    int tile_height, int tile_size, int cb,
-                                   int zch, int soft, void* out,
-                                   void* stream) {
+                                   int zch, int soft, int log_composite,
+                                   void* out, void* stream) {
   const int P = tile_size * tile_size;
   if (cb < 4 || cb > 128 || zch < 0 || zch >= cb - 3 || P < 1 || P > 1024 ||
       n_tiles < 0) {
@@ -173,10 +198,11 @@ extern "C" int gsc_raster_fwd_2dgs(const void* S, long long cap,
                    tile_size, cb, zch, static_cast<float*>(out)};
   cudaStream_t st = (cudaStream_t)stream;
   const bool sf = soft != 0;
-  if (cb <= 4) return (int)launch<4>(a, sf, n_tiles, st);
-  if (cb <= 8) return (int)launch<8>(a, sf, n_tiles, st);
-  if (cb <= 16) return (int)launch<16>(a, sf, n_tiles, st);
-  if (cb <= 32) return (int)launch<32>(a, sf, n_tiles, st);
-  if (cb <= 64) return (int)launch<64>(a, sf, n_tiles, st);
-  return (int)launch<128>(a, sf, n_tiles, st);
+  const bool lg = log_composite != 0;
+  if (cb <= 4) return (int)launch<4>(a, sf, lg, n_tiles, st);
+  if (cb <= 8) return (int)launch<8>(a, sf, lg, n_tiles, st);
+  if (cb <= 16) return (int)launch<16>(a, sf, lg, n_tiles, st);
+  if (cb <= 32) return (int)launch<32>(a, sf, lg, n_tiles, st);
+  if (cb <= 64) return (int)launch<64>(a, sf, lg, n_tiles, st);
+  return (int)launch<128>(a, sf, lg, n_tiles, st);
 }

@@ -31,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_common.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -63,8 +65,8 @@ __global__ void segsum_kernel(const void* __restrict__ rows, int64_t L,
       float sh = 0.0f, sl = 0.0f;
       for (int j = lo + sub; j < hi; j += kLanes) {
         const uint32_t u = row[j];
-        sh += __uint_as_float(u & 0xFFFF0000u);
-        sl += __uint_as_float(u << 16);
+        sh += gsc::pair_hi(u);
+        sl += gsc::pair_lo(u);
       }
       sh = lane_sum(sh);
       sl = lane_sum(sl);

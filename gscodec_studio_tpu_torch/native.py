@@ -25,6 +25,7 @@ BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("pack.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
            "unpack.cu", "segsum.cu", "raster_fwd_2dgs.cu",
            "raster_bwd_2dgs.cu")
+HEADERS = ("tile_common.cuh",)  # included by the sources; in the hash
 # --fmad=false: the kernels' float expressions round exactly as their plain
 # PyTorch versions (and the JAX package) do, which keeps the expansion's
 # ellipse cull bit-identical to its plain version.
@@ -38,17 +39,18 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "gsc_pack_rows": (_P, _P, _I, _P, _L, _P, _I, _P),
-    "gsc_expand": (_P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _P,
-                   _P, _P),
-    "gsc_raster_fwd": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "gsc_expand": (_P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _I,
+                   _I, _P, _P, _P),
+    "gsc_raster_fwd": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P, _P),
     "gsc_raster_bwd": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _P, _P),
+                       _I, _I, _I, _I, _P, _P),
     "gsc_unpack_rows": (_P, _L, _I, _P, _L, _P, _P, _P),
     "gsc_segsum_rows": (_P, _L, _I, _P, _I, _P, _I, _P, _P),
-    "gsc_raster_fwd_2dgs": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                            _P),
+    "gsc_raster_fwd_2dgs": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _P),
     "gsc_raster_bwd_2dgs": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _P, _P),
+                            _I, _I, _P, _P),
 }
 
 _lib = None
@@ -68,7 +70,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libgsc_kernels_{h.hexdigest()[:16]}.so"
 

@@ -30,6 +30,17 @@ moves the words, step 10 sums the high and the low halves apart in f32,
 and the per-Gaussian sums are truncated to pairs again for step 11. The
 values that reach autograd are truncated bf16.
 
+The sorted table's precision knobs, as in the JAX package (3DGS layout
+only for the first two): ``attr_dtype="bf16"`` stores the values after the
+position, (ca, cb), (cc, op), (c0, c1), ..., as packed pairs of truncated
+bf16; ``geom_dtype="u16"`` stores (x, y) as one word of 1/8-px fixed point
+over [-4096, 4096) px, clipped outside; ``log_composite`` evaluates the
+transmittance scan in log space (``_composite_log``). The expansion writes
+the packed rows from the f32 table (its cull reads the f32 values), S
+carries the words in its float32 rows, which only copies and integer
+operations touch, and B1 and B2 unpack them. The gradients are those of the
+unpacked values, and reach the f32 inputs as they are.
+
 Each kernel wrapper (``pack_rows``, ``expand``, ``raster_fwd``,
 ``raster_bwd``, ``unpack_rows``, ``segsum_rows``) launches its CUDA kernel
 for CUDA tensors and counts the launch in ``LAUNCHES``; for CPU tensors it
@@ -62,18 +73,37 @@ INT32_MAX = 2**31 - 1
 MAX_CHANNELS = 128  # the tile kernels' largest channel instantiation
 MAX_PACK_ROWS = 144  # pack.cu kMaxRows
 
-# Kernel launches since the last reset_launch_counts(), by wrapper (the
-# 2DGS tile kernels' wrappers in raster_v2_2dgs count here too; the
-# packed-pair branches of raster_bwd and segsum_rows count apart).
+# Kernel launches since the last reset_launch_counts(), by wrapper and
+# branch (the 2DGS tile kernels' wrappers in raster_v2_2dgs count here too).
+# A launch counts once under each branch key it takes: "_packed" for the
+# packed-pair gradient rows of raster_bwd and segsum_rows and for the packed
+# rows that expand writes, "_unpack" for tile kernels reading packed rows,
+# "_log" for the log-space scan; a launch that takes none counts under the
+# wrapper's own name.
 LAUNCHES = {"pack_rows": 0, "expand": 0, "raster_fwd": 0, "raster_bwd": 0,
             "unpack_rows": 0, "segsum_rows": 0, "raster_fwd_2dgs": 0,
             "raster_bwd_2dgs": 0, "raster_bwd_packed": 0,
-            "segsum_rows_packed": 0}
+            "segsum_rows_packed": 0, "expand_packed": 0,
+            "raster_fwd_unpack": 0, "raster_fwd_log": 0,
+            "raster_bwd_unpack": 0, "raster_bwd_log": 0,
+            "raster_fwd_2dgs_log": 0, "raster_bwd_2dgs_log": 0}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def launch_keys(name: str, branches: Sequence[Tuple[bool, str]]):
+    """The LAUNCHES keys that one launch of ``name``'s kernel counts under:
+    name + suffix for each (taken, suffix) branch it takes, or name if it
+    takes none."""
+    return [name + sfx for taken, sfx in branches if taken] or [name]
+
+
+def _count_launch(name: str, branches: Sequence[Tuple[bool, str]]) -> None:
+    for key in launch_keys(name, branches):
+        LAUNCHES[key] += 1
 
 
 @dataclass(frozen=True)
@@ -94,6 +124,12 @@ class V2Cfg:
     n_attr: int = 0
     cull: bool = True
     extra_out: int = 0
+    # The sorted table's precision (module docstring): "bf16" attribute
+    # pairs and the "u16" position word hold for the 3DGS layout only
+    # (n_attr == 0); the log-space scan for every layout.
+    attr_dtype: str = "f32"
+    geom_dtype: str = "f32"
+    log_composite: bool = False
 
     @property
     def n_tiles(self) -> int:
@@ -114,9 +150,36 @@ class V2Cfg:
         return self.n_attr or (6 + self.channels)
 
     @property
+    def attr_packed(self) -> bool:
+        return self.attr_dtype == "bf16" and self.n_attr == 0
+
+    @property
+    def geom_packed(self) -> bool:
+        return self.geom_dtype == "u16" and self.n_attr == 0
+
+    @property
+    def n_geom_rows(self) -> int:
+        # (x, y) as two f32 rows, or one u16 position word
+        return 1 if self.geom_packed else 2
+
+    @property
+    def n_srows(self) -> int:
+        # sorted rows before the id: the position, then ca, cb, cc, op,
+        # colors[CH] (as pairs when attr_packed; an odd last with 0)
+        if self.attr_packed:
+            return self.n_geom_rows + (4 + self.channels + 1) // 2
+        if self.geom_packed:
+            return self.n_geom_rows + 4 + self.channels
+        return self.n_attr_eff
+
+    @property
+    def idrow(self) -> int:
+        return self.n_srows
+
+    @property
     def d_s(self) -> int:
         # sorted table rows: attrs..., id
-        return self.n_attr_eff + 1
+        return self.n_srows + 1
 
     def d_g(self, absgrad: bool) -> int:
         # gradient rows: one per attribute row (, |x|, |y|)
@@ -193,11 +256,12 @@ def tile_counts(means2d, radii, tile_size, tile_width, tile_height):
 
 def _pack_rows_plain(rows: Sequence[torch.Tensor], R: int,
                      perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    cols = [r if perm is None else r[perm] for r in rows]
+    words = [r.view(torch.int32) for r in rows]  # packed words keep bits
+    cols = [w if perm is None else w[perm] for w in words]
     L = cols[0].shape[0]
-    pad = [torch.zeros(L, dtype=torch.float32, device=cols[0].device)
+    pad = [torch.zeros(L, dtype=torch.int32, device=cols[0].device)
            for _ in range(R - len(cols))]
-    return torch.stack(cols + pad)
+    return torch.stack(cols + pad).view(torch.float32)
 
 
 def pack_rows(rows: Sequence[torch.Tensor], R: int,
@@ -287,17 +351,40 @@ def _expand_plain(cum, base, nx, table, n_isects, cfg: V2Cfg):
         tile = torch.where(lhs <= rhs, tile,
                            torch.full_like(tile, cfg.n_tiles))
     tile = torch.where(valid, tile, torch.full_like(tile, INT32_MAX))
-    rows = torch.cat([table[:, g], g.to(torch.float32)[None]])
-    rows = torch.where(valid[None], rows, torch.zeros((), device=dev))
-    return tile, rows
+    words = torch.cat([_sorted_words(cfg, table[:, g]),
+                       g.to(torch.float32).view(torch.int32)[None]])
+    words = torch.where(valid[None], words, torch.zeros((), dtype=torch.int32,
+                                                        device=dev))
+    return tile, words.view(torch.float32)
+
+
+def _sorted_words(cfg: V2Cfg, vals: torch.Tensor) -> torch.Tensor:
+    """The attribute values f32 [n_attr, L] -> the sorted table's rows
+    before the id, int32 words [n_srows, L]: the f32 bits, or with
+    geom_packed one u16 position word and with attr_packed the values after
+    the position as truncated-bf16 pairs, an odd last with 0."""
+    if not (cfg.geom_packed or cfg.attr_packed):
+        return vals.view(torch.int32)
+    rows = ([pack_u16_xy(vals[0], vals[1])[None]] if cfg.geom_packed
+            else [vals[:2].view(torch.int32)])
+    rest = vals[2:]
+    if cfg.attr_packed:
+        n = rest.shape[0]
+        rows += [pack_pairs(rest[i], rest[i + 1] if i + 1 < n
+                            else torch.zeros_like(rest[i]))[None]
+                 for i in range(0, n, 2)]
+    else:
+        rows.append(rest.view(torch.int32))
+    return torch.cat(rows)
 
 
 def expand(cum, base, nx, table, n_isects, cfg: V2Cfg):
-    """Compacted table -> (tile key int32 [cap], rows f32 [n_attr+1, cap]:
-    the attribute rows then the compacted id). ``cum`` is the inclusive
-    int32 count prefix clamped to the capacity, ``base``/``nx`` the int32
-    first tile and rect width, ``table`` f32 [n_attr, M], ``n_isects`` an
-    int32 [1] tensor (min(total, cap)). Rows >= n_isects get key
+    """Compacted table -> (tile key int32 [cap], rows f32 [d_s, cap]: the
+    attribute rows, packed as cfg says (_sorted_words), then the compacted
+    id). ``cum`` is the inclusive int32 count prefix clamped to the
+    capacity, ``base``/``nx`` the int32 first tile and rect width,
+    ``table`` f32 [n_attr, M], ``n_isects`` an int32 [1] tensor
+    (min(total, cap)). Rows >= n_isects get key
     INT32_MAX and zero rows. With ``cfg.cull`` a pair whose conic ellipse
     misses its tile (rows 0-5 read as x, y, ca, cb, cc, op) is keyed to the
     overflow tile n_tiles; without it every in-range pair keeps its tile."""
@@ -317,16 +404,17 @@ def expand(cum, base, nx, table, n_isects, cfg: V2Cfg):
     if base.shape != (M,) or nx.shape != (M,) or n_isects.numel() != 1:
         raise ValueError("expand: base/nx must be [M], n_isects one value")
     tile = torch.empty(cfg.cap, dtype=torch.int32, device=dev)
-    rows = torch.empty((cfg.n_attr_eff + 1, cfg.cap), dtype=torch.float32,
-                       device=dev)
+    rows = torch.empty((cfg.d_s, cfg.cap), dtype=torch.float32, device=dev)
     err = native.lib().gsc_expand(
         cum.data_ptr(), M, base.data_ptr(), nx.data_ptr(), table.data_ptr(),
         cfg.n_attr_eff, n_isects.data_ptr(), cfg.cap, cfg.tile_width,
         cfg.tile_height, cfg.tile_size, cfg.n_tiles, int(cfg.cull),
-        tile.data_ptr(), rows.data_ptr(), _stream(),
+        int(cfg.geom_packed), int(cfg.attr_packed), tile.data_ptr(),
+        rows.data_ptr(), _stream(),
     )
     native.check(err, "gsc_expand")
-    LAUNCHES["expand"] += 1
+    _count_launch("expand", [(cfg.geom_packed or cfg.attr_packed,
+                              "_packed")])
     return tile, rows
 
 
@@ -381,7 +469,7 @@ def _attr_rows(cfg: V2Cfg, means2d, conics, colors, opacities):
 class Binning(NamedTuple):
     """The sorted intersection table and every stage's output on the way."""
 
-    S: torch.Tensor  # [d_s, cap]: the attribute rows, then the id
+    S: torch.Tensor  # [d_s, cap]: the attribute rows (words), then the id
     starts: torch.Tensor  # int32 [n_tiles + 2]: each tile's first row
     n_isects: torch.Tensor  # int32 [1]: min(total, cap)
     order: torch.Tensor  # int64 [M]: compacted position -> original index
@@ -407,7 +495,8 @@ def _build_sorted_generic(cfg: V2Cfg, means2d, attr_rows, depths,
     """Compaction sort, pack, expansion, tile sort, pack, starts, for the
     cfg.n_attr_eff per-Gaussian f32 rows ``attr_rows`` (each [C*N], may be
     a strided view; the first two are x, y, and with cfg.cull rows 0-5 are
-    the 3DGS conic layout). S's columns >= n_isects are zero."""
+    the 3DGS conic layout). S's columns >= n_isects are zero; its packed
+    rows (cfg.geom_packed, cfg.attr_packed) hold int32 words."""
     if len(attr_rows) != cfg.n_attr_eff:
         raise ValueError(f"{len(attr_rows)} attribute rows, expected "
                          f"{cfg.n_attr_eff}")
@@ -430,10 +519,14 @@ def _build_sorted_generic(cfg: V2Cfg, means2d, attr_rows, depths,
 # ---------------------------------------------------------------------------
 
 
-def _composite(alpha, t_cur, cutoff):
-    """Front-to-back weights of one chunk. alpha [..., P, K], t_cur
-    [..., P, 1] -> (w, t_new). "exact": a pixel takes the pairs before the
-    first one whose inclusive product falls to <= 1e-4; "soft": no mask."""
+def _composite(alpha, t_cur, cutoff, log: bool = False):
+    """Front-to-back weights of one chunk. alpha [..., P, K] (0 for pairs
+    that fail the tests), t_cur [..., P, 1] -> (w, m, t_prev, t_new); m is
+    None for the soft cutoff. "exact": a pixel takes the pairs before the
+    first one whose inclusive transmittance falls to <= 1e-4; "soft": no
+    mask. ``log`` selects the log-space scan (_composite_log)."""
+    if log:
+        return _composite_log(alpha, t_cur, cutoff)
     oma = 1.0 - alpha
     excl = torch.cumprod(
         torch.cat([torch.ones_like(oma[..., :1]), oma[..., :-1]], dim=-1),
@@ -441,13 +534,66 @@ def _composite(alpha, t_cur, cutoff):
     )
     t_prev = excl * t_cur
     if cutoff == "soft":
-        return alpha * t_prev, t_prev[..., -1:] * oma[..., -1:]
+        return alpha * t_prev, None, t_prev, t_prev[..., -1:] * oma[..., -1:]
     t_incl = t_prev * oma
     m = t_incl > TRANSMITTANCE_EPS
     w = alpha * t_prev * m.to(alpha.dtype)
     t_new = torch.where(m, t_incl, t_cur.expand_as(t_incl)).amin(
         dim=-1, keepdim=True)
-    return w, torch.minimum(t_cur, t_new)
+    return w, m, t_prev, torch.minimum(t_cur, t_new)
+
+
+def _log_split(alpha):
+    """l = log1p(-alpha) and its two bf16 halves (rounded to nearest even,
+    as the JAX package's astype(bfloat16)), the halves as f32."""
+    l = torch.log1p(-alpha)
+    l1 = l.to(torch.bfloat16).to(torch.float32)
+    l2 = (l - l1).to(torch.bfloat16).to(torch.float32)
+    return l, l1, l2
+
+
+def _composite_log(alpha, t_cur, cutoff):
+    """_composite in log space (the JAX package's _composite_log): incl is
+    the running sum of the l1 halves plus the running sum of the l2 halves
+    (two sums, not the sum of l1 + l2), excl = incl - l with the f32 l,
+    T_prev = T * exp(excl); the exact mask is T * exp(incl) > 1e-4, the
+    soft cutoff ends the chunk at T * exp(incl[K-1]). The two sums run pair
+    after pair in f32, as the kernels walk them, so T_prev has their bits
+    where exp and log1p agree (the JAX package sums by a matmul, in an
+    order of its own)."""
+    l, l1, l2 = _log_split(alpha)
+    s1 = torch.zeros_like(l1[..., 0])
+    s2 = torch.zeros_like(s1)
+    incl = torch.empty_like(l)
+    for k in range(l.shape[-1]):
+        s1 = s1 + l1[..., k]
+        s2 = s2 + l2[..., k]
+        incl[..., k] = s1 + s2
+    t_prev = t_cur * torch.exp(incl - l)
+    if cutoff == "soft":
+        return alpha * t_prev, None, t_prev, t_cur * torch.exp(incl[..., -1:])
+    t_incl = t_cur * torch.exp(incl)
+    m = t_incl > TRANSMITTANCE_EPS
+    w = alpha * t_prev * m.to(alpha.dtype)
+    t_new = torch.where(m, t_incl, t_cur.expand_as(t_incl)).amin(
+        dim=-1, keepdim=True)
+    return w, m, t_prev, torch.minimum(t_cur, t_new)
+
+
+def _chunk_values(cfg: V2Cfg, chunk):
+    """The f32 values of a chunk [d_s, ...] of the 3DGS sorted table:
+    ([x, y, ca, cb, cc, op], colors [CH, ...]), the packed rows unpacked
+    (the JAX package's _chunk_pair and _chunk_colors readers)."""
+    ng, CH = cfg.n_geom_rows, cfg.channels
+    xy = (list(unpack_u16_xy(chunk[0].view(torch.int32))) if cfg.geom_packed
+          else [chunk[0], chunk[1]])
+    if not cfg.attr_packed:
+        return ([*xy, *(chunk[ng + i] for i in range(4))],
+                chunk[ng + 4:ng + 4 + CH])
+    vals = []
+    for r in range(ng, cfg.n_srows):
+        vals += unpack_pairs(chunk[r].view(torch.int32))
+    return xy + vals[:4], torch.stack(vals[4:4 + CH])
 
 
 class _TileWalk(NamedTuple):
@@ -515,7 +661,8 @@ def _fwd_plain(S, starts, masks, cfg: V2Cfg, with_counts: bool = False):
                 break
             cols = ((c0[sl][idx] + j) * K)[:, None] + lane  # [A, K]
             chunk = S[:, cols]  # [d_s, A, K]
-            xs, ys, ca, cb, cc, op = (chunk[i][:, None, :] for i in range(6))
+            geo, colors = _chunk_values(cfg, chunk)
+            xs, ys, ca, cb, cc, op = (v[:, None, :] for v in geo)
             dx = xs - px[sl][idx][:, :, None]  # [A, P, K]
             dy = ys - py[sl][idx][:, :, None]
             sigma = ((0.5 * ca) * (dx * dx) + (0.5 * cc) * (dy * dy)
@@ -525,8 +672,9 @@ def _fwd_plain(S, starts, masks, cfg: V2Cfg, with_counts: bool = False):
             alpha = torch.clamp(op * torch.exp(-sigma), max=MAX_ALPHA)
             valid = (sigma >= 0.0) & (alpha >= ALPHA_THRESHOLD) & inr
             alpha = torch.where(valid, alpha, torch.zeros((), device=dev))
-            w, t_new = _composite(alpha, T[idx], cfg.cutoff)
-            acc[idx] += torch.einsum("apk,cak->apc", w, chunk[6:6 + CH])
+            w, _, _, t_new = _composite(alpha, T[idx], cfg.cutoff,
+                                        cfg.log_composite)
+            acc[idx] += torch.einsum("apk,cak->apc", w, colors)
             T[idx] = t_new
             if with_counts:
                 if cfg.cutoff == "soft":
@@ -572,11 +720,19 @@ def raster_fwd(S, starts, masks, cfg: V2Cfg):
     err = native.lib().gsc_raster_fwd(
         S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
         cfg.n_tiles, cfg.tile_width, cfg.tile_height, cfg.tile_size,
-        cfg.channels, int(cfg.cutoff == "soft"), out.data_ptr(), _stream(),
+        cfg.channels, int(cfg.cutoff == "soft"), int(cfg.log_composite),
+        int(cfg.geom_packed), int(cfg.attr_packed), out.data_ptr(),
+        _stream(),
     )
     native.check(err, "gsc_raster_fwd")
-    LAUNCHES["raster_fwd"] += 1
+    _count_launch("raster_fwd", _input_branches(cfg))
     return out
+
+
+def _input_branches(cfg: V2Cfg):
+    """The tile kernels' input branches, for _count_launch."""
+    return [(cfg.geom_packed or cfg.attr_packed, "_unpack"),
+            (cfg.log_composite, "_log")]
 
 
 # ---------------------------------------------------------------------------
@@ -599,6 +755,34 @@ def pack_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def unpack_pairs(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """int32 words -> (high half, low half) as f32 (each exact bf16)."""
     return (w & -65536).view(torch.float32), (w << 16).view(torch.float32)
+
+
+# u16 fixed-point positions: 1/8 px over [-4096, 4096) px
+GEOM_SCALE = 8.0
+GEOM_OFF = 4096.0
+
+
+def _quant_u16(v: torch.Tensor) -> torch.Tensor:
+    return torch.clamp((v + GEOM_OFF) * GEOM_SCALE + 0.5, 0.0, 65535.0).to(
+        torch.int32)
+
+
+def pack_u16_xy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Two f32 position tensors -> int32 words (qx << 16) | qy, q =
+    int(clip((v + 4096) * 8 + 0.5, 0, 65535)): the JAX package's
+    _pack_u16_xy. A centre outside [-4096, 4096) px is clipped to the edge,
+    not refused."""
+    qx, qy = _quant_u16(x), _quant_u16(y)
+    # qx << 16 without int32 overflow: qx's bit 15 becomes the sign bit
+    return torch.where(qx >= 32768, qx - 65536, qx) * 65536 | qy
+
+
+def unpack_u16_xy(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int32 position words -> (x, y) f32. >> is arithmetic on int32, so
+    mask after it."""
+    x = ((w >> 16) & 0xFFFF).to(torch.float32) / GEOM_SCALE - GEOM_OFF
+    y = (w & 0xFFFF).to(torch.float32) / GEOM_SCALE - GEOM_OFF
+    return x, y
 
 
 def _pack_grad_rows(vals: torch.Tensor, n_attr: int,
@@ -648,7 +832,8 @@ def _bwd_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, absgrad: bool):
                 break
             cols = ((c0[sl][idx] + j) * K)[:, None] + lane  # [A, K]
             chunk = S[:, cols]  # [d_s, A, K]
-            xs, ys, ca, cb, cc, op = (chunk[i][:, None, :] for i in range(6))
+            geo, colors = _chunk_values(cfg, chunk)
+            xs, ys, ca, cb, cc, op = (v[:, None, :] for v in geo)
             dx = xs - px[sl][idx][:, :, None]  # [A, P, K]
             dy = ys - py[sl][idx][:, :, None]
             sigma = ((0.5 * ca) * (dx * dx) + (0.5 * cc) * (dy * dy)
@@ -658,25 +843,11 @@ def _bwd_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, absgrad: bool):
             alpha = torch.clamp(alpha_raw, max=MAX_ALPHA)
             valid = (sigma >= 0.0) & (alpha >= ALPHA_THRESHOLD) & inr[:, None]
             alpha = torch.where(valid, alpha, zero)
-            t_cur = T[idx]
+            w, m, t_prev, t_new = _composite(alpha, T[idx], cfg.cutoff,
+                                             cfg.log_composite)
             oma = 1.0 - alpha
-            excl = torch.cumprod(
-                torch.cat([torch.ones_like(oma[..., :1]), oma[..., :-1]],
-                          dim=-1), dim=-1)
-            t_prev = excl * t_cur
-            if cfg.cutoff == "soft":
-                m = None
-                w = alpha * t_prev
-                t_new = t_prev[..., -1:] * oma[..., -1:]
-            else:
-                t_incl = t_prev * oma
-                m = t_incl > TRANSMITTANCE_EPS
-                w = alpha * t_prev * m.to(alpha.dtype)
-                t_new = torch.minimum(t_cur, torch.where(
-                    m, t_incl, t_cur.expand_as(t_incl)).amin(
-                        dim=-1, keepdim=True))
             vc = v_c[idx]
-            gpk = torch.einsum("apc,cak->apk", vc, chunk[6:6 + CH])
+            gpk = torch.einsum("apc,cak->apk", vc, colors)
             s = q[idx] - torch.cumsum(w * gpk, dim=-1)  # suffix color term
             inv_oma = 1.0 / torch.where(oma > 0, oma, torch.ones_like(oma))
             v_alpha = (t_prev * gpk - s * inv_oma
@@ -689,7 +860,7 @@ def _bwd_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, absgrad: bool):
             gy = v_sig * (cc * dy + cb * dx)
             rows = [gx.sum(1), gy.sum(1), (v_sig * 0.5 * dx * dx).sum(1),
                     (v_sig * dx * dy).sum(1), (v_sig * 0.5 * dy * dy).sum(1)]
-            op_k = chunk[5]
+            op_k = geo[5]
             rows.append(torch.where(
                 op_k > 0.0,
                 -v_sig.sum(1) / torch.where(op_k > 0.0, op_k,
@@ -759,11 +930,12 @@ def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
         S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
         tiles.data_ptr(), v_tiles.data_ptr(), cfg.n_tiles, cfg.tile_width,
         cfg.tile_height, cfg.tile_size, cfg.channels,
-        int(cfg.cutoff == "soft"), int(absgrad), int(packed), gbuf.data_ptr(),
-        _stream(),
+        int(cfg.cutoff == "soft"), int(absgrad), int(packed),
+        int(cfg.log_composite), int(cfg.geom_packed), int(cfg.attr_packed),
+        gbuf.data_ptr(), _stream(),
     )
     native.check(err, "gsc_raster_bwd")
-    LAUNCHES["raster_bwd_packed" if packed else "raster_bwd"] += 1
+    _count_launch("raster_bwd", [(packed, "_packed")] + _input_branches(cfg))
     return gbuf
 
 
@@ -985,15 +1157,15 @@ def rasterize_to_pixels_v2(
     probe's gradient is the per-Gaussian sum of |per-pixel dL/d(x, y)|.
     ``grad_dtype="bf16"`` carries the per-intersection gradients as packed
     pairs of truncated bf16 values; the gradients are then truncated bf16
-    sums of truncated bf16 terms."""
+    sums of truncated bf16 terms. ``attr_dtype="bf16"``, ``geom_dtype="u16"``
+    and ``log_composite`` are the sorted table's precision knobs (module
+    docstring); the gradients are those of the values the kernels read."""
     if grad_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown grad_dtype {grad_dtype!r}")
-    if attr_dtype != "f32" or geom_dtype != "f32":
-        raise NotImplementedError(
-            "only f32 attribute and geometry rows are ported: ROADMAP A8b")
-    if log_composite:
-        raise NotImplementedError(
-            "log_composite is not ported yet: ROADMAP A8b")
+    if attr_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown attr_dtype {attr_dtype!r}")
+    if geom_dtype not in ("f32", "u16"):
+        raise ValueError(f"unknown geom_dtype {geom_dtype!r}")
     if cutoff_mode not in ("exact", "soft"):
         raise ValueError(f"unknown cutoff_mode {cutoff_mode!r}")
     dev = resolve_device(device)
@@ -1010,7 +1182,9 @@ def rasterize_to_pixels_v2(
     TH = -(-height // tile_size)
     cap = -(-isect_capacity // CAP_BLOCK) * CAP_BLOCK
     cfg = V2Cfg(C=C, tile_width=TW, tile_height=TH, tile_size=tile_size,
-                channels=CH, cap=cap, n=N, cutoff=cutoff_mode)
+                channels=CH, cap=cap, n=N, cutoff=cutoff_mode,
+                attr_dtype=attr_dtype, geom_dtype=geom_dtype,
+                log_composite=bool(log_composite))
     if masks is None:
         masks_arr = torch.ones(cfg.n_tiles, dtype=torch.int32, device=dev)
     else:

@@ -17,6 +17,11 @@ gradient reduction (B9b, B4, B9b). What differs from 3DGS:
     ``A`` the prefix sum of w z, ``S = T_incl - T_final`` and
     ``SZ = WZ_total - A - w z``.
 
+``log_composite`` takes raster_v2's log-space scan (``_composite_log``)
+in both kernels: the weights, the distortion, the median's T_prev > 0.5
+test and the cutoffs follow its T_prev; the backward's suffix term takes
+T_incl in product form, T_prev * (1 - alpha), as the JAX kernel does.
+
 Sorted attribute rows (n_attr = 12 + CB, CB = user channels + 3 normals,
 the depth the last user channel): x, y, m00..m22, op, colors[CB]; the
 gradient rows mirror them.
@@ -52,11 +57,13 @@ _ACOL = 12  # CB rows: user colors (the depth last), normals[3]
 
 
 def cfg_2dgs(C: int, tile_width: int, tile_height: int, tile_size: int,
-             CB: int, cap: int, N: int, cutoff: str = "exact") -> V2Cfg:
+             CB: int, cap: int, N: int, cutoff: str = "exact",
+             log_composite: bool = False) -> V2Cfg:
     """The skeleton's configuration for CB composited channels."""
     return V2Cfg(C=C, tile_width=tile_width, tile_height=tile_height,
                  tile_size=tile_size, channels=CB, cap=cap, n=N,
-                 cutoff=cutoff, n_attr=12 + CB, cull=False, extra_out=2)
+                 cutoff=cutoff, n_attr=12 + CB, cull=False, extra_out=2,
+                 log_composite=log_composite)
 
 
 def _attr_rows_2dgs(cfg: V2Cfg, means2d, transforms, colors, opacities):
@@ -111,13 +118,17 @@ def _chunk_pair_2dgs(chunk, px, py, inr):
                 b3=gw3d <= gw2d, op=op)
 
 
-def _composite_seq(alpha, t_cur, cutoff):
+def _composite_seq(alpha, t_cur, cutoff, log: bool = False):
     """Front-to-back weights of one chunk, pair after pair as the kernels
     walk them, so T_prev has the kernels' bits (the median's T_prev > 0.5
     test and the exact cutoff then decide alike). alpha [A, P, K] (0 for
     pairs that fail the tests), t_cur [A, P, 1] -> (w, m, t_prev, t_new);
     m is None for the soft cutoff. "exact": a pixel takes the pairs before
-    the first one whose T_prev * (1 - alpha) falls to <= 1e-4."""
+    the first one whose T_prev * (1 - alpha) falls to <= 1e-4. ``log``
+    selects raster_v2's log-space scan, which walks its sums in order
+    too."""
+    if log:
+        return rv._composite_log(alpha, t_cur, cutoff)
     t_prev = torch.empty_like(alpha)
     take = torch.empty(alpha.shape, dtype=torch.bool, device=alpha.device)
     T = t_cur[..., 0]
@@ -195,7 +206,8 @@ def _fwd_2dgs_plain(S, starts, masks, cfg: V2Cfg, zch: int,
             pr = _chunk_pair_2dgs(chunk, px[sl][idx][:, :, None],
                                   py[sl][idx][:, :, None], inr)
             w, take, t_prev, t_new = _composite_seq(pr["alpha"], T[idx],
-                                                    cfg.cutoff)
+                                                    cfg.cutoff,
+                                                    cfg.log_composite)
             if with_counts:
                 valid = pr["valid"]
                 if take is None:
@@ -268,11 +280,11 @@ def raster_fwd_2dgs(S, starts, masks, cfg: V2Cfg, zch: int):
     err = native.lib().gsc_raster_fwd_2dgs(
         S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
         cfg.n_tiles, cfg.tile_width, cfg.tile_height, cfg.tile_size,
-        cfg.channels, zch, int(cfg.cutoff == "soft"), out.data_ptr(),
-        rv._stream(),
+        cfg.channels, zch, int(cfg.cutoff == "soft"),
+        int(cfg.log_composite), out.data_ptr(), rv._stream(),
     )
     native.check(err, "gsc_raster_fwd_2dgs")
-    rv.LAUNCHES["raster_fwd_2dgs"] += 1
+    rv._count_launch("raster_fwd_2dgs", [(cfg.log_composite, "_log")])
     return out
 
 
@@ -323,12 +335,14 @@ def _bwd_2dgs_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, zch: int):
             pya = py[sl][idx][:, :, None]
             pr = _chunk_pair_2dgs(chunk, pxa, pya, inr[:, None, :])
             alpha = pr["alpha"]
-            w, m, t_prev, t_new = _composite_seq(alpha, T[idx], cfg.cutoff)
+            w, m, t_prev, t_new = _composite_seq(alpha, T[idx], cfg.cutoff,
+                                                 cfg.log_composite)
             zk = chunk[zrow][:, None, :]
             wz = w * zk
             A_i = accA[idx] + torch.cumsum(wz, dim=-1) - wz
             P_i = 1.0 - t_prev
             t_fin = t_final[idx]
+            # T_incl in product form in both scans, as in the JAX kernel
             S_i = torch.clamp(t_prev * (1.0 - alpha) - t_fin, min=0.0)
             SZ_i = wz_total[idx] - A_i - wz
             vc = v_c[idx]
@@ -415,10 +429,11 @@ def raster_bwd_2dgs(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, zch: int):
         S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
         tiles.data_ptr(), v_tiles.data_ptr(), cfg.n_tiles, cfg.tile_width,
         cfg.tile_height, cfg.tile_size, cfg.channels, zch,
-        int(cfg.cutoff == "soft"), gbuf.data_ptr(), rv._stream(),
+        int(cfg.cutoff == "soft"), int(cfg.log_composite), gbuf.data_ptr(),
+        rv._stream(),
     )
     native.check(err, "gsc_raster_bwd_2dgs")
-    rv.LAUNCHES["raster_bwd_2dgs"] += 1
+    rv._count_launch("raster_bwd_2dgs", [(cfg.log_composite, "_log")])
     return gbuf
 
 
@@ -491,10 +506,8 @@ def rasterize_to_pixels_2dgs_v2(
     the capacity truncates its deepest intersections, as in the JAX package.
     The capacity is ``isect_capacity`` rounded up to a multiple of 4096.
     The median depth carries no gradient; the background is added outside
-    the kernel."""
-    if log_composite:
-        raise NotImplementedError("log_composite is not ported yet: "
-                                  "ROADMAP A8b")
+    the kernel. ``log_composite`` selects the log-space transmittance
+    scan."""
     dev = resolve_device(device)
 
     def f32(x):
@@ -510,7 +523,8 @@ def rasterize_to_pixels_2dgs_v2(
     TW = -(-width // tile_size)
     TH = -(-height // tile_size)
     cap = -(-isect_capacity // CAP_BLOCK) * CAP_BLOCK
-    cfg = cfg_2dgs(C, TW, TH, tile_size, CB, cap, N)
+    cfg = cfg_2dgs(C, TW, TH, tile_size, CB, cap, N,
+                   log_composite=bool(log_composite))
     if masks is None:
         masks_arr = torch.ones(cfg.n_tiles, dtype=torch.int32, device=dev)
     else:

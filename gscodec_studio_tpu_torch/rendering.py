@@ -90,6 +90,9 @@ def rasterization(
     channel_chunk: int = 32,
     cutoff_mode: str = "exact",
     grad_dtype: str = "f32",
+    log_composite: bool = False,
+    attr_dtype: str = "f32",
+    geom_dtype: str = "f32",
     means2d_probe=None,  # [C, N, 2] zeros
     absgrad_probe=None,  # [C, N, 2] zeros
     device: DeviceLike = None,
@@ -103,7 +106,10 @@ def rasterization(
     centers, so its gradient is dL/d means2d, the signal the densification
     strategies read; ``absgrad_probe``'s gradient is the per-Gaussian sum
     of |per-pixel dL/d means2d|. ``grad_dtype`` ("f32" or "bf16") is the
-    fused rasterizer's gradient-row type (ops/raster_v2.py)."""
+    fused rasterizer's gradient-row type, ``log_composite`` its log-space
+    transmittance scan, ``attr_dtype`` ("f32" or "bf16") the sorted
+    table's opacity, conic and colour rows and ``geom_dtype`` ("f32" or
+    "u16") its position rows (ops/raster_v2.py)."""
     if render_mode not in RENDER_MODES:
         raise ValueError(f"unknown render_mode {render_mode!r}")
     if rasterize_mode not in ("classic", "antialiased"):
@@ -156,7 +162,8 @@ def rasterization(
             opacities_cn, depths, radii, width, height, tile_size=tile_size,
             isect_capacity=isect_capacity, backgrounds=bgs,
             absgrad_probe=absgrad_probe, cutoff_mode=cutoff_mode,
-            grad_dtype=grad_dtype, device=dev,
+            grad_dtype=grad_dtype, attr_dtype=attr_dtype,
+            log_composite=log_composite, geom_dtype=geom_dtype, device=dev,
         )
         chunks.append(img)
     render_colors = chunks[0] if len(chunks) == 1 else torch.cat(chunks, -1)

@@ -150,8 +150,6 @@ def check_ported(cfg: Config, rasterizers=("fused",)) -> None:
         (cfg.app_opt, "app_opt", "A8"),
         (cfg.use_bilateral_grid, "use_bilateral_grid", "A8"),
         (cfg.depth_loss, "depth_loss", "A8"),
-        (cfg.attr_dtype != "f32", f"attr_dtype={cfg.attr_dtype!r}", "A8b"),
-        (cfg.log_composite, "log_composite", "A8b"),
         (cfg.mesh_devices > 1, f"mesh_devices={cfg.mesh_devices}", "A12"),
         (cfg.rasterizer not in rasterizers, f"rasterizer={cfg.rasterizer!r}",
          "A13"),
@@ -167,6 +165,8 @@ def check_ported(cfg: Config, rasterizers=("fused",)) -> None:
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
     if cfg.grad_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown grad_dtype {cfg.grad_dtype!r}")
+    if cfg.attr_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown attr_dtype {cfg.attr_dtype!r}")
     unhonoured = [what for on, what in (
         (bool(cfg.save_steps), f"save_steps={tuple(cfg.save_steps)} "
                                "(checkpoints)"),
@@ -295,6 +295,7 @@ class Runner:
             rasterize_mode="antialiased" if cfg.antialiased else "classic",
             isect_capacity=self.isect_capacity(),
             cutoff_mode=cfg.cutoff_mode, grad_dtype=cfg.grad_dtype,
+            log_composite=cfg.log_composite, attr_dtype=cfg.attr_dtype,
             means2d_probe=probe, absgrad_probe=ag_probe, device=dev)
         loss = combined_loss(img, target, cfg.ssim_lambda)
         if cfg.opacity_reg > 0:

@@ -14,7 +14,9 @@ means2d gradient (so the default strategy's refines only prune and
 reset), its loss drops ``opacity_reg``, ``scale_reg`` and ``random_bkgd``,
 the median depth carries no gradient, and under MCMC it relocates and
 grows but adds no position noise. It refuses ``compression_sim``, which the
-JAX Runner2DGS carries without applying.
+JAX Runner2DGS carries without applying. The JAX Runner2DGS passes none of
+``grad_dtype``, ``attr_dtype`` and ``log_composite`` to its render; this one
+ignores them too, and names those set off their defaults once.
 """
 
 from __future__ import annotations
@@ -58,6 +60,14 @@ class Runner2DGS(Runner):
                 "the simulation's state but its step never applies it) is "
                 "not ported: ROADMAP A7")
         super().__init__(cfg, *args, **kwargs)
+        ignored = [what for on, what in (
+            (cfg.grad_dtype != "f32", f"grad_dtype={cfg.grad_dtype!r}"),
+            (cfg.attr_dtype != "f32", f"attr_dtype={cfg.attr_dtype!r}"),
+            (cfg.log_composite, "log_composite=True"),
+        ) if on]
+        if ignored:
+            print("Runner2DGS: ignored, as the JAX Runner2DGS ignores them: "
+                  + ", ".join(ignored), flush=True)
 
     def _rasterizer_2dgs(self) -> str:
         return "fused" if self.cfg.rasterizer == "fused" else "reference"

@@ -269,10 +269,6 @@ def test_depth_to_normal_matches_jax():
 
 
 def test_fused_path_raises_for_unported_options(surfels):
-    m2, M, col, op, nrm, dep, radii = surfels["args"]
-    with pytest.raises(NotImplementedError, match="A8b"):
-        t2.rasterize_to_pixels_2dgs_v2(m2, M, col, op, nrm, dep, radii, W,
-                                       H, log_composite=True, device="cpu")
     cfg = t2.cfg_2dgs(1, 3, 2, 16, 7, 4096, N)
     with pytest.raises(ValueError, match="depth channel"):
         t2.raster_fwd_2dgs(torch.zeros(cfg.d_s, cfg.cap),

@@ -17,6 +17,12 @@ output truncated, bit for bit, and each half lies within one bf16 step
 (2^-7 of its value) plus the f32 tolerance of its plain version's half;
 the packed segment sums within 1e-6 of each row's largest |sum| (the same
 summands in another order); the unpack of packed words bit for bit.
+The sorted table's precision branches (attr_dtype "bf16", geom_dtype
+"u16", log_composite): the packed expansion bit for bit (its words), the
+tile kernels that read packed rows or scan in log space at the f32
+branches' tolerances against their plain versions (which walk the log
+scan's sums in the kernels' order), and 2DGS's log branch as its product
+branch.
 """
 
 import numpy as np
@@ -52,9 +58,16 @@ def _scene(seed, C=2, N=3000, W=200, H=136, CH=3):
     return m2, con, col, op, dep, radii
 
 
-def _cfg(C, N, W, H, ts, CH, cutoff="exact", cap=1 << 16):
+def _cfg(C, N, W, H, ts, CH, cutoff="exact", cap=1 << 16, **knobs):
     return tr.V2Cfg(C=C, tile_width=-(-W // ts), tile_height=-(-H // ts),
-                    tile_size=ts, channels=CH, cap=cap, n=N, cutoff=cutoff)
+                    tile_size=ts, channels=CH, cap=cap, n=N, cutoff=cutoff,
+                    **knobs)
+
+
+# the sorted table's precision branches, each alone and all together
+KNOBS = [dict(attr_dtype="bf16"), dict(geom_dtype="u16"),
+         dict(log_composite=True),
+         dict(attr_dtype="bf16", geom_dtype="u16", log_composite=True)]
 
 
 def test_pack_kernel_matches_plain(cuda):
@@ -123,10 +136,10 @@ def test_rasterization_on_card_matches_cpu(cuda):
     assert float((alp.cpu() - alp_c).abs().max()) <= 1e-4
 
 
-def _sorted_case(cuda, seed, ts, cutoff, CH=3):
+def _sorted_case(cuda, seed, ts, cutoff, CH=3, **knobs):
     m2, con, col, op, dep, radii = _scene(seed, CH=CH)
     C, N = dep.shape
-    cfg = _cfg(C, N, 200, 136, ts, CH, cutoff)
+    cfg = _cfg(C, N, 200, 136, ts, CH, cutoff, **knobs)
     b = tr._build_sorted(cfg, *[torch.as_tensor(x, device=cuda)
                                 for x in (m2, con, col, op, dep, radii)])
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -337,7 +350,8 @@ def test_wide_renders_on_card_match_cpu(cuda, D):
         assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale
 
 
-def _surfel_case(cuda, seed, cutoff, N=3000, W=200, H=136):
+def _surfel_case(cuda, seed, cutoff, N=3000, W=200, H=136,
+                 log_composite=False):
     """Projected surfels of a seeded scene, binned for the 2DGS kernels."""
     from gscodec_studio_tpu_torch.ops import raster_v2_2dgs as t2
     from gscodec_studio_tpu_torch.rendering import project_and_shade_2dgs
@@ -359,7 +373,7 @@ def _surfel_case(cuda, seed, cutoff, N=3000, W=200, H=136):
     colors_full = torch.cat([col, nrm], -1).contiguous()
     CB = colors_full.shape[-1]
     cfg = t2.cfg_2dgs(1, -(-W // 16), -(-H // 16), 16, CB, 1 << 17, N,
-                      cutoff=cutoff)
+                      cutoff=cutoff, log_composite=log_composite)
     b = t2._build_sorted_2dgs(cfg, m2.contiguous(), trans.contiguous(),
                               colors_full, op.contiguous(), dep.contiguous(),
                               radii.contiguous())
@@ -367,6 +381,79 @@ def _surfel_case(cuda, seed, cutoff, N=3000, W=200, H=136):
     masks = (torch.rand(cfg.n_tiles, generator=g) > 0.2).to(
         device=cuda, dtype=torch.int32)
     return t2, cfg, b, masks, g
+
+
+@pytest.mark.parametrize("knobs", KNOBS[:2] + KNOBS[3:])
+def test_packed_expand_kernel_matches_plain(cuda, knobs):
+    m2, con, col, op, dep, radii = _scene(1)
+    C, N = dep.shape
+    t = [torch.as_tensor(x, device=cuda) for x in (m2, con, col, op, dep)]
+    rad = torch.as_tensor(radii, device=cuda)
+    cfg = _cfg(C, N, 200, 136, 16, 3, **knobs)
+    order, cum, base, nx, n_isects = tr._compact(cfg, t[0], rad, t[4])
+    table = tr.pack_rows(tr._attr_rows(cfg, *t[:4]), cfg.n_attr_eff, order)
+    before = tr.LAUNCHES["expand_packed"]
+    tile, rows = tr.expand(cum, base, nx, table, n_isects, cfg)
+    assert tr.LAUNCHES["expand_packed"] == before + 1
+    tile_p, rows_p = tr._expand_plain(cum, base, nx, table, n_isects, cfg)
+    assert rows.shape == (cfg.d_s, cfg.cap)
+    assert torch.equal(tile, tile_p)
+    assert torch.equal(rows.view(torch.int32), rows_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("knobs", KNOBS)
+def test_precision_branches_match_plain(cuda, knobs):
+    """B1 and B2 (f32 and packed-pair gradient rows, absgrad off and on)
+    for each branch, at tiles 16 and 32 and both cutoffs."""
+    for ts in (16, 32):
+        for cutoff in ("exact", "soft"):
+            cfg, b, masks, tiles, v_tiles = _sorted_case(cuda, 5, ts, cutoff,
+                                                         **knobs)
+            ref = tr._fwd_plain(b.S, b.starts, masks, cfg)
+            assert float((tiles - ref).abs().max()) <= 1e-4, (ts, cutoff)
+            assert float(tiles[..., -1].max()) > 0.5
+            for absgrad in (False, True):
+                args = (b.S, b.starts, masks, tiles, v_tiles, cfg, absgrad)
+                out = tr.raster_bwd(*args)
+                assert _rows_close(out, tr._bwd_plain(*args), 1e-4), (
+                    ts, cutoff, absgrad)
+                assert torch.equal(out, tr.raster_bwd(*args))
+                gp = tr.raster_bwd(*args, packed=True)
+                assert torch.equal(gp, tr._pack_grad_rows(
+                    out, cfg.n_attr_eff, absgrad))
+
+
+def test_bench_configuration_on_card_matches_cpu(cuda):
+    """bench.py's packed configuration (tile 32, soft, bf16 attribute and
+    gradient rows, the log scan) through rasterization, card against CPU:
+    images within 5e-4 (the log scan's log1p and exp come from two math
+    libraries here, and its sums of up to 128 terms carry their ulps into
+    T; the same device's kernel and plain version agree within 1e-4 above),
+    gradients within 2^-6 of each tensor's scale (the bf16 rows truncate
+    f32 sums taken in another order)."""
+    rng = np.random.default_rng(4)
+    N, W, H = 4000, 160, 120
+    means = (rng.standard_normal((N, 3)) * [1.5, 1.0, 1.5]).astype(np.float32)
+    quats = rng.standard_normal((N, 4)).astype(np.float32)
+    scales = np.exp(rng.normal(-3.5, 0.5, (N, 3))).astype(np.float32)
+    opac = rng.random(N).astype(np.float32)
+    sh = (rng.standard_normal((N, 16, 3)) * 0.3).astype(np.float32)
+    vm = np.eye(4, dtype=np.float32)
+    vm[2, 3] = 5.0
+    K = np.array([[[150, 0, W / 2], [0, 150, H / 2], [0, 0, 1]]], np.float32)
+    kw = dict(sh_degree=3, tile_size=32, cutoff_mode="soft",
+              grad_dtype="bf16", attr_dtype="bf16", log_composite=True)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        means_t = torch.tensor(means, device=dev, requires_grad=True)
+        img, alp, _ = rasterization(means_t, quats, scales, opac, sh,
+                                    vm[None], K, W, H, device=dev, **kw)
+        loss = ((img - 0.5) ** 2).mean() + 0.1 * alp.mean()
+        loss.backward()
+        res[dev.type] = (img.detach().cpu(), means_t.grad.cpu())
+    assert float((res["cuda"][0] - res["cpu"][0]).abs().max()) <= 5e-4
+    g, gc = res["cuda"][1], res["cpu"][1]
+    assert float((g - gc).abs().max()) <= 2.0 ** -6 * float(gc.abs().max())
 
 
 def test_no_cull_expand_kernel_matches_plain(cuda):
@@ -379,17 +466,19 @@ def test_no_cull_expand_kernel_matches_plain(cuda):
     assert int((b.tile[:n] == cfg.n_tiles).sum()) == 0
 
 
-def test_2dgs_kernels_match_plain(cuda):
+@pytest.mark.parametrize("log_composite", [False, True])
+def test_2dgs_kernels_match_plain(cuda, log_composite):
     """B5 within 1e-4 of each output channel's scale (max(1, |largest|)),
     the median bit for bit; B6 within 1e-4 of each gradient row's largest
-    |value| and the same bits twice."""
+    |value| and the same bits twice; in the product and the log branch."""
+    key = "raster_fwd_2dgs_log" if log_composite else "raster_fwd_2dgs"
     for cutoff in ("exact", "soft"):
-        t2, cfg, b, masks, g = _surfel_case(cuda, 13, cutoff)
+        t2, cfg, b, masks, g = _surfel_case(cuda, 13, cutoff,
+                                            log_composite=log_composite)
         zch = cfg.channels - 4
         before = dict(tr.LAUNCHES)
         out = t2.raster_fwd_2dgs(b.S, b.starts, masks, cfg, zch)
-        assert tr.LAUNCHES["raster_fwd_2dgs"] == \
-            before["raster_fwd_2dgs"] + 1
+        assert tr.LAUNCHES[key] == before[key] + 1
         ref = t2._fwd_2dgs_plain(b.S, b.starts, masks, cfg, zch)
         scale = ref.abs().amax(dim=(0, 1)).clamp(min=1.0)
         assert float(((out - ref).abs().amax(dim=(0, 1)) / scale).max()) \

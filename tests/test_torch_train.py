@@ -50,6 +50,7 @@ from gscodec_studio_tpu_torch.optimizers import (apply_updates,
                                                  build_splat_optimizers)
 from gscodec_studio_tpu_torch.strategy import DefaultStrategy
 from gscodec_studio_tpu_torch.strategy import ops as tops
+from gscodec_studio_tpu_torch.rendering import rasterization
 from gscodec_studio_tpu_torch.training import losses as tlosses
 from gscodec_studio_tpu_torch.training.trainer import Config, Runner
 from gscodec_studio_tpu_torch.utils.scenes import checkpoint_stand_in
@@ -396,8 +397,7 @@ def test_finite_gate_skips_a_poisoned_step(fake_scene, tmp_path):
     ("entropy_model_type", "gaussian_model"), ("rasterizer", "reference"),
     ("visible_adam", True), ("pose_opt", True), ("app_opt", True),
     ("use_bilateral_grid", True), ("depth_loss", True), ("mesh_devices", 2),
-    ("mesh_devices", 4), ("attr_dtype", "bf16"), ("log_composite", True),
-    ("rasterizer", "pallas"), ("init_type", "random"),
+    ("mesh_devices", 4), ("rasterizer", "pallas"), ("init_type", "random"),
     ("eval_save_images", True), ("tb_histograms_every", 10),
 ])
 def test_unported_options_raise(field, value, tmp_path):
@@ -408,6 +408,35 @@ def test_unported_options_raise(field, value, tmp_path):
                               **{field: value}, **sim)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Runner(cfg, parser=object(), device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("attr_dtype", "bf16"),
+                                         ("log_composite", True)])
+def test_precision_options_pass_through(fake_scene, tmp_path, monkeypatch,
+                                        field, value):
+    """The sorted table's precision options, refused before they were
+    ported, reach the training render's rasterizer as the JAX Runner passes
+    them (gscodec_studio_tpu/training/trainer.py:476,485)."""
+    import gscodec_studio_tpu_torch.training.trainer as ttrainer
+
+    parser, trainset, valset = fake_scene
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append({k: kw.get(k) for k in ("attr_dtype", "log_composite")})
+        return rasterization(*args, **kw)
+
+    monkeypatch.setattr(ttrainer, "rasterization", spy)
+    cfg = dataclasses.replace(
+        Config(result_dir=str(tmp_path), max_steps=1, capacity=256,
+               isect_capacity=8192), **{field: value})
+    runner = Runner(cfg, parser=parser, trainset=trainset, valset=valset,
+                    device="cpu")
+    losses = runner.train(log_every=0)
+    assert np.isfinite(losses).all() and runner.skipped_steps == 0
+    assert seen and seen[0][field] == value
+    other = "log_composite" if field == "attr_dtype" else "attr_dtype"
+    assert seen[0][other] == getattr(Config(), other)
 
 
 def test_unhonoured_defaults_are_named(fake_scene, tmp_path, capsys):

@@ -180,14 +180,29 @@ def test_jax_splats_render_identically(jax_runs):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("attr_dtype", "bf16"), ("log_composite", True),
-    ("compression_sim", True)])
+@pytest.mark.parametrize("field,value", [("compression_sim", True)])
 def test_unported_options_raise_2dgs(field, value, tmp_path):
     cfg = dataclasses.replace(Config2DGS(result_dir=str(tmp_path)),
                               **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Runner2DGS(cfg, parser=object(), device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("attr_dtype", "bf16"), ("log_composite", True)])
+def test_precision_options_named_as_ignored_2dgs(fake_scene,  # noqa: F811
+                                                 field, value, tmp_path,
+                                                 capsys):
+    """The JAX Runner2DGS passes neither option to its render; the port's
+    takes them, ignores them as JAX does and names them once."""
+    parser, trainset, valset = fake_scene
+    cfg = dataclasses.replace(Config2DGS(result_dir=str(tmp_path),
+                                         capacity=256), **{field: value})
+    Runner2DGS(cfg, parser=parser, trainset=trainset, valset=valset,
+               device="cpu")
+    line, = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("Runner2DGS: ignored")]
+    assert field in line
 
 
 def test_config2dgs_fields_match_jax():
