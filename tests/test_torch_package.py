@@ -157,9 +157,17 @@ def test_rasterize_ref_matches_jax(rng):
     ref = jrasterize_ref(*map(jnp.asarray, args), W, H, 16,
                          backgrounds=jnp.asarray(bg),
                          masks=jnp.asarray(masks))
-    got = rasterize_to_pixels_ref(*map(torch.as_tensor, args), W, H, 16,
-                                  backgrounds=torch.as_tensor(bg),
-                                  masks=torch.as_tensor(masks))
+    # One thread: with several, torch's CPU kernels may round an alpha
+    # differently from one process to the next, and an alpha that sits on
+    # the 1/255 threshold then drops in or out.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = rasterize_to_pixels_ref(*map(torch.as_tensor, args), W, H, 16,
+                                      backgrounds=torch.as_tensor(bg),
+                                      masks=torch.as_tensor(masks))
+    finally:
+        torch.set_num_threads(threads)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-5)
