@@ -15,15 +15,28 @@ Phases, one JSON line each with its own ``seconds``:
             log_composite, and all three (each case's backward also with
             packed gradient rows); the same scene as surfels (tile 16, both
             cutoffs) for the 2DGS tile kernels B5 and B6, in the product
-            and the log branch, and the expansion's no-cull branch;
+            and the log branch, and the expansion's no-cull branch; the
+            same scene's scalar radii (tile 16 and 32, both cutoffs)
+            through the legacy v1 kernels B7 and B8 (B8 also twice for
+            the same bits);
   serve     the committed checkpoint results/garden_ab_f32/splats_final.npz
             (120k Gaussians, SH 3) rendered from 8 orbit cameras at
             1297x840 through utils.ply_render.render_splats, and its first
             view's kernels held against their plain versions;
+  serve_v1  the same 8 views through render_splats(rasterizer="pallas")
+            (the v1 backend at its default soft cutoff), capacity 1.2x the
+            probed scalar-radius rows; view 0's B7 against its plain
+            version;
   scene_1m  the 1M-Gaussian SH-3 synthetic scene at 1297x840: tile 16 and
             32 with the exact cutoff, tile 16 with the soft one; render
             time, per-kernel time, plain time, library time and the bound
             of each kernel, with each kernel held against its plain version;
+  scene_1m_v1  the same scene through rasterization(rasterizer="pallas"),
+            tile 16, soft and exact, the default capacity: forward and
+            fwd+bwd median ms, Mpix/s, intersections against the capacity,
+            the chunks walked, one B7 and one B8 launch per fwd+bwd, B7's
+            and B8's time, bound and plain time and their check, and the
+            "sort" reduction's cancellation (reported, not checked);
   train_1m  the same scene, tile 16, both cutoffs: forward + backward of
             rendering.rasterization with a seeded cotangent (median ms,
             Mpix/s, launches), and the backward kernels' time, bound, plain
@@ -52,6 +65,10 @@ Phases, one JSON line each with its own ``seconds``:
             then B2's time on each training view at the run's final
             splats, SH degree and capacity, and the slowest view's kernels,
             forward and backward, held against their plain versions;
+  train_v1  the train phase's run with Config(rasterizer="pallas"): loss,
+            held-out PSNR, step ms, launches (one B7 and one B8 a step),
+            a profiled step; then B8 timed on every training view and the
+            slowest view's B7 and B8 against their plain versions;
   train_2dgs  training.trainer_2dgs.Runner2DGS with the default Config2DGS
             on the same stand-in, 30 steps with the train phase's refine
             and SH settings and the normal and distortion losses from step
@@ -75,14 +92,20 @@ Phases, one JSON line each with its own ``seconds``:
             step ms, skipped steps; then the slowest view's kernels against
             their plain versions;
   train_2dgs_mcmc  Runner2DGS at strategy "mcmc" on the same stand-in,
-            20 steps: loss, skipped steps, the allocated count.
+            20 steps: loss, skipped steps, the allocated count;
+  cumsum_skel  B10 (cumsum_rows) at [9, 2^23] against torch.cumsum within
+            the f32 summation-order bound, timed beside it; B11 (the
+            compositing skeleton, profiling/kernel_skel_bench.py) on the
+            JAX script's four inputs (ms, us/tile, ns/isect) and against
+            its plain version on the one with the stop at 24.
 The kernels and train_1m phases also hold the packed-pair branches (B2p,
 B4p) against their plain versions, and train_1m times the bf16 case beside
 the f32 one. Then a line {"kernels": [...]} with each kernel's numbers
 (launches from its main path: the train phase, for B5 and B6 the
 train_2dgs phase, for B2p and B4p the train_ladder phase, for the precision
 branches of B3, B1 and B2 one fwd+bwd of bench_1m, for B5/B6's log branch
-one fwd+bwd of train_1m_2dgs's log leg), the card's name
+one fwd+bwd of train_1m_2dgs's log leg, for B7 and B8 the train_v1 phase,
+for B10 and B11 the cumsum_skel phase), the card's name
 and power limit, and the result line. Any failed check raises, and the
 script exits non-zero without the result line.
 """
@@ -160,6 +183,25 @@ BWD2_OPS_UV, BWD2_OPS_FILTER = 39, 4
 # once per staged column, and cut the bytes read.
 LOG_OPS_TESTED = {"exact": 15, "soft": 11}
 
+# raster_v1_fwd, from csrc/raster_v1_fwd.cu: per evaluated (pair, pixel)
+# dx, dy, the nine operations of sigma = 0.5 * (a dx dx + c dy dy)
+# + b dx dy, its negation, exp, op * exp, min and two tests (17); the
+# transmittance step per tested pair (FWD_OPS_TESTED); the weight and CH
+# multiply-adds per composited pair (1 + 2*CH, as raster_fwd).
+V1_OPS_EVALUATED = 17
+# raster_v1_bwd, from csrc/raster_v1_bwd.cu: B7's walk again, and per
+# composited (pair, pixel) the weight, G (2*CH), q (2), 1/(1-alpha),
+# v_alpha (5), v_sig (2), the five geometry terms (16) and the opacity
+# term (1), CH colour products, and one add per gradient row (6 + CH) for
+# the sum over the tile's pixels.
+V1_BWD_OPS_COMPOSITED = 28  # + 3*CH + 6 + CH
+# skel_composite, from csrc/skel_composite.cu: per evaluated (pair, pixel)
+# dx, dy, sigma's ten operations, its negation, exp, op * exp, min and two
+# tests (18); per composited pair the weight, three multiply-adds and
+# T * (1 - alpha) (9).
+SKEL_OPS_EVALUATED, SKEL_OPS_COMPOSITED = 18, 9
+CUMSUM_SHAPE = (9, 1 << 23)  # B10's input: 9 rows as the JAX table's
+
 KERNELS = {
     "pack_rows": dict(source="gscodec_studio_tpu_torch/csrc/pack.cu",
                       replaces="gscodec_studio_tpu/ops/raster_v2.py:324"),
@@ -206,7 +248,20 @@ KERNELS = {
     "raster_bwd_2dgs_log": dict(
         source="gscodec_studio_tpu_torch/csrc/raster_bwd_2dgs.cu",
         replaces="gscodec_studio_tpu/ops/raster_v2_2dgs.py:353"),
+    "raster_v1_fwd": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_v1_fwd.cu",
+        replaces="gscodec_studio_tpu/ops/rasterize_pallas.py:214"),
+    "raster_v1_bwd": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_v1_bwd.cu",
+        replaces="gscodec_studio_tpu/ops/rasterize_pallas.py:281"),
+    "cumsum_rows": dict(
+        source="gscodec_studio_tpu_torch/csrc/cumsum_rows.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2.py:1505"),
+    "skel_composite": dict(
+        source="gscodec_studio_tpu_torch/csrc/skel_composite.cu",
+        replaces="profiling/kernel_skel_bench.py:65"),
 }
+KERNELS_V1 = ("raster_v1_fwd", "raster_v1_bwd")  # rasterizer="pallas"
 KERNELS_3DGS = ("pack_rows", "expand", "raster_fwd", "raster_bwd",
                 "segsum_rows", "unpack_rows")  # the 3DGS training step's
 KERNELS_2DGS = ("pack_rows", "expand", "raster_fwd_2dgs", "raster_bwd_2dgs",
@@ -697,6 +752,130 @@ class Stages2DGS:
         return k
 
 
+class V1Stages:
+    """The legacy v1 path's binning and forward (ops/isect.py,
+    ops/rasterize_pallas.py) on project_and_shade's outputs with scalar
+    radii, keeping B7's and B8's inputs and outputs so each can be re-run,
+    timed and compared."""
+
+    def __init__(self, rp, ti, prep, width, height, ts, cutoff, cap):
+        radii, means2d, depths, conics, colors, opac = prep[:6]
+        C, N = depths.shape
+        CH = colors.shape[-1]
+        TW, TH = -(-width // ts), -(-height // ts)
+        self.rp = rp
+        self.isect = ti.isect_tiles(means2d, radii, depths, ts, TW, TH, cap)
+        self.al = ti.align_isects(self.isect, C, TW, TH, rp.K_CHUNK,
+                                  need_inv_perm=False)
+        self.cfg = rp.RasterCfg(C=C, tile_width=TW, tile_height=TH,
+                                tile_size=ts, channels=CH, cap=cap,
+                                cap2=self.al.ids.shape[0], m=C * N,
+                                cutoff=cutoff)
+        flat = torch.cat([means2d.reshape(-1, 2), conics.reshape(-1, 3),
+                          opac.reshape(-1, 1), colors.reshape(-1, CH)], -1)
+        self.packed = rp._pack(flat.contiguous(), self.al.ids)
+        self.args = (self.packed, self.al.starts, self.al.ends)
+        self.colors, self.alphas = rp.raster_v1_fwd(*self.args, self.cfg)
+        self.n_isects = int(self.isect.n_isects)
+        self.chunks_in_runs = int(torch.div(
+            self.al.ends - self.al.starts + rp.K_CHUNK - 1, rp.K_CHUNK,
+            rounding_mode="floor").sum())
+
+    def compare(self, errs):
+        """B7 against its plain version within FWD_TOL; keeps the plain
+        walk's pair counts."""
+        c, a, self.pair_counts = self.rp._fwd_plain(*self.args, self.cfg,
+                                                    with_counts=True)
+        err = max(float((c - self.colors).abs().max()),
+                  float((a - self.alphas).abs().max()))
+        if not (math.isfinite(err) and err <= FWD_TOL):
+            raise AssertionError(f"raster_v1_fwd max abs err {err} > "
+                                 f"{FWD_TOL}")
+        note_err(errs, ["raster_v1_fwd"], err)
+        return {"v1_fwd_max_abs_err": err}
+
+    def cotangent(self, seed):
+        """Seeded standard-normal cotangents of B7's outputs: B8's
+        arguments and its plain version's."""
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        dev = self.colors.device
+        v_colors = torch.randn(self.colors.shape, generator=g).to(dev)
+        v_alphas = torch.randn(self.alphas.shape, generator=g).to(dev)
+        self.bwd_args = (*self.args, self.colors, self.alphas, v_colors,
+                         v_alphas, self.cfg)
+        q0 = (self.colors * v_colors).sum(1, keepdim=True)
+        self.plain_bwd_args = (*self.args, v_colors, v_alphas, self.alphas,
+                               q0, self.cfg)
+
+    def compare_bwd(self, errs, seed):
+        """B8 against its plain version on a seeded cotangent within
+        BWD_TOL of each gradient column's largest |value|, and twice for
+        the same bits; keeps its output for timing."""
+        rp = self.rp
+        self.cotangent(seed)
+        out = rp.raster_v1_bwd(*self.bwd_args)
+        ref = rp._bwd_plain(*self.plain_bwd_args)
+        diff = (out - ref).abs()
+        err = float((diff / ref.abs().amax(0).clamp(min=1e-30)).max())
+        if not (math.isfinite(err) and err <= BWD_TOL):
+            raise AssertionError(f"raster_v1_bwd rel err {err} > {BWD_TOL}")
+        if not torch.equal(out, rp.raster_v1_bwd(*self.bwd_args)):
+            raise AssertionError("raster_v1_bwd differs between two runs")
+        note_err(errs, ["raster_v1_bwd"], float(diff.max()))
+        self.v_packed = out
+        return {"v1_bwd_rel_err": err, "v1_bwd_max_abs_err": float(
+            diff.max())}
+
+    def sort_cancellation(self):
+        """The "sort" reduction's f32 running-sum differences against a
+        float64 sum of each Gaussian's rows: the largest gap in each
+        gradient column over the column's largest |sum| (reported, not
+        checked)."""
+        rp, cfg = self.rp, self.cfg
+        got = rp.segment_reduce(self.v_packed, self.al.ids,
+                                self.isect.exp_offsets, self.al.inv_perm,
+                                self.isect.n_isects,
+                                dataclasses.replace(cfg, segred="sort"))
+        ids = torch.where(self.al.ids >= 0, self.al.ids, cfg.m).long()
+        exact = torch.zeros((cfg.m + 1, cfg.d), dtype=torch.float64,
+                            device=got.device).index_add_(
+            0, ids, self.v_packed.double())[:-1]
+        gap = ((got.double() - exact).abs().amax(0)
+               / exact.abs().amax(0).clamp(min=1e-300))
+        names = ["x", "y", "conic_a", "conic_b", "conic_c", "opacity"] + [
+            f"color_{j}" for j in range(cfg.channels)]
+        return {"max_gap_over_scale": float(gap.max()),
+                "by_column": dict(zip(names, gap.tolist())),
+                "rows_summed": cfg.cap2}
+
+    def kernel_numbers(self):
+        """Time, plain time and bound of B7 and B8 on these inputs."""
+        rp, cfg, pc = self.rp, self.cfg, self.pair_counts
+        CH, P, T = cfg.channels, cfg.pixels, cfg.n_tiles
+        d = cfg.d
+        k = {}
+        k["raster_v1_fwd"] = bound(dict(
+            ms=cuda_ms(lambda: rp.raster_v1_fwd(*self.args, cfg), 10),
+            plain_ms=once_ms(lambda: rp._fwd_plain(*self.args, cfg)),
+            library_ms=None,
+            bytes=4 * d * self.n_isects + 8 * T + 4 * T * P * (CH + 1),
+            ops=V1_OPS_EVALUATED * pc["evaluated"]
+            + FWD_OPS_TESTED[cfg.cutoff] * pc["tested"]
+            + (1 + 2 * CH) * pc["composited"],
+            pair_counts=pc))
+        k["raster_v1_bwd"] = bound(dict(
+            ms=cuda_ms(lambda: rp.raster_v1_bwd(*self.bwd_args), 10),
+            plain_ms=once_ms(lambda: rp._bwd_plain(*self.plain_bwd_args)),
+            library_ms=None,
+            bytes=4 * d * self.n_isects + 8 * T + 4 * T * P * (CH + 3)
+            + 4 * d * cfg.cap2,
+            ops=V1_OPS_EVALUATED * pc["evaluated"]
+            + FWD_OPS_TESTED[cfg.cutoff] * pc["tested"]
+            + (V1_BWD_OPS_COMPOSITED + 3 * CH + d) * pc["composited"],
+            pair_counts=pc))
+        return k
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -707,7 +886,11 @@ def main():
     from gscodec_studio_tpu_torch.ops.projection import fully_fused_projection
     from gscodec_studio_tpu_torch.ops import raster_v2 as rv
     from gscodec_studio_tpu_torch.ops import raster_v2_2dgs as r2
-    from gscodec_studio_tpu_torch.rendering import (project_and_shade,
+    from gscodec_studio_tpu_torch.ops import isect as ti
+    from gscodec_studio_tpu_torch.ops import rasterize_pallas as rp
+    from gscodec_studio_tpu_torch.profiling import kernel_skel_bench as skel
+    from gscodec_studio_tpu_torch.rendering import (_default_isect_capacity,
+                                                    project_and_shade,
                                                     project_and_shade_2dgs,
                                                     rasterization,
                                                     rasterization_2dgs)
@@ -745,10 +928,11 @@ def main():
     def to_dev(*arrays):
         return [torch.as_tensor(a, device=dev) for a in arrays]
 
-    def prepared(scene, width, height):
+    def prepared(scene, width, height, elliptical=True):
         means, quats, scales, opac, colors, vm, Ks = to_dev(*scene)
         return project_and_shade(means, quats, scales, opac, colors, vm, Ks,
-                                 width, height, sh_degree=3)
+                                 width, height, sh_degree=3,
+                                 elliptical=elliptical)
 
     def check_training_views(runner, sh_degree, errs, packed=False):
         """The kernels on the training run's own inputs: each training
@@ -832,6 +1016,45 @@ def main():
         return dict(view=view, sh_degree=sh_degree, raster_bwd_2dgs_ms=bwd_ms,
                     n_isects=int(st.b.n_isects), isect_capacity=st.cfg.cap,
                     **res)
+
+    def check_training_views_v1(runner, sh_degree, errs):
+        """check_training_views for the v1 backend: B8 timed on every
+        training view at the run's final splats, SH degree and capacity,
+        then the slowest view's B7 and B8 held against their plain
+        versions on that view's own inputs."""
+        tc = runner.cfg
+        sp = runner.splats
+        data = runner._device_trainset()
+        H, W = data["image"].shape[1:3]
+        with torch.no_grad():
+            means, quats, scales, opac = splat_activations(sp)
+            colors = torch.cat([sp["sh0"], sp["shN"]], 1)
+
+        def view_stages(i):
+            prep = project_and_shade(
+                means, quats, scales, opac, colors,
+                torch.linalg.inv(data["camtoworld"][i:i + 1]),
+                data["K"][i:i + 1], W, H, near_plane=tc.near_plane,
+                far_plane=tc.far_plane, sh_degree=sh_degree,
+                antialiased=tc.antialiased, elliptical=False)
+            return V1Stages(rp, ti, prep, W, H, tc.tile_size,
+                            rp.CUTOFF_MODE, runner.isect_capacity())
+
+        bwd_ms = []
+        with torch.no_grad():
+            for i in range(data["image"].shape[0]):
+                st = view_stages(i)
+                st.cotangent(seed=300 + i)
+                bwd_ms.append(cuda_ms(lambda: rp.raster_v1_bwd(
+                    *st.bwd_args), 2))
+                del st
+            view = int(np.argmax(bwd_ms))
+            st = view_stages(view)
+            res = st.compare(errs)
+            res.update(st.compare_bwd(errs, seed=300 + view))
+        return dict(view=view, sh_degree=sh_degree, raster_v1_bwd_ms=bwd_ms,
+                    n_isects=st.n_isects, isect_capacity=st.cfg.cap,
+                    cutoff=st.cfg.cutoff, **res)
 
     def stages_2dgs(prep, width, height, cutoff, cap=None, ts=16,
                     log_composite=False):
@@ -929,7 +1152,16 @@ def main():
             cases.append(dict(tile_size=16, cutoff=cutoff, surfels=True,
                               log_composite=log_composite,
                               n_isects=int(st.b.n_isects), **res))
-    del st
+    # B7 and B8 (rasterizer="pallas") on the same scene's scalar radii
+    prep_v1_small = prepared(small, sw, sh, elliptical=False)
+    for ts in (16, 32):
+        for cutoff in ("exact", "soft"):
+            v1 = V1Stages(rp, ti, prep_v1_small, sw, sh, ts, cutoff, 1 << 20)
+            res = v1.compare(errs)
+            res.update(v1.compare_bwd(errs, seed=ts))
+            cases.append(dict(tile_size=ts, cutoff=cutoff, v1=True,
+                              n_isects=v1.n_isects, **res))
+    del st, v1
     torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "max_abs_err": errs,
           "fwd_tol": FWD_TOL, "bwd_tol": BWD_TOL,
@@ -1002,7 +1234,67 @@ def main():
           "ms_per_view": times, "mean_alpha": mean_alpha,
           "launches": serve_launches, "view0_check": serve_check,
           "seconds": time.perf_counter() - t0})
-    del model, outs, prep0
+
+    # 4b. serve_v1: the same views through the legacy v1 backend
+    t0 = time.perf_counter()
+    probe_v1, preps_v1 = [], []
+    with torch.no_grad():
+        for cam in cams:
+            vm_c = torch.as_tensor(np.linalg.inv(cam["camtoworld"])[None],
+                                   device=dev)
+            K_c = torch.as_tensor(cam["K"][None], device=dev)
+            prep = project_and_shade(means, quats, scales, opac,
+                                     model.sh_coeffs(), vm_c, K_c, WIDTH,
+                                     HEIGHT, sh_degree=3, elliptical=False)
+            probe_v1.append(int(rv.tile_counts(
+                prep[1], prep[0], 16, -(-WIDTH // 16),
+                -(-HEIGHT // 16))[3].sum()))
+            if not preps_v1:
+                preps_v1.append(prep)
+    cap_v1 = int(1.2 * max(probe_v1))
+    rv.reset_launch_counts()
+    outs_v1 = render_splats(model, cams, sh_degree=3, isect_capacity=cap_v1,
+                            rasterizer="pallas")
+    torch.cuda.synchronize()
+    serve_v1_launches = dict(rv.LAUNCHES)
+    times_v1 = []
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        render_splats(model, cams, sh_degree=3, isect_capacity=cap_v1,
+                      rasterizer="pallas")
+        e1.record()
+        e1.synchronize()
+        times_v1.append(e0.elapsed_time(e1) / len(cams))
+    n_isects_v1 = [int(m["n_isects"]) for _, _, m in outs_v1]
+    if n_isects_v1 != probe_v1 or max(n_isects_v1) >= cap_v1:
+        raise AssertionError(f"serve_v1 n_isects {n_isects_v1} vs probe "
+                             f"{probe_v1}, capacity {cap_v1}")
+    if not all(bool(torch.isfinite(img).all() and torch.isfinite(a).all())
+               for img, a, _ in outs_v1):
+        raise AssertionError("serve_v1 produced non-finite pixels")
+    mean_alpha_v1 = float(torch.stack([a.mean() for _, a, _ in
+                                       outs_v1]).mean())
+    if not mean_alpha_v1 > 0.05:
+        raise AssertionError(f"serve_v1 mean alpha {mean_alpha_v1} <= 0.05")
+    if serve_v1_launches["raster_v1_fwd"] != len(cams) or any(
+            serve_v1_launches[k] for k in FWD_KERNELS):
+        raise AssertionError(f"serve_v1 did not render through B7 alone: "
+                             f"{serve_v1_launches}")
+    diff_vs_fused = [float((a[0] - b[0]).abs().mean())
+                     for a, b in zip(outs_v1, outs)]
+    view0_v1 = V1Stages(rp, ti, preps_v1[0], WIDTH, HEIGHT, 16,
+                        rp.CUTOFF_MODE, cap_v1).compare(errs)
+    emit({"phase": "serve_v1", "rasterizer": "pallas",
+          "cutoff_mode": rp.CUTOFF_MODE, "views": len(cams), "width": WIDTH,
+          "height": HEIGHT, "tile_size": 16, "isect_capacity": cap_v1,
+          "n_isects": n_isects_v1, "ms_per_view": times_v1,
+          "mean_alpha": mean_alpha_v1,
+          "mean_abs_diff_vs_fused_exact": diff_vs_fused,
+          "launches": serve_v1_launches, "view0_check": view0_v1,
+          "seconds": time.perf_counter() - t0})
+    del model, outs, outs_v1, prep0, preps_v1
 
     # 5. scene_1m: 1M Gaussians, SH 3, one camera
     t0 = time.perf_counter()
@@ -1116,6 +1408,84 @@ def main():
     emit({"phase": "scene_1m", "gaussians": N_1M, "width": WIDTH,
           "height": HEIGHT, "binned_rows_tile16": binned_rows, "runs": rows_1m,
           "seconds": time.perf_counter() - t0})
+
+    # 5b. scene_1m_v1: the same scene through rasterizer="pallas", tile 16,
+    # the soft cutoff (rasterize_pallas's default) and the exact one
+    t0 = time.perf_counter()
+    prep_1m_v1 = prepared(scene, WIDTH, HEIGHT, elliptical=False)
+    cap_1m_v1 = _default_isect_capacity(1, N_1M)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    ct_v1 = torch.randn((1, HEIGHT, WIDTH, 3), generator=g).to(dev)
+    ca_v1 = torch.randn((1, HEIGHT, WIDTH, 1), generator=g).to(dev)
+    leaves_v1 = [t.detach().clone().requires_grad_(True)
+                 for t in (means, quats, scales, opac, colors)]
+
+    def forward_v1():
+        return rasterization(*leaves_v1, vm, Ks, WIDTH, HEIGHT, sh_degree=3,
+                             tile_size=16, rasterizer="pallas", device=dev)
+
+    def fwd_bwd_v1():
+        for t in leaves_v1:
+            t.grad = None
+        img, alpha, _ = forward_v1()
+        torch.autograd.backward([img, alpha], [ct_v1, ca_v1])
+
+    runs_v1 = []
+    for cutoff in ("soft", "exact"):
+        rp.CUTOFF_MODE = cutoff
+        try:
+            v1 = V1Stages(rp, ti, prep_1m_v1, WIDTH, HEIGHT, 16, cutoff,
+                          cap_1m_v1)
+            check = v1.compare(errs)
+            check.update(v1.compare_bwd(errs, seed=17))
+            rv.reset_launch_counts()
+            fwd_bwd_v1()
+            torch.cuda.synchronize()
+            launches = dict(rv.LAUNCHES)
+            if launches["raster_v1_fwd"] != 1 or \
+                    launches["raster_v1_bwd"] != 1 or any(
+                        launches[k] for k in KERNELS_3DGS):
+                raise AssertionError(f"scene_1m_v1 fwd+bwd launches "
+                                     f"{launches}")
+            if not all(bool(torch.isfinite(t.grad).all())
+                       for t in leaves_v1):
+                raise AssertionError("scene_1m_v1 gradients not finite")
+            with torch.no_grad():
+                img, alpha, meta = forward_v1()
+            if int(meta["n_isects"]) != v1.n_isects or \
+                    v1.n_isects >= cap_1m_v1 or \
+                    not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"scene_1m_v1 n_isects "
+                                     f"{int(meta['n_isects'])} vs "
+                                     f"{v1.n_isects}, capacity {cap_1m_v1}")
+            fb_ms, fb_samples = median_ms(fwd_bwd_v1, 5)
+            with torch.no_grad():
+                f_ms, f_samples = median_ms(forward_v1, 5)
+            k = v1.kernel_numbers()
+            run = dict(
+                cutoff=cutoff, n_isects=v1.n_isects,
+                isect_capacity=cap_1m_v1, aligned_rows=v1.cfg.cap2,
+                rows_in_runs=v1.chunks_in_runs * rp.K_CHUNK,
+                chunks_in_runs=v1.chunks_in_runs,
+                chunks_walked=v1.pair_counts["chunks"],
+                fwd_ms=f_ms, fwd_ms_samples=f_samples, fwd_bwd_ms=fb_ms,
+                fwd_bwd_ms_samples=fb_samples,
+                mpix_per_s_fwd=WIDTH * HEIGHT / (f_ms * 1e-3) / 1e6,
+                mpix_per_s_fwd_bwd=WIDTH * HEIGHT / (fb_ms * 1e-3) / 1e6,
+                launches_per_fwd_bwd=launches, kernels=k, check=check,
+                sort_cancellation=v1.sort_cancellation(),
+                mean_alpha=float(alpha.mean()))
+            if cutoff == "soft":
+                run["profile"] = device_profile(fwd_bwd_v1)
+                perf.update(k)
+            runs_v1.append(run)
+            del v1, img, alpha, meta
+        finally:
+            rp.CUTOFF_MODE = "soft"
+    emit({"phase": "scene_1m_v1", "rasterizer": "pallas", "gaussians": N_1M,
+          "width": WIDTH, "height": HEIGHT, "tile_size": 16,
+          "runs": runs_v1, "seconds": time.perf_counter() - t0})
+    del prep_1m_v1, leaves_v1
 
     def raster_grads(cfg, grad_dtype):
         """The rasterizer's gradients (means2d, conics, colours, opacities)
@@ -1670,6 +2040,58 @@ def main():
     del runner
     shutil.rmtree(stats_dir, ignore_errors=True)
 
+    # 9b. train_v1: the same run on the legacy v1 backend
+    t0 = time.perf_counter()
+    stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_train_v1_")
+    vcfg = dataclasses.replace(tcfg, result_dir=stats_dir,
+                               rasterizer="pallas")
+    runner = Runner(vcfg, parser=parser, trainset=trainset, valset=valset,
+                    device=dev)
+    before_v = runner.eval("before")
+    steps = []
+    train_step = runner.train_step
+    runner.train_step = timed_step
+    rv.reset_launch_counts()
+    losses_v = runner.train(max_steps=TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    v1_launches = dict(rv.LAUNCHES)
+    after_v = runner.eval("after")
+    v1_check = check_training_views_v1(runner, steps[-1]["sh_degree"], errs)
+    prof_v = device_profile(lambda: train_step([v1_check["view"]], 3),
+                            reps=1)
+    refines_v = [e for e in runner.events if e["event"] == "refine"]
+    if not np.mean(losses_v[-5:]) < np.mean(losses_v[:5]):
+        raise AssertionError(f"train_v1 loss did not fall: {losses_v}")
+    if not after_v["psnr"] > before_v["psnr"]:
+        raise AssertionError(f"train_v1 held-out PSNR did not rise: "
+                             f"{before_v} -> {after_v}")
+    if runner.skipped_steps or len(refines_v) < 2:
+        raise AssertionError(f"train_v1 skipped {runner.skipped_steps}, "
+                             f"refines {refines_v}")
+    if [v1_launches[k] for k in KERNELS_V1] != [TRAIN_STEPS] * 2 or any(
+            v1_launches[k] for k in KERNELS_3DGS):
+        raise AssertionError(f"train_v1 did not step through B7 and B8 "
+                             f"alone: {v1_launches}")
+    emit({"phase": "train_v1", "rasterizer": vcfg.rasterizer,
+          "cutoff_mode": rp.CUTOFF_MODE, "segred_mode": rp.SEGRED_MODE,
+          "steps": TRAIN_STEPS, "capacity": runner.splats["means"].shape[0],
+          "isect_capacity": runner.isect_capacity(),
+          "tile_size": vcfg.tile_size,
+          "loss_first5": losses_v[:5], "loss_last5": losses_v[-5:],
+          "psnr_before": before_v["psnr"], "psnr_after": after_v["psnr"],
+          "ssim_before": before_v["ssim"], "ssim_after": after_v["ssim"],
+          "step_ms_median": float(np.median([s_["ms"] for s_ in steps])),
+          "step_ms": [s_["ms"] for s_ in steps],
+          "n_isects": [s_["n_isects"] for s_ in steps],
+          "events": runner.events, "skipped_steps": runner.skipped_steps,
+          "launches": v1_launches,
+          "launches_per_step": {k: v / TRAIN_STEPS
+                                for k, v in v1_launches.items()},
+          "view_check": v1_check, "step_profile_slowest_view": prof_v,
+          "seconds": time.perf_counter() - t0})
+    del runner
+    shutil.rmtree(stats_dir, ignore_errors=True)
+
     # 10. train_2dgs: the port's Runner2DGS on the same stand-in
     t0 = time.perf_counter()
     stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_train_2dgs_")
@@ -1924,6 +2346,67 @@ def main():
     del runner, parser, trainset, valset
     shutil.rmtree(stats_dir, ignore_errors=True)
 
+    # 14. cumsum_skel: B10 and B11, which lie on no path (as in the JAX
+    # package): B10 at [9, 2^23], B11 on kernel_skel_bench's four inputs
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(10)
+    xc = torch.randn(CUMSUM_SHAPE, generator=g).to(dev)
+    rv.reset_launch_counts()
+    cs = rv.cumsum_rows(xc)
+    skel_runs = skel.bench()
+    torch.cuda.synchronize()
+    cs_launches = dict(rv.LAUNCHES)
+    if cs_launches["cumsum_rows"] < 1 or cs_launches["skel_composite"] < 1:
+        raise AssertionError(f"cumsum_skel launches {cs_launches}")
+    ref = torch.cumsum(xc, 1)
+    ku = (torch.arange(CUMSUM_SHAPE[1], device=dev).double() + 2) * F32_UNIT
+    cbound = 2 * ku / (1 - ku) * torch.cumsum(xc.abs().double(), 1)
+    cdiff = (cs - ref).abs().double()
+    if not bool((cdiff <= cbound).all()):
+        raise AssertionError("cumsum_rows differs from torch.cumsum by more "
+                             "than the f32 summation-order bound")
+    if not torch.equal(cs, rv.cumsum_rows(xc)):
+        raise AssertionError("cumsum_rows differs between two runs")
+    note_err(errs, ["cumsum_rows"], float(cdiff.max()))
+    R, L = CUMSUM_SHAPE
+    perf["cumsum_rows"] = bound(dict(
+        ms=cuda_ms(lambda: rv.cumsum_rows(xc), 10),
+        plain_ms=cuda_ms(lambda: torch.cumsum(xc, 1), 10),
+        library_ms=cuda_ms(lambda: torch.cumsum(xc, 1), 10),
+        bytes=8 * R * L, ops=R * L))
+    cumsum_res = dict(shape=list(CUMSUM_SHAPE),
+                      max_abs_err=float(cdiff.max()),
+                      bound_share=float((cdiff / cbound.clamp(
+                          min=1e-300)).max()), **perf["cumsum_rows"])
+    del xc, cs, ref, ku, cbound, cdiff
+    # B11's plain version on the input with the stop (term@24)
+    T_s, avg_s, term_s, label_s = skel.INPUTS[1]
+    rows_s, starts_s, ends_s, _ = (torch.as_tensor(a, device=dev) for a in
+                                   skel.make(T_s, avg_s, term_s))
+    out_s = skel.skel_composite(rows_s, starts_s, ends_s)
+    ref_s, skel_counts = skel._skel_plain(rows_s, starts_s, ends_s,
+                                          with_counts=True)
+    skel_err = float((out_s - ref_s).abs().max())
+    if not (math.isfinite(skel_err) and skel_err <= FWD_TOL):
+        raise AssertionError(f"skel_composite max abs err {skel_err} > "
+                             f"{FWD_TOL}")
+    note_err(errs, ["skel_composite"], skel_err)
+    perf["skel_composite"] = bound(dict(
+        ms=[r["ms"] for r in skel_runs if r["label"] == label_s][0],
+        plain_ms=once_ms(lambda: skel._skel_plain(rows_s, starts_s,
+                                                  ends_s)),
+        library_ms=None,
+        bytes=4 * 9 * skel_counts["columns"] + 8 * T_s + 4 * T_s * 256 * 3,
+        ops=SKEL_OPS_EVALUATED * skel_counts["evaluated"]
+        + SKEL_OPS_COMPOSITED * skel_counts["composited"],
+        input=label_s, counts=skel_counts))
+    emit({"phase": "cumsum_skel", "cumsum_rows": cumsum_res,
+          "skel_composite_runs": skel_runs,
+          "skel_composite_check": dict(perf["skel_composite"],
+                                       max_abs_err=skel_err),
+          "launches": cs_launches, "seconds": time.perf_counter() - t0})
+    del rows_s, starts_s, ends_s, out_s, ref_s
+
     # launches from each kernel's main path: the 3DGS training run, for the
     # 2DGS tile kernels the 2DGS training run, for the packed-pair branches
     # the ladder run, for the sorted table's precision branches one fwd+bwd
@@ -1939,6 +2422,10 @@ def main():
         main_path[name] = bench_launches[name]
     for name in ("raster_fwd_2dgs_log", "raster_bwd_2dgs_log"):
         main_path[name] = launches2_log[name]
+    for name in KERNELS_V1:  # the v1 training run
+        main_path[name] = v1_launches[name]
+    for name in ("cumsum_rows", "skel_composite"):  # their own phase
+        main_path[name] = cs_launches[name]
     emit({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"],

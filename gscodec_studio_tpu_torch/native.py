@@ -24,7 +24,8 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("pack.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
            "unpack.cu", "segsum.cu", "raster_fwd_2dgs.cu",
-           "raster_bwd_2dgs.cu")
+           "raster_bwd_2dgs.cu", "raster_v1_fwd.cu", "raster_v1_bwd.cu",
+           "cumsum_rows.cu", "skel_composite.cu")
 HEADERS = ("tile_common.cuh",)  # included by the sources; in the hash
 # --fmad=false: the kernels' float expressions round exactly as their plain
 # PyTorch versions (and the JAX package) do, which keeps the expansion's
@@ -51,6 +52,11 @@ _SIGNATURES = {
                             _P, _P),
     "gsc_raster_bwd_2dgs": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P, _P),
+    "gsc_raster_v1_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "gsc_raster_v1_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _P, _P),
+    "gsc_cumsum_rows": (_P, _I, _L, _P, _P, _P),
+    "gsc_skel_composite": (_P, _L, _P, _P, _I, _P, _P),
 }
 
 _lib = None

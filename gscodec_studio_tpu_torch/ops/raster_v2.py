@@ -42,12 +42,13 @@ operations touch, and B1 and B2 unpack them. The gradients are those of the
 unpacked values, and reach the f32 inputs as they are.
 
 Each kernel wrapper (``pack_rows``, ``expand``, ``raster_fwd``,
-``raster_bwd``, ``unpack_rows``, ``segsum_rows``) launches its CUDA kernel
-for CUDA tensors and counts the launch in ``LAUNCHES``; for CPU tensors it
-runs the plain PyTorch version beside it (``_pack_rows_plain``,
+``raster_bwd``, ``unpack_rows``, ``segsum_rows``, and ``cumsum_rows``, the
+JAX package's streaming row cumsum, which nothing calls) launches its CUDA
+kernel for CUDA tensors and counts the launch in ``LAUNCHES``; for CPU
+tensors it runs the plain PyTorch version beside it (``_pack_rows_plain``,
 ``_expand_plain``, ``_fwd_plain``, ``_bwd_plain``, ``_unpack_rows_plain``,
-``_segsum_plain``), which the tests hold against the JAX package and
-``chip_smoke.py`` holds the kernels against on the card.
+``_segsum_plain``, ``torch.cumsum``), which the tests hold against the JAX
+package and ``chip_smoke.py`` holds the kernels against on the card.
 """
 
 from __future__ import annotations
@@ -74,7 +75,8 @@ MAX_CHANNELS = 128  # the tile kernels' largest channel instantiation
 MAX_PACK_ROWS = 144  # pack.cu kMaxRows
 
 # Kernel launches since the last reset_launch_counts(), by wrapper and
-# branch (the 2DGS tile kernels' wrappers in raster_v2_2dgs count here too).
+# branch (the wrappers of raster_v2_2dgs, rasterize_pallas and
+# profiling/kernel_skel_bench count here too).
 # A launch counts once under each branch key it takes: "_packed" for the
 # packed-pair gradient rows of raster_bwd and segsum_rows and for the packed
 # rows that expand writes, "_unpack" for tile kernels reading packed rows,
@@ -86,7 +88,9 @@ LAUNCHES = {"pack_rows": 0, "expand": 0, "raster_fwd": 0, "raster_bwd": 0,
             "segsum_rows_packed": 0, "expand_packed": 0,
             "raster_fwd_unpack": 0, "raster_fwd_log": 0,
             "raster_bwd_unpack": 0, "raster_bwd_log": 0,
-            "raster_fwd_2dgs_log": 0, "raster_bwd_2dgs_log": 0}
+            "raster_fwd_2dgs_log": 0, "raster_bwd_2dgs_log": 0,
+            "raster_v1_fwd": 0, "raster_v1_bwd": 0, "cumsum_rows": 0,
+            "skel_composite": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1206,3 +1210,32 @@ def rasterize_to_pixels_v2(
             :, None, None, :]
     meta = {"n_isects": n_isects, "tile_width": TW, "tile_height": TH}
     return colors_img, alphas, meta
+
+
+# ---------------------------------------------------------------------------
+# B10: row cumsum (csrc/cumsum_rows.cu)
+# ---------------------------------------------------------------------------
+
+CUMSUM_SEG = 4096  # cumsum_rows.cu SEG: elements of a row per block
+
+
+def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum along axis 1 of f32 [R, L] (the JAX package's
+    cumsum_rows, which nothing there calls). The plain version is
+    torch.cumsum(x, 1). The kernel adds in a fixed order of its own: each
+    4096-element segment scanned, the segments' totals carried."""
+    if x.ndim != 2 or x.dtype != torch.float32:
+        raise ValueError("cumsum_rows: x float32 [R, L]")
+    if _on_cpu(x, "cumsum_rows"):
+        return torch.cumsum(x, 1)
+    dev = x.device
+    _check_cuda("cumsum_rows x", x, torch.float32, dev)
+    R, L = x.shape
+    tot = torch.empty((R, -(-L // CUMSUM_SEG)), dtype=torch.float32,
+                      device=dev)
+    out = torch.empty_like(x)
+    err = native.lib().gsc_cumsum_rows(x.data_ptr(), R, L, tot.data_ptr(),
+                                       out.data_ptr(), _stream())
+    native.check(err, "gsc_cumsum_rows")
+    LAUNCHES["cumsum_rows"] += 1
+    return out

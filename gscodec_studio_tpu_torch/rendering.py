@@ -1,6 +1,7 @@
 """Top-level rendering API (port of gscodec_studio_tpu/rendering.py):
-``rasterization()`` on the fused path, projection -> SH -> fused binning
-and tile rasterization, returning (render_colors, render_alphas, meta);
+``rasterization()``, projection -> SH -> binning and tile rasterization,
+returning (render_colors, render_alphas, meta), on the fused backend or
+the legacy v1 one (``rasterizer="pallas"``) or the dense oracle;
 ``rasterization_2dgs()`` for surfels, with its fused and reference
 backends, and ``depth_to_normal()``. Differentiable: gradients reach
 means, quats, scales, opacities, colors and backgrounds through autograd
@@ -13,17 +14,24 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from gscodec_studio_tpu_torch.device import DeviceLike, resolve_device
+from gscodec_studio_tpu_torch.ops import rasterize_pallas
+from gscodec_studio_tpu_torch.ops.isect import (isect_offset_encode,
+                                                isect_tiles)
 from gscodec_studio_tpu_torch.ops.projection import fully_fused_projection
 from gscodec_studio_tpu_torch.ops.projection_2dgs import (
     fully_fused_projection_2dgs)
-from gscodec_studio_tpu_torch.ops.raster_v2 import rasterize_to_pixels_v2
+from gscodec_studio_tpu_torch.ops.raster_v2 import (MAX_CHANNELS,
+                                                    rasterize_to_pixels_v2)
 from gscodec_studio_tpu_torch.ops.raster_v2_2dgs import (
     rasterize_to_pixels_2dgs_v2)
+from gscodec_studio_tpu_torch.ops.rasterize_ref import (
+    rasterize_to_pixels_ref)
 from gscodec_studio_tpu_torch.ops.rasterize_ref_2dgs import (
     rasterize_to_pixels_2dgs_ref)
 from gscodec_studio_tpu_torch.ops.sh import spherical_harmonics
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
+RASTERIZERS = ("fused", "pallas", "reference")
 
 
 def _default_isect_capacity(C: int, N: int) -> int:
@@ -37,12 +45,15 @@ def project_and_shade(means, quats, scales, opacities, colors, viewmats, Ks,
                       far_plane: float = 1e10, radius_clip: float = 0.0,
                       eps2d: float = 0.3, sh_degree: Optional[int] = None,
                       antialiased: bool = False,
-                      camera_model: str = "pinhole"):
+                      camera_model: str = "pinhole",
+                      elliptical: bool = True):
     """The stages of ``rasterization`` before binning, on tensors: the
-    projection with elliptical radii and the 1/255 opacity cull, the SH
-    colors (+0.5, clipped at 0) and the per-camera opacities. Returns
-    (radii [C,N,2], means2d, depths, conics, colors [C,N,D], opacities
-    [C,N], compensations or None)."""
+    projection and the 1/255 opacity cull, the SH colors (+0.5, clipped at
+    0) and the per-camera opacities. The radii are per-axis elliptical
+    ([C,N,2], the fused backend's) or, with ``elliptical=False``, the
+    scalar radius ([C,N], the other backends'). Returns (radii, means2d,
+    depths, conics, colors [C,N,D], opacities [C,N], compensations or
+    None)."""
     C = viewmats.shape[0]
     N = means.shape[0]
     radii, means2d, depths, conics, compensations = fully_fused_projection(
@@ -50,12 +61,14 @@ def project_and_shade(means, quats, scales, opacities, colors, viewmats, Ks,
         eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
         radius_clip=radius_clip,
         calc_compensations=antialiased,
-        camera_model=camera_model, opacities=opacities, elliptical=True,
+        camera_model=camera_model, opacities=opacities,
+        elliptical=elliptical,
     )
     # a splat with linear opacity < 1/255 never passes the alpha threshold
-    opac_ok = opacities[None, :, None] >= 1.0 / 255.0
-    radii = torch.where(opac_ok, radii, torch.zeros_like(radii))
-    radii_scalar = radii.amax(dim=-1)
+    opac_ok = opacities[None, :] >= 1.0 / 255.0
+    radii = torch.where(opac_ok[..., None] if elliptical else opac_ok, radii,
+                        torch.zeros_like(radii))
+    radii_scalar = radii.amax(dim=-1) if elliptical else radii
 
     opacities_cn = opacities[None, :].expand(C, N)
     if compensations is not None:
@@ -88,6 +101,7 @@ def rasterization(
     camera_model: str = "pinhole",
     isect_capacity: Optional[int] = None,
     channel_chunk: int = 32,
+    rasterizer: str = "fused",
     cutoff_mode: str = "exact",
     grad_dtype: str = "f32",
     log_composite: bool = False,
@@ -105,15 +119,30 @@ def rasterization(
     means the CUDA card). ``means2d_probe`` is added to the projected
     centers, so its gradient is dL/d means2d, the signal the densification
     strategies read; ``absgrad_probe``'s gradient is the per-Gaussian sum
-    of |per-pixel dL/d means2d|. ``grad_dtype`` ("f32" or "bf16") is the
-    fused rasterizer's gradient-row type, ``log_composite`` its log-space
-    transmittance scan, ``attr_dtype`` ("f32" or "bf16") the sorted
-    table's opacity, conic and colour rows and ``geom_dtype`` ("f32" or
-    "u16") its position rows (ops/raster_v2.py)."""
+    of |per-pixel dL/d means2d| (fused backend only).
+
+    ``rasterizer``: "fused" (ops/raster_v2.py, binning with elliptical
+    radii), "pallas" (the legacy v1 tile kernels, ops/rasterize_pallas.py,
+    on ops/isect.py's binning with the scalar radius; its cutoff is that
+    module's CUTOFF_MODE) or "reference" (the dense oracle,
+    ops/rasterize_ref.py, on the scalar radius). The non-fused backends
+    render at most min(channel_chunk, 128) channels at a time and add the
+    binning's tiles_per_gauss, tile_keys, flatten_ids, tile_offsets to
+    ``meta``. The fused backend's knobs, ignored by the others as in the
+    JAX package: ``cutoff_mode``; ``grad_dtype`` ("f32" or "bf16"), the
+    gradient-row type; ``log_composite``, the log-space transmittance
+    scan; ``attr_dtype`` ("f32" or "bf16"), the sorted table's opacity,
+    conic and colour rows; ``geom_dtype`` ("f32" or "u16"), its position
+    rows."""
     if render_mode not in RENDER_MODES:
         raise ValueError(f"unknown render_mode {render_mode!r}")
     if rasterize_mode not in ("classic", "antialiased"):
         raise ValueError(f"unknown rasterize_mode {rasterize_mode!r}")
+    if rasterizer not in RASTERIZERS:
+        raise ValueError(f"unknown rasterizer {rasterizer!r}")
+    if absgrad_probe is not None and rasterizer != "fused":
+        raise ValueError("absgrad accumulation requires the 'fused' "
+                         "rasterizer")
     dev = resolve_device(device)
 
     def f32(x):
@@ -123,15 +152,16 @@ def rasterization(
                                                 opacities))
     colors, viewmats, Ks = map(f32, (colors, viewmats, Ks))
     C = viewmats.shape[0]
+    fused = rasterizer == "fused"
     (radii, means2d, depths, conics, colors_cn, opacities_cn,
      compensations) = project_and_shade(
         means, quats, scales, opacities, colors, viewmats, Ks, width, height,
         near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
         eps2d=eps2d, sh_degree=sh_degree,
         antialiased=rasterize_mode == "antialiased",
-        camera_model=camera_model,
+        camera_model=camera_model, elliptical=fused,
     )
-    radii_scalar = radii.amax(dim=-1)
+    radii_scalar = radii.amax(dim=-1) if fused else radii
     if means2d_probe is not None:
         means2d = means2d + means2d_probe
 
@@ -150,22 +180,47 @@ def rasterization(
     if isect_capacity is None:
         isect_capacity = _default_isect_capacity(C, means.shape[0])
 
-    # wide renders bin once per 128 channels, as the JAX package does
     D = colors_cn.shape[-1]
-    fused_chunk = max(channel_chunk, 128)
     chunks = []
-    for lo in range(0, D, fused_chunk):
-        bgs = None if backgrounds_used is None else \
-            backgrounds_used[..., lo:lo + fused_chunk]
-        img, render_alphas, vmeta = rasterize_to_pixels_v2(
-            means2d, conics, colors_cn[..., lo:lo + fused_chunk],
-            opacities_cn, depths, radii, width, height, tile_size=tile_size,
-            isect_capacity=isect_capacity, backgrounds=bgs,
-            absgrad_probe=absgrad_probe, cutoff_mode=cutoff_mode,
-            grad_dtype=grad_dtype, attr_dtype=attr_dtype,
-            log_composite=log_composite, geom_dtype=geom_dtype, device=dev,
-        )
-        chunks.append(img)
+    if fused:
+        # wide renders bin once per 128 channels, as the JAX package does
+        step = max(channel_chunk, 128)
+        for lo in range(0, D, step):
+            bgs = None if backgrounds_used is None else \
+                backgrounds_used[..., lo:lo + step]
+            img, render_alphas, vmeta = rasterize_to_pixels_v2(
+                means2d, conics, colors_cn[..., lo:lo + step],
+                opacities_cn, depths, radii, width, height,
+                tile_size=tile_size, isect_capacity=isect_capacity,
+                backgrounds=bgs, absgrad_probe=absgrad_probe,
+                cutoff_mode=cutoff_mode, grad_dtype=grad_dtype,
+                attr_dtype=attr_dtype, log_composite=log_composite,
+                geom_dtype=geom_dtype, device=dev,
+            )
+            chunks.append(img)
+        meta_extra = dict(n_isects=vmeta["n_isects"])
+    else:
+        isect = isect_tiles(
+            means2d, radii_scalar, depths, tile_size, tile_width,
+            tile_height, isect_capacity,
+            need_inv_perm=(rasterizer != "pallas"
+                           or rasterize_pallas.SEGRED_MODE == "cumsum"))
+        tile_offsets = isect_offset_encode(isect.tile_keys, C, tile_width,
+                                           tile_height)
+        # binned once; rendered min(channel_chunk, 128) channels at a time
+        step = min(channel_chunk, MAX_CHANNELS)
+        for lo in range(0, D, step):
+            bgs = None if backgrounds_used is None else \
+                backgrounds_used[..., lo:lo + step]
+            img, render_alphas = _rasterize_backend(
+                rasterizer, means2d, conics, colors_cn[..., lo:lo + step],
+                opacities_cn, depths, radii_scalar, isect, tile_offsets,
+                width, height, tile_size, bgs)
+            chunks.append(img)
+        meta_extra = dict(
+            tiles_per_gauss=isect.tiles_per_gauss,
+            tile_keys=isect.tile_keys, flatten_ids=isect.flatten_ids,
+            tile_offsets=tile_offsets, n_isects=isect.n_isects)
     render_colors = chunks[0] if len(chunks) == 1 else torch.cat(chunks, -1)
 
     if render_mode in ("ED", "RGB+ED"):
@@ -176,9 +231,22 @@ def rasterization(
         radii=radii_scalar, means2d=means2d, depths=depths, conics=conics,
         opacities=opacities_cn, compensations=compensations, width=width,
         height=height, tile_width=tile_width, tile_height=tile_height,
-        tile_size=tile_size, n_cameras=C, n_isects=vmeta["n_isects"],
+        tile_size=tile_size, n_cameras=C, **meta_extra,
     )
     return render_colors, render_alphas, meta
+
+
+def _rasterize_backend(rasterizer, means2d, conics, colors, opacities,
+                       depths, radii, isect, tile_offsets, width, height,
+                       tile_size, backgrounds):
+    """One channel chunk through a non-fused backend."""
+    if rasterizer == "reference":
+        return rasterize_to_pixels_ref(means2d, conics, colors, opacities,
+                                       depths, radii, width, height,
+                                       tile_size, backgrounds)
+    return rasterize_pallas.rasterize_to_pixels(
+        means2d, conics, colors, opacities, isect, tile_offsets, width,
+        height, tile_size, backgrounds)
 
 
 def _sh_colors(means, colors, viewmats, sh_degree, radii_scalar):

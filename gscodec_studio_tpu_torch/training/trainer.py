@@ -5,16 +5,17 @@ under the compression simulation (the garden ladder's recipe).
 
 A step: the compression simulation (fake quantization, entropy bits, the
 shN mask) -> activations -> ``rendering.rasterization`` (projection, SH,
-fused binning and the rasterizer's forward and backward kernels, the
-gradient rows in f32 or packed bf16 pairs) -> L1 + SSIM loss (these two in
-``Runner.render_loss``, which the 2DGS runner overrides), the
-regularisers and rd_lambda * bits -> autograd -> the densification
-statistics from the means2d probe's gradient -> per-group Adam, the sim
-parameters' Adam, and with MCMC the position noise. A finite-step gate
-skips a step whose loss or any gradient is not finite and counts it.
-Between steps the loop runs the strategy's refine (and the default
-strategy's opacity reset), the SH-degree schedule and the adaptive
-intersection capacity.
+binning and the rasterizer's forward and backward kernels: the fused
+backend, its gradient rows in f32 or packed bf16 pairs, or by
+``cfg.rasterizer`` the legacy v1 kernels or the dense oracle) -> L1 +
+SSIM loss (these two in ``Runner.render_loss``, which the 2DGS runner
+overrides), the regularisers and rd_lambda * bits -> autograd -> the
+densification statistics from the means2d probe's gradient -> per-group
+Adam, the sim parameters' Adam, and with MCMC the position noise. A
+finite-step gate skips a step whose loss or any gradient is not finite
+and counts it. Between steps the loop runs the strategy's refine (and the
+default strategy's opacity reset), the SH-degree schedule and the
+adaptive intersection capacity.
 
 The port loops in Python, one step per iteration; the JAX package's
 ``lax.scan`` chunks (``steps_per_dispatch``) were a TPU dispatch device.
@@ -117,7 +118,7 @@ class Config:
     # and ignores it
     steps_per_dispatch: int = 25
 
-    # Rasterizer: only the fused path is ported
+    # Rasterizer backend: "fused", "pallas" (legacy v1) or "reference"
     rasterizer: str = "fused"
     tile_size: int = 16
     cutoff_mode: str = "soft"
@@ -189,7 +190,8 @@ class Runner:
     ``points_rgb`` [N, 3] in 0..255 and ``scene_scale``; the datasets give
     dicts with "camtoworld", "K" and "image" [H, W, 3] in [0, 1]."""
 
-    rasterizers = ("fused",)  # the cfg.rasterizer values this runner takes
+    # the cfg.rasterizer values this runner takes
+    rasterizers = ("fused", "pallas", "reference")
     injects_noise = True  # MCMC's per-step position noise
 
     def __init__(self, cfg: Config, parser=None, trainset=None, valset=None,
@@ -254,6 +256,22 @@ class Runner:
         self.events: List[dict] = []  # refines, resets, capacity changes
         self._data = None
         os.makedirs(cfg.result_dir, exist_ok=True)
+        self._name_ignored()
+
+    def _name_ignored(self) -> None:
+        """Names once the fused backend's options that cfg sets off their
+        defaults while another backend renders: rendering.rasterization
+        ignores them there, as the JAX package does."""
+        cfg = self.cfg
+        ignored = [what for on, what in (
+            (cfg.cutoff_mode != "soft", f"cutoff_mode={cfg.cutoff_mode!r}"),
+            (cfg.grad_dtype != "f32", f"grad_dtype={cfg.grad_dtype!r}"),
+            (cfg.attr_dtype != "f32", f"attr_dtype={cfg.attr_dtype!r}"),
+            (cfg.log_composite, "log_composite=True"),
+        ) if on]
+        if ignored and cfg.rasterizer != "fused":
+            print(f"Runner: ignored under rasterizer={cfg.rasterizer!r}, as "
+                  "in the JAX package: " + ", ".join(ignored), flush=True)
 
     # -- one step ----------------------------------------------------------
 
@@ -286,14 +304,17 @@ class Runner:
                 if cfg.random_bkgd else None)
         cap = means.shape[0]
         probe = torch.zeros((B, cap, 2), device=dev, requires_grad=True)
+        # the absgrad probe only under the fused backend (the JAX Runner's
+        # use_absgrad); elsewhere the strategy reads dL/d means2d
         ag_probe = (torch.zeros((B, cap, 2), device=dev, requires_grad=True)
-                    if getattr(self.strategy, "absgrad", False) else None)
+                    if getattr(self.strategy, "absgrad", False)
+                    and cfg.rasterizer == "fused" else None)
         img, _, meta = rasterization(
             means, quats, scales, opac, colors, torch.linalg.inv(c2w), Ks,
             W, H, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
             sh_degree=sh_degree, tile_size=cfg.tile_size, backgrounds=bkgd,
             rasterize_mode="antialiased" if cfg.antialiased else "classic",
-            isect_capacity=self.isect_capacity(),
+            isect_capacity=self.isect_capacity(), rasterizer=cfg.rasterizer,
             cutoff_mode=cfg.cutoff_mode, grad_dtype=cfg.grad_dtype,
             log_composite=cfg.log_composite, attr_dtype=cfg.attr_dtype,
             means2d_probe=probe, absgrad_probe=ag_probe, device=dev)
@@ -465,6 +486,7 @@ class Runner:
                 means, quats, scales, opac, colors, viewmat[None],
                 _tensor(K, dev)[None], width, height, sh_degree=sh,
                 isect_capacity=self.isect_capacity(),
+                rasterizer=self.cfg.rasterizer,
                 tile_size=self.cfg.tile_size, device=dev)
         return torch.clamp(img[0], 0.0, 1.0)
 

@@ -60,6 +60,9 @@ class Runner2DGS(Runner):
                 "the simulation's state but its step never applies it) is "
                 "not ported: ROADMAP A7")
         super().__init__(cfg, *args, **kwargs)
+
+    def _name_ignored(self) -> None:
+        cfg = self.cfg
         ignored = [what for on, what in (
             (cfg.grad_dtype != "f32", f"grad_dtype={cfg.grad_dtype!r}"),
             (cfg.attr_dtype != "f32", f"attr_dtype={cfg.attr_dtype!r}"),

@@ -52,11 +52,17 @@ def render_splats(
     cameras: Sequence[Dict],
     sh_degree: Optional[int] = None,
     isect_capacity: int = 1 << 20,
+    rasterizer: str = "auto",
 ) -> List[Tuple[torch.Tensor, torch.Tensor, Dict]]:
-    """Render ``model`` for each camera on the model's device through the
-    fused path; returns one (rgb [H,W,3] clipped to [0, 1], alpha [H,W,1],
-    meta) per camera. Activations are exp(scales) and sigmoid(opacities),
-    as the JAX package's render_splats takes them."""
+    """Render ``model`` for each camera on the model's device; returns one
+    (rgb [H,W,3] clipped to [0, 1], alpha [H,W,1], meta) per camera.
+    Activations are exp(scales) and sigmoid(opacities), as the JAX
+    package's render_splats takes them. ``rasterizer`` is rendering's:
+    "fused", "pallas" or "reference"; "auto" picks the accelerator's own
+    backend, which for the port's card is "fused" (the JAX package picks
+    "fused" on a TPU and "pallas" elsewhere)."""
+    if rasterizer == "auto":
+        rasterizer = "fused"
     dev = model.means.device
     if sh_degree is None:
         sh_degree = model.sh_degree
@@ -72,7 +78,7 @@ def render_splats(
                 model.means, model.quats, scales, opac, colors, vm[None],
                 K[None], int(cam["width"]), int(cam["height"]),
                 sh_degree=sh_degree, isect_capacity=isect_capacity,
-                device=dev,
+                rasterizer=rasterizer, device=dev,
             )
             out.append((torch.clamp(img[0], 0.0, 1.0), alpha[0], meta))
     return out

@@ -23,7 +23,15 @@ tile kernels that read packed rows or scan in log space at the f32
 branches' tolerances against their plain versions (which walk the log
 scan's sums in the kernels' order), and 2DGS's log branch as its product
 branch.
+The legacy v1 kernels (rasterizer="pallas"): B7 at the tile forward's
+tolerance and B8 at the tile backward's, against their plain versions,
+B8 bit for bit across two runs, and rasterization(rasterizer="pallas") on
+the card against the CPU. B10 (cumsum_rows) within the f32 summation-order
+bound 2 gamma(n + 1) sum|x| of torch.cumsum; B11 (the skeleton composite)
+within 1e-4 of its plain version.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -535,3 +543,132 @@ def test_rasterization_2dgs_on_card_matches_cpu(cuda):
     for a, b in zip(outs["cuda"][1], outs["cpu"][1]):
         scale = float(b.abs().max())
         assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale
+
+
+def _v1_case(cuda, seed, ts, cutoff, CH=3, C=2, N=3000, W=200, H=136):
+    """The aligned table of a _scene's scalar-radius binning: (packed,
+    starts, ends, cfg) for the v1 kernels."""
+    from gscodec_studio_tpu_torch.ops import isect as ti
+    from gscodec_studio_tpu_torch.ops import rasterize_pallas as rp
+    m2, con, col, op, dep, radii = _scene(seed, C=C, N=N, W=W, H=H, CH=CH)
+    TW, TH = -(-W // ts), -(-H // ts)
+    dev = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    isect = ti.isect_tiles(dev(m2), dev(radii).amax(-1), dev(dep), ts, TW,
+                           TH, 1 << 17)
+    al = ti.align_isects(isect, C, TW, TH, rp.K_CHUNK)
+    cfg = rp.RasterCfg(C=C, tile_width=TW, tile_height=TH, tile_size=ts,
+                       channels=CH, cap=1 << 17, cap2=al.ids.shape[0],
+                       m=C * N, cutoff=cutoff)
+    flat = torch.cat([dev(m2).reshape(-1, 2), dev(con).reshape(-1, 3),
+                      dev(op).reshape(-1, 1), dev(col).reshape(-1, CH)], -1)
+    return rp._pack(flat, al.ids), al.starts, al.ends, cfg, isect, al
+
+
+@pytest.mark.parametrize("CH", [3, 40])
+@pytest.mark.parametrize("cutoff", ["exact", "soft"])
+@pytest.mark.parametrize("ts", [16, 32])
+def test_v1_kernels_match_plain(cuda, ts, cutoff, CH):
+    from gscodec_studio_tpu_torch.ops import rasterize_pallas as rp
+    packed, starts, ends, cfg, isect, al = _v1_case(cuda, 11, ts, cutoff,
+                                                    CH=CH)
+    tr.reset_launch_counts()
+    col, alp = rp.raster_v1_fwd(packed, starts, ends, cfg)
+    col_p, alp_p = rp._fwd_plain(packed, starts, ends, cfg)
+    assert tr.LAUNCHES["raster_v1_fwd"] == 1
+    assert float((col - col_p).abs().max()) <= 1e-4
+    assert float((alp - alp_p).abs().max()) <= 1e-4
+    g = torch.Generator(device="cpu").manual_seed(ts)
+    v_col = torch.randn(col.shape, generator=g).to(cuda)
+    v_alp = torch.randn(alp.shape, generator=g).to(cuda)
+    out = rp.raster_v1_bwd(packed, starts, ends, col, alp, v_col, v_alp, cfg)
+    again = rp.raster_v1_bwd(packed, starts, ends, col, alp, v_col, v_alp,
+                             cfg)
+    assert tr.LAUNCHES["raster_v1_bwd"] == 2
+    assert torch.equal(out, again)
+    q0 = (col * v_col).sum(1, keepdim=True)
+    ref = rp._bwd_plain(packed, starts, ends, v_col, v_alp, alp, q0, cfg)
+    assert _rows_close(out.T, ref.T, 1e-4)
+    # the per-Gaussian reductions: within 2 gamma(cap2) of each column's
+    # sum of |rows| of a float64 sum (the "sort" and "cumsum" modes take
+    # differences of f32 running sums over the whole table)
+    ids = torch.where(al.ids >= 0, al.ids, cfg.m).long()
+    exact = torch.zeros((cfg.m + 1, cfg.d), dtype=torch.float64,
+                        device=cuda).index_add_(0, ids, out.double())[:-1]
+    ku = cfg.cap2 * 2.0 ** -24
+    bound = 2 * ku / (1 - ku) * out.abs().double().sum(0)
+    for mode in rp.SEGRED_MODES:
+        got = rp.segment_reduce(out, al.ids, isect.exp_offsets, al.inv_perm,
+                                isect.n_isects,
+                                dataclasses.replace(cfg, segred=mode))
+        assert bool(((got.double() - exact).abs() <= bound).all()), mode
+
+
+def test_v1_rasterization_on_card_matches_cpu(cuda):
+    from gscodec_studio_tpu_torch.ops import rasterize_pallas as rp
+    rng = np.random.default_rng(5)
+    N, W, H = 4000, 160, 120
+    means = (rng.standard_normal((N, 3)) * [1.5, 1.0, 1.5]).astype(np.float32)
+    quats = rng.standard_normal((N, 4)).astype(np.float32)
+    scales = np.exp(rng.normal(-3.5, 0.5, (N, 3))).astype(np.float32)
+    opac = rng.random(N).astype(np.float32)
+    colors = rng.random((N, 3)).astype(np.float32)
+    vm = np.eye(4, dtype=np.float32)
+    vm[2, 3] = 5.0
+    K = np.array([[[150, 0, W / 2], [0, 150, H / 2], [0, 0, 1]]], np.float32)
+    args = [means, quats, scales, opac, colors, vm[None], K]
+    # the "scatter" reduction sums each Gaussian's own rows: the CPU and
+    # the card then differ by the kernels' summation order alone (the
+    # "sort" one's f32 running sums over the whole table, taken in float64
+    # by torch.cumsum on the CPU and in float32 on the card, differ by
+    # more: test_v1_kernels_match_plain bounds them)
+    for cutoff in ("exact", "soft"):
+        rp.CUTOFF_MODE, rp.SEGRED_MODE = cutoff, "scatter"
+        try:
+            outs = {}
+            for dev in ("cpu", "cuda"):
+                leaves = [torch.tensor(a, device=dev, requires_grad=True)
+                          for a in args[:5]]
+                tr.reset_launch_counts()
+                img, alp, meta = rasterization(
+                    *leaves, *args[5:], W, H, rasterizer="pallas",
+                    isect_capacity=1 << 16, device=dev)
+                loss = (img ** 2).sum() + alp.sum()
+                grads = torch.autograd.grad(loss, leaves)
+                outs[dev] = (img, alp, grads, dict(tr.LAUNCHES))
+        finally:
+            rp.CUTOFF_MODE, rp.SEGRED_MODE = "soft", "sort"
+        assert outs["cuda"][3]["raster_v1_fwd"] == 1
+        assert outs["cuda"][3]["raster_v1_bwd"] == 1
+        assert outs["cpu"][3]["raster_v1_fwd"] == 0
+        for a, b in zip(outs["cuda"][:2], outs["cpu"][:2]):
+            assert float((a.cpu() - b).abs().max()) <= 1e-4
+        for a, b in zip(outs["cuda"][2], outs["cpu"][2]):
+            scale = float(b.abs().max()) + 1e-12
+            assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+
+
+def test_cumsum_rows_kernel_matches_torch(cuda):
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for shape in ((9, 3 * 8192), (3, 4096 * 5 + 17), (2, 100)):
+        x = torch.randn(shape, generator=g).to(cuda)
+        tr.reset_launch_counts()
+        out = tr.cumsum_rows(x)
+        assert tr.LAUNCHES["cumsum_rows"] == 1
+        assert torch.equal(out, tr.cumsum_rows(x))
+        ref = torch.cumsum(x.double(), 1)
+        ku = (torch.arange(shape[1], device=cuda).double() + 2) * 2.0 ** -24
+        bound = 2 * ku / (1 - ku) * torch.cumsum(x.abs().double(), 1)
+        assert bool(((out.double() - ref).abs() <= bound).all())
+
+
+def test_skel_kernel_matches_plain(cuda):
+    from gscodec_studio_tpu_torch.profiling import kernel_skel_bench as sk
+    for term in (None, 24.0):
+        rows, starts, ends, _ = sk.make(300, 200, term, seed=1)
+        rows, starts, ends = (torch.as_tensor(a, device=cuda)
+                              for a in (rows, starts, ends))
+        tr.reset_launch_counts()
+        out = sk.skel_composite(rows, starts, ends)
+        assert tr.LAUNCHES["skel_composite"] == 1
+        ref = sk._skel_plain(rows, starts, ends)
+        assert float((out - ref).abs().max()) <= 1e-4

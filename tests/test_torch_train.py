@@ -394,10 +394,10 @@ def test_finite_gate_skips_a_poisoned_step(fake_scene, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("entropy_model_type", "gaussian_model"), ("rasterizer", "reference"),
+    ("entropy_model_type", "gaussian_model"),
     ("visible_adam", True), ("pose_opt", True), ("app_opt", True),
     ("use_bilateral_grid", True), ("depth_loss", True), ("mesh_devices", 2),
-    ("mesh_devices", 4), ("rasterizer", "pallas"), ("init_type", "random"),
+    ("mesh_devices", 4), ("init_type", "random"),
     ("eval_save_images", True), ("tb_histograms_every", 10),
 ])
 def test_unported_options_raise(field, value, tmp_path):
