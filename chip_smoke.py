@@ -15,28 +15,15 @@ Phases, one JSON line each with its own ``seconds``:
             log_composite, and all three (each case's backward also with
             packed gradient rows); the same scene as surfels (tile 16, both
             cutoffs) for the 2DGS tile kernels B5 and B6, in the product
-            and the log branch, and the expansion's no-cull branch; the
-            same scene's scalar radii (tile 16 and 32, both cutoffs)
-            through the legacy v1 kernels B7 and B8 (B8 also twice for
-            the same bits);
+            and the log branch, and the expansion's no-cull branch;
   serve     the committed checkpoint results/garden_ab_f32/splats_final.npz
             (120k Gaussians, SH 3) rendered from 8 orbit cameras at
             1297x840 through utils.ply_render.render_splats, and its first
             view's kernels held against their plain versions;
-  serve_v1  the same 8 views through render_splats(rasterizer="pallas")
-            (the v1 backend at its default soft cutoff), capacity 1.2x the
-            probed scalar-radius rows; view 0's B7 against its plain
-            version;
   scene_1m  the 1M-Gaussian SH-3 synthetic scene at 1297x840: tile 16 and
             32 with the exact cutoff, tile 16 with the soft one; render
             time, per-kernel time, plain time, library time and the bound
             of each kernel, with each kernel held against its plain version;
-  scene_1m_v1  the same scene through rasterization(rasterizer="pallas"),
-            tile 16, soft and exact, the default capacity: forward and
-            fwd+bwd median ms, Mpix/s, intersections against the capacity,
-            the chunks walked, one B7 and one B8 launch per fwd+bwd, B7's
-            and B8's time, bound and plain time and their check, and the
-            "sort" reduction's cancellation (reported, not checked);
   train_1m  the same scene, tile 16, both cutoffs: forward + backward of
             rendering.rasterization with a seeded cotangent (median ms,
             Mpix/s, launches), and the backward kernels' time, bound, plain
@@ -65,10 +52,6 @@ Phases, one JSON line each with its own ``seconds``:
             then B2's time on each training view at the run's final
             splats, SH degree and capacity, and the slowest view's kernels,
             forward and backward, held against their plain versions;
-  train_v1  the train phase's run with Config(rasterizer="pallas"): loss,
-            held-out PSNR, step ms, launches (one B7 and one B8 a step),
-            a profiled step; then B8 timed on every training view and the
-            slowest view's B7 and B8 against their plain versions;
   train_2dgs  training.trainer_2dgs.Runner2DGS with the default Config2DGS
             on the same stand-in, 30 steps with the train phase's refine
             and SH settings and the normal and distortion losses from step
@@ -93,8 +76,26 @@ Phases, one JSON line each with its own ``seconds``:
             their plain versions;
   train_2dgs_mcmc  Runner2DGS at strategy "mcmc" on the same stand-in,
             20 steps: loss, skipped steps, the allocated count;
-  cumsum_skel  B10 (cumsum_rows) at [9, 2^23] against torch.cumsum within
-            the f32 summation-order bound, timed beside it; B11 (the
+  kernels_v1  the kernels phase's scene's scalar radii (tile 16 and 32,
+            both cutoffs) through the legacy v1 kernels B7 and B8 against
+            their plain versions (B8 also twice for the same bits);
+  serve_v1  serve's 8 views through render_splats(rasterizer="pallas")
+            (the v1 backend at its default soft cutoff), capacity 1.2x the
+            probed scalar-radius rows; view 0's B7 against its plain
+            version;
+  scene_1m_v1  scene_1m's scene through rasterization(rasterizer="pallas"),
+            tile 16, soft and exact, the default capacity: forward and
+            fwd+bwd median ms, Mpix/s, intersections against the capacity,
+            the chunks walked, one B7 and one B8 launch per fwd+bwd, B7's
+            and B8's time, bound and plain time and their check, and the
+            "sort" reduction's cancellation (reported, not checked);
+  train_v1  the train phase's run with Config(rasterizer="pallas"): loss,
+            held-out PSNR, step ms, launches (one B7 and one B8 a step),
+            a profiled step; then B8 timed on every training view and the
+            slowest view's B7 and B8 against their plain versions;
+  cumsum_skel  B10 (cumsum_rows) at [9, 2^23], signed and non-negative,
+            against a float64 torch.cumsum within the rounding bound of its
+            own order of additions, timed beside torch.cumsum; B11 (the
             compositing skeleton, profiling/kernel_skel_bench.py) on the
             JAX script's four inputs (ms, us/tile, ns/isect) and against
             its plain version on the one with the stop at 24.
@@ -1152,16 +1153,7 @@ def main():
             cases.append(dict(tile_size=16, cutoff=cutoff, surfels=True,
                               log_composite=log_composite,
                               n_isects=int(st.b.n_isects), **res))
-    # B7 and B8 (rasterizer="pallas") on the same scene's scalar radii
-    prep_v1_small = prepared(small, sw, sh, elliptical=False)
-    for ts in (16, 32):
-        for cutoff in ("exact", "soft"):
-            v1 = V1Stages(rp, ti, prep_v1_small, sw, sh, ts, cutoff, 1 << 20)
-            res = v1.compare(errs)
-            res.update(v1.compare_bwd(errs, seed=ts))
-            cases.append(dict(tile_size=ts, cutoff=cutoff, v1=True,
-                              n_isects=v1.n_isects, **res))
-    del st, v1
+    del st
     torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "max_abs_err": errs,
           "fwd_tol": FWD_TOL, "bwd_tol": BWD_TOL,
@@ -1234,67 +1226,7 @@ def main():
           "ms_per_view": times, "mean_alpha": mean_alpha,
           "launches": serve_launches, "view0_check": serve_check,
           "seconds": time.perf_counter() - t0})
-
-    # 4b. serve_v1: the same views through the legacy v1 backend
-    t0 = time.perf_counter()
-    probe_v1, preps_v1 = [], []
-    with torch.no_grad():
-        for cam in cams:
-            vm_c = torch.as_tensor(np.linalg.inv(cam["camtoworld"])[None],
-                                   device=dev)
-            K_c = torch.as_tensor(cam["K"][None], device=dev)
-            prep = project_and_shade(means, quats, scales, opac,
-                                     model.sh_coeffs(), vm_c, K_c, WIDTH,
-                                     HEIGHT, sh_degree=3, elliptical=False)
-            probe_v1.append(int(rv.tile_counts(
-                prep[1], prep[0], 16, -(-WIDTH // 16),
-                -(-HEIGHT // 16))[3].sum()))
-            if not preps_v1:
-                preps_v1.append(prep)
-    cap_v1 = int(1.2 * max(probe_v1))
-    rv.reset_launch_counts()
-    outs_v1 = render_splats(model, cams, sh_degree=3, isect_capacity=cap_v1,
-                            rasterizer="pallas")
-    torch.cuda.synchronize()
-    serve_v1_launches = dict(rv.LAUNCHES)
-    times_v1 = []
-    for _ in range(3):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        render_splats(model, cams, sh_degree=3, isect_capacity=cap_v1,
-                      rasterizer="pallas")
-        e1.record()
-        e1.synchronize()
-        times_v1.append(e0.elapsed_time(e1) / len(cams))
-    n_isects_v1 = [int(m["n_isects"]) for _, _, m in outs_v1]
-    if n_isects_v1 != probe_v1 or max(n_isects_v1) >= cap_v1:
-        raise AssertionError(f"serve_v1 n_isects {n_isects_v1} vs probe "
-                             f"{probe_v1}, capacity {cap_v1}")
-    if not all(bool(torch.isfinite(img).all() and torch.isfinite(a).all())
-               for img, a, _ in outs_v1):
-        raise AssertionError("serve_v1 produced non-finite pixels")
-    mean_alpha_v1 = float(torch.stack([a.mean() for _, a, _ in
-                                       outs_v1]).mean())
-    if not mean_alpha_v1 > 0.05:
-        raise AssertionError(f"serve_v1 mean alpha {mean_alpha_v1} <= 0.05")
-    if serve_v1_launches["raster_v1_fwd"] != len(cams) or any(
-            serve_v1_launches[k] for k in FWD_KERNELS):
-        raise AssertionError(f"serve_v1 did not render through B7 alone: "
-                             f"{serve_v1_launches}")
-    diff_vs_fused = [float((a[0] - b[0]).abs().mean())
-                     for a, b in zip(outs_v1, outs)]
-    view0_v1 = V1Stages(rp, ti, preps_v1[0], WIDTH, HEIGHT, 16,
-                        rp.CUTOFF_MODE, cap_v1).compare(errs)
-    emit({"phase": "serve_v1", "rasterizer": "pallas",
-          "cutoff_mode": rp.CUTOFF_MODE, "views": len(cams), "width": WIDTH,
-          "height": HEIGHT, "tile_size": 16, "isect_capacity": cap_v1,
-          "n_isects": n_isects_v1, "ms_per_view": times_v1,
-          "mean_alpha": mean_alpha_v1,
-          "mean_abs_diff_vs_fused_exact": diff_vs_fused,
-          "launches": serve_v1_launches, "view0_check": view0_v1,
-          "seconds": time.perf_counter() - t0})
-    del model, outs, outs_v1, prep0, preps_v1
+    del model, outs, prep0
 
     # 5. scene_1m: 1M Gaussians, SH 3, one camera
     t0 = time.perf_counter()
@@ -1408,84 +1340,6 @@ def main():
     emit({"phase": "scene_1m", "gaussians": N_1M, "width": WIDTH,
           "height": HEIGHT, "binned_rows_tile16": binned_rows, "runs": rows_1m,
           "seconds": time.perf_counter() - t0})
-
-    # 5b. scene_1m_v1: the same scene through rasterizer="pallas", tile 16,
-    # the soft cutoff (rasterize_pallas's default) and the exact one
-    t0 = time.perf_counter()
-    prep_1m_v1 = prepared(scene, WIDTH, HEIGHT, elliptical=False)
-    cap_1m_v1 = _default_isect_capacity(1, N_1M)
-    g = torch.Generator(device="cpu").manual_seed(9)
-    ct_v1 = torch.randn((1, HEIGHT, WIDTH, 3), generator=g).to(dev)
-    ca_v1 = torch.randn((1, HEIGHT, WIDTH, 1), generator=g).to(dev)
-    leaves_v1 = [t.detach().clone().requires_grad_(True)
-                 for t in (means, quats, scales, opac, colors)]
-
-    def forward_v1():
-        return rasterization(*leaves_v1, vm, Ks, WIDTH, HEIGHT, sh_degree=3,
-                             tile_size=16, rasterizer="pallas", device=dev)
-
-    def fwd_bwd_v1():
-        for t in leaves_v1:
-            t.grad = None
-        img, alpha, _ = forward_v1()
-        torch.autograd.backward([img, alpha], [ct_v1, ca_v1])
-
-    runs_v1 = []
-    for cutoff in ("soft", "exact"):
-        rp.CUTOFF_MODE = cutoff
-        try:
-            v1 = V1Stages(rp, ti, prep_1m_v1, WIDTH, HEIGHT, 16, cutoff,
-                          cap_1m_v1)
-            check = v1.compare(errs)
-            check.update(v1.compare_bwd(errs, seed=17))
-            rv.reset_launch_counts()
-            fwd_bwd_v1()
-            torch.cuda.synchronize()
-            launches = dict(rv.LAUNCHES)
-            if launches["raster_v1_fwd"] != 1 or \
-                    launches["raster_v1_bwd"] != 1 or any(
-                        launches[k] for k in KERNELS_3DGS):
-                raise AssertionError(f"scene_1m_v1 fwd+bwd launches "
-                                     f"{launches}")
-            if not all(bool(torch.isfinite(t.grad).all())
-                       for t in leaves_v1):
-                raise AssertionError("scene_1m_v1 gradients not finite")
-            with torch.no_grad():
-                img, alpha, meta = forward_v1()
-            if int(meta["n_isects"]) != v1.n_isects or \
-                    v1.n_isects >= cap_1m_v1 or \
-                    not bool(torch.isfinite(img).all()):
-                raise AssertionError(f"scene_1m_v1 n_isects "
-                                     f"{int(meta['n_isects'])} vs "
-                                     f"{v1.n_isects}, capacity {cap_1m_v1}")
-            fb_ms, fb_samples = median_ms(fwd_bwd_v1, 5)
-            with torch.no_grad():
-                f_ms, f_samples = median_ms(forward_v1, 5)
-            k = v1.kernel_numbers()
-            run = dict(
-                cutoff=cutoff, n_isects=v1.n_isects,
-                isect_capacity=cap_1m_v1, aligned_rows=v1.cfg.cap2,
-                rows_in_runs=v1.chunks_in_runs * rp.K_CHUNK,
-                chunks_in_runs=v1.chunks_in_runs,
-                chunks_walked=v1.pair_counts["chunks"],
-                fwd_ms=f_ms, fwd_ms_samples=f_samples, fwd_bwd_ms=fb_ms,
-                fwd_bwd_ms_samples=fb_samples,
-                mpix_per_s_fwd=WIDTH * HEIGHT / (f_ms * 1e-3) / 1e6,
-                mpix_per_s_fwd_bwd=WIDTH * HEIGHT / (fb_ms * 1e-3) / 1e6,
-                launches_per_fwd_bwd=launches, kernels=k, check=check,
-                sort_cancellation=v1.sort_cancellation(),
-                mean_alpha=float(alpha.mean()))
-            if cutoff == "soft":
-                run["profile"] = device_profile(fwd_bwd_v1)
-                perf.update(k)
-            runs_v1.append(run)
-            del v1, img, alpha, meta
-        finally:
-            rp.CUTOFF_MODE = "soft"
-    emit({"phase": "scene_1m_v1", "rasterizer": "pallas", "gaussians": N_1M,
-          "width": WIDTH, "height": HEIGHT, "tile_size": 16,
-          "runs": runs_v1, "seconds": time.perf_counter() - t0})
-    del prep_1m_v1, leaves_v1
 
     def raster_grads(cfg, grad_dtype):
         """The rasterizer's gradients (means2d, conics, colours, opacities)
@@ -2040,58 +1894,6 @@ def main():
     del runner
     shutil.rmtree(stats_dir, ignore_errors=True)
 
-    # 9b. train_v1: the same run on the legacy v1 backend
-    t0 = time.perf_counter()
-    stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_train_v1_")
-    vcfg = dataclasses.replace(tcfg, result_dir=stats_dir,
-                               rasterizer="pallas")
-    runner = Runner(vcfg, parser=parser, trainset=trainset, valset=valset,
-                    device=dev)
-    before_v = runner.eval("before")
-    steps = []
-    train_step = runner.train_step
-    runner.train_step = timed_step
-    rv.reset_launch_counts()
-    losses_v = runner.train(max_steps=TRAIN_STEPS, log_every=0)
-    torch.cuda.synchronize()
-    v1_launches = dict(rv.LAUNCHES)
-    after_v = runner.eval("after")
-    v1_check = check_training_views_v1(runner, steps[-1]["sh_degree"], errs)
-    prof_v = device_profile(lambda: train_step([v1_check["view"]], 3),
-                            reps=1)
-    refines_v = [e for e in runner.events if e["event"] == "refine"]
-    if not np.mean(losses_v[-5:]) < np.mean(losses_v[:5]):
-        raise AssertionError(f"train_v1 loss did not fall: {losses_v}")
-    if not after_v["psnr"] > before_v["psnr"]:
-        raise AssertionError(f"train_v1 held-out PSNR did not rise: "
-                             f"{before_v} -> {after_v}")
-    if runner.skipped_steps or len(refines_v) < 2:
-        raise AssertionError(f"train_v1 skipped {runner.skipped_steps}, "
-                             f"refines {refines_v}")
-    if [v1_launches[k] for k in KERNELS_V1] != [TRAIN_STEPS] * 2 or any(
-            v1_launches[k] for k in KERNELS_3DGS):
-        raise AssertionError(f"train_v1 did not step through B7 and B8 "
-                             f"alone: {v1_launches}")
-    emit({"phase": "train_v1", "rasterizer": vcfg.rasterizer,
-          "cutoff_mode": rp.CUTOFF_MODE, "segred_mode": rp.SEGRED_MODE,
-          "steps": TRAIN_STEPS, "capacity": runner.splats["means"].shape[0],
-          "isect_capacity": runner.isect_capacity(),
-          "tile_size": vcfg.tile_size,
-          "loss_first5": losses_v[:5], "loss_last5": losses_v[-5:],
-          "psnr_before": before_v["psnr"], "psnr_after": after_v["psnr"],
-          "ssim_before": before_v["ssim"], "ssim_after": after_v["ssim"],
-          "step_ms_median": float(np.median([s_["ms"] for s_ in steps])),
-          "step_ms": [s_["ms"] for s_ in steps],
-          "n_isects": [s_["n_isects"] for s_ in steps],
-          "events": runner.events, "skipped_steps": runner.skipped_steps,
-          "launches": v1_launches,
-          "launches_per_step": {k: v / TRAIN_STEPS
-                                for k, v in v1_launches.items()},
-          "view_check": v1_check, "step_profile_slowest_view": prof_v,
-          "seconds": time.perf_counter() - t0})
-    del runner
-    shutil.rmtree(stats_dir, ignore_errors=True)
-
     # 10. train_2dgs: the port's Runner2DGS on the same stand-in
     t0 = time.perf_counter()
     stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_train_2dgs_")
@@ -2343,10 +2145,230 @@ def main():
           "allocated_initial": n_init2, "allocated": alloc_m,
           "events": runner.events, "skipped_steps": runner.skipped_steps,
           "launches": mcmc2_launches, "seconds": time.perf_counter() - t0})
+    del runner
+    shutil.rmtree(stats_dir, ignore_errors=True)
+
+    # The phases of the v1 backend and of B10/B11 come after every earlier
+    # phase, so that those run in the conditions they ran in before.
+
+    # 14. kernels_v1: B7 and B8 (rasterizer="pallas") on the kernels
+    # phase's scene's scalar radii, tile 16 and 32, both cutoffs
+    t0 = time.perf_counter()
+    prep_v1_small = prepared(small, sw, sh, elliptical=False)
+    cases_v1 = []
+    for ts in (16, 32):
+        for cutoff in ("exact", "soft"):
+            v1 = V1Stages(rp, ti, prep_v1_small, sw, sh, ts, cutoff, 1 << 20)
+            res = v1.compare(errs)
+            res.update(v1.compare_bwd(errs, seed=ts))
+            cases_v1.append(dict(tile_size=ts, cutoff=cutoff,
+                                 n_isects=v1.n_isects, **res))
+    del v1, prep_v1_small
+    torch.cuda.synchronize()
+    emit({"phase": "kernels_v1", "cases": cases_v1,
+          "max_abs_err": {k: errs[k] for k in KERNELS_V1},
+          "fwd_tol": FWD_TOL, "bwd_tol": BWD_TOL,
+          "seconds": time.perf_counter() - t0})
+
+    # 15. serve_v1: serve's views through the legacy v1 backend
+    t0 = time.perf_counter()
+    model = from_jax_splats(splats, device=dev)
+    probe_v1, preps_v1 = [], []
+    with torch.no_grad():
+        means_s, quats_s, opac_s = model.means, model.quats, torch.sigmoid(
+            model.opacities)
+        scales_s = torch.exp(model.scales)
+        outs = render_splats(model, cams, sh_degree=3,
+                             isect_capacity=capacity)  # the fused images
+        for cam in cams:
+            vm_c = torch.as_tensor(np.linalg.inv(cam["camtoworld"])[None],
+                                   device=dev)
+            K_c = torch.as_tensor(cam["K"][None], device=dev)
+            prep = project_and_shade(means_s, quats_s, scales_s, opac_s,
+                                     model.sh_coeffs(), vm_c, K_c, WIDTH,
+                                     HEIGHT, sh_degree=3, elliptical=False)
+            probe_v1.append(int(rv.tile_counts(
+                prep[1], prep[0], 16, -(-WIDTH // 16),
+                -(-HEIGHT // 16))[3].sum()))
+            if not preps_v1:
+                preps_v1.append(prep)
+    cap_v1 = int(1.2 * max(probe_v1))
+    rv.reset_launch_counts()
+    outs_v1 = render_splats(model, cams, sh_degree=3, isect_capacity=cap_v1,
+                            rasterizer="pallas")
+    torch.cuda.synchronize()
+    serve_v1_launches = dict(rv.LAUNCHES)
+    times_v1 = []
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        render_splats(model, cams, sh_degree=3, isect_capacity=cap_v1,
+                      rasterizer="pallas")
+        e1.record()
+        e1.synchronize()
+        times_v1.append(e0.elapsed_time(e1) / len(cams))
+    n_isects_v1 = [int(m["n_isects"]) for _, _, m in outs_v1]
+    if n_isects_v1 != probe_v1 or max(n_isects_v1) >= cap_v1:
+        raise AssertionError(f"serve_v1 n_isects {n_isects_v1} vs probe "
+                             f"{probe_v1}, capacity {cap_v1}")
+    if not all(bool(torch.isfinite(img).all() and torch.isfinite(a).all())
+               for img, a, _ in outs_v1):
+        raise AssertionError("serve_v1 produced non-finite pixels")
+    mean_alpha_v1 = float(torch.stack([a.mean() for _, a, _ in
+                                       outs_v1]).mean())
+    if not mean_alpha_v1 > 0.05:
+        raise AssertionError(f"serve_v1 mean alpha {mean_alpha_v1} <= 0.05")
+    if serve_v1_launches["raster_v1_fwd"] != len(cams) or any(
+            serve_v1_launches[k] for k in FWD_KERNELS):
+        raise AssertionError(f"serve_v1 did not render through B7 alone: "
+                             f"{serve_v1_launches}")
+    diff_vs_fused = [float((a[0] - b[0]).abs().mean())
+                     for a, b in zip(outs_v1, outs)]
+    view0_v1 = V1Stages(rp, ti, preps_v1[0], WIDTH, HEIGHT, 16,
+                        rp.CUTOFF_MODE, cap_v1).compare(errs)
+    emit({"phase": "serve_v1", "rasterizer": "pallas",
+          "cutoff_mode": rp.CUTOFF_MODE, "views": len(cams), "width": WIDTH,
+          "height": HEIGHT, "tile_size": 16, "isect_capacity": cap_v1,
+          "n_isects": n_isects_v1, "ms_per_view": times_v1,
+          "mean_alpha": mean_alpha_v1,
+          "mean_abs_diff_vs_fused_exact": diff_vs_fused,
+          "launches": serve_v1_launches, "view0_check": view0_v1,
+          "seconds": time.perf_counter() - t0})
+    del model, outs, outs_v1, preps_v1
+
+    # 16. scene_1m_v1: scene_1m's scene through rasterizer="pallas", tile 16,
+    # the soft cutoff (rasterize_pallas's default) and the exact one
+    t0 = time.perf_counter()
+    prep_1m_v1 = prepared(scene, WIDTH, HEIGHT, elliptical=False)
+    cap_1m_v1 = _default_isect_capacity(1, N_1M)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    ct_v1 = torch.randn((1, HEIGHT, WIDTH, 3), generator=g).to(dev)
+    ca_v1 = torch.randn((1, HEIGHT, WIDTH, 1), generator=g).to(dev)
+    leaves_v1 = [t.detach().clone().requires_grad_(True)
+                 for t in (means, quats, scales, opac, colors)]
+
+    def forward_v1():
+        return rasterization(*leaves_v1, vm, Ks, WIDTH, HEIGHT, sh_degree=3,
+                             tile_size=16, rasterizer="pallas", device=dev)
+
+    def fwd_bwd_v1():
+        for t in leaves_v1:
+            t.grad = None
+        img, alpha, _ = forward_v1()
+        torch.autograd.backward([img, alpha], [ct_v1, ca_v1])
+
+    runs_v1 = []
+    for cutoff in ("soft", "exact"):
+        rp.CUTOFF_MODE = cutoff
+        try:
+            v1 = V1Stages(rp, ti, prep_1m_v1, WIDTH, HEIGHT, 16, cutoff,
+                          cap_1m_v1)
+            check = v1.compare(errs)
+            check.update(v1.compare_bwd(errs, seed=17))
+            rv.reset_launch_counts()
+            fwd_bwd_v1()
+            torch.cuda.synchronize()
+            launches = dict(rv.LAUNCHES)
+            if launches["raster_v1_fwd"] != 1 or \
+                    launches["raster_v1_bwd"] != 1 or any(
+                        launches[k] for k in KERNELS_3DGS):
+                raise AssertionError(f"scene_1m_v1 fwd+bwd launches "
+                                     f"{launches}")
+            if not all(bool(torch.isfinite(t.grad).all())
+                       for t in leaves_v1):
+                raise AssertionError("scene_1m_v1 gradients not finite")
+            with torch.no_grad():
+                img, alpha, meta = forward_v1()
+            if int(meta["n_isects"]) != v1.n_isects or \
+                    v1.n_isects >= cap_1m_v1 or \
+                    not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"scene_1m_v1 n_isects "
+                                     f"{int(meta['n_isects'])} vs "
+                                     f"{v1.n_isects}, capacity {cap_1m_v1}")
+            fb_ms, fb_samples = median_ms(fwd_bwd_v1, 5)
+            with torch.no_grad():
+                f_ms, f_samples = median_ms(forward_v1, 5)
+            k = v1.kernel_numbers()
+            run = dict(
+                cutoff=cutoff, n_isects=v1.n_isects,
+                isect_capacity=cap_1m_v1, aligned_rows=v1.cfg.cap2,
+                rows_in_runs=v1.chunks_in_runs * rp.K_CHUNK,
+                chunks_in_runs=v1.chunks_in_runs,
+                chunks_walked=v1.pair_counts["chunks"],
+                fwd_ms=f_ms, fwd_ms_samples=f_samples, fwd_bwd_ms=fb_ms,
+                fwd_bwd_ms_samples=fb_samples,
+                mpix_per_s_fwd=WIDTH * HEIGHT / (f_ms * 1e-3) / 1e6,
+                mpix_per_s_fwd_bwd=WIDTH * HEIGHT / (fb_ms * 1e-3) / 1e6,
+                launches_per_fwd_bwd=launches, kernels=k, check=check,
+                sort_cancellation=v1.sort_cancellation(),
+                mean_alpha=float(alpha.mean()))
+            if cutoff == "soft":
+                run["profile"] = device_profile(fwd_bwd_v1)
+                perf.update(k)
+            runs_v1.append(run)
+            del v1, img, alpha, meta
+        finally:
+            rp.CUTOFF_MODE = "soft"
+    emit({"phase": "scene_1m_v1", "rasterizer": "pallas", "gaussians": N_1M,
+          "width": WIDTH, "height": HEIGHT, "tile_size": 16,
+          "runs": runs_v1, "seconds": time.perf_counter() - t0})
+    del prep_1m_v1, leaves_v1
+
+    # 17. train_v1: the train phase's run on the legacy v1 backend
+    t0 = time.perf_counter()
+    stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_train_v1_")
+    vcfg = dataclasses.replace(tcfg, result_dir=stats_dir,
+                               rasterizer="pallas")
+    runner = Runner(vcfg, parser=parser, trainset=trainset, valset=valset,
+                    device=dev)
+    before_v = runner.eval("before")
+    steps = []
+    train_step = runner.train_step
+    runner.train_step = timed_step
+    rv.reset_launch_counts()
+    losses_v = runner.train(max_steps=TRAIN_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    v1_launches = dict(rv.LAUNCHES)
+    after_v = runner.eval("after")
+    v1_check = check_training_views_v1(runner, steps[-1]["sh_degree"], errs)
+    prof_v = device_profile(lambda: train_step([v1_check["view"]], 3),
+                            reps=1)
+    refines_v = [e for e in runner.events if e["event"] == "refine"]
+    if not np.mean(losses_v[-5:]) < np.mean(losses_v[:5]):
+        raise AssertionError(f"train_v1 loss did not fall: {losses_v}")
+    if not after_v["psnr"] > before_v["psnr"]:
+        raise AssertionError(f"train_v1 held-out PSNR did not rise: "
+                             f"{before_v} -> {after_v}")
+    if runner.skipped_steps or len(refines_v) < 2:
+        raise AssertionError(f"train_v1 skipped {runner.skipped_steps}, "
+                             f"refines {refines_v}")
+    if [v1_launches[k] for k in KERNELS_V1] != [TRAIN_STEPS] * 2 or any(
+            v1_launches[k] for k in KERNELS_3DGS):
+        raise AssertionError(f"train_v1 did not step through B7 and B8 "
+                             f"alone: {v1_launches}")
+    emit({"phase": "train_v1", "rasterizer": vcfg.rasterizer,
+          "cutoff_mode": rp.CUTOFF_MODE, "segred_mode": rp.SEGRED_MODE,
+          "steps": TRAIN_STEPS, "capacity": runner.splats["means"].shape[0],
+          "isect_capacity": runner.isect_capacity(),
+          "tile_size": vcfg.tile_size,
+          "loss_first5": losses_v[:5], "loss_last5": losses_v[-5:],
+          "psnr_before": before_v["psnr"], "psnr_after": after_v["psnr"],
+          "ssim_before": before_v["ssim"], "ssim_after": after_v["ssim"],
+          "step_ms_median": float(np.median([s_["ms"] for s_ in steps])),
+          "step_ms": [s_["ms"] for s_ in steps],
+          "n_isects": [s_["n_isects"] for s_ in steps],
+          "events": runner.events, "skipped_steps": runner.skipped_steps,
+          "launches": v1_launches,
+          "launches_per_step": {k: v / TRAIN_STEPS
+                                for k, v in v1_launches.items()},
+          "view_check": v1_check, "step_profile_slowest_view": prof_v,
+          "seconds": time.perf_counter() - t0})
     del runner, parser, trainset, valset
     shutil.rmtree(stats_dir, ignore_errors=True)
 
-    # 14. cumsum_skel: B10 and B11, which lie on no path (as in the JAX
+
+    # 18. cumsum_skel: B10 and B11, which lie on no path (as in the JAX
     # package): B10 at [9, 2^23], B11 on kernel_skel_bench's four inputs
     t0 = time.perf_counter()
     g = torch.Generator(device="cpu").manual_seed(10)
@@ -2358,27 +2380,37 @@ def main():
     cs_launches = dict(rv.LAUNCHES)
     if cs_launches["cumsum_rows"] < 1 or cs_launches["skel_composite"] < 1:
         raise AssertionError(f"cumsum_skel launches {cs_launches}")
-    ref = torch.cumsum(xc, 1)
-    ku = (torch.arange(CUMSUM_SHAPE[1], device=dev).double() + 2) * F32_UNIT
-    cbound = 2 * ku / (1 - ku) * torch.cumsum(xc.abs().double(), 1)
-    cdiff = (cs - ref).abs().double()
-    if not bool((cdiff <= cbound).all()):
-        raise AssertionError("cumsum_rows differs from torch.cumsum by more "
-                             "than the f32 summation-order bound")
+    # against a float64 cumsum, within the kernel's own rounding bound
+    # (rv.cumsum_rows_bound: its depth of additions, not the row's length),
+    # on the signed input and on a non-negative one, where the bound is a
+    # few ulps of every value and a wrong carry cannot hide in it
+    xu = torch.rand(CUMSUM_SHAPE, generator=g).to(dev)
+    cumsum_checks = {}
+    for label, x_ in (("randn", xc), ("uniform", xu)):
+        out_ = cs if x_ is xc else rv.cumsum_rows(x_)
+        cdiff = (out_.double() - torch.cumsum(x_.double(), 1)).abs()
+        cbound = rv.cumsum_rows_bound(x_)
+        if not bool((cdiff <= cbound).all()):
+            raise AssertionError(f"cumsum_rows ({label}) differs from the "
+                                 f"float64 cumsum by more than its bound")
+        cumsum_checks[label] = dict(
+            max_abs_err=float(cdiff.max()),
+            bound_share=float((cdiff / cbound).max()),
+            bound_at_end=float(cbound[:, -1].max()))
+        del out_, cdiff, cbound
     if not torch.equal(cs, rv.cumsum_rows(xc)):
         raise AssertionError("cumsum_rows differs between two runs")
-    note_err(errs, ["cumsum_rows"], float(cdiff.max()))
+    note_err(errs, ["cumsum_rows"], cumsum_checks["randn"]["max_abs_err"])
     R, L = CUMSUM_SHAPE
     perf["cumsum_rows"] = bound(dict(
         ms=cuda_ms(lambda: rv.cumsum_rows(xc), 10),
         plain_ms=cuda_ms(lambda: torch.cumsum(xc, 1), 10),
         library_ms=cuda_ms(lambda: torch.cumsum(xc, 1), 10),
         bytes=8 * R * L, ops=R * L))
-    cumsum_res = dict(shape=list(CUMSUM_SHAPE),
-                      max_abs_err=float(cdiff.max()),
-                      bound_share=float((cdiff / cbound.clamp(
-                          min=1e-300)).max()), **perf["cumsum_rows"])
-    del xc, cs, ref, ku, cbound, cdiff
+    cumsum_res = dict(shape=list(CUMSUM_SHAPE), checks=cumsum_checks,
+                      max_abs_err=cumsum_checks["randn"]["max_abs_err"],
+                      **perf["cumsum_rows"])
+    del xc, xu, cs
     # B11's plain version on the input with the stop (term@24)
     T_s, avg_s, term_s, label_s = skel.INPUTS[1]
     rows_s, starts_s, ends_s, _ = (torch.as_tensor(a, device=dev) for a in

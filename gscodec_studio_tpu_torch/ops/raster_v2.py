@@ -1216,7 +1216,9 @@ def rasterize_to_pixels_v2(
 # B10: row cumsum (csrc/cumsum_rows.cu)
 # ---------------------------------------------------------------------------
 
-CUMSUM_SEG = 4096  # cumsum_rows.cu SEG: elements of a row per block
+CUMSUM_THREADS = 256  # cumsum_rows.cu THREADS: threads of a block
+CUMSUM_PER = 16  # cumsum_rows.cu PER: consecutive elements of a thread
+CUMSUM_SEG = CUMSUM_THREADS * CUMSUM_PER  # elements of a row per block
 
 
 def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
@@ -1239,3 +1241,23 @@ def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
     native.check(err, "gsc_cumsum_rows")
     LAUNCHES["cumsum_rows"] += 1
     return out
+
+
+def cumsum_rows_bound(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise float64 bound on |cumsum_rows(x) - the exact cumsum| for
+    the kernel's order of additions: gamma_D times the sum of |x| up to the
+    end of the element's segment (the prefix of a segment is taken from
+    the inclusive scan less the segment's own total, so the whole segment
+    enters it). D counts the roundings on the longest path of a term: PER
+    in its thread, log2(THREADS) + 1 in each of two block scans (its
+    segment's total, then the scan of the totals), one carry for every
+    THREADS segments, and four adds and subtractions that join the
+    prefixes."""
+    L = x.shape[1]
+    n_seg = -(-L // CUMSUM_SEG)
+    depth = (CUMSUM_PER + 2 * (int(math.log2(CUMSUM_THREADS)) + 1)
+             + -(-n_seg // CUMSUM_THREADS) + 4)
+    du = depth * 2.0 ** -24
+    end = torch.clamp((torch.arange(L, device=x.device) // CUMSUM_SEG + 1)
+                      * CUMSUM_SEG, max=L) - 1
+    return du / (1 - du) * torch.cumsum(x.abs().double(), 1)[:, end]

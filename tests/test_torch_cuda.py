@@ -26,9 +26,11 @@ branch.
 The legacy v1 kernels (rasterizer="pallas"): B7 at the tile forward's
 tolerance and B8 at the tile backward's, against their plain versions,
 B8 bit for bit across two runs, and rasterization(rasterizer="pallas") on
-the card against the CPU. B10 (cumsum_rows) within the f32 summation-order
-bound 2 gamma(n + 1) sum|x| of torch.cumsum; B11 (the skeleton composite)
-within 1e-4 of its plain version.
+the card against the CPU. B10 (cumsum_rows) within the rounding bound of
+its own order of additions (raster_v2.cumsum_rows_bound: gamma of its depth
+times the sum of |x| to the end of the segment) of a float64 cumsum, on
+signed and non-negative rows; B11 (the skeleton composite) within 1e-4 of
+its plain version.
 """
 
 import dataclasses
@@ -647,17 +649,20 @@ def test_v1_rasterization_on_card_matches_cpu(cuda):
             assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
 
 
-def test_cumsum_rows_kernel_matches_torch(cuda):
+@pytest.mark.parametrize("draw", ["randn", "rand"])
+def test_cumsum_rows_kernel_matches_torch(cuda, draw):
+    # (2, 300 * 4096 + 5) has 301 segments a row: the carry of the segment
+    # prefixes crosses a block of 256 segments
     g = torch.Generator(device="cpu").manual_seed(3)
-    for shape in ((9, 3 * 8192), (3, 4096 * 5 + 17), (2, 100)):
-        x = torch.randn(shape, generator=g).to(cuda)
+    for shape in ((9, 3 * 8192), (3, 4096 * 5 + 17), (2, 100),
+                  (2, 300 * 4096 + 5)):
+        x = getattr(torch, draw)(shape, generator=g).to(cuda)
         tr.reset_launch_counts()
         out = tr.cumsum_rows(x)
         assert tr.LAUNCHES["cumsum_rows"] == 1
         assert torch.equal(out, tr.cumsum_rows(x))
         ref = torch.cumsum(x.double(), 1)
-        ku = (torch.arange(shape[1], device=cuda).double() + 2) * 2.0 ** -24
-        bound = 2 * ku / (1 - ku) * torch.cumsum(x.abs().double(), 1)
+        bound = tr.cumsum_rows_bound(x)
         assert bool(((out.double() - ref).abs() <= bound).all())
 
 

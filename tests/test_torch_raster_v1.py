@@ -54,11 +54,18 @@ W, H, TS = 48, 32, 16
 
 @pytest.fixture(autouse=True, scope="module")
 def warm_cpu_math():
-    """The CPU build of torch these tests run on (2.13.0+cpu) can return
-    a torch.exp off by ~1e-4 on the first large, multithreaded call in a
-    process (seen once in ~15 fresh processes, with or without JAX
-    loaded); later calls agree with float64 to an ulp. One throwaway call
-    before the 1e-5 comparisons."""
+    """The CPU build of torch these tests run on (2.13.0+cpu, 8 threads)
+    can return a torch.exp off by ~1e-4 on the first large call in a
+    process. torch alone shows it, with no code of either package loaded:
+
+        g = torch.Generator().manual_seed(s)
+        x = -torch.rand(1 << 20, generator=g) * 5
+        (torch.exp(x).double() - torch.exp(x.double())).abs().max()
+
+    run once in each of 30 fresh processes (s = 1..30) gave 1.06e-4 in 6
+    of them and ~3e-8 in the rest; a second torch.exp(x) in the same
+    process gave ~3e-8 in all 30. One throwaway call before the 1e-5
+    comparisons."""
     torch.exp(-torch.rand(1 << 20) * 5)
 
 
