@@ -5,7 +5,8 @@
 
 Phases, one JSON line each with its own ``seconds``:
   device    nvidia-smi's name and power limit, torch and CUDA versions;
-  build     the nvcc build of csrc/*.cu (route: plain-C .so + ctypes);
+  build     the nvcc build of csrc/*.cu (route: plain-C .so + ctypes), with
+            the registers and spills of each instantiation of B6 and B9a;
   kernels   each kernel against its plain PyTorch version on the card: a
             20k-Gaussian scene at 320x240, tile 16 and 32, both cutoffs,
             the backward with absgrad off and on, and each backward kernel
@@ -15,7 +16,13 @@ Phases, one JSON line each with its own ``seconds``:
             log_composite, and all three (each case's backward also with
             packed gradient rows); the same scene as surfels (tile 16, both
             cutoffs) for the 2DGS tile kernels B5 and B6, in the product
-            and the log branch, and the expansion's no-cull branch;
+            and the log branch, and the expansion's no-cull branch, with
+            B6's work from the plain walk (b6_work: per tile the rows
+            walked, the pairs and (pair, pixel) slots composited, as max,
+            p99 and mean; the slots inside B6's candidate regions, checked
+            to hold every slot that passes the alpha test; the (pair, warp)
+            with a candidate, the hits and the single-lane ones, in the
+            first design's warp layout and in B6's);
   serve     the committed checkpoint results/garden_ab_f32/splats_final.npz
             (120k Gaussians, SH 3) rendered from 8 orbit cameras at
             1297x840 through utils.ply_render.render_splats, and its first
@@ -32,8 +39,12 @@ Phases, one JSON line each with its own ``seconds``:
             rendering.rasterization_2dgs, tile 16, exact cutoff: forward and
             forward + backward with a seeded cotangent on the colours,
             alphas, normals and distortion (median ms, Mpix/s, launches),
-            and B5's and B6's time, bound, plain time and error; the same
-            with log_composite (B5/B6's log branch);
+            and B5's and B6's time, bound, plain time and error, B6's work
+            (b6_work, with the build's registers and spills of its
+            instantiation and B6's time on the longest tile alone), and
+            B9a on the surfels' two gathers beside index_select and
+            torch.stack(rows)[:, order]; the same with log_composite
+            (B5/B6's log branch);
   bench_1m  bench.py's default configuration through the port: the same
             scene, tile 32, soft cutoff, grad_dtype "bf16", attr_dtype
             "bf16", log_composite, capacity 1.2x the probed elliptical rows,
@@ -114,6 +125,7 @@ script exits non-zero without the result line.
 import dataclasses
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -402,6 +414,125 @@ def device_profile(fn, reps=3):
                         for n, m, c in rows[:12]]}
     except Exception as e:  # the trace is a diagnostic, not a check
         return {"error": repr(e)}
+
+
+def ptxas_entries(text):
+    """Each kernel entry of the build's -Xptxas -v report: its mangled
+    name, registers, stack frame and spill bytes."""
+    entries, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = dict(name=m.group(1))
+            entries.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return entries
+
+
+def b6_instances(entries):
+    """B6's instantiations in the ptxas report: the channel bound, pixels a
+    thread, cutoff, scan, launch bounds (most threads, blocks an SM) of
+    each, with its registers and spills."""
+    out = []
+    for e in entries:
+        m = re.search(r"raster_bwd_2dgs_kernelILi(\d+)ELi(\d+)ELb([01])"
+                      r"ELb([01])ELi(\d+)ELi(\d+)E", e["name"])
+        if m:
+            out.append(dict(cbm=int(m.group(1)), ppt=int(m.group(2)),
+                            soft=m.group(3) == "1", log=m.group(4) == "1",
+                            max_threads=int(m.group(5)),
+                            min_blocks=int(m.group(6)),
+                            **{k: e.get(k) for k in (
+                                "registers", "spill_stores", "spill_loads",
+                                "stack")}))
+    return out
+
+
+def pack_instances(entries):
+    """B9a's instantiations (rows gathered at once, columns a thread) in
+    the ptxas report."""
+    out = []
+    for e in entries:
+        m = re.search(r"pack_kernelILi(\d+)ELi(\d+)E", e["name"])
+        if m:
+            out.append(dict(rows=int(m.group(1)), cols=int(m.group(2)),
+                            **{k: e.get(k) for k in (
+                "registers", "spill_stores", "spill_loads", "stack")}))
+    return out
+
+
+def b6_work(r2, st, ptxas=None, time_tail=None):
+    """What B6 does on a Stages2DGS's inputs, from the plain walk
+    (r2._bwd_2dgs_counts): the per-tile distribution (max, p99, mean) of
+    the rows walked, the pairs that at least one pixel composited and the
+    composited (pair, pixel) slots; the slots walked and those inside their
+    pair's candidate region (the ones B6 evaluates); in the first design's
+    layout (a warp 32 pixels of two tile rows) and in the kernel's (its
+    pixels a thread, a warp an 8-pixel-wide cell), the (pair, warp) with a
+    candidate, the (pair, warp) hits and the single-lane ones (the ballot
+    shortcut's); with ``ptxas``, the build's
+    registers and spills of the instantiations these inputs take.
+    ``time_tail`` (a timing function) adds B6's time on the tile with the
+    longest walk alone, the floor that one block per tile puts under the
+    whole launch. Raises if a slot that passes the alpha test lies outside
+    its pair's candidate region."""
+    cfg = st.cfg
+    ppt = r2.bwd_pixels_per_thread(cfg.channels)
+    layouts = {"first_design": (1, cfg.tile_size), "kernel": (ppt, 8)}
+    counts = {name: r2._bwd_2dgs_counts(st.b.S, st.b.starts, st.masks, cfg,
+                                        pixels_per_lane=ppl, cell_width=cw)
+              for name, (ppl, cw) in layouts.items()}
+    c1 = counts["kernel"]
+    if c1["missed_slots"]:
+        raise AssertionError(f"{c1['missed_slots']} passing (pair, pixel) "
+                             f"slots outside B6's candidate regions")
+
+    def dist(x):
+        x = x.double()
+        return dict(max=int(x.max()), p99=float(torch.quantile(x, 0.99)),
+                    mean=float(x.mean()))
+
+    res = dict(
+        pixels_per_thread=ppt,
+        per_tile={k: dist(c1[k]) for k in ("run", "pairs", "slots")},
+        composited_slots=int(c1["slots"].sum()),
+        evaluated_slots=c1["evaluated_slots"],
+        candidate_slots=c1["candidate_slots"],
+        layouts={name: dict(
+            warps_per_tile=c["warps_per_tile"],
+            pair_warp_candidates=c["pair_warp_candidates"],
+            pair_warp_hits=c["pair_warp_hits"],
+            single_lane_hits=c["single_lane_hits"])
+            for name, c in counts.items()})
+    if ptxas is not None:
+        # the instantiation these inputs launch (csrc/raster_bwd_2dgs.cu
+        # launch): the 128-thread build for channel bounds <= 8 and tiles
+        # of <= 128 threads, else the one bounded by tile 32
+        cbm = next(b for b in (4, 8, 16, 32, 64, 128) if cfg.channels <= b)
+        ts, rc = cfg.tile_size, 32 // (8 // ppt)
+        threads = -(-ts // 8) * -(-ts // rc) * 32
+        maxt = 128 if cbm <= 8 and threads <= 128 else 1024 // ppt
+        res["ptxas"] = [e for e in ptxas if e["cbm"] == cbm
+                        and e["soft"] == (cfg.cutoff == "soft")
+                        and e["log"] == cfg.log_composite
+                        and e["max_threads"] == maxt]
+    if time_tail is not None:
+        longest = int(torch.argmax(c1["run"]))
+        masks1 = torch.zeros_like(st.masks)
+        masks1[longest] = 1
+        args = (st.b.S, st.b.starts, masks1) + st.bwd_args[3:]
+        res["longest_tile"] = dict(tile=longest, run=int(c1["run"][longest]),
+                                   ms=time_tail(
+                                       lambda: r2.raster_bwd_2dgs(*args), 5))
+    return res
 
 
 def nvidia_smi():
@@ -920,10 +1051,14 @@ def main():
     so = native.build()
     native.lib()
     log = Path(str(so) + ".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln] if log.exists() else []
+    log_text = log.read_text() if log.exists() else ""
+    ptxas = [ln.strip() for ln in log_text.splitlines() if "registers" in ln]
+    entries = ptxas_entries(log_text)
+    b6_ptxas = b6_instances(entries)
     emit({"phase": "build", "library": so.name,
           "nvcc_seconds": native.build_seconds, "ptxas": ptxas,
+          "raster_bwd_2dgs_ptxas": b6_ptxas,
+          "pack_rows_ptxas": pack_instances(entries),
           "seconds": time.perf_counter() - t0})
 
     def to_dev(*arrays):
@@ -1152,7 +1287,8 @@ def main():
             res.update(st.compare_bwd(errs, seed=2))
             cases.append(dict(tile_size=16, cutoff=cutoff, surfels=True,
                               log_composite=log_composite,
-                              n_isects=int(st.b.n_isects), **res))
+                              n_isects=int(st.b.n_isects),
+                              b6_work=b6_work(r2, st, b6_ptxas), **res))
     del st
     torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "max_abs_err": errs,
@@ -1608,6 +1744,18 @@ def main():
         f2_ms, _ = median_ms(forward_2dgs, 5)
     profile2 = device_profile(fwd_bwd_2dgs)
     k2 = st.kernel_numbers(cuda_ms)
+    work2 = b6_work(r2, st, b6_ptxas, cuda_ms)
+    # B9a on the surfels' two gathers beside their library calls
+    pack2 = dict(
+        S_ms=cuda_ms(lambda: rv.pack_rows(list(st.b.rows), cfg2.d_s,
+                                          st.b.perm), 10),
+        S_library_ms=cuda_ms(lambda: torch.index_select(st.b.rows, 1,
+                                                        st.b.perm), 10),
+        table_ms=cuda_ms(lambda: rv.pack_rows(st.attr_rows, cfg2.n_attr_eff,
+                                              st.b.order), 10),
+        table_library_ms=cuda_ms(
+            lambda: torch.stack(st.attr_rows)[:, st.b.order], 10),
+        rows=cfg2.d_s, columns=cfg2.cap, table_rows=cfg2.n_attr_eff)
     expand_no_cull_ms = cuda_ms(lambda: rv.expand(
         st.b.cum, st.b.base, st.b.nx, st.b.table, st.b.n_isects, cfg2), 10)
     # the no-cull branch's bound: B3's bytes at these shapes
@@ -1653,7 +1801,8 @@ def main():
     log_leg = dict(fwd_bwd_ms=fb2l_ms, fwd_bwd_ms_samples=fb2l_samples,
                    mpix_per_s=WIDTH * HEIGHT / (fb2l_ms * 1e-3) / 1e6,
                    launches_per_fwd_bwd=launches2_log, kernels=k2_log,
-                   n_isects=int(st.b.n_isects), check=check2_log)
+                   n_isects=int(st.b.n_isects), check=check2_log,
+                   b6_work=b6_work(r2, st, b6_ptxas, cuda_ms))
     emit({"phase": "train_1m_2dgs", "gaussians": N_1M, "width": WIDTH,
           "height": HEIGHT, "tile_size": 16, "cutoff": cfg2.cutoff,
           "channels": cfg2.channels, "n_isects": int(st.b.n_isects),
@@ -1662,6 +1811,7 @@ def main():
           "fwd_ms": f2_ms,
           "mpix_per_s": WIDTH * HEIGHT / (fb2_ms * 1e-3) / 1e6,
           "launches_per_fwd_bwd": launches2, "kernels": k2,
+          "b6_work": work2, "pack_rows_2dgs": pack2,
           "expand_no_cull": expand_no_cull,
           "mean_alpha": float(out2[1].mean()), "profile": profile2,
           "check": check2, "log_composite": log_leg,

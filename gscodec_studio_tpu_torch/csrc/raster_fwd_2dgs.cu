@@ -62,7 +62,7 @@ struct Fwd2Args {
 };
 
 template <int CBM, bool SOFT, bool LOG>
-__global__ void raster_fwd_2dgs_kernel(const Fwd2Args a) {
+__device__ __forceinline__ void fwd_2dgs_body(const Fwd2Args& a) {
   extern __shared__ float sm[];  // [(12 + cb) * K]
   const int t = blockIdx.x;
   const int ts = a.tile_size;
@@ -162,15 +162,35 @@ __global__ void raster_fwd_2dgs_kernel(const Fwd2Args a) {
   o[cb + 2] = med;
 }
 
+template <int CBM, bool SOFT, bool LOG>
+__global__ void raster_fwd_2dgs_kernel(const Fwd2Args a) {
+  fwd_2dgs_body<CBM, SOFT, LOG>(a);
+}
+
+// Tiles above 512 pixels (tile 32: 1024 threads) launch this copy, whose
+// bound caps the registers at 64 so that the block fits an SM at every
+// channel bound (the wide ones spill); smaller tiles keep the unbounded one.
+template <int CBM, bool SOFT, bool LOG>
+__global__ void __launch_bounds__(1024)
+    raster_fwd_2dgs_kernel_1024(const Fwd2Args a) {
+  fwd_2dgs_body<CBM, SOFT, LOG>(a);
+}
+
 template <int CBM>
 cudaError_t launch(const Fwd2Args& a, bool soft, bool log, int n_tiles,
                    cudaStream_t stream) {
   const int threads = a.tile_size * a.tile_size;
   const size_t smem = (size_t)(kACOL + a.cb) * K * sizeof(float);
-  auto kernel = log ? (soft ? raster_fwd_2dgs_kernel<CBM, true, true>
-                            : raster_fwd_2dgs_kernel<CBM, false, true>)
-                    : (soft ? raster_fwd_2dgs_kernel<CBM, true, false>
-                            : raster_fwd_2dgs_kernel<CBM, false, false>);
+  auto kernel =
+      threads > 512
+          ? (log ? (soft ? raster_fwd_2dgs_kernel_1024<CBM, true, true>
+                         : raster_fwd_2dgs_kernel_1024<CBM, false, true>)
+                 : (soft ? raster_fwd_2dgs_kernel_1024<CBM, true, false>
+                         : raster_fwd_2dgs_kernel_1024<CBM, false, false>))
+          : (log ? (soft ? raster_fwd_2dgs_kernel<CBM, true, true>
+                         : raster_fwd_2dgs_kernel<CBM, false, true>)
+                 : (soft ? raster_fwd_2dgs_kernel<CBM, true, false>
+                         : raster_fwd_2dgs_kernel<CBM, false, false>));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -287,6 +287,8 @@ def pack_rows(rows: Sequence[torch.Tensor], R: int,
     dev = rows[0].device
     if n > MAX_PACK_ROWS:
         raise ValueError(f"pack_rows: at most {MAX_PACK_ROWS} rows on CUDA")
+    if max(L_src, 0 if perm is None else perm.shape[0]) >= 1 << 31:
+        raise ValueError("pack_rows: at most 2^31 - 1 columns on CUDA")
     for i, r in enumerate(rows):
         _check_cuda(f"pack_rows row {i}", r, torch.float32, dev,
                     contiguous=False)

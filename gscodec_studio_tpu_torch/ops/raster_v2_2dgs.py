@@ -406,6 +406,157 @@ def _bwd_2dgs_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, zch: int):
     return gbuf
 
 
+def bwd_pixels_per_thread(channels: int) -> int:
+    """Pixels a thread of B6 owns at ``channels`` composited channels
+    (csrc/raster_bwd_2dgs.cu ``ppt_for`` of the channels' template bound):
+    2 up to 32 channels, else 1."""
+    return 2 if channels <= 32 else 1
+
+
+def _pair_regions(chunk):
+    """The candidate region of each pair (csrc/raster_bwd_2dgs.cu
+    ``pair_region``, which B6 forms once a chunk and tests each pixel
+    against before its pair math): ``chunk`` [d_s, ...] sorted rows ->
+    float32 (ecx, ecy, qa, qb, qc, bound, r2) [...]. A pixel (px, py) is
+    a candidate when qa ex^2 + 2 qb ex ey + qc ey^2 <= bound (ex = px -
+    ecx, ey = py - ecy) or (x - px)^2 + (y - py)^2 <= r2; outside both it
+    cannot reach alpha >= 1/255. Formed in float64 from the float32 rows,
+    as the kernel does."""
+    d = chunk.double()
+    op32 = chunk[_AOP]
+    Lm = 1.01 * torch.clamp(torch.log(255.0 * d[_AOP]), min=0.0) + 0.01
+    rf = torch.sqrt(Lm) + 0.1
+    r2 = (rf * rf).float()
+    rho2 = 2.0 * Lm
+    m = [d[_AM + i] for i in range(9)]
+
+    def Q(a, b):
+        return (rho2 * (m[3 * a] * m[3 * b] + m[3 * a + 1] * m[3 * b + 1])
+                - m[3 * a + 2] * m[3 * b + 2])
+
+    q22 = Q(2, 2)
+    scale = rho2 * (m[6] * m[6] + m[7] * m[7]) + m[8] * m[8]
+    cx, cy = Q(0, 2) / q22, Q(1, 2) / q22
+    s00 = Q(0, 0) / -q22 + cx * cx
+    s11 = Q(1, 1) / -q22 + cy * cy
+    s01 = Q(0, 1) / -q22 + cx * cy
+    iso = 0.21 + 1e-3 * (s00 + s11)
+    a00, a11, a01 = 1.05 * s00 + iso, 1.05 * s11 + iso, 1.05 * s01
+    det = a00 * a11 - a01 * a01
+    ok = (q22 < -1e-6 * scale) & (det > 0.0) & (a00 > 0.0) & (a11 > 0.0)
+    zero = torch.zeros((), dtype=torch.float64, device=chunk.device)
+    f32 = [torch.where(ok, v, zero).float() for v in (
+        cx, cy, a11 / det, -a01 / det, a00 / det)]
+    empty = ~(op32 >= ALPHA_THRESHOLD)
+    bound = torch.where(empty, -1.0, 1.0).to(torch.float32)
+    r2 = torch.where(empty, torch.full_like(r2, -1.0), r2)
+    return (*f32, bound, r2)
+
+
+def _candidates(chunk, px, py):
+    """Which (pair, pixel) slots B6 evaluates: [A, P, K] from ``chunk``
+    [d_s, A, K] and pixel centres [A, P, 1], as the kernel tests them."""
+    ecx, ecy, qa, qb, qc, bound, r2 = [v[:, None, :] for v in
+                                       _pair_regions(chunk)]
+    ex, ey = px - ecx, py - ecy
+    dx = chunk[_AX][:, None, :] - px
+    dy = chunk[_AY][:, None, :] - py
+    qv = qa * ex * ex + 2.0 * qb * ex * ey + qc * ey * ey
+    return (qv <= bound) | (dx * dx + dy * dy <= r2)
+
+
+def _bwd_2dgs_counts(S, starts, masks, cfg: V2Cfg, pixels_per_lane: int = 1,
+                     cell_width: int = 8):
+    """What B6 does on these inputs, from the plain walk (the backward's: a
+    tile stops when every pixel has T <= 1e-4 at a chunk's start). A lane
+    holds ``pixels_per_lane`` neighbours of one tile row, and a warp the
+    32 lanes of a cell ``cell_width`` pixels wide (a multiple of the
+    pixels a lane, at most 32), the cells row-major: B6's layout is
+    ``bwd_pixels_per_thread`` pixels a lane in cells 8 wide; one pixel a
+    lane in cells as wide as the tile is the first design's. Returns a
+    dict of
+      "run": int64 [n_tiles], rows of the tile's run that the walk reaches;
+      "pairs": int64 [n_tiles], pairs that at least one pixel composited;
+      "slots": int64 [n_tiles], composited (pair, pixel) slots;
+      "evaluated_slots": the (pair, pixel) slots walked, all of which the
+        first design evaluated;
+      "candidate_slots": those inside the pair's candidate region
+        (_candidates), the ones B6 evaluates;
+      "missed_slots": slots that pass the alpha test outside it (0: the
+        region holds every pixel that passes);
+      "pair_warp_candidates": (pair, warp) with at least one candidate,
+        the ones that evaluate the pair;
+      "pair_warp_hits": (pair, warp) with at least one composited pixel,
+        each a warp reduction (or the ballot shortcut) in the kernel;
+      "single_lane_hits": those where exactly one lane composited the
+        pair (the ballot shortcut's);
+      "warps_per_tile": the warps that cover a tile's pixels."""
+    dev = S.device
+    nT, P, ts = cfg.n_tiles, cfg.pixels, cfg.tile_size
+    off, end, c0, c1, px, py, lane, group = rv._tile_walk(S, starts, masks,
+                                                          cfg)
+    ppl = pixels_per_lane
+    ct = cell_width // ppl  # lanes a cell row
+    rc = 32 // ct  # rows a cell
+    cells_x = -(-ts // cell_width)
+    n_warps = cells_x * -(-ts // rc)
+    p = torch.arange(P, device=dev)
+    row, col = torch.div(p, ts, rounding_mode="floor"), p % ts
+    lane_of = ((torch.div(row, rc, rounding_mode="floor") * cells_x
+                + torch.div(col, cell_width, rounding_mode="floor")) * 32
+               + (row % rc) * ct + torch.div(col % cell_width, ppl,
+                                             rounding_mode="floor"))
+    i64 = dict(dtype=torch.int64, device=dev)
+    counts = {k: torch.zeros(nT, **i64) for k in ("run", "pairs", "slots")}
+    totals = {k: torch.zeros((), **i64) for k in (
+        "evaluated_slots", "candidate_slots", "missed_slots",
+        "pair_warp_candidates", "pair_warp_hits", "single_lane_hits")}
+
+    def by_warp(mask):
+        """[A, P, K] -> lanes hit [A, n_warps, K]."""
+        A = mask.shape[0]
+        lanes = torch.zeros((A, n_warps * 32, K), dtype=torch.int32,
+                            device=dev).index_add_(1, lane_of,
+                                                   mask.to(torch.int32))
+        return (lanes > 0).view(A, n_warps, 32, K).sum(2)
+
+    for g0 in range(0, nT, group):
+        sl = slice(g0, min(nT, g0 + group))
+        n = sl.stop - sl.start
+        T = torch.ones((n, P, 1), dtype=torch.float32, device=dev)
+        nch = c1[sl] - c0[sl]
+        for j in range(int(nch.max()) if n else 0):
+            live = (nch > j) & (T.amax(dim=(1, 2)) > TRANSMITTANCE_EPS)
+            idx = live.nonzero().squeeze(1)
+            if idx.numel() == 0:
+                break
+            cols = ((c0[sl][idx] + j) * K)[:, None] + lane  # [A, K]
+            inr = (cols >= off[sl][idx, None]) & (cols < end[sl][idx, None])
+            chunk = S[:, cols]
+            pxa = px[sl][idx][:, :, None]
+            pya = py[sl][idx][:, :, None]
+            pr = _chunk_pair_2dgs(chunk, pxa, pya, inr[:, None, :])
+            _, m, _, t_new = _composite_seq(pr["alpha"], T[idx], cfg.cutoff,
+                                            cfg.log_composite)
+            comp = pr["valid"] if m is None else pr["valid"] & m  # [A, P, K]
+            walked = inr[:, None, :].expand_as(comp)
+            cand = _candidates(chunk, pxa, pya) & walked
+            t = idx + g0
+            counts["run"][t] += inr.sum(-1)
+            counts["pairs"][t] += comp.any(1).sum(-1)
+            counts["slots"][t] += comp.sum((1, 2))
+            totals["evaluated_slots"] += walked.sum()
+            totals["candidate_slots"] += cand.sum()
+            totals["missed_slots"] += (pr["valid"] & ~cand).sum()
+            totals["pair_warp_candidates"] += (by_warp(cand) > 0).sum()
+            lanes_hit = by_warp(comp)
+            totals["pair_warp_hits"] += (lanes_hit > 0).sum()
+            totals["single_lane_hits"] += (lanes_hit == 1).sum()
+            T[idx] = t_new
+    return dict(**counts, **{k: int(v) for k, v in totals.items()},
+                warps_per_tile=n_warps)
+
+
 def raster_bwd_2dgs(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, zch: int):
     """2DGS tile backward: the sorted table, the forward's tile outputs and
     their cotangents [n_tiles, P, CB + 3] -> per-intersection gradient rows

@@ -80,14 +80,48 @@ KNOBS = [dict(attr_dtype="bf16"), dict(geom_dtype="u16"),
          dict(attr_dtype="bf16", geom_dtype="u16", log_composite=True)]
 
 
-def test_pack_kernel_matches_plain(cuda):
-    g = torch.Generator(device="cpu").manual_seed(0)
-    inter = torch.randn(5000, 7, generator=g).to(cuda)
-    rows = list(inter.unbind(1))  # strided views
-    perm = torch.randperm(5000, generator=g).to(cuda)
-    for p in (None, perm):
-        assert torch.equal(tr.pack_rows(rows, 8, p),
-                           tr._pack_rows_plain(rows, 8, p))
+def _pack_case_rows(n, L, layout, g, dev):
+    """n float32 rows [L]: "records", the fields of [L, 2], [L, 3] and
+    [L, n - 5] blocks, as the binning's attribute rows are; "rows", the
+    unit-stride rows of one [n, L] block, as the sorted table's are;
+    "mixed", 5 such rows and then n - 5 fields of one record."""
+    if layout == "rows":
+        return list(torch.randn(n, L, generator=g).to(dev).unbind(0))
+    if layout == "mixed":
+        return (list(torch.randn(5, L, generator=g).to(dev).unbind(0))
+                + list(torch.randn(L, n - 5, generator=g).to(dev).unbind(1)))
+    rows = []
+    for w in (2, 3, max(n - 5, 1)):
+        rows += list(torch.randn(L, w, generator=g).to(dev).unbind(1))
+    return rows[:n]
+
+
+# (rows, source columns, layout): 1 to the widest table's 144 rows at a
+# length that no block's columns divide, then the 1M scene's lengths (1M
+# Gaussians, 3.3M-4.6M intersections), where unit-stride rows (>= 8 MB a
+# row) are gathered two at a time
+@pytest.mark.parametrize("n,L,layout", [
+    (1, 70_001, "records"), (10, 70_001, "records"), (20, 70_001, "records"),
+    (144, 70_001, "records"), (10, 70_001, "rows"), (2, 2_100_003, "rows"),
+    (3, 2_300_007, "rows"), (10, 3_500_017, "rows"),
+    (12, 2_100_003, "mixed"), (10, 3_500_017, "records"),
+    (2, 4_600_001, "records")])
+def test_pack_kernel_matches_plain(cuda, n, L, layout):
+    """Bit for bit: record fields (gathered a record at a time), unit-stride
+    rows (at these lengths two at a time) and both, zero-filled rows beyond
+    them, no permutation, a full one and a gather of fewer columns."""
+    g = torch.Generator(device="cpu").manual_seed(n)
+    rows = _pack_case_rows(n, L, layout, g, cuda)
+    if layout == "records":
+        assert [r.stride(0) for r in rows[:5]] == [2, 2, 3, 3, 3][:n]
+    perm = torch.randperm(L, generator=g).to(cuda)
+    before = tr.LAUNCHES["pack_rows"]
+    for p in (None, perm, perm[:L - 13]):
+        for R in (n, n + 3):
+            out = tr.pack_rows(rows, R, p)
+            assert torch.equal(out, tr._pack_rows_plain(rows, R, p)), (p is
+                                                                       None, R)
+    assert tr.LAUNCHES["pack_rows"] == before + 6
 
 
 def test_expand_kernel_matches_plain(cuda):
@@ -361,8 +395,14 @@ def test_wide_renders_on_card_match_cpu(cuda, D):
 
 
 def _surfel_case(cuda, seed, cutoff, N=3000, W=200, H=136,
-                 log_composite=False):
-    """Projected surfels of a seeded scene, binned for the 2DGS kernels."""
+                 log_composite=False, ts=16, CB=7, tiny=0):
+    """Projected surfels of a seeded scene, binned for the 2DGS kernels at
+    tile ``ts``. CB composited channels: CB - 4 user channels (the
+    scene's 3 colours, or seeded uniform ones), the depth, 3 normals.
+    ``tiny`` adds surfels that composite one pixel each: the ray transform
+    [[s, 0, u0], [0, s, v0], [0, 0, 1]] at a pixel centre (u0, v0), s = 0.1,
+    so alpha = op * exp(-d^2) at a pixel d away, and op = 0.008 passes the
+    1/255 test at the centre alone."""
     from gscodec_studio_tpu_torch.ops import raster_v2_2dgs as t2
     from gscodec_studio_tpu_torch.rendering import project_and_shade_2dgs
 
@@ -380,14 +420,31 @@ def _surfel_case(cuda, seed, cutoff, N=3000, W=200, H=136,
     radii, m2, dep, trans, nrm, col, op = project_and_shade_2dgs(
         *t, torch.as_tensor(vm[None], device=cuda),
         torch.as_tensor(K, device=cuda), W, H)
-    colors_full = torch.cat([col, nrm], -1).contiguous()
-    CB = colors_full.shape[-1]
-    cfg = t2.cfg_2dgs(1, -(-W // 16), -(-H // 16), 16, CB, 1 << 17, N,
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    user = col[..., :3] if CB == 7 else torch.rand(
+        (1, N, CB - 4), generator=g).to(cuda)
+    colors_full = torch.cat([user, col[..., 3:], nrm], -1)
+    if tiny:
+        u = (torch.randint(0, W, (tiny,), generator=g) + 0.5).to(cuda)
+        v = (torch.randint(0, H, (tiny,), generator=g) + 0.5).to(cuda)
+        one, zero = torch.ones_like(u), torch.zeros_like(u)
+        m2 = torch.cat([m2, torch.stack([u, v], -1)[None]], 1)
+        trans = torch.cat([trans, torch.stack(
+            [0.1 * one, zero, u, zero, 0.1 * one, v, zero, zero, one],
+            -1).reshape(1, tiny, 3, 3)], 1)
+        colors_full = torch.cat([colors_full, torch.rand(
+            (1, tiny, CB), generator=g).to(cuda)], 1)
+        op = torch.cat([op, torch.full((1, tiny), 0.008, device=cuda)], 1)
+        dep = torch.cat([dep, (4.0 + 2.0 * torch.rand(
+            (1, tiny), generator=g)).to(cuda)], 1)
+        radii = torch.cat([radii, torch.ones(
+            (1, tiny, 2), dtype=radii.dtype, device=cuda)], 1)
+        N += tiny
+    cfg = t2.cfg_2dgs(1, -(-W // ts), -(-H // ts), ts, CB, 1 << 17, N,
                       cutoff=cutoff, log_composite=log_composite)
     b = t2._build_sorted_2dgs(cfg, m2.contiguous(), trans.contiguous(),
-                              colors_full, op.contiguous(), dep.contiguous(),
-                              radii.contiguous())
-    g = torch.Generator(device="cpu").manual_seed(seed)
+                              colors_full.contiguous(), op.contiguous(),
+                              dep.contiguous(), radii.contiguous())
     masks = (torch.rand(cfg.n_tiles, generator=g) > 0.2).to(
         device=cuda, dtype=torch.int32)
     return t2, cfg, b, masks, g
@@ -476,15 +533,21 @@ def test_no_cull_expand_kernel_matches_plain(cuda):
     assert int((b.tile[:n] == cfg.n_tiles).sum()) == 0
 
 
+@pytest.mark.parametrize("CB", [4, 7, 40, 128])
+@pytest.mark.parametrize("ts", [8, 16, 32])
 @pytest.mark.parametrize("log_composite", [False, True])
-def test_2dgs_kernels_match_plain(cuda, log_composite):
+def test_2dgs_kernels_match_plain(cuda, log_composite, ts, CB):
     """B5 within 1e-4 of each output channel's scale (max(1, |largest|)),
     the median bit for bit; B6 within 1e-4 of each gradient row's largest
-    |value| and the same bits twice; in the product and the log branch."""
+    |value| and the same bits twice; in the product and the log branch, at
+    tiles 8 to 32 and 4 to 128 channels (each of B6's builds and
+    pixels-a-thread layouts, the halved partials of the widest tables, and
+    B5's 1024-thread build)."""
     key = "raster_fwd_2dgs_log" if log_composite else "raster_fwd_2dgs"
     for cutoff in ("exact", "soft"):
         t2, cfg, b, masks, g = _surfel_case(cuda, 13, cutoff,
-                                            log_composite=log_composite)
+                                            log_composite=log_composite,
+                                            ts=ts, CB=CB)
         zch = cfg.channels - 4
         before = dict(tr.LAUNCHES)
         out = t2.raster_fwd_2dgs(b.S, b.starts, masks, cfg, zch)
@@ -502,6 +565,29 @@ def test_2dgs_kernels_match_plain(cuda, log_composite):
         assert _rows_close(gbuf, t2._bwd_2dgs_plain(*args), 1e-4), cutoff
         assert torch.equal(gbuf, t2.raster_bwd_2dgs(*args))
         assert float(gbuf[:11].abs().max()) > 0
+
+
+@pytest.mark.parametrize("log_composite", [False, True])
+def test_2dgs_backward_single_lane_pairs_match_plain(cuda, log_composite):
+    """B6 on a scene where many pairs are composited by one pixel of a warp
+    (the ballot shortcut: that lane's values are the warp's sums), counted
+    by the plain walk, within 1e-4 of each gradient row's largest |value|
+    of its plain version and the same bits twice."""
+    for cutoff in ("exact", "soft"):
+        t2, cfg, b, masks, g = _surfel_case(cuda, 15, cutoff,
+                                            log_composite=log_composite,
+                                            tiny=400)
+        counts = t2._bwd_2dgs_counts(
+            b.S, b.starts, masks, cfg,
+            pixels_per_lane=t2.bwd_pixels_per_thread(cfg.channels))
+        assert counts["single_lane_hits"] >= 100, counts["single_lane_hits"]
+        zch = cfg.channels - 4
+        out = t2.raster_fwd_2dgs(b.S, b.starts, masks, cfg, zch)
+        v_tiles = torch.randn(out.shape, generator=g).to(cuda)
+        args = (b.S, b.starts, masks, out, v_tiles, cfg, zch)
+        gbuf = t2.raster_bwd_2dgs(*args)
+        assert _rows_close(gbuf, t2._bwd_2dgs_plain(*args), 1e-4), cutoff
+        assert torch.equal(gbuf, t2.raster_bwd_2dgs(*args))
 
 
 def test_rasterization_2dgs_on_card_matches_cpu(cuda):
