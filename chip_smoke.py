@@ -6,7 +6,8 @@
 Phases, one JSON line each with its own ``seconds``:
   device    nvidia-smi's name and power limit, torch and CUDA versions;
   build     the nvcc build of csrc/*.cu (route: plain-C .so + ctypes), with
-            the registers and spills of each instantiation of B6 and B9a;
+            the registers and spills of every kernel entry (ptxas), and
+            B6's and B9a's instantiations by their template arguments;
   kernels   each kernel against its plain PyTorch version on the card: a
             20k-Gaussian scene at 320x240, tile 16 and 32, both cutoffs,
             the backward with absgrad off and on, and each backward kernel
@@ -21,8 +22,8 @@ Phases, one JSON line each with its own ``seconds``:
             walked, the pairs and (pair, pixel) slots composited, as max,
             p99 and mean; the slots inside B6's candidate regions, checked
             to hold every slot that passes the alpha test; the (pair, warp)
-            with a candidate, the hits and the single-lane ones, in the
-            first design's warp layout and in B6's);
+            with a candidate, the hits and the single-lane ones, in B6's
+            warp layout);
   serve     the committed checkpoint results/garden_ab_f32/splats_final.npz
             (120k Gaussians, SH 3) rendered from 8 orbit cameras at
             1297x840 through utils.ply_render.render_splats, and its first
@@ -44,7 +45,7 @@ Phases, one JSON line each with its own ``seconds``:
             instantiation and B6's time on the longest tile alone), and
             B9a on the surfels' two gathers beside index_select and
             torch.stack(rows)[:, order]; the same with log_composite
-            (B5/B6's log branch);
+            (B5/B6's log branch, without b6_work);
   bench_1m  bench.py's default configuration through the port: the same
             scene, tile 32, soft cutoff, grad_dtype "bf16", attr_dtype
             "bf16", log_composite, capacity 1.2x the probed elliptical rows,
@@ -470,27 +471,20 @@ def pack_instances(entries):
 
 
 def b6_work(r2, st, ptxas=None, time_tail=None):
-    """What B6 does on a Stages2DGS's inputs, from the plain walk
-    (r2._bwd_2dgs_counts): the per-tile distribution (max, p99, mean) of
-    the rows walked, the pairs that at least one pixel composited and the
-    composited (pair, pixel) slots; the slots walked and those inside their
-    pair's candidate region (the ones B6 evaluates); in the first design's
-    layout (a warp 32 pixels of two tile rows) and in the kernel's (its
-    pixels a thread, a warp an 8-pixel-wide cell), the (pair, warp) with a
-    candidate, the (pair, warp) hits and the single-lane ones (the ballot
-    shortcut's); with ``ptxas``, the build's
-    registers and spills of the instantiations these inputs take.
-    ``time_tail`` (a timing function) adds B6's time on the tile with the
-    longest walk alone, the floor that one block per tile puts under the
-    whole launch. Raises if a slot that passes the alpha test lies outside
-    its pair's candidate region."""
+    """What B6 does on a Stages2DGS's inputs, from the plain walk in B6's
+    layout (r2._bwd_2dgs_counts): the per-tile distribution (max, p99,
+    mean) of the rows walked, the pairs that at least one pixel composited
+    and the composited (pair, pixel) slots; the slots walked and those
+    inside their pair's candidate region (the ones B6 evaluates); the
+    (pair, warp) with a candidate, the (pair, warp) hits and the
+    single-lane ones (the ballot shortcut's); with ``ptxas``, the build's
+    registers and spills of the instantiation these inputs take
+    (r2.bwd_build). ``time_tail`` (a timing function) adds B6's time on the
+    tile with the longest walk alone, the floor that one block per tile
+    puts under the whole launch. Raises if a slot that passes the alpha
+    test lies outside its pair's candidate region."""
     cfg = st.cfg
-    ppt = r2.bwd_pixels_per_thread(cfg.channels)
-    layouts = {"first_design": (1, cfg.tile_size), "kernel": (ppt, 8)}
-    counts = {name: r2._bwd_2dgs_counts(st.b.S, st.b.starts, st.masks, cfg,
-                                        pixels_per_lane=ppl, cell_width=cw)
-              for name, (ppl, cw) in layouts.items()}
-    c1 = counts["kernel"]
+    c1 = r2._bwd_2dgs_counts(st.b.S, st.b.starts, st.masks, cfg)
     if c1["missed_slots"]:
         raise AssertionError(f"{c1['missed_slots']} passing (pair, pixel) "
                              f"slots outside B6's candidate regions")
@@ -500,30 +494,19 @@ def b6_work(r2, st, ptxas=None, time_tail=None):
         return dict(max=int(x.max()), p99=float(torch.quantile(x, 0.99)),
                     mean=float(x.mean()))
 
+    build = r2.bwd_build(cfg.channels, cfg.tile_size)
     res = dict(
-        pixels_per_thread=ppt,
+        build=build,
         per_tile={k: dist(c1[k]) for k in ("run", "pairs", "slots")},
         composited_slots=int(c1["slots"].sum()),
-        evaluated_slots=c1["evaluated_slots"],
-        candidate_slots=c1["candidate_slots"],
-        layouts={name: dict(
-            warps_per_tile=c["warps_per_tile"],
-            pair_warp_candidates=c["pair_warp_candidates"],
-            pair_warp_hits=c["pair_warp_hits"],
-            single_lane_hits=c["single_lane_hits"])
-            for name, c in counts.items()})
+        **{k: c1[k] for k in (
+            "evaluated_slots", "candidate_slots", "warps_per_tile",
+            "pair_warp_candidates", "pair_warp_hits", "single_lane_hits")})
     if ptxas is not None:
-        # the instantiation these inputs launch (csrc/raster_bwd_2dgs.cu
-        # launch): the 128-thread build for channel bounds <= 8 and tiles
-        # of <= 128 threads, else the one bounded by tile 32
-        cbm = next(b for b in (4, 8, 16, 32, 64, 128) if cfg.channels <= b)
-        ts, rc = cfg.tile_size, 32 // (8 // ppt)
-        threads = -(-ts // 8) * -(-ts // rc) * 32
-        maxt = 128 if cbm <= 8 and threads <= 128 else 1024 // ppt
-        res["ptxas"] = [e for e in ptxas if e["cbm"] == cbm
+        res["ptxas"] = [e for e in ptxas
+                        if all(e[k] == v for k, v in build.items())
                         and e["soft"] == (cfg.cutoff == "soft")
-                        and e["log"] == cfg.log_composite
-                        and e["max_threads"] == maxt]
+                        and e["log"] == cfg.log_composite]
     if time_tail is not None:
         longest = int(torch.argmax(c1["run"]))
         masks1 = torch.zeros_like(st.masks)
@@ -1052,11 +1035,10 @@ def main():
     native.lib()
     log = Path(str(so) + ".log")
     log_text = log.read_text() if log.exists() else ""
-    ptxas = [ln.strip() for ln in log_text.splitlines() if "registers" in ln]
     entries = ptxas_entries(log_text)
     b6_ptxas = b6_instances(entries)
     emit({"phase": "build", "library": so.name,
-          "nvcc_seconds": native.build_seconds, "ptxas": ptxas,
+          "nvcc_seconds": native.build_seconds, "ptxas": entries,
           "raster_bwd_2dgs_ptxas": b6_ptxas,
           "pack_rows_ptxas": pack_instances(entries),
           "seconds": time.perf_counter() - t0})
@@ -1801,8 +1783,7 @@ def main():
     log_leg = dict(fwd_bwd_ms=fb2l_ms, fwd_bwd_ms_samples=fb2l_samples,
                    mpix_per_s=WIDTH * HEIGHT / (fb2l_ms * 1e-3) / 1e6,
                    launches_per_fwd_bwd=launches2_log, kernels=k2_log,
-                   n_isects=int(st.b.n_isects), check=check2_log,
-                   b6_work=b6_work(r2, st, b6_ptxas, cuda_ms))
+                   n_isects=int(st.b.n_isects), check=check2_log)
     emit({"phase": "train_1m_2dgs", "gaussians": N_1M, "width": WIDTH,
           "height": HEIGHT, "tile_size": 16, "cutoff": cfg2.cutoff,
           "channels": cfg2.channels, "n_isects": int(st.b.n_isects),

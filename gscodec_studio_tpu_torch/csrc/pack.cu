@@ -32,7 +32,6 @@
 //     coalesced) are 4 when every group is a pair, which keeps 8 gathers
 //     in flight, else 1, as in the first design (the table's fields are
 //     already 9-19 gathers a column).
-// profiling/pack_sweep.py times this beside the orders it was chosen from.
 // The row pointers, strides and groups ride in the kernel's parameter
 // space, so no table is copied to the device.
 

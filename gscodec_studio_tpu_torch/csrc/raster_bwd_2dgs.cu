@@ -94,6 +94,9 @@ constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's most
 // quadratic form (3), its bound (1: inside when q <= bound), the
 // screen-filter disk's squared radius (1)
 constexpr int kRegion = 7;
+// below this |det M| against its centred columns' norms, no bound
+// (pair_region)
+constexpr double kFlat = 1e-3;
 
 // pixels a thread: several where the cotangent leaves registers free
 constexpr int ppt_for(int cbm) { return cbm <= 32 ? 2 : 1; }
@@ -132,8 +135,15 @@ struct Bwd2Args {
 // disk of radius rho: an ellipse when the disk stays off the line
 // M_2 . (u, v, 1) = 0, with the dual conic Q = M diag(rho^2, rho^2, -1) M^T,
 // centre (Q02, Q12) / Q22 and covariance Sigma = Q[:2, :2] / -Q22 + c c^T;
-// else (or when it is near that) no bound, every pixel a candidate. The
-// margins, each some 1000 times the float rounding of the pair math:
+// else (or when it is near that) no bound, every pixel a candidate. No bound
+// either when the camera lies nearly in the surfel's plane, where the
+// pixel's float cross product h_u x h_v may be rounding noise: |det M| under
+// kFlat times the product of the column norms of M taken about the
+// ellipse's centre (rows 0 and 1 less cx and cy times row 2; the columns
+// are then the surfel's two axes and its centre seen from a camera centred
+// on it, so the ratio is about the cosine between the plane's normal and
+// the view ray; some 0.03% of a random scene's pairs). The margins, each
+// some 1000 times the float rounding of the pair math:
 // L * 1.01 + 0.01; Sigma * 1.05 + 0.21 I (the ellipse grown by 0.1 px:
 // (1 + e) Sigma + (1 + 1/e) m^2 I holds the ellipse widened by m) +
 // 1e-3 trace(Sigma) I (no axis under 1/1000 of the long one, so the float
@@ -157,8 +167,21 @@ __device__ void pair_region(const float* chunk, int k, float* reg) {
     };
     const double q22 = Q(2, 2);
     const double scale = rho2 * (m[6] * m[6] + m[7] * m[7]) + m[8] * m[8];
-    if (q22 < -1e-6 * scale) {
-      const double cx = Q(0, 2) / q22, cy = Q(1, 2) / q22;
+    const double cx = Q(0, 2) / q22, cy = Q(1, 2) / q22;
+    // M's rows about the ellipse's centre
+    double u[3], v[3], w[3];
+    for (int i = 0; i < 3; ++i) {
+      w[i] = m[6 + i];
+      u[i] = m[i] - cx * w[i];
+      v[i] = m[3 + i] - cy * w[i];
+    }
+    const double det_m = u[0] * (v[1] * w[2] - v[2] * w[1]) -
+                         u[1] * (v[0] * w[2] - v[2] * w[0]) +
+                         u[2] * (v[0] * w[1] - v[1] * w[0]);
+    const double cols = sqrt((u[0] * u[0] + v[0] * v[0] + w[0] * w[0]) *
+                             (u[1] * u[1] + v[1] * v[1] + w[1] * w[1]) *
+                             (u[2] * u[2] + v[2] * v[2] + w[2] * w[2]));
+    if (q22 < -1e-6 * scale && fabs(det_m) >= kFlat * cols) {
       const double s00 = Q(0, 0) / -q22 + cx * cx;
       const double s11 = Q(1, 1) / -q22 + cy * cy;
       const double s01 = Q(0, 1) / -q22 + cx * cy;

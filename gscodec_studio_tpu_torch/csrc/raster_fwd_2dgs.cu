@@ -169,7 +169,11 @@ __global__ void raster_fwd_2dgs_kernel(const Fwd2Args a) {
 
 // Tiles above 512 pixels (tile 32: 1024 threads) launch this copy, whose
 // bound caps the registers at 64 so that the block fits an SM at every
-// channel bound (the wide ones spill); smaller tiles keep the unbounded one.
+// channel bound (the wide ones spill; unbounded, CB 40 and 128 failed to
+// launch at tile 32). Smaller tiles keep the unbounded kernel: this copy
+// alone, at every tile, ran the 1M-surfel scene's forward (tile 16, CB 7)
+// 5% slower on an H100 at 700 W, 2.39 against 2.27 ms, and its log branch
+// 3% slower: the bound moves the CB 8 builds from 48-56 registers to 58-62.
 template <int CBM, bool SOFT, bool LOG>
 __global__ void __launch_bounds__(1024)
     raster_fwd_2dgs_kernel_1024(const Fwd2Args a) {

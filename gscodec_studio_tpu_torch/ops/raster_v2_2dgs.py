@@ -47,6 +47,10 @@ from gscodec_studio_tpu_torch.ops.raster_v2 import (
     TRANSMITTANCE_EPS, V2Cfg)
 
 FILTER_INV_SQUARE = 2.0
+# B6 gives a pair no candidate region when |det M| is below this times the
+# product of M's column norms taken about the ellipse's centre: the camera
+# lies nearly in the surfel's plane (csrc/raster_bwd_2dgs.cu kFlat)
+FLAT_RATIO = 1e-3
 
 # attribute-row offsets
 _AX = 0
@@ -413,6 +417,21 @@ def bwd_pixels_per_thread(channels: int) -> int:
     return 2 if channels <= 32 else 1
 
 
+def bwd_build(channels: int, tile_size: int) -> dict:
+    """The build of B6 that a launch at these shapes takes
+    (csrc/raster_bwd_2dgs.cu ``launch``): the channels' template bound
+    "cbm", pixels a thread "ppt" and the launch bounds "max_threads" and
+    "min_blocks" (the 128-thread build for 6 blocks an SM at bounds up to
+    8 and tiles of up to 128 threads, else the one bounded by tile 32)."""
+    cbm = next(b for b in (4, 8, 16, 32, 64, 128) if channels <= b)
+    ppt = bwd_pixels_per_thread(channels)
+    rows_a_cell = 32 // (8 // ppt)
+    threads = -(-tile_size // 8) * -(-tile_size // rows_a_cell) * 32
+    small = cbm <= 8 and threads <= 128
+    return dict(cbm=cbm, ppt=ppt, max_threads=128 if small else 1024 // ppt,
+                min_blocks=6 if small else 1)
+
+
 def _pair_regions(chunk):
     """The candidate region of each pair (csrc/raster_bwd_2dgs.cu
     ``pair_region``, which B6 forms once a chunk and tests each pixel
@@ -420,8 +439,10 @@ def _pair_regions(chunk):
     float32 (ecx, ecy, qa, qb, qc, bound, r2) [...]. A pixel (px, py) is
     a candidate when qa ex^2 + 2 qb ex ey + qc ey^2 <= bound (ex = px -
     ecx, ey = py - ecy) or (x - px)^2 + (y - py)^2 <= r2; outside both it
-    cannot reach alpha >= 1/255. Formed in float64 from the float32 rows,
-    as the kernel does."""
+    cannot reach alpha >= 1/255. A pair seen nearly edge on (FLAT_RATIO)
+    or reaching the camera's side gets no bound: qa = qb = qc = 0, every
+    pixel a candidate. Formed in float64 from the float32 rows, as the
+    kernel does."""
     d = chunk.double()
     op32 = chunk[_AOP]
     Lm = 1.01 * torch.clamp(torch.log(255.0 * d[_AOP]), min=0.0) + 0.01
@@ -443,7 +464,15 @@ def _pair_regions(chunk):
     iso = 0.21 + 1e-3 * (s00 + s11)
     a00, a11, a01 = 1.05 * s00 + iso, 1.05 * s11 + iso, 1.05 * s01
     det = a00 * a11 - a01 * a01
-    ok = (q22 < -1e-6 * scale) & (det > 0.0) & (a00 > 0.0) & (a11 > 0.0)
+    # the camera nearly in the surfel's plane: M's rows about the centre
+    w = torch.stack(m[6:9])
+    u = torch.stack(m[0:3]) - cx * w
+    v = torch.stack(m[3:6]) - cy * w
+    det_m = (u * torch.linalg.cross(v, w, dim=0)).sum(0)
+    sq = u * u + v * v + w * w  # M's columns about the centre
+    flat = det_m.abs() < FLAT_RATIO * torch.sqrt(sq[0] * sq[1] * sq[2])
+    ok = ((q22 < -1e-6 * scale) & ~flat & (det > 0.0) & (a00 > 0.0)
+          & (a11 > 0.0))
     zero = torch.zeros((), dtype=torch.float64, device=chunk.device)
     f32 = [torch.where(ok, v, zero).float() for v in (
         cx, cy, a11 / det, -a01 / det, a00 / det)]
@@ -465,21 +494,16 @@ def _candidates(chunk, px, py):
     return (qv <= bound) | (dx * dx + dy * dy <= r2)
 
 
-def _bwd_2dgs_counts(S, starts, masks, cfg: V2Cfg, pixels_per_lane: int = 1,
-                     cell_width: int = 8):
+def _bwd_2dgs_counts(S, starts, masks, cfg: V2Cfg):
     """What B6 does on these inputs, from the plain walk (the backward's: a
-    tile stops when every pixel has T <= 1e-4 at a chunk's start). A lane
-    holds ``pixels_per_lane`` neighbours of one tile row, and a warp the
-    32 lanes of a cell ``cell_width`` pixels wide (a multiple of the
-    pixels a lane, at most 32), the cells row-major: B6's layout is
-    ``bwd_pixels_per_thread`` pixels a lane in cells 8 wide; one pixel a
-    lane in cells as wide as the tile is the first design's. Returns a
-    dict of
+    tile stops when every pixel has T <= 1e-4 at a chunk's start), in B6's
+    layout: ``bwd_pixels_per_thread`` neighbours of one tile row a lane,
+    and a warp the 32 lanes of a cell 8 pixels wide, the cells row-major.
+    Returns a dict of
       "run": int64 [n_tiles], rows of the tile's run that the walk reaches;
       "pairs": int64 [n_tiles], pairs that at least one pixel composited;
       "slots": int64 [n_tiles], composited (pair, pixel) slots;
-      "evaluated_slots": the (pair, pixel) slots walked, all of which the
-        first design evaluated;
+      "evaluated_slots": the (pair, pixel) slots walked;
       "candidate_slots": those inside the pair's candidate region
         (_candidates), the ones B6 evaluates;
       "missed_slots": slots that pass the alpha test outside it (0: the
@@ -495,7 +519,8 @@ def _bwd_2dgs_counts(S, starts, masks, cfg: V2Cfg, pixels_per_lane: int = 1,
     nT, P, ts = cfg.n_tiles, cfg.pixels, cfg.tile_size
     off, end, c0, c1, px, py, lane, group = rv._tile_walk(S, starts, masks,
                                                           cfg)
-    ppl = pixels_per_lane
+    ppl = bwd_pixels_per_thread(cfg.channels)
+    cell_width = 8
     ct = cell_width // ppl  # lanes a cell row
     rc = 32 // ct  # rows a cell
     cells_x = -(-ts // cell_width)

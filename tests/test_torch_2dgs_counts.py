@@ -48,24 +48,16 @@ def _hand_scene(cutoff):
 def test_bwd_2dgs_counts_match_hand_count(cutoff):
     cfg, b, masks = _hand_scene(cutoff)
     assert int(b.n_isects) == 4
-    # one pixel a lane: warp 0 holds rows 0-3 of a tile, warp 1 rows 4-7;
-    # A reaches both warps of tile 0 with several lanes each, B (warp 1),
-    # C (warp 0) and D (warp 1 of tile 1) one lane each
-    c1 = r2._bwd_2dgs_counts(b.S, b.starts, masks, cfg, pixels_per_lane=1)
+    # B6's layout at 7 channels: two pixels a lane in 8 x 8 cells, so one
+    # warp covers a tile; A reaches many lanes of tile 0's warp, B and C
+    # one lane each, D one lane of tile 1's
+    c1 = r2._bwd_2dgs_counts(b.S, b.starts, masks, cfg)
     assert c1["run"].tolist() == [3, 1]
     assert c1["pairs"].tolist() == [3, 1]
     assert c1["slots"].tolist() == [21 + 1 + 1, 1]
-    assert c1["warps_per_tile"] == 2
-    assert (c1["pair_warp_hits"], c1["single_lane_hits"]) == (5, 3)
-    # four pixels a lane: one warp covers a tile, A many lanes of it
-    c4 = r2._bwd_2dgs_counts(b.S, b.starts, masks, cfg, pixels_per_lane=4)
-    # a warp 32 pixels of 2 rows of 16 (the first design's at tile 16):
-    # here four rows of a tile 8 wide, so the same as the cells above
-    cr = r2._bwd_2dgs_counts(b.S, b.starts, masks, cfg, cell_width=TS)
-    assert (cr["pair_warp_hits"], cr["single_lane_hits"]) == (5, 3)
-    assert c4["warps_per_tile"] == 1
-    assert (c4["pair_warp_hits"], c4["single_lane_hits"]) == (4, 3)
-    assert torch.equal(c4["slots"], c1["slots"])
+    assert c1["warps_per_tile"] == 1
+    assert (c1["pair_warp_hits"], c1["single_lane_hits"]) == (4, 3)
+    assert c1["pair_warp_candidates"] == 4
     # every composited pixel lies in its pair's candidate region, and the
     # regions leave most of the 2 x 64 x 4 walked slots out
     assert c1["missed_slots"] == 0
@@ -80,6 +72,18 @@ def test_bwd_2dgs_counts_match_hand_count(cutoff):
 def test_bwd_pixels_per_thread():
     assert [r2.bwd_pixels_per_thread(cb) for cb in (4, 7, 32, 33, 128)] \
         == [2, 2, 2, 1, 1]
+
+
+@pytest.mark.parametrize("channels,tile_size,want", [
+    (7, 16, (8, 2, 128, 6)),  # train_2dgs: 128 threads, 6 blocks an SM
+    (4, 8, (4, 2, 128, 6)),
+    (7, 32, (8, 2, 512, 1)),  # 512 threads: the tile-32 build
+    (16, 16, (16, 2, 512, 1)),
+    (40, 16, (64, 1, 1024, 1)),
+])
+def test_bwd_build(channels, tile_size, want):
+    b = r2.bwd_build(channels, tile_size)
+    assert (b["cbm"], b["ppt"], b["max_threads"], b["min_blocks"]) == want
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -109,8 +113,53 @@ def test_candidate_regions_hold_every_passing_pixel(seed):
                               colors_full, op.contiguous(), dep.contiguous(),
                               radii.contiguous())
     masks = torch.ones(cfg.n_tiles, dtype=torch.int32)
-    c = r2._bwd_2dgs_counts(b.S, b.starts, masks, cfg, pixels_per_lane=4)
+    c = r2._bwd_2dgs_counts(b.S, b.starts, masks, cfg)
     assert int(c["slots"].sum()) > 1000
     assert c["missed_slots"] == 0
     assert c["candidate_slots"] < c["evaluated_slots"] // 2
     assert c["pair_warp_hits"] <= c["pair_warp_candidates"]
+
+
+def test_candidate_regions_camera_in_plane():
+    """Surfels whose plane passes through the camera (M singular) or within
+    1e-6 rad of it, seen along a pixel row (where the float cross product
+    of the pixel's planes is rounding noise), get no candidate region, and
+    a surfel seen face on keeps its bound; no composited pixel is missed."""
+    f, z = 20.0, 2.1
+    Kc = np.array([[f, 0.0, 7.5], [0.0, f, 3.5], [0.0, 0.0, 1.0]])
+    c30, s30, e = np.cos(np.pi / 6), np.sin(np.pi / 6), 1e-6
+    # (tu, tv, centre): the plane y = 0, the same turned 30 degrees about
+    # the view ray, the first tilted by e, and one face on
+    frames = [((1, 0, 0), (0, 0, 1), (0, 0, z)),
+              ((c30, s30, 0), (0, 0, 1), (0, 0, z)),
+              ((1, 0, 0), (0, np.sin(e), np.cos(e)), (0, 0, z)),
+              ((1, 0, 0), (0, 1, 0), (0.4, 0.1, z))]
+    su, sv = 0.3, 0.2
+    M, xy = [], []
+    for tu, tv, c in frames:
+        WH = np.stack([su * np.array(tu), sv * np.array(tv), c], 1)
+        M.append((Kc @ WH).astype(np.float32).ravel())
+        p = Kc @ np.array(c)
+        xy.append(p[:2] / p[2])
+    N = len(frames)
+    trans = torch.tensor(np.array(M))[None]
+    means2d = torch.tensor(np.array(xy), dtype=torch.float32)[None]
+    opac = torch.full((1, N), 0.9)
+    depths = torch.tensor([[z, z + 0.1, z + 0.2, z + 0.3]])
+    radii = torch.full((1, N, 2), 8, dtype=torch.int32)
+    colors = torch.rand((1, N, 7), generator=torch.Generator().manual_seed(1))
+    cfg = r2.cfg_2dgs(1, 2, 1, TS, 7, rv.CAP_BLOCK, N, cutoff="exact")
+    b = r2._build_sorted_2dgs(cfg, means2d, trans, colors, opac, depths,
+                              radii)
+    rows = torch.zeros((b.S.shape[0], N))
+    rows[r2._AX:r2._AY + 1] = means2d[0].T
+    rows[r2._AM:r2._AM + 9] = trans[0].T
+    rows[r2._AOP] = opac[0]
+    _, _, qa, qb, qc, bound, _ = r2._pair_regions(rows)
+    unbounded = (qa == 0) & (qb == 0) & (qc == 0)
+    assert unbounded.tolist() == [True, True, True, False]
+    assert bound.tolist() == [1.0] * N
+    masks = torch.ones(cfg.n_tiles, dtype=torch.int32)
+    c = r2._bwd_2dgs_counts(b.S, b.starts, masks, cfg)
+    assert int(c["slots"].sum()) > 0
+    assert c["missed_slots"] == 0

@@ -577,9 +577,7 @@ def test_2dgs_backward_single_lane_pairs_match_plain(cuda, log_composite):
         t2, cfg, b, masks, g = _surfel_case(cuda, 15, cutoff,
                                             log_composite=log_composite,
                                             tiny=400)
-        counts = t2._bwd_2dgs_counts(
-            b.S, b.starts, masks, cfg,
-            pixels_per_lane=t2.bwd_pixels_per_thread(cfg.channels))
+        counts = t2._bwd_2dgs_counts(b.S, b.starts, masks, cfg)
         assert counts["single_lane_hits"] >= 100, counts["single_lane_hits"]
         zch = cfg.channels - 4
         out = t2.raster_fwd_2dgs(b.S, b.starts, masks, cfg, zch)
