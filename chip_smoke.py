@@ -7,7 +7,7 @@ Phases, one JSON line each with its own ``seconds``:
   device    nvidia-smi's name and power limit, torch and CUDA versions;
   build     the nvcc build of csrc/*.cu (route: plain-C .so + ctypes), with
             the registers and spills of every kernel entry (ptxas), and
-            B6's and B9a's instantiations by their template arguments;
+            B2's, B6's and B9a's instantiations by their template arguments;
   kernels   each kernel against its plain PyTorch version on the card: a
             20k-Gaussian scene at 320x240, tile 16 and 32, both cutoffs,
             the backward with absgrad off and on, and each backward kernel
@@ -23,7 +23,9 @@ Phases, one JSON line each with its own ``seconds``:
             p99 and mean; the slots inside B6's candidate regions, checked
             to hold every slot that passes the alpha test; the (pair, warp)
             with a candidate, the hits and the single-lane ones, in B6's
-            warp layout);
+            warp layout); B2's candidate regions on each 3DGS case
+            (b2_regions: raster_v2._bwd_counts in B2's layout, checked to
+            hold every slot that passes the alpha test);
   serve     the committed checkpoint results/garden_ab_f32/splats_final.npz
             (120k Gaussians, SH 3) rendered from 8 orbit cameras at
             1297x840 through utils.ply_render.render_splats, and its first
@@ -32,10 +34,14 @@ Phases, one JSON line each with its own ``seconds``:
             32 with the exact cutoff, tile 16 with the soft one; render
             time, per-kernel time, plain time, library time and the bound
             of each kernel, with each kernel held against its plain version;
+            B2's time at each tile size (16 beside 32) and its regions;
   train_1m  the same scene, tile 16, both cutoffs: forward + backward of
             rendering.rasterization with a seeded cotangent (median ms,
             Mpix/s, launches), and the backward kernels' time, bound, plain
-            and library times and errors at its shapes;
+            and library times and errors at its shapes; B2's work (b2_work:
+            as b6_work, in B2's layout, with the (pair, warp) that the
+            expansion's disc would leave beside B2's box, the build's
+            registers and spills, B2 on the longest tile alone);
   train_1m_2dgs  the same scene's surfels through
             rendering.rasterization_2dgs, tile 16, exact cutoff: forward and
             forward + backward with a seeded cotangent on the colours,
@@ -45,7 +51,10 @@ Phases, one JSON line each with its own ``seconds``:
             instantiation and B6's time on the longest tile alone), and
             B9a on the surfels' two gathers beside index_select and
             torch.stack(rows)[:, order]; the same with log_composite
-            (B5/B6's log branch, without b6_work);
+            (B5/B6's log branch, without b6_work); and one fwd+bwd of
+            rasterize_to_pixels_2dgs_v2 with an absgrad probe (B6's absgrad
+            rows: launches, the probe's gradient, the rows against their
+            plain version and twice for the same bits, time and bound);
   bench_1m  bench.py's default configuration through the port: the same
             scene, tile 32, soft cutoff, grad_dtype "bf16", attr_dtype
             "bf16", log_composite, capacity 1.2x the probed elliptical rows,
@@ -55,7 +64,7 @@ Phases, one JSON line each with its own ``seconds``:
             of binned centres outside [-4096, 4096) px); each new branch's
             kernel time, launches, bound and plain time beside the f32
             branch's, every kernel held against its plain version on these
-            inputs;
+            inputs; b2_work on bench.py's configuration;
   train     training.trainer.Runner with the default Config on the stand-in
             of utils.scenes.checkpoint_stand_in (the checkpoint rendered
             from 8 views at 1297x840, 7 to train, 1 held out), 30 steps with
@@ -63,14 +72,16 @@ Phases, one JSON line each with its own ``seconds``:
             held-out PSNR before and after, step ms, live counts, launches;
             then B2's time on each training view at the run's final
             splats, SH degree and capacity, and the slowest view's kernels,
-            forward and backward, held against their plain versions;
+            forward and backward, held against their plain versions, with
+            B2's regions checked there (also in train_ladder and
+            train_packed);
   train_2dgs  training.trainer_2dgs.Runner2DGS with the default Config2DGS
             on the same stand-in, 30 steps with the train phase's refine
             and SH settings and the normal and distortion losses from step
             6 (the loss must fall from steps 6-10 to the last 5): loss,
             held-out PSNR, step ms, launches; then B6 timed on each
             training view and the slowest view's 2DGS kernels held against
-            their plain versions;
+            their plain versions, with B6's regions checked there;
   train_ladder  the garden ladder's recipe (examples/garden_benchmark.py,
             results/garden_ladder_r5/stats.json) through Runner on the same
             stand-in: MCMC at a capacity of 120,000, the compression
@@ -117,7 +128,8 @@ the f32 one. Then a line {"kernels": [...]} with each kernel's numbers
 (launches from its main path: the train phase, for B5 and B6 the
 train_2dgs phase, for B2p and B4p the train_ladder phase, for the precision
 branches of B3, B1 and B2 one fwd+bwd of bench_1m, for B5/B6's log branch
-one fwd+bwd of train_1m_2dgs's log leg, for B7 and B8 the train_v1 phase,
+one fwd+bwd of train_1m_2dgs's log leg, for B6's absgrad rows its probed
+fwd+bwd, for B7 and B8 the train_v1 phase,
 for B10 and B11 the cumsum_skel phase), the card's name
 and power limit, and the result line. Any failed check raises, and the
 script exits non-zero without the result line.
@@ -189,6 +201,9 @@ FWD2_OPS_COMPOSITED = 11  # + 2*CB
 # the branch: 39 through the cross product (UV) or 4 to means2d (filter).
 BWD2_OPS_COMPOSITED = 30  # + 3*CB + d_g
 BWD2_OPS_UV, BWD2_OPS_FILTER = 39, 4
+# with absgrad, per composited (pair, pixel) of the filter branch: the two
+# |.| terms and their adds (the rows' sums count in d_g)
+BWD2_OPS_ABS = 4
 # the log scan (csrc/tile_common.cuh and the tile kernels' LOG branches), in
 # place of FWD_OPS_TESTED in all four tile kernels: -alpha, log1p, two bf16
 # roundings, l - l1, the two running sums and their sum (8); incl - l, exp
@@ -233,7 +248,7 @@ KERNELS = {
         source="gscodec_studio_tpu_torch/csrc/raster_fwd_2dgs.cu",
         replaces="gscodec_studio_tpu/ops/raster_v2_2dgs.py:137"),
     "raster_bwd_2dgs": dict(
-        source="gscodec_studio_tpu_torch/csrc/raster_bwd_2dgs.cu",
+        source="gscodec_studio_tpu_torch/csrc/raster_bwd_2dgs.cuh",
         replaces="gscodec_studio_tpu/ops/raster_v2_2dgs.py:265"),
     "raster_bwd_packed": dict(
         source="gscodec_studio_tpu_torch/csrc/raster_bwd.cu",
@@ -260,8 +275,11 @@ KERNELS = {
         source="gscodec_studio_tpu_torch/csrc/raster_fwd_2dgs.cu",
         replaces="gscodec_studio_tpu/ops/raster_v2_2dgs.py:184"),
     "raster_bwd_2dgs_log": dict(
-        source="gscodec_studio_tpu_torch/csrc/raster_bwd_2dgs.cu",
+        source="gscodec_studio_tpu_torch/csrc/raster_bwd_2dgs.cuh",
         replaces="gscodec_studio_tpu/ops/raster_v2_2dgs.py:353"),
+    "raster_bwd_2dgs_absgrad": dict(
+        source="gscodec_studio_tpu_torch/csrc/raster_bwd_2dgs_absgrad.cu",
+        replaces="gscodec_studio_tpu/ops/raster_v2_2dgs.py:453"),
     "raster_v1_fwd": dict(
         source="gscodec_studio_tpu_torch/csrc/raster_v1_fwd.cu",
         replaces="gscodec_studio_tpu/ops/rasterize_pallas.py:214"),
@@ -440,14 +458,34 @@ def ptxas_entries(text):
 
 def b6_instances(entries):
     """B6's instantiations in the ptxas report: the channel bound, pixels a
-    thread, cutoff, scan, launch bounds (most threads, blocks an SM) of
-    each, with its registers and spills."""
+    thread, cutoff, scan, absgrad rows, launch bounds (most threads, blocks
+    an SM) of each, with its registers and spills."""
     out = []
     for e in entries:
         m = re.search(r"raster_bwd_2dgs_kernelILi(\d+)ELi(\d+)ELb([01])"
-                      r"ELb([01])ELi(\d+)ELi(\d+)E", e["name"])
+                      r"ELb([01])ELb([01])ELi(\d+)ELi(\d+)E", e["name"])
         if m:
             out.append(dict(cbm=int(m.group(1)), ppt=int(m.group(2)),
+                            soft=m.group(3) == "1", log=m.group(4) == "1",
+                            absgrad=m.group(5) == "1",
+                            max_threads=int(m.group(6)),
+                            min_blocks=int(m.group(7)),
+                            **{k: e.get(k) for k in (
+                                "registers", "spill_stores", "spill_loads",
+                                "stack")}))
+    return out
+
+
+def b2_instances(entries):
+    """B2's instantiations in the ptxas report: the channel bound, pixels a
+    thread, cutoff, scan, launch bounds of each, with its registers and
+    spills."""
+    out = []
+    for e in entries:
+        m = re.search(r"raster_bwd_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])"
+                      r"ELi(\d+)ELi(\d+)E", e["name"])
+        if m:
+            out.append(dict(chm=int(m.group(1)), ppt=int(m.group(2)),
                             soft=m.group(3) == "1", log=m.group(4) == "1",
                             max_threads=int(m.group(5)),
                             min_blocks=int(m.group(6)),
@@ -494,7 +532,7 @@ def b6_work(r2, st, ptxas=None, time_tail=None):
         return dict(max=int(x.max()), p99=float(torch.quantile(x, 0.99)),
                     mean=float(x.mean()))
 
-    build = r2.bwd_build(cfg.channels, cfg.tile_size)
+    build = r2.bwd_build(cfg.channels, cfg.tile_size, cfg.absgrad)
     res = dict(
         build=build,
         per_tile={k: dist(c1[k]) for k in ("run", "pairs", "slots")},
@@ -515,6 +553,71 @@ def b6_work(r2, st, ptxas=None, time_tail=None):
         res["longest_tile"] = dict(tile=longest, run=int(c1["run"][longest]),
                                    ms=time_tail(
                                        lambda: r2.raster_bwd_2dgs(*args), 5))
+    return res
+
+
+def b2_regions(rv, st):
+    """B2's candidate regions on a Stages' inputs (rv._bwd_counts, B2's
+    layout): raises if a slot that passes the alpha test lies outside its
+    pair's region; returns the counts."""
+    c2 = rv._bwd_counts(st.b.S, st.b.starts, st.masks, st.cfg)
+    if c2["missed_slots"]:
+        raise AssertionError(f"{c2['missed_slots']} passing (pair, pixel) "
+                             f"slots outside B2's candidate regions")
+    return c2
+
+
+def region_summary(c):
+    """The totals of a _bwd_counts or _bwd_2dgs_counts result."""
+    return dict(composited_slots=int(c["slots"].sum()), **{
+        k: c[k] for k in ("evaluated_slots", "candidate_slots",
+                          "missed_slots", "pair_warp_walked",
+                          "pair_warp_cells", "pair_warp_candidates",
+                          "pair_warp_hits", "single_lane_hits") if k in c})
+
+
+def b2_work(rv, st, ptxas=None, time_tail=None):
+    """b6_work for B2 on a Stages' inputs (after its compare_bwd): the
+    per-tile distribution (max, p99, mean) of the rows walked, the pairs
+    composited and the composited slots; the slots walked and the
+    candidate ones (those that can pass), checked to hold every slot that
+    passes; the (pair, warp) walked, those whose cell meets the pair's
+    box (B2's test) beside those that the expansion's disc, or both, would
+    leave, the (pair, warp) with a candidate, the hits and the single-lane
+    ones; with ``ptxas``, the build's registers and spills of the
+    instantiation these inputs take (rv.bwd_build); ``time_tail`` adds
+    B2's time on the tile with the longest walk alone."""
+    cfg = st.cfg
+    c2 = b2_regions(rv, st)
+
+    def dist(x):
+        x = x.double()
+        return dict(max=int(x.max()), p99=float(torch.quantile(x, 0.99)),
+                    mean=float(x.mean()))
+
+    build = rv.bwd_build(cfg.channels, cfg.tile_size, dense=rv.bwd_dense(cfg))
+    res = dict(
+        build=build,
+        per_tile={k: dist(c2[k]) for k in ("run", "pairs", "slots")},
+        composited_slots=int(c2["slots"].sum()),
+        **{k: c2[k] for k in (
+            "evaluated_slots", "candidate_slots", "warps_per_tile",
+            "pair_warp_walked", "pair_warp_cells", "pair_warp_candidates",
+            "pair_warp_hits", "single_lane_hits")})
+    if ptxas is not None:
+        res["ptxas"] = [e for e in ptxas
+                        if all(e[k] == build[k] for k in (
+                            "chm", "ppt", "max_threads", "min_blocks"))
+                        and e["soft"] == (cfg.cutoff == "soft")
+                        and e["log"] == cfg.log_composite]
+    if time_tail is not None:
+        longest = int(torch.argmax(c2["run"]))
+        masks1 = torch.zeros_like(st.masks)
+        masks1[longest] = 1
+        args = (st.b.S, st.b.starts, masks1, st.out, st.v_tiles, cfg, False)
+        res["longest_tile"] = dict(tile=longest, run=int(c2["run"][longest]),
+                                   ms=time_tail(
+                                       lambda: rv.raster_bwd(*args), 5))
     return res
 
 
@@ -827,16 +930,18 @@ class Stages2DGS:
         if not torch.equal(gbuf, r2.raster_bwd_2dgs(*self.bwd_args)):
             raise AssertionError("raster_bwd_2dgs differs between two runs")
         abs_err = float(diff.max())
-        note_err(errs, rv.launch_keys(
-            "raster_bwd_2dgs", [(cfg.log_composite, "_log")]), abs_err)
+        note_err(errs, rv.launch_keys("raster_bwd_2dgs",
+                                      r2.bwd_branches(cfg)), abs_err)
         self.gbuf = gbuf
         return {"bwd2_rel_err": err, "bwd2_max_abs_err": abs_err}
 
     def kernel_numbers(self, cuda_ms):
         """B5's and B6's time, plain time and bound at these inputs (B6 on
-        compare_bwd's cotangent), under their branch's keys."""
+        compare_bwd's cotangent), under their branch's keys (B6's absgrad
+        rows under "_absgrad" alone)."""
         cfg, b, r2 = self.cfg, self.b, self.r2
         sfx = "_log" if cfg.log_composite else ""
+        bsfx = "_absgrad" if cfg.absgrad else sfx
         CB, P, L = cfg.channels, cfg.pixels, cfg.cap
         n_rows = int(b.starts[cfg.n_tiles] - b.starts[0])
         pc = self.pair_counts
@@ -844,7 +949,7 @@ class Stages2DGS:
         table_bytes = (4 * (12 + CB) * n_rows + 4 * (cfg.n_tiles_v + 1)
                        + 4 * cfg.n_tiles)
         tile_bytes = 4 * cfg.n_tiles * P * cfg.chp
-        d_g = cfg.d_g(False)
+        d_g = cfg.d_g(cfg.absgrad)
         walk_ops = (FWD2_OPS_EVALUATED * pc["evaluated"]
                     + tested_ops(cfg) * pc["tested"])
         k = {}
@@ -855,14 +960,16 @@ class Stages2DGS:
             ops=walk_ops + (FWD2_OPS_COMPOSITED + 2 * CB)
             * pc["composited"], pair_counts=pc))
         n_uv = pc["composited_uv"]
-        k["raster_bwd_2dgs" + sfx] = bound(dict(
+        n_filter = pc["composited"] - n_uv
+        k["raster_bwd_2dgs" + bsfx] = bound(dict(
             ms=cuda_ms(lambda: r2.raster_bwd_2dgs(*self.bwd_args), 5),
             plain_ms=cuda_ms(lambda: r2._bwd_2dgs_plain(*self.bwd_args), 1),
             library_ms=None,
             bytes=table_bytes + 2 * tile_bytes + 4 * d_g * L,
             ops=walk_ops + (BWD2_OPS_COMPOSITED + 3 * CB + d_g)
             * pc["composited"] + BWD2_OPS_UV * n_uv
-            + BWD2_OPS_FILTER * (pc["composited"] - n_uv),
+            + (BWD2_OPS_FILTER + (BWD2_OPS_ABS if cfg.absgrad else 0))
+            * n_filter,
             pair_counts=pc))
         return k
 
@@ -1037,9 +1144,10 @@ def main():
     log_text = log.read_text() if log.exists() else ""
     entries = ptxas_entries(log_text)
     b6_ptxas = b6_instances(entries)
+    b2_ptxas = b2_instances(entries)
     emit({"phase": "build", "library": so.name,
           "nvcc_seconds": native.build_seconds, "ptxas": entries,
-          "raster_bwd_2dgs_ptxas": b6_ptxas,
+          "raster_bwd_ptxas": b2_ptxas, "raster_bwd_2dgs_ptxas": b6_ptxas,
           "pack_rows_ptxas": pack_instances(entries),
           "seconds": time.perf_counter() - t0})
 
@@ -1092,6 +1200,7 @@ def main():
             st = view_stages(view)
             res = st.compare(errs)
             res.update(st.compare_bwd(errs, seed=100 + view))
+            res["b2_regions"] = region_summary(b2_regions(rv, st))
         return dict(view=view, sh_degree=sh_degree, raster_bwd_ms=bwd_ms,
                     n_isects=int(st.b.n_isects), isect_capacity=st.cfg.cap,
                     cutoff=st.cfg.cutoff, **res)
@@ -1100,7 +1209,8 @@ def main():
         """check_training_views for Runner2DGS: B6 timed on every training
         view at the run's final splats and SH degree, then the slowest
         view's B5, B6, pack and no-cull expansion held against their plain
-        versions. The capacity is sized from each view's count."""
+        versions, and B6's candidate regions checked to hold every passing
+        slot there. The capacity is sized from each view's count."""
         tc = runner.cfg
         sp = runner.splats
         data = runner._device_trainset()
@@ -1131,6 +1241,12 @@ def main():
             st = view_stages(view)
             res = st.compare(errs)
             res.update(st.compare_bwd(errs, seed=200 + view))
+            c6 = r2._bwd_2dgs_counts(st.b.S, st.b.starts, st.masks, st.cfg)
+            if c6["missed_slots"]:
+                raise AssertionError(f"{c6['missed_slots']} passing (pair, "
+                                     f"pixel) slots outside B6's candidate "
+                                     f"regions on a trained view")
+            res["b6_regions"] = region_summary(c6)
         return dict(view=view, sh_degree=sh_degree, raster_bwd_2dgs_ms=bwd_ms,
                     n_isects=int(st.b.n_isects), isect_capacity=st.cfg.cap,
                     **res)
@@ -1175,7 +1291,7 @@ def main():
                     cutoff=st.cfg.cutoff, **res)
 
     def stages_2dgs(prep, width, height, cutoff, cap=None, ts=16,
-                    log_composite=False):
+                    log_composite=False, absgrad=False):
         """Stages2DGS of project_and_shade_2dgs's outputs; the capacity,
         unless given, 1.2x the binned rows of a first count."""
         radii, means2d, depths, trans, normals, colors_cn, opac_cn = prep
@@ -1188,7 +1304,7 @@ def main():
         colors_full = torch.cat([colors_cn, normals], -1).contiguous()
         CB = colors_full.shape[-1]
         cfg = r2.cfg_2dgs(C, TW, TH, ts, CB, cap, N, cutoff=cutoff,
-                          log_composite=log_composite)
+                          log_composite=log_composite, absgrad=absgrad)
         masks = torch.ones(cfg.n_tiles, dtype=torch.int32, device=dev)
         st = Stages2DGS(rv, r2, cfg, CB - 4, means2d.contiguous(),
                         trans.contiguous(), colors_full,
@@ -1232,6 +1348,7 @@ def main():
             st = stages_for(prep_small, sw, sh, ts, cutoff)
             res = st.compare(errs)
             res.update(st.compare_bwd(errs, seed=ts))
+            res["b2_regions"] = region_summary(b2_regions(rv, st))
             cases.append(dict(tile_size=ts, cutoff=cutoff,
                               n_isects=int(st.b.n_isects), **res))
     # B1 and B2 at 40 channels (the 64-channel instantiation)
@@ -1253,6 +1370,7 @@ def main():
                 st = stages_for(prep_small, sw, sh, ts, cutoff, **knobs)
                 res = st.compare(errs)
                 res.update(st.compare_bwd(errs, seed=ts))
+                res["b2_regions"] = region_summary(b2_regions(rv, st))
                 cases.append(dict(tile_size=ts, cutoff=cutoff, knobs=name,
                                   n_isects=int(st.b.n_isects), **res))
     # B5, B6 and B3's no-cull branch on the same scene's surfels
@@ -1444,6 +1562,13 @@ def main():
         )
         for d in k.values():
             bound(d)
+        # B2 at this tile size on a seeded cotangent (tile 16 beside 32),
+        # and its candidate regions
+        st.cotangent(ts)
+        raster_bwd_ms = cuda_ms(lambda: rv.raster_bwd(
+            st.b.S, st.b.starts, st.masks, st.out, st.v_tiles, cfg, False),
+            10)
+        b2_reg = region_summary(b2_regions(rv, st))
         rows_1m.append(dict(tile_size=ts, cutoff=cutoff, n_isects=n_isects,
                             rows_in_tiles=int(st.b.starts[cfg.n_tiles]
                                               - st.b.starts[0]),
@@ -1451,6 +1576,10 @@ def main():
                             stage_ms=stage_ms,
                             launches_per_render=launches_per_render,
                             kernels=k, check=check,
+                            raster_bwd_ms=raster_bwd_ms,
+                            raster_bwd_build=rv.bwd_build(
+                                cfg.channels, ts, dense=rv.bwd_dense(cfg)),
+                            b2_regions=b2_reg,
                             mean_alpha=float(alpha.mean())))
         if (ts, cutoff) == (16, "exact"):
             perf = k
@@ -1654,6 +1783,7 @@ def main():
             check=dict(fwd_check, **bwd_check))
         if cutoff == "exact":
             perf.update(k)
+            run["b2_work"] = b2_work(rv, st, b2_ptxas, cuda_ms)
             run["bf16"] = bf16_case(st, leaves, bwd_args, ids)
             perf.update(run["bf16"]["kernels"])
         runs_bwd.append(run)
@@ -1747,6 +1877,20 @@ def main():
         + 4 * cfg2.d_s * cfg2.cap))
     perf.update(k2)
     n_rows2 = int(st.b.starts[cfg2.n_tiles] - st.b.starts[0])
+    # B4 on the surfels' gradient rows beside index_add_, with its bound
+    d_g2, M2, n2 = cfg2.d_g(False), cfg2.C * cfg2.n, int(st.b.n_isects)
+    rows2 = rv.unpack_rows(st.gbuf, d_g2, st.b.perm)
+    ids2 = rv.segment_ids(st.b.cum, st.b.n_isects)
+    segsum2 = bound(dict(
+        ms=cuda_ms(lambda: rv.segsum_rows(rows2, st.b.cum, st.b.n_isects),
+                   10),
+        plain_ms=cuda_ms(lambda: rv._segsum_plain(rows2, st.b.cum,
+                                                  st.b.n_isects), 3),
+        library_ms=cuda_ms(lambda: torch.zeros(
+            (d_g2, M2), device=dev).index_add_(1, ids2, rows2[:, :n2]), 10),
+        bytes=4 * d_g2 * n2 + 4 * M2 + 4 * d_g2 * M2, ops=d_g2 * n2,
+        rows=d_g2, intersections=n2))
+    del rows2, ids2
 
     # the log scan's leg: rasterization_2dgs(log_composite=True), B5/B6's
     # log branch held against its plain version on its own inputs
@@ -1784,6 +1928,45 @@ def main():
                    mpix_per_s=WIDTH * HEIGHT / (fb2l_ms * 1e-3) / 1e6,
                    launches_per_fwd_bwd=launches2_log, kernels=k2_log,
                    n_isects=int(st.b.n_isects), check=check2_log)
+
+    # B6's absgrad rows: one fwd+bwd of rasterize_to_pixels_2dgs_v2 with a
+    # probe on these inputs (the branch's launch), and the rows held
+    # against their plain version, twice for the same bits
+    del st
+    st = stages_2dgs(prep2_1m, WIDTH, HEIGHT, "exact", cap=cfg2.cap,
+                     absgrad=True)
+    check2_abs = st.compare(errs)
+    check2_abs.update(st.compare_bwd(errs, seed=28))
+    radii2, m2d2, dep2, trans2, nrm2, col2, op2 = prep2_1m
+    leaves_ag = [x.detach().clone().requires_grad_(True)
+                 for x in (m2d2, trans2, col2, op2, nrm2)]
+    probe = torch.zeros(m2d2.shape, device=dev, requires_grad=True)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    rv.reset_launch_counts()
+    out_ag = r2.rasterize_to_pixels_2dgs_v2(
+        *leaves_ag, dep2, radii2, WIDTH, HEIGHT, tile_size=16,
+        isect_capacity=cfg2.cap, absgrad_probe=probe, device=dev)
+    torch.autograd.backward(list(out_ag[:4]), [
+        torch.randn(o.shape, generator=g).to(dev) for o in out_ag[:4]])
+    torch.cuda.synchronize()
+    launches2_abs = dict(rv.LAUNCHES)
+    if launches2_abs["raster_bwd_2dgs_absgrad"] != 1 or \
+            launches2_abs["raster_bwd_2dgs"]:
+        raise AssertionError(f"the probed 2DGS fwd+bwd did not take B6's "
+                             f"absgrad rows: {launches2_abs}")
+    ag = probe.grad
+    if not (bool(torch.isfinite(ag).all()) and bool((ag >= 0).all())
+            and float(ag.sum()) > 0):
+        raise AssertionError("the absgrad probe's gradient is not finite, "
+                             "non-negative and non-zero")
+    k2_abs = st.kernel_numbers(cuda_ms)
+    perf["raster_bwd_2dgs_absgrad"] = k2_abs["raster_bwd_2dgs_absgrad"]
+    absgrad_leg = dict(launches_per_fwd_bwd=launches2_abs,
+                       kernel=k2_abs["raster_bwd_2dgs_absgrad"],
+                       probe_grad_sum=float(ag.sum()),
+                       probed_surfels=int((ag.sum(-1) > 0).sum()),
+                       check=check2_abs)
+    del out_ag, leaves_ag, probe, ag
     emit({"phase": "train_1m_2dgs", "gaussians": N_1M, "width": WIDTH,
           "height": HEIGHT, "tile_size": 16, "cutoff": cfg2.cutoff,
           "channels": cfg2.channels, "n_isects": int(st.b.n_isects),
@@ -1793,9 +1976,10 @@ def main():
           "mpix_per_s": WIDTH * HEIGHT / (fb2_ms * 1e-3) / 1e6,
           "launches_per_fwd_bwd": launches2, "kernels": k2,
           "b6_work": work2, "pack_rows_2dgs": pack2,
+          "segsum_rows_2dgs": segsum2,
           "expand_no_cull": expand_no_cull,
           "mean_alpha": float(out2[1].mean()), "profile": profile2,
-          "check": check2, "log_composite": log_leg,
+          "check": check2, "log_composite": log_leg, "absgrad": absgrad_leg,
           "seconds": time.perf_counter() - t0})
     del st, out2, leaves2, prep2_1m
 
@@ -1932,6 +2116,8 @@ def main():
         checks_b[name].update(st.compare_bwd(errs, seed=32,
                                              absgrads=(False,)))
         checks_b[name]["n_isects"] = int(st.b.n_isects)
+        if name == "bench":
+            checks_b[name]["b2_work"] = b2_work(rv, st, b2_ptxas, cuda_ms)
         kern_b[name] = tile_numbers(st)
         del st
     # the kernel table's rows of the new branches: each alone
@@ -2585,6 +2771,9 @@ def main():
         main_path[name] = bench_launches[name]
     for name in ("raster_fwd_2dgs_log", "raster_bwd_2dgs_log"):
         main_path[name] = launches2_log[name]
+    # B6's absgrad rows: the probed fwd+bwd of train_1m_2dgs
+    main_path["raster_bwd_2dgs_absgrad"] = launches2_abs[
+        "raster_bwd_2dgs_absgrad"]
     for name in KERNELS_V1:  # the v1 training run
         main_path[name] = v1_launches[name]
     for name in ("cumsum_rows", "skel_composite"):  # their own phase

@@ -24,12 +24,15 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("pack.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
            "unpack.cu", "segsum.cu", "raster_fwd_2dgs.cu",
-           "raster_bwd_2dgs.cu", "raster_v1_fwd.cu", "raster_v1_bwd.cu",
-           "cumsum_rows.cu", "skel_composite.cu")
-HEADERS = ("tile_common.cuh",)  # included by the sources; in the hash
+           "raster_bwd_2dgs.cu", "raster_bwd_2dgs_absgrad.cu",
+           "raster_v1_fwd.cu", "raster_v1_bwd.cu", "cumsum_rows.cu",
+           "skel_composite.cu")
+# included by the sources; in the hash
+HEADERS = ("tile_common.cuh", "raster_bwd_2dgs.cuh")
 # --fmad=false: the kernels' float expressions round exactly as their plain
 # PyTorch versions (and the JAX package) do, which keeps the expansion's
-# ellipse cull bit-identical to its plain version.
+# ellipse cull bit-identical to its plain version. B2's gradient arithmetic
+# asks for its multiply-adds explicitly (csrc/raster_bwd.cu madd).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,14 +47,14 @@ _SIGNATURES = {
                    _I, _P, _P, _P),
     "gsc_raster_fwd": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _P, _P),
-    "gsc_raster_bwd": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _P, _P),
+    "gsc_raster_bwd": (_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _P, _P),
     "gsc_unpack_rows": (_P, _L, _I, _P, _L, _P, _P, _P),
     "gsc_segsum_rows": (_P, _L, _I, _P, _I, _P, _I, _P, _P),
     "gsc_raster_fwd_2dgs": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P),
     "gsc_raster_bwd_2dgs": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _P, _P),
+                            _I, _I, _I, _P, _P),
     "gsc_raster_v1_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "gsc_raster_v1_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P, _P),

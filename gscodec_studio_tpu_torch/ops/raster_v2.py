@@ -80,8 +80,8 @@ MAX_PACK_ROWS = 144  # pack.cu kMaxRows
 # A launch counts once under each branch key it takes: "_packed" for the
 # packed-pair gradient rows of raster_bwd and segsum_rows and for the packed
 # rows that expand writes, "_unpack" for tile kernels reading packed rows,
-# "_log" for the log-space scan; a launch that takes none counts under the
-# wrapper's own name.
+# "_log" for the log-space scan, "_absgrad" for the 2DGS backward's absgrad
+# rows; a launch that takes none counts under the wrapper's own name.
 LAUNCHES = {"pack_rows": 0, "expand": 0, "raster_fwd": 0, "raster_bwd": 0,
             "unpack_rows": 0, "segsum_rows": 0, "raster_fwd_2dgs": 0,
             "raster_bwd_2dgs": 0, "raster_bwd_packed": 0,
@@ -89,8 +89,8 @@ LAUNCHES = {"pack_rows": 0, "expand": 0, "raster_fwd": 0, "raster_bwd": 0,
             "raster_fwd_unpack": 0, "raster_fwd_log": 0,
             "raster_bwd_unpack": 0, "raster_bwd_log": 0,
             "raster_fwd_2dgs_log": 0, "raster_bwd_2dgs_log": 0,
-            "raster_v1_fwd": 0, "raster_v1_bwd": 0, "cumsum_rows": 0,
-            "skel_composite": 0}
+            "raster_bwd_2dgs_absgrad": 0, "raster_v1_fwd": 0,
+            "raster_v1_bwd": 0, "cumsum_rows": 0, "skel_composite": 0}
 
 
 def reset_launch_counts() -> None:
@@ -134,6 +134,9 @@ class V2Cfg:
     attr_dtype: str = "f32"
     geom_dtype: str = "f32"
     log_composite: bool = False
+    # the 2DGS backward's two |means2d| rows (raster_v2_2dgs.cfg_2dgs); the
+    # 3DGS raster_bwd takes absgrad as an argument
+    absgrad: bool = False
 
     @property
     def n_tiles(self) -> int:
@@ -890,6 +893,235 @@ def _bwd_packed_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
         cfg.n_attr_eff, absgrad)
 
 
+# B2's candidate regions (csrc/raster_bwd.cu kCond): below this det A
+# against ca * cc a conic gets no bound
+BWD_COND = 1e-4
+BWD_SMEM = 232448  # raster_bwd.cu kMaxSmem: a block's shared memory
+# B2 takes its dense build below this many Gaussians a tile (bwd_dense)
+BWD_DENSE_GAUSSIANS = 32
+
+
+def bwd_dense(cfg: V2Cfg) -> bool:
+    """Whether B2 takes its build for dense tiles (csrc/raster_bwd.cu
+    kDenseThreads): fewer than BWD_DENSE_GAUSSIANS Gaussians (slots) a
+    tile, as the checkpoint's views at 120,000 slots have (~28), whose large
+    splats composite most pixels of a tile and leave a few tiles with runs
+    ~80x the mean. The 1M scene has ~230, the train phase's stand-in ~39,
+    and both ran faster at 2 pixels a thread (PERF.md)."""
+    return cfg.C * cfg.n < BWD_DENSE_GAUSSIANS * cfg.n_tiles
+
+
+def bwd_pixels_per_thread(channels: int) -> int:
+    """Pixels a thread of B2 and of B6 owns at ``channels`` channels
+    (``ppt_for`` of the channels' template bound in csrc/raster_bwd.cu and
+    csrc/raster_bwd_2dgs.cuh): 2 up to 32 channels, else 1."""
+    return 2 if channels <= 32 else 1
+
+
+def _warp_layout(tile_size: int, ppt: int):
+    """The tile backward kernels' pixel layout (B2 and B6): ``ppt``
+    neighbours of one tile row a lane, a warp the 32 lanes of a cell 8
+    pixels wide and 32 / (8 / ppt) rows tall, the cells row-major. Returns
+    (warps a tile, rows a cell, lane_of: int64 [P], pixel -> warp * 32 +
+    lane)."""
+    ts, cell_width = tile_size, 8
+    ct = cell_width // ppt  # lanes a cell row
+    rc = 32 // ct  # rows a cell
+    cells_x = -(-ts // cell_width)
+    n_warps = cells_x * -(-ts // rc)
+    p = torch.arange(ts * ts)
+    row, col = torch.div(p, ts, rounding_mode="floor"), p % ts
+    lane_of = ((torch.div(row, rc, rounding_mode="floor") * cells_x
+                + torch.div(col, cell_width, rounding_mode="floor")) * 32
+               + (row % rc) * ct + torch.div(col % cell_width, ppt,
+                                             rounding_mode="floor"))
+    return n_warps, rc, lane_of
+
+
+def bwd_build(channels: int, tile_size: int, absgrad: bool = False,
+              dense: bool = False) -> dict:
+    """The build of B2 that a launch at these shapes takes
+    (csrc/raster_bwd.cu ``launch``; ``dense`` is bwd_dense): the channels'
+    template bound "chm", pixels a thread "ppt", the launch bounds
+    "max_threads" and "min_blocks" and the pairs staged per barrier "sub"
+    (the tuned builds at bounds 3 and 8: dense and up to 256 threads at 1
+    pixel a thread, 256 threads for 4 blocks an SM; else 128 threads for 8,
+    or the tile-32 bound for 2; at 64 and 128, 256 threads or the tile-32
+    bound; at 16 and 32 the tile-32 bound; those at 1 block an SM stage as
+    many pairs as shared memory holds, up to a chunk)."""
+    chm = next(b for b in (3, 8, 16, 32, 64, 128) if channels <= b)
+    ppt = bwd_pixels_per_thread(channels)
+    n_warps, _, _ = _warp_layout(tile_size, ppt)
+    if chm <= 8 and dense and _warp_layout(tile_size, 1)[0] * 32 <= 256:
+        ppt, n_warps = 1, _warp_layout(tile_size, 1)[0]
+        max_threads, min_blocks, sub = 256, 4, 64
+    elif chm <= 8 and n_warps * 32 <= 128:
+        max_threads, min_blocks, sub = 128, 8, 64
+    elif chm <= 8:
+        max_threads, min_blocks, sub = 1024 // ppt, 2, 64
+    elif chm >= 64 and n_warps * 32 <= 256:
+        max_threads, min_blocks, sub = 256, 1, K
+    else:
+        max_threads, min_blocks, sub = 1024 // ppt, 1, K
+    dp = (6 + channels + (2 if absgrad else 0)) | 1
+    fixed = (6 + channels + 3) * K * 4
+
+    def part(s):
+        return 2 * n_warps * (s * dp * 4 + -(-s // 32) * 4)
+
+    while sub > 1 and fixed + part(sub) > BWD_SMEM:
+        sub //= 2
+    return dict(chm=chm, ppt=ppt, max_threads=max_threads,
+                min_blocks=min_blocks, sub=sub)
+
+
+def _bwd_regions(geo):
+    """B2's candidate region of each pair (csrc/raster_bwd.cu
+    ``pair_region``, formed once a chunk from the unpacked values the pair
+    math reads): ``geo`` the f32 values [x, y, ca, cb, cc, op], each [...]
+    -> float32 (rx, ry, lm, rd) [...]. A pixel can pass the alpha test only
+    if |x - px| <= rx, |y - py| <= ry and its float sigma <= lm; op < 1/255
+    gives -1 (no pixel), a conic that is not positive definite, or has
+    det A < BWD_COND * ca * cc, +inf (no bound). ``rd`` is the radius of the
+    expansion's conservative disc, 0.5 lam_min d^2 <= L, with the same
+    margins (not used by the kernel: the counts compare it with the box).
+    Formed in float64 from the float32 values, as the kernel does."""
+    ca, cb, cc, op = (g.double() for g in geo[2:6])
+    Lm = 1.02 * torch.clamp(torch.log(255.0 * op), min=0.0) + 0.01
+    det = ca * cc - cb * cb
+    ok = (ca > 0.0) & (cc > 0.0) & (det >= BWD_COND * ca * cc)
+    rx = torch.sqrt(2.0 * Lm * cc / det) * 1.001 + 0.1
+    ry = torch.sqrt(2.0 * Lm * ca / det) * 1.001 + 0.1
+    lam_min = 0.5 * (ca + cc) - torch.sqrt(0.25 * (ca - cc) ** 2 + cb * cb)
+    rd = torch.sqrt(2.0 * Lm / lam_min) * 1.001 + 0.1
+    empty = ~(geo[5] >= ALPHA_THRESHOLD)
+    out = []
+    for v in (rx, ry, Lm, rd):
+        v = torch.where(ok, v, torch.full_like(v, math.inf)).float()
+        out.append(torch.where(empty, torch.full_like(v, -1.0), v))
+    return tuple(out)
+
+
+def _cell_bounds(cfg: V2Cfg, ppt: int):
+    """The pixel centres' extent of each warp's cell in B2's layout:
+    float32 (x_lo, x_hi, y_lo, y_hi), each [n_tiles, warps a tile]."""
+    ts, TW = cfg.tile_size, cfg.tile_width
+    n_warps, rc, _ = _warp_layout(ts, ppt)
+    cells_x = -(-ts // 8)
+    w = torch.arange(n_warps)
+    cx, cy = w % cells_x, torch.div(w, cells_x, rounding_mode="floor")
+    rem = torch.arange(cfg.n_tiles) % (TW * cfg.tile_height)
+    x0 = ((rem % TW) * ts)[:, None]
+    y0 = (torch.div(rem, TW, rounding_mode="floor") * ts)[:, None]
+    return tuple((v + 0.5).to(torch.float32) for v in (
+        x0 + cx * 8, x0 + torch.clamp(cx * 8 + 7, max=ts - 1),
+        y0 + cy * rc, y0 + torch.clamp(cy * rc + rc - 1, max=ts - 1)))
+
+
+def _bwd_counts(S, starts, masks, cfg: V2Cfg):
+    """What B2 does on these inputs, from the plain walk (the backward's: a
+    tile stops when every pixel has T <= 1e-4 at a chunk's start), in B2's
+    layout (_warp_layout at bwd_build's pixels a lane). Returns a
+    dict of
+      "run": int64 [n_tiles], rows of the tile's run that the walk reaches;
+      "pairs": int64 [n_tiles], pairs that at least one pixel composited;
+      "slots": int64 [n_tiles], composited (pair, pixel) slots;
+      "evaluated_slots": the (pair, pixel) slots walked;
+      "candidate_slots": those in a warp whose cell meets the pair's box
+        and whose float sigma is within the pair's bound lm (_bwd_regions):
+        the ones that can pass (B2 forms the alpha of every pixel of a
+        (pair, warp) that holds one);
+      "missed_slots": slots that pass the alpha test outside them (0: the
+        regions hold every pixel that passes);
+      "pair_warp_walked": the (pair, warp) walked;
+      "pair_warp_cells": {"box", "disc", "box_and_disc"}: the (pair, warp)
+        whose cell meets the pair's box (B2's test), its disc of radius rd,
+        or both: the ones that evaluate the pair's sigma;
+      "pair_warp_candidates": (pair, warp) with at least one candidate slot;
+      "pair_warp_hits": (pair, warp) with at least one composited pixel,
+        each a warp reduction (or the ballot shortcut) in the kernel;
+      "single_lane_hits": those where exactly one lane composited the
+        pair (the ballot shortcut's);
+      "warps_per_tile": the warps that cover a tile's pixels."""
+    dev = S.device
+    nT, P = cfg.n_tiles, cfg.pixels
+    off, end, c0, c1, px, py, lane, group = _tile_walk(S, starts, masks, cfg)
+    ppt = bwd_build(cfg.channels, cfg.tile_size, dense=bwd_dense(cfg))["ppt"]
+    n_warps, _, lane_of = _warp_layout(cfg.tile_size, ppt)
+    lane_of = lane_of.to(dev)
+    warp_of = torch.div(lane_of, 32, rounding_mode="floor")
+    cells = [v.to(dev) for v in _cell_bounds(cfg, ppt)]
+    i64 = dict(dtype=torch.int64, device=dev)
+    counts = {k: torch.zeros(nT, **i64) for k in ("run", "pairs", "slots")}
+    totals = {k: torch.zeros((), **i64) for k in (
+        "evaluated_slots", "candidate_slots", "missed_slots",
+        "pair_warp_walked", "pair_warp_candidates", "pair_warp_hits",
+        "single_lane_hits", "box", "disc", "box_and_disc")}
+
+    def by_warp(mask):
+        """[A, P, K] -> lanes hit [A, n_warps, K]."""
+        A = mask.shape[0]
+        lanes = torch.zeros((A, n_warps * 32, K), dtype=torch.int32,
+                            device=dev).index_add_(1, lane_of,
+                                                   mask.to(torch.int32))
+        return (lanes > 0).view(A, n_warps, 32, K).sum(2)
+
+    for g0 in range(0, nT, group):
+        sl = slice(g0, min(nT, g0 + group))
+        n = sl.stop - sl.start
+        T = torch.ones((n, P, 1), dtype=torch.float32, device=dev)
+        nch = c1[sl] - c0[sl]
+        for j in range(int(nch.max()) if n else 0):
+            live = (nch > j) & (T.amax(dim=(1, 2)) > TRANSMITTANCE_EPS)
+            idx = live.nonzero().squeeze(1)
+            if idx.numel() == 0:
+                break
+            t = idx + g0
+            cols = ((c0[sl][idx] + j) * K)[:, None] + lane  # [A, K]
+            inr = (cols >= off[sl][idx, None]) & (cols < end[sl][idx, None])
+            geo, _ = _chunk_values(cfg, S[:, cols])
+            xs, ys, ca, cb, cc, op = (v[:, None, :] for v in geo)
+            dx = xs - px[t][:, :, None]  # [A, P, K]
+            dy = ys - py[t][:, :, None]
+            sigma = ((0.5 * ca) * (dx * dx) + (0.5 * cc) * (dy * dy)
+                     + cb * (dx * dy))
+            alpha = torch.clamp(op * torch.exp(-sigma), max=MAX_ALPHA)
+            valid = (sigma >= 0.0) & (alpha >= ALPHA_THRESHOLD) \
+                & inr[:, None]
+            alpha = torch.where(valid, alpha, torch.zeros((), device=dev))
+            _, m, _, t_new = _composite(alpha, T[idx], cfg.cutoff,
+                                        cfg.log_composite)
+            comp = valid if m is None else valid & m  # [A, P, K]
+            rx, ry, lm, rd = (v[:, None, :] for v in _bwd_regions(geo))
+            xlo, xhi, ylo, yhi = (v[t][:, :, None] for v in cells)
+            ex = xs - torch.minimum(torch.maximum(xs, xlo), xhi)
+            ey = ys - torch.minimum(torch.maximum(ys, ylo), yhi)
+            w_in = inr[:, None, :]  # [A, 1, K]
+            box = (ex.abs() <= rx) & (ey.abs() <= ry) & w_in
+            disc = (ex * ex + ey * ey <= rd * rd) & w_in
+            walked = inr[:, None, :].expand_as(comp)
+            cand = box[:, warp_of] & (sigma <= lm) & walked
+            counts["run"][t] += inr.sum(-1)
+            counts["pairs"][t] += comp.any(1).sum(-1)
+            counts["slots"][t] += comp.sum((1, 2))
+            totals["evaluated_slots"] += walked.sum()
+            totals["candidate_slots"] += cand.sum()
+            totals["missed_slots"] += (valid & ~cand).sum()
+            totals["pair_warp_walked"] += n_warps * inr.sum()
+            totals["box"] += box.sum()
+            totals["disc"] += disc.sum()
+            totals["box_and_disc"] += (box & disc).sum()
+            totals["pair_warp_candidates"] += (by_warp(cand) > 0).sum()
+            lanes_hit = by_warp(comp)
+            totals["pair_warp_hits"] += (lanes_hit > 0).sum()
+            totals["single_lane_hits"] += (lanes_hit == 1).sum()
+            T[idx] = t_new
+    cells_out = {k: int(totals.pop(k)) for k in ("box", "disc",
+                                                 "box_and_disc")}
+    return dict(**counts, **{k: int(v) for k, v in totals.items()},
+                pair_warp_cells=cells_out, warps_per_tile=n_warps)
+
+
 def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
                absgrad: bool = False, packed: bool = False):
     """Tile backward: the sorted table, the forward's tile outputs and their
@@ -932,13 +1164,16 @@ def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
     else:
         gbuf = torch.zeros((cfg.d_g(absgrad), cfg.cap), dtype=torch.float32,
                            device=dev)
+    # the longest runs first: on dense views one tile's run sets the time
+    order = torch.argsort(starts[1:cfg.n_tiles + 1] - starts[:cfg.n_tiles],
+                          descending=True).to(torch.int32)
     err = native.lib().gsc_raster_bwd(
         S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
-        tiles.data_ptr(), v_tiles.data_ptr(), cfg.n_tiles, cfg.tile_width,
-        cfg.tile_height, cfg.tile_size, cfg.channels,
+        order.data_ptr(), tiles.data_ptr(), v_tiles.data_ptr(), cfg.n_tiles,
+        cfg.tile_width, cfg.tile_height, cfg.tile_size, cfg.channels,
         int(cfg.cutoff == "soft"), int(absgrad), int(packed),
         int(cfg.log_composite), int(cfg.geom_packed), int(cfg.attr_packed),
-        gbuf.data_ptr(), _stream(),
+        int(bwd_dense(cfg)), gbuf.data_ptr(), _stream(),
     )
     native.check(err, "gsc_raster_bwd")
     _count_launch("raster_bwd", [(packed, "_packed")] + _input_branches(cfg))

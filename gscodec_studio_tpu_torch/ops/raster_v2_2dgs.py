@@ -17,6 +17,12 @@ gradient reduction (B9b, B4, B9b). What differs from 3DGS:
     ``A`` the prefix sum of w z, ``S = T_incl - T_final`` and
     ``SZ = WZ_total - A - w z``.
 
+``absgrad`` (cfg_2dgs, from ``rasterize_to_pixels_2dgs_v2``'s
+``absgrad_probe``) adds two gradient rows, the per-intersection sums of
+|2 dx v_sig| and |2 dy v_sig| where the screen filter set sigma (the
+means2d terms of that branch); the probe's gradient is their per-surfel
+sum.
+
 ``log_composite`` takes raster_v2's log-space scan (``_composite_log``)
 in both kernels: the weights, the distortion, the median's T_prev > 0.5
 test and the cutoffs follow its T_prev; the backward's suffix term takes
@@ -44,12 +50,12 @@ from gscodec_studio_tpu_torch.device import DeviceLike, resolve_device
 from gscodec_studio_tpu_torch.ops import raster_v2 as rv
 from gscodec_studio_tpu_torch.ops.raster_v2 import (
     ALPHA_THRESHOLD, CAP_BLOCK, K, MAX_ALPHA, MAX_CHANNELS,
-    TRANSMITTANCE_EPS, V2Cfg)
+    TRANSMITTANCE_EPS, V2Cfg, bwd_pixels_per_thread)
 
 FILTER_INV_SQUARE = 2.0
 # B6 gives a pair no candidate region when |det M| is below this times the
 # product of M's column norms taken about the ellipse's centre: the camera
-# lies nearly in the surfel's plane (csrc/raster_bwd_2dgs.cu kFlat)
+# lies nearly in the surfel's plane (csrc/raster_bwd_2dgs.cuh kFlat)
 FLAT_RATIO = 1e-3
 
 # attribute-row offsets
@@ -62,12 +68,13 @@ _ACOL = 12  # CB rows: user colors (the depth last), normals[3]
 
 def cfg_2dgs(C: int, tile_width: int, tile_height: int, tile_size: int,
              CB: int, cap: int, N: int, cutoff: str = "exact",
-             log_composite: bool = False) -> V2Cfg:
-    """The skeleton's configuration for CB composited channels."""
+             log_composite: bool = False, absgrad: bool = False) -> V2Cfg:
+    """The skeleton's configuration for CB composited channels; with
+    ``absgrad`` the backward writes the two |means2d| rows."""
     return V2Cfg(C=C, tile_width=tile_width, tile_height=tile_height,
                  tile_size=tile_size, channels=CB, cap=cap, n=N,
                  cutoff=cutoff, n_attr=12 + CB, cull=False, extra_out=2,
-                 log_composite=log_composite)
+                 log_composite=log_composite, absgrad=absgrad)
 
 
 def _attr_rows_2dgs(cfg: V2Cfg, means2d, transforms, colors, opacities):
@@ -297,17 +304,22 @@ def raster_fwd_2dgs(S, starts, masks, cfg: V2Cfg, zch: int):
 # ---------------------------------------------------------------------------
 
 
+def bwd_branches(cfg: V2Cfg):
+    """B6's branches, for _count_launch and launch_keys."""
+    return [(cfg.log_composite, "_log"), (cfg.absgrad, "_absgrad")]
+
+
 def _bwd_2dgs_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, zch: int):
     """Plain version of the 2DGS tile-backward kernel: the JAX package's
     hand-derived VJP (``_bwd_kernel_2dgs``) over the chunk index,
     vectorised across tiles as ``_fwd_2dgs_plain`` is. Returns the
-    gradient rows [12 + CB, cap] in S's column order; columns no tile
-    reaches stay zero."""
+    gradient rows [12 + CB (+ 2 with cfg.absgrad), cap] in S's column
+    order; columns no tile reaches stay zero."""
     dev = S.device
     nT, P, CB = cfg.n_tiles, cfg.pixels, cfg.channels
     off, end, c0, c1, px, py, lane, group = rv._tile_walk(S, starts, masks,
                                                           cfg)
-    gbuf = torch.zeros((cfg.d_g(False), cfg.cap), dtype=torch.float32,
+    gbuf = torch.zeros((cfg.d_g(cfg.absgrad), cfg.cap), dtype=torch.float32,
                        device=dev)
     zero = torch.zeros((), device=dev)
     zrow = _ACOL + zch
@@ -369,10 +381,15 @@ def _bwd_2dgs_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, zch: int):
             b3 = pr["b3"].to(v_sig.dtype)
             v_sig3 = v_sig * b3
             v_sig2 = v_sig * (1.0 - b3)
-            rows = [None] * cfg.d_g(False)
+            rows = [None] * cfg.d_g(cfg.absgrad)
             # the screen-space filter branch -> means2d
-            rows[_AX] = (FILTER_INV_SQUARE * pr["dx"] * v_sig2).sum(1)
-            rows[_AY] = (FILTER_INV_SQUARE * pr["dy"] * v_sig2).sum(1)
+            vx_pix = FILTER_INV_SQUARE * pr["dx"] * v_sig2
+            vy_pix = FILTER_INV_SQUARE * pr["dy"] * v_sig2
+            rows[_AX] = vx_pix.sum(1)
+            rows[_AY] = vy_pix.sum(1)
+            if cfg.absgrad:  # that branch's |per-pixel| terms
+                rows[_ACOL + CB] = vx_pix.abs().sum(1)
+                rows[_ACOL + CB + 1] = vy_pix.abs().sum(1)
             # the UV branch -> the ray transform, through the cross product
             su, sv, inv_cz = pr["su"], pr["sv"], pr["inv_cz"]
             v_su = su * v_sig3
@@ -410,25 +427,19 @@ def _bwd_2dgs_plain(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, zch: int):
     return gbuf
 
 
-def bwd_pixels_per_thread(channels: int) -> int:
-    """Pixels a thread of B6 owns at ``channels`` composited channels
-    (csrc/raster_bwd_2dgs.cu ``ppt_for`` of the channels' template bound):
-    2 up to 32 channels, else 1."""
-    return 2 if channels <= 32 else 1
-
-
-def bwd_build(channels: int, tile_size: int) -> dict:
+def bwd_build(channels: int, tile_size: int, absgrad: bool = False) -> dict:
     """The build of B6 that a launch at these shapes takes
-    (csrc/raster_bwd_2dgs.cu ``launch``): the channels' template bound
-    "cbm", pixels a thread "ppt" and the launch bounds "max_threads" and
-    "min_blocks" (the 128-thread build for 6 blocks an SM at bounds up to
-    8 and tiles of up to 128 threads, else the one bounded by tile 32)."""
+    (csrc/raster_bwd_2dgs.cuh ``launch``): the channels' template bound
+    "cbm", pixels a thread "ppt", "absgrad" and the launch bounds
+    "max_threads" and "min_blocks" (the 128-thread build for 6 blocks an SM
+    at bounds up to 8 and tiles of up to 128 threads, else the one bounded
+    by tile 32)."""
     cbm = next(b for b in (4, 8, 16, 32, 64, 128) if channels <= b)
     ppt = bwd_pixels_per_thread(channels)
-    rows_a_cell = 32 // (8 // ppt)
-    threads = -(-tile_size // 8) * -(-tile_size // rows_a_cell) * 32
-    small = cbm <= 8 and threads <= 128
-    return dict(cbm=cbm, ppt=ppt, max_threads=128 if small else 1024 // ppt,
+    n_warps, _, _ = rv._warp_layout(tile_size, ppt)
+    small = cbm <= 8 and n_warps * 32 <= 128
+    return dict(cbm=cbm, ppt=ppt, absgrad=bool(absgrad),
+                max_threads=128 if small else 1024 // ppt,
                 min_blocks=6 if small else 1)
 
 
@@ -516,21 +527,12 @@ def _bwd_2dgs_counts(S, starts, masks, cfg: V2Cfg):
         pair (the ballot shortcut's);
       "warps_per_tile": the warps that cover a tile's pixels."""
     dev = S.device
-    nT, P, ts = cfg.n_tiles, cfg.pixels, cfg.tile_size
+    nT, P = cfg.n_tiles, cfg.pixels
     off, end, c0, c1, px, py, lane, group = rv._tile_walk(S, starts, masks,
                                                           cfg)
-    ppl = bwd_pixels_per_thread(cfg.channels)
-    cell_width = 8
-    ct = cell_width // ppl  # lanes a cell row
-    rc = 32 // ct  # rows a cell
-    cells_x = -(-ts // cell_width)
-    n_warps = cells_x * -(-ts // rc)
-    p = torch.arange(P, device=dev)
-    row, col = torch.div(p, ts, rounding_mode="floor"), p % ts
-    lane_of = ((torch.div(row, rc, rounding_mode="floor") * cells_x
-                + torch.div(col, cell_width, rounding_mode="floor")) * 32
-               + (row % rc) * ct + torch.div(col % cell_width, ppl,
-                                             rounding_mode="floor"))
+    n_warps, _, lane_of = rv._warp_layout(
+        cfg.tile_size, bwd_pixels_per_thread(cfg.channels))
+    lane_of = lane_of.to(dev)
     i64 = dict(dtype=torch.int64, device=dev)
     counts = {k: torch.zeros(nT, **i64) for k in ("run", "pairs", "slots")}
     totals = {k: torch.zeros((), **i64) for k in (
@@ -585,7 +587,8 @@ def _bwd_2dgs_counts(S, starts, masks, cfg: V2Cfg):
 def raster_bwd_2dgs(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, zch: int):
     """2DGS tile backward: the sorted table, the forward's tile outputs and
     their cotangents [n_tiles, P, CB + 3] -> per-intersection gradient rows
-    [12 + CB, cap] (x, y, m00..m22, op, colors[CB]), column j holding the
+    [12 + CB, cap] (x, y, m00..m22, op, colors[CB], and with cfg.absgrad
+    the filter branch's sums of |x| and |y| terms), column j holding the
     gradient of S's column j. The median's cotangent is not read (the
     median carries no gradient). Columns no tile reaches are zero."""
     _check_tile_args("raster_bwd_2dgs", S, starts, masks, cfg, zch)
@@ -599,17 +602,17 @@ def raster_bwd_2dgs(S, starts, masks, tiles, v_tiles, cfg: V2Cfg, zch: int):
     dev = S.device
     rv._check_cuda("raster_bwd_2dgs tiles", tiles, torch.float32, dev)
     rv._check_cuda("raster_bwd_2dgs v_tiles", v_tiles, torch.float32, dev)
-    gbuf = torch.zeros((cfg.d_g(False), cfg.cap), dtype=torch.float32,
+    gbuf = torch.zeros((cfg.d_g(cfg.absgrad), cfg.cap), dtype=torch.float32,
                        device=dev)
     err = native.lib().gsc_raster_bwd_2dgs(
         S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
         tiles.data_ptr(), v_tiles.data_ptr(), cfg.n_tiles, cfg.tile_width,
         cfg.tile_height, cfg.tile_size, cfg.channels, zch,
-        int(cfg.cutoff == "soft"), int(cfg.log_composite), gbuf.data_ptr(),
-        rv._stream(),
+        int(cfg.cutoff == "soft"), int(cfg.absgrad), int(cfg.log_composite),
+        gbuf.data_ptr(), rv._stream(),
     )
     native.check(err, "gsc_raster_bwd_2dgs")
-    rv._count_launch("raster_bwd_2dgs", [(cfg.log_composite, "_log")])
+    rv._count_launch("raster_bwd_2dgs", bwd_branches(cfg))
     return gbuf
 
 
@@ -629,7 +632,8 @@ def _build_sorted_2dgs(cfg: V2Cfg, means2d, transforms, colors, opacities,
 class _RasterCore2DGS(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, zch, means2d, transforms, colors, opacities,
-                depths, radii, masks):
+                depths, radii, masks, ag_probe):
+        del ag_probe  # its gradient carries absgrad out of the backward
         b = _build_sorted_2dgs(cfg, means2d, transforms, colors, opacities,
                                depths, radii)
         tiles = raster_fwd_2dgs(b.S, b.starts, masks, cfg, zch)
@@ -649,11 +653,13 @@ class _RasterCore2DGS(torch.autograd.Function):
                                ctx.zch)
         g = rv._reduce_grads(gbuf, perm, cum, order, n_isects).T
         C, N, CB = cfg.C, cfg.n, cfg.channels
+        v_ag = (g[:, _ACOL + CB:_ACOL + CB + 2].reshape(C, N, 2)
+                if cfg.absgrad else None)
         # the depths are the sort key only: no gradient (as in JAX)
         return (None, None, g[:, _AX:_AY + 1].reshape(C, N, 2),
                 g[:, _AM:_AM + 9].reshape(C, N, 3, 3),
                 g[:, _ACOL:_ACOL + CB].reshape(C, N, CB),
-                g[:, _AOP].reshape(C, N), None, None, None)
+                g[:, _AOP].reshape(C, N), None, None, None, v_ag)
 
 
 def rasterize_to_pixels_2dgs_v2(
@@ -671,6 +677,7 @@ def rasterize_to_pixels_2dgs_v2(
     backgrounds=None,  # [C, ch]
     masks=None,  # [C, TH, TW] bool
     log_composite: bool = False,
+    absgrad_probe=None,  # [C, N, 2] zeros
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
            torch.Tensor, dict]:
@@ -683,7 +690,10 @@ def rasterize_to_pixels_2dgs_v2(
     The capacity is ``isect_capacity`` rounded up to a multiple of 4096.
     The median depth carries no gradient; the background is added outside
     the kernel. ``log_composite`` selects the log-space transmittance
-    scan."""
+    scan. With ``absgrad_probe`` ([C, N, 2], read by nothing but autograd)
+    the probe's gradient is each surfel's sum, over its intersections and
+    their tiles' pixels, of |2 dx v_sig| and |2 dy v_sig| where the screen
+    filter set sigma (that branch's per-pixel means2d terms)."""
     dev = resolve_device(device)
 
     def f32(x):
@@ -700,7 +710,8 @@ def rasterize_to_pixels_2dgs_v2(
     TH = -(-height // tile_size)
     cap = -(-isect_capacity // CAP_BLOCK) * CAP_BLOCK
     cfg = cfg_2dgs(C, TW, TH, tile_size, CB, cap, N,
-                   log_composite=bool(log_composite))
+                   log_composite=bool(log_composite),
+                   absgrad=absgrad_probe is not None)
     if masks is None:
         masks_arr = torch.ones(cfg.n_tiles, dtype=torch.int32, device=dev)
     else:
@@ -709,7 +720,7 @@ def rasterize_to_pixels_2dgs_v2(
     colors_full = torch.cat([colors, normals], dim=-1).contiguous()
     tiles, n_isects = _RasterCore2DGS.apply(
         cfg, zch, means2d, ray_transforms, colors_full, opacities, depths,
-        radii, masks_arr)
+        radii, masks_arr, absgrad_probe)
 
     ts = tile_size
     img = tiles.reshape(C, TH, TW, ts, ts, cfg.chp).permute(0, 1, 3, 2, 4, 5)

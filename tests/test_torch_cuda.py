@@ -761,3 +761,80 @@ def test_skel_kernel_matches_plain(cuda):
         assert tr.LAUNCHES["skel_composite"] == 1
         ref = sk._skel_plain(rows, starts, ends)
         assert float((out - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("ts", [8, 16, 32])
+@pytest.mark.parametrize("CH", [1, 3, 40, 128])
+def test_backward_kernel_redesign_matches_plain(cuda, ts, CH):
+    """B2 (the redesigned kernel) in every branch at tiles 8, 16 and 32: both
+    cutoffs, the product and the log scan, f32 and packed (u16 and bf16)
+    input rows, absgrad off and on, f32 and packed-pair output rows, and at
+    up to 8 channels both the dense build (3000 Gaussians a camera) and the
+    other (60000); within 1e-4 of each row's largest |value| of the plain
+    version, the same bits twice, the packed output the f32 one truncated;
+    and no slot that passes the alpha test outside its pair's candidate
+    region. The forward's tiles come from the plain version (B1 takes tile
+    32 up to 32 channels)."""
+    cases = [(n, cutoff, knobs)
+             for n in ((3000, 60000) if CH <= 8 else (3000,))
+             for cutoff in ("exact", "soft") for knobs in ({}, KNOBS[3])]
+    for n, cutoff, knobs in cases:
+        m2, con, col, op, dep, radii = _scene(11, N=n, CH=CH)
+        C, N = dep.shape
+        cfg = _cfg(C, N, 200, 136, ts, CH, cutoff, cap=1 << 20, **knobs)
+        b = tr._build_sorted(cfg, *[torch.as_tensor(x, device=cuda)
+                                    for x in (m2, con, col, op, dep,
+                                              radii)])
+        assert int(b.n_isects) < cfg.cap
+        g = torch.Generator(device="cpu").manual_seed(ts + CH)
+        masks = (torch.rand(cfg.n_tiles, generator=g) > 0.2).to(
+            device=cuda, dtype=torch.int32)
+        tiles = tr._fwd_plain(b.S, b.starts, masks, cfg)
+        v_tiles = torch.randn(tiles.shape, generator=g).to(cuda)
+        before = tr.LAUNCHES["raster_bwd_packed"]
+        for absgrad in (False, True):
+            args = (b.S, b.starts, masks, tiles, v_tiles, cfg, absgrad)
+            out = tr.raster_bwd(*args)
+            assert out.shape == (cfg.d_g(absgrad), cfg.cap)
+            assert _rows_close(out, tr._bwd_plain(*args), 1e-4), (
+                cutoff, knobs, absgrad)
+            assert torch.equal(out, tr.raster_bwd(*args))
+            gp = tr.raster_bwd(*args, packed=True)
+            assert torch.equal(gp, tr._pack_grad_rows(
+                out, cfg.n_attr_eff, absgrad))
+            assert float(out[:2].abs().max()) > 0
+        assert tr.LAUNCHES["raster_bwd_packed"] == before + 2
+        c = tr._bwd_counts(b.S, b.starts, masks, cfg)
+        assert c["missed_slots"] == 0
+        assert c["candidate_slots"] < c["evaluated_slots"]
+        assert tr.bwd_dense(cfg) == (n == 3000 and ts < 32)
+
+
+@pytest.mark.parametrize("log_composite", [False, True])
+def test_2dgs_backward_absgrad_matches_plain(cuda, log_composite):
+    """B6's absgrad rows (tiles 16 and 32, both cutoffs) against the plain
+    version within 1e-4 of each row's largest |value|, the same bits twice,
+    the other rows those of the build without them, bit for bit, and one
+    launch under the "_absgrad" key."""
+    import dataclasses as dc
+
+    for ts in (16, 32):
+        for cutoff in ("exact", "soft"):
+            t2, cfg, b, masks, g = _surfel_case(
+                cuda, 12, cutoff, log_composite=log_composite, ts=ts,
+                tiny=40)
+            cfg = dc.replace(cfg, absgrad=True)
+            tiles = t2.raster_fwd_2dgs(b.S, b.starts, masks, cfg, 3)
+            v = torch.randn(tiles.shape, generator=g).to(cuda)
+            args = (b.S, b.starts, masks, tiles, v, cfg, 3)
+            before = tr.LAUNCHES["raster_bwd_2dgs_absgrad"]
+            out = t2.raster_bwd_2dgs(*args)
+            assert tr.LAUNCHES["raster_bwd_2dgs_absgrad"] == before + 1
+            assert out.shape == (12 + 7 + 2, cfg.cap)
+            assert _rows_close(out, t2._bwd_2dgs_plain(*args), 1e-4), (
+                ts, cutoff)
+            assert torch.equal(out, t2.raster_bwd_2dgs(*args))
+            assert float(out[-2:].abs().max()) > 0
+            off = t2.raster_bwd_2dgs(b.S, b.starts, masks, tiles, v,
+                                     dc.replace(cfg, absgrad=False), 3)
+            assert torch.equal(out[:-2], off)
