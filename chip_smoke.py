@@ -7,11 +7,13 @@ Phases, one JSON line each with its own ``seconds``:
   device    nvidia-smi's name and power limit, torch and CUDA versions;
   build     the nvcc build of csrc/*.cu (route: plain-C .so + ctypes), with
             the registers and spills of every kernel entry (ptxas), and
-            B2's, B6's and B9a's instantiations by their template arguments;
+            B1's, B2's, B5's, B6's and B9a's instantiations by their
+            template arguments;
   kernels   each kernel against its plain PyTorch version on the card: a
             20k-Gaussian scene at 320x240, tile 16 and 32, both cutoffs,
             the backward with absgrad off and on, and each backward kernel
-            run twice for the same bits; B1 and B2 at 40 channels; the
+            run twice for the same bits (the forwards too); B1 and B2 at 40
+            channels (B1 also at tile 32, its 1024-thread build); the
             sorted table's precision branches on the same scene, tile 16
             and 32, both cutoffs: attr_dtype "bf16", geom_dtype "u16",
             log_composite, and all three (each case's backward also with
@@ -25,7 +27,9 @@ Phases, one JSON line each with its own ``seconds``:
             with a candidate, the hits and the single-lane ones, in B6's
             warp layout); B2's candidate regions on each 3DGS case
             (b2_regions: raster_v2._bwd_counts in B2's layout, checked to
-            hold every slot that passes the alpha test);
+            hold every slot that passes the alpha test), and B1's and B5's
+            (b1_work, b5_work: b6_work for the forwards, in their layouts,
+            raster_v2._fwd_counts and raster_v2_2dgs._fwd_2dgs_counts);
   serve     the committed checkpoint results/garden_ab_f32/splats_final.npz
             (120k Gaussians, SH 3) rendered from 8 orbit cameras at
             1297x840 through utils.ply_render.render_splats, and its first
@@ -34,21 +38,25 @@ Phases, one JSON line each with its own ``seconds``:
             32 with the exact cutoff, tile 16 with the soft one; render
             time, per-kernel time, plain time, library time and the bound
             of each kernel, with each kernel held against its plain version;
-            B2's time at each tile size (16 beside 32) and its regions;
+            B1's and B2's time at each tile size (16 beside 32, and their
+            ratio) and their regions;
   train_1m  the same scene, tile 16, both cutoffs: forward + backward of
             rendering.rasterization with a seeded cotangent (median ms,
             Mpix/s, launches), and the backward kernels' time, bound, plain
             and library times and errors at its shapes; B2's work (b2_work:
             as b6_work, in B2's layout, with the (pair, warp) that the
             expansion's disc would leave beside B2's box, the build's
-            registers and spills, B2 on the longest tile alone);
+            registers and spills, B2 on the longest tile alone), and
+            b1_work for B1; B1 and B2 at 40 channels (B1 against its plain
+            version there, with its bound);
   train_1m_2dgs  the same scene's surfels through
             rendering.rasterization_2dgs, tile 16, exact cutoff: forward and
             forward + backward with a seeded cotangent on the colours,
             alphas, normals and distortion (median ms, Mpix/s, launches),
             and B5's and B6's time, bound, plain time and error, B6's work
             (b6_work, with the build's registers and spills of its
-            instantiation and B6's time on the longest tile alone), and
+            instantiation and B6's time on the longest tile alone), B5's
+            (b5_work) and B5's time at tile 32, and
             B9a on the surfels' two gathers beside index_select and
             torch.stack(rows)[:, order]; the same with log_composite
             (B5/B6's log branch, without b6_work); and one fwd+bwd of
@@ -64,7 +72,7 @@ Phases, one JSON line each with its own ``seconds``:
             of binned centres outside [-4096, 4096) px); each new branch's
             kernel time, launches, bound and plain time beside the f32
             branch's, every kernel held against its plain version on these
-            inputs; b2_work on bench.py's configuration;
+            inputs; b2_work and b1_work on bench.py's configuration;
   train     training.trainer.Runner with the default Config on the stand-in
             of utils.scenes.checkpoint_stand_in (the checkpoint rendered
             from 8 views at 1297x840, 7 to train, 1 held out), 30 steps with
@@ -73,7 +81,7 @@ Phases, one JSON line each with its own ``seconds``:
             then B2's time on each training view at the run's final
             splats, SH degree and capacity, and the slowest view's kernels,
             forward and backward, held against their plain versions, with
-            B2's regions checked there (also in train_ladder and
+            B1's and B2's regions checked there (also in train_ladder and
             train_packed);
   train_2dgs  training.trainer_2dgs.Runner2DGS with the default Config2DGS
             on the same stand-in, 30 steps with the train phase's refine
@@ -81,7 +89,8 @@ Phases, one JSON line each with its own ``seconds``:
             6 (the loss must fall from steps 6-10 to the last 5): loss,
             held-out PSNR, step ms, launches; then B6 timed on each
             training view and the slowest view's 2DGS kernels held against
-            their plain versions, with B6's regions checked there;
+            their plain versions, with B5's and B6's regions checked
+            there;
   train_ladder  the garden ladder's recipe (examples/garden_benchmark.py,
             results/garden_ladder_r5/stats.json) through Runner on the same
             stand-in: MCMC at a capacity of 120,000, the compression
@@ -476,16 +485,20 @@ def b6_instances(entries):
     return out
 
 
-def b2_instances(entries):
-    """B2's instantiations in the ptxas report: the channel bound, pixels a
-    thread, cutoff, scan, launch bounds of each, with its registers and
-    spills."""
+def tile_instances(entries, kernel, bound_key="chm"):
+    """The instantiations of a tile kernel whose template is <channel
+    bound, pixels a thread, soft, log, most threads, blocks an SM> (B1's
+    raster_fwd_kernel, B2's raster_bwd_kernel, B5's
+    raster_fwd_2dgs_kernel) in the ptxas report: the channel bound (under
+    ``bound_key``), pixels a thread, cutoff, scan, launch bounds of each,
+    with its registers and spills."""
     out = []
     for e in entries:
-        m = re.search(r"raster_bwd_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])"
+        m = re.search(kernel + r"ILi(\d+)ELi(\d+)ELb([01])ELb([01])"
                       r"ELi(\d+)ELi(\d+)E", e["name"])
         if m:
-            out.append(dict(chm=int(m.group(1)), ppt=int(m.group(2)),
+            out.append(dict({bound_key: int(m.group(1))},
+                            ppt=int(m.group(2)),
                             soft=m.group(3) == "1", log=m.group(4) == "1",
                             max_threads=int(m.group(5)),
                             min_blocks=int(m.group(6)),
@@ -508,67 +521,116 @@ def pack_instances(entries):
     return out
 
 
-def b6_work(r2, st, ptxas=None, time_tail=None):
-    """What B6 does on a Stages2DGS's inputs, from the plain walk in B6's
-    layout (r2._bwd_2dgs_counts): the per-tile distribution (max, p99,
-    mean) of the rows walked, the pairs that at least one pixel composited
-    and the composited (pair, pixel) slots; the slots walked and those
-    inside their pair's candidate region (the ones B6 evaluates); the
-    (pair, warp) with a candidate, the (pair, warp) hits and the
-    single-lane ones (the ballot shortcut's); with ``ptxas``, the build's
-    registers and spills of the instantiation these inputs take
-    (r2.bwd_build). ``time_tail`` (a timing function) adds B6's time on the
-    tile with the longest walk alone, the floor that one block per tile
-    puts under the whole launch. Raises if a slot that passes the alpha
-    test lies outside its pair's candidate region."""
-    cfg = st.cfg
-    c1 = r2._bwd_2dgs_counts(st.b.S, st.b.starts, st.masks, cfg)
-    if c1["missed_slots"]:
-        raise AssertionError(f"{c1['missed_slots']} passing (pair, pixel) "
-                             f"slots outside B6's candidate regions")
-
+def work_summary(c, build, cfg, ptxas, match, tail_ms=None):
+    """A tile kernel's work from its region counts ``c`` (raster_v2's
+    _region_counts or raster_v2_2dgs's _region_counts_2dgs): the per-tile
+    distribution (max, p99, mean) of the rows walked, the pairs that at
+    least one pixel composited and the composited (pair, pixel) slots; the
+    slots walked and the candidate ones; the (pair, warp) walked, those
+    whose cell meets the pair's box, those with a candidate, the hits and
+    the single-lane ones (each where the counts have it); the build
+    (``build``) and, with ``ptxas`` (tile_instances or b6_instances
+    entries), its registers and spills, matched on the build's ``match``
+    keys and the cutoff and scan; ``tail_ms`` (longest_tile_ms) the
+    kernel on the tile with the longest walk alone, the floor that one
+    block per tile puts under the whole launch."""
     def dist(x):
         x = x.double()
         return dict(max=int(x.max()), p99=float(torch.quantile(x, 0.99)),
                     mean=float(x.mean()))
 
-    build = r2.bwd_build(cfg.channels, cfg.tile_size, cfg.absgrad)
-    res = dict(
-        build=build,
-        per_tile={k: dist(c1[k]) for k in ("run", "pairs", "slots")},
-        composited_slots=int(c1["slots"].sum()),
-        **{k: c1[k] for k in (
-            "evaluated_slots", "candidate_slots", "warps_per_tile",
-            "pair_warp_candidates", "pair_warp_hits", "single_lane_hits")})
+    res = dict(build=build,
+               per_tile={k: dist(c[k]) for k in ("run", "pairs", "slots")},
+               composited_slots=int(c["slots"].sum()),
+               **{k: c[k] for k in (
+                   "evaluated_slots", "candidate_slots", "missed_slots",
+                   "warps_per_tile", "pair_warp_walked", "pair_warp_cells",
+                   "pair_warp_candidates", "pair_warp_hits",
+                   "single_lane_hits") if k in c})
     if ptxas is not None:
         res["ptxas"] = [e for e in ptxas
-                        if all(e[k] == v for k, v in build.items())
+                        if all(e[k] == build[k] for k in match)
                         and e["soft"] == (cfg.cutoff == "soft")
                         and e["log"] == cfg.log_composite]
-    if time_tail is not None:
-        longest = int(torch.argmax(c1["run"]))
-        masks1 = torch.zeros_like(st.masks)
-        masks1[longest] = 1
-        args = (st.b.S, st.b.starts, masks1) + st.bwd_args[3:]
-        res["longest_tile"] = dict(tile=longest, run=int(c1["run"][longest]),
-                                   ms=time_tail(
-                                       lambda: r2.raster_bwd_2dgs(*args), 5))
+    if tail_ms is not None:
+        res["longest_tile"] = dict(zip(("ms", "tile", "run"), tail_ms))
     return res
+
+
+def longest_tile_ms(c, masks, time_tail, launch):
+    """``launch(masks1)`` timed by ``time_tail`` with only the tile of the
+    longest walk in ``c`` unmasked: (ms, tile, run)."""
+    longest = int(torch.argmax(c["run"]))
+    masks1 = torch.zeros_like(masks)
+    masks1[longest] = 1
+    return (time_tail(lambda: launch(masks1), 5), longest,
+            int(c["run"][longest]))
+
+
+def b6_work(r2, st, ptxas=None, time_tail=None):
+    """What B6 does on a Stages2DGS's inputs: work_summary of the plain
+    walk in B6's layout (r2._bwd_2dgs_counts, kept as st.b6_counts) and
+    build (r2.bwd_build), with B6 on the longest tile alone. Raises if a
+    slot that passes the alpha test lies outside its pair's candidate
+    region."""
+    cfg = st.cfg
+    c6 = r2._bwd_2dgs_counts(st.b.S, st.b.starts, st.masks, cfg)
+    if c6["missed_slots"]:
+        raise AssertionError(f"{c6['missed_slots']} passing (pair, pixel) "
+                             f"slots outside B6's candidate regions")
+    st.b6_counts = c6
+    build = r2.bwd_build(cfg.channels, cfg.tile_size, cfg.absgrad)
+    tail = None if time_tail is None else longest_tile_ms(
+        c6, st.masks, time_tail, lambda m: r2.raster_bwd_2dgs(
+            st.b.S, st.b.starts, m, *st.bwd_args[3:]))
+    return work_summary(c6, build, cfg, ptxas, tuple(build), tail)
 
 
 def b2_regions(rv, st):
     """B2's candidate regions on a Stages' inputs (rv._bwd_counts, B2's
     layout): raises if a slot that passes the alpha test lies outside its
-    pair's region; returns the counts."""
+    pair's region; returns the counts (kept as st.b2_counts)."""
     c2 = rv._bwd_counts(st.b.S, st.b.starts, st.masks, st.cfg)
     if c2["missed_slots"]:
         raise AssertionError(f"{c2['missed_slots']} passing (pair, pixel) "
                              f"slots outside B2's candidate regions")
+    st.b2_counts = c2
     return c2
 
 
+def b1_regions(rv, st):
+    """B1's candidate regions on a Stages' inputs (rv._fwd_counts, B1's
+    layout): raises if a slot that passes the alpha test lies outside its
+    pair's region; returns the counts. B1 and B2 share the walk and the
+    regions (csrc/regions.cuh), so where their layouts agree (the same
+    pixels a thread) B2's counts, if b2_regions made them, are B1's."""
+    cfg = st.cfg
+    dense = rv.bwd_dense(cfg)
+    c1 = getattr(st, "b2_counts", None)
+    if c1 is None or rv.fwd_build(cfg.channels, cfg.tile_size, dense)[
+            "ppt"] != rv.bwd_build(cfg.channels, cfg.tile_size,
+                                   dense=dense)["ppt"]:
+        c1 = rv._fwd_counts(st.b.S, st.b.starts, st.masks, cfg)
+    if c1["missed_slots"]:
+        raise AssertionError(f"{c1['missed_slots']} passing (pair, pixel) "
+                             f"slots outside B1's candidate regions")
+    return c1
+
+
+def b5_regions(r2, st):
+    """B5's candidate regions and their boxes on a Stages2DGS's inputs
+    (r2._fwd_2dgs_counts, B5's layout): raises if a slot that passes the
+    alpha test lies outside them; returns the counts."""
+    c5 = r2._fwd_2dgs_counts(st.b.S, st.b.starts, st.masks, st.cfg)
+    if c5["missed_slots"]:
+        raise AssertionError(f"{c5['missed_slots']} passing (pair, pixel) "
+                             f"slots outside B5's candidate regions")
+    return c5
+
+
 def region_summary(c):
-    """The totals of a _bwd_counts or _bwd_2dgs_counts result."""
+    """The totals of a region count (b1_regions, b2_regions, b5_regions,
+    r2._bwd_2dgs_counts)."""
     return dict(composited_slots=int(c["slots"].sum()), **{
         k: c[k] for k in ("evaluated_slots", "candidate_slots",
                           "missed_slots", "pair_warp_walked",
@@ -578,47 +640,44 @@ def region_summary(c):
 
 def b2_work(rv, st, ptxas=None, time_tail=None):
     """b6_work for B2 on a Stages' inputs (after its compare_bwd): the
-    per-tile distribution (max, p99, mean) of the rows walked, the pairs
-    composited and the composited slots; the slots walked and the
-    candidate ones (those that can pass), checked to hold every slot that
-    passes; the (pair, warp) walked, those whose cell meets the pair's
-    box (B2's test) beside those that the expansion's disc, or both, would
-    leave, the (pair, warp) with a candidate, the hits and the single-lane
-    ones; with ``ptxas``, the build's registers and spills of the
-    instantiation these inputs take (rv.bwd_build); ``time_tail`` adds
-    B2's time on the tile with the longest walk alone."""
+    counts of b2_regions in B2's layout and build (rv.bwd_build), with the
+    (pair, warp) cell tests of the box, the expansion's disc and both, and
+    B2 on the longest tile alone."""
     cfg = st.cfg
     c2 = b2_regions(rv, st)
-
-    def dist(x):
-        x = x.double()
-        return dict(max=int(x.max()), p99=float(torch.quantile(x, 0.99)),
-                    mean=float(x.mean()))
-
     build = rv.bwd_build(cfg.channels, cfg.tile_size, dense=rv.bwd_dense(cfg))
-    res = dict(
-        build=build,
-        per_tile={k: dist(c2[k]) for k in ("run", "pairs", "slots")},
-        composited_slots=int(c2["slots"].sum()),
-        **{k: c2[k] for k in (
-            "evaluated_slots", "candidate_slots", "warps_per_tile",
-            "pair_warp_walked", "pair_warp_cells", "pair_warp_candidates",
-            "pair_warp_hits", "single_lane_hits")})
-    if ptxas is not None:
-        res["ptxas"] = [e for e in ptxas
-                        if all(e[k] == build[k] for k in (
-                            "chm", "ppt", "max_threads", "min_blocks"))
-                        and e["soft"] == (cfg.cutoff == "soft")
-                        and e["log"] == cfg.log_composite]
-    if time_tail is not None:
-        longest = int(torch.argmax(c2["run"]))
-        masks1 = torch.zeros_like(st.masks)
-        masks1[longest] = 1
-        args = (st.b.S, st.b.starts, masks1, st.out, st.v_tiles, cfg, False)
-        res["longest_tile"] = dict(tile=longest, run=int(c2["run"][longest]),
-                                   ms=time_tail(
-                                       lambda: rv.raster_bwd(*args), 5))
-    return res
+    tail = None if time_tail is None else longest_tile_ms(
+        c2, st.masks, time_tail, lambda m: rv.raster_bwd(
+            st.b.S, st.b.starts, m, st.out, st.v_tiles, cfg, False))
+    return work_summary(c2, build, cfg, ptxas,
+                        ("chm", "ppt", "max_threads", "min_blocks"), tail)
+
+
+def b1_work(rv, st, ptxas=None, time_tail=None):
+    """b2_work for B1 on a Stages' inputs: the counts of b1_regions in
+    B1's layout and build (rv.fwd_build), with B1 on the longest tile
+    alone."""
+    cfg = st.cfg
+    c1 = b1_regions(rv, st)
+    build = rv.fwd_build(cfg.channels, cfg.tile_size, dense=rv.bwd_dense(cfg))
+    tail = None if time_tail is None else longest_tile_ms(
+        c1, st.masks, time_tail, lambda m: rv.raster_fwd(
+            st.b.S, st.b.starts, m, cfg, order=st.runs))
+    return work_summary(c1, build, cfg, ptxas,
+                        ("chm", "ppt", "max_threads", "min_blocks"), tail)
+
+
+def b5_work(r2, st, ptxas=None, time_tail=None):
+    """b1_work for B5 on a Stages2DGS's inputs (r2.fwd_build), with the
+    (pair, warp) whose cell meets the region's box."""
+    cfg = st.cfg
+    c5 = b5_regions(r2, st)
+    build = r2.fwd_build(cfg.channels, cfg.tile_size)
+    tail = None if time_tail is None else longest_tile_ms(
+        c5, st.masks, time_tail,
+        lambda m: r2.raster_fwd_2dgs(st.b.S, st.b.starts, m, cfg, st.zch))
+    return work_summary(c5, build, cfg, ptxas,
+                        ("cbm", "ppt", "max_threads", "min_blocks"), tail)
 
 
 def nvidia_smi():
@@ -642,12 +701,17 @@ class Stages:
         self.attr_rows = rv._attr_rows(cfg, means2d, conics, colors,
                                        opacities)
         self.row_list = list(self.b.rows)
-        self.out = rv.raster_fwd(self.b.S, self.b.starts, masks, cfg)
+        # B1's and B2's tile order, made once a binning as the path makes
+        # it (raster_v2.run_order): B1 is timed without the argsort
+        self.runs = rv.run_order(self.b.starts, cfg)
+        self.out = rv.raster_fwd(self.b.S, self.b.starts, masks, cfg,
+                                 order=self.runs)
 
     def compare(self, errs):
         """Hold each kernel's output against its plain version on the same
         inputs. Pack must match bit for bit; expansion too, except pairs on
-        the ellipse-cull bound, which are counted; forward within FWD_TOL."""
+        the ellipse-cull bound, which are counted; forward within FWD_TOL,
+        and the same bits twice."""
         rv, cfg = self.rv, self.cfg
         res = {}
         b = self.b
@@ -691,6 +755,9 @@ class Stages:
         err = float((ref - self.out).abs().max())
         if not (math.isfinite(err) and err <= FWD_TOL):
             raise AssertionError(f"raster_fwd max abs err {err} > {FWD_TOL}")
+        if not torch.equal(self.out, rv.raster_fwd(
+                b.S, b.starts, self.masks, cfg, order=self.runs)):
+            raise AssertionError("raster_fwd differs between two runs")
         note_err(errs, rv.launch_keys("raster_fwd", rv._input_branches(cfg)),
                  err)
         res["fwd_max_abs_err"] = err
@@ -879,7 +946,7 @@ class Stages2DGS:
         versions; B5 within FWD_TOL of each output channel's scale
         (channel_err): the median and the cutoff decide alike, since T has
         the same bits in both (the plain version walks the pairs in
-        order)."""
+        order); B5 twice gives the same bits."""
         rv, r2, cfg, b = self.rv, self.r2, self.cfg, self.b
         table_p = rv._pack_rows_plain(self.attr_rows, cfg.n_attr_eff,
                                       b.order)
@@ -902,6 +969,9 @@ class Stages2DGS:
         err = channel_err(self.out, ref)
         if not (math.isfinite(err) and err <= FWD_TOL):
             raise AssertionError(f"raster_fwd_2dgs err {err} > {FWD_TOL}")
+        if not torch.equal(self.out, r2.raster_fwd_2dgs(
+                b.S, b.starts, self.masks, cfg, self.zch)):
+            raise AssertionError("raster_fwd_2dgs differs between two runs")
         abs_err = float((self.out - ref).abs().max())
         note_err(errs, rv.launch_keys(
             "raster_fwd_2dgs", [(cfg.log_composite, "_log")]), abs_err)
@@ -1144,10 +1214,13 @@ def main():
     log_text = log.read_text() if log.exists() else ""
     entries = ptxas_entries(log_text)
     b6_ptxas = b6_instances(entries)
-    b2_ptxas = b2_instances(entries)
+    b2_ptxas = tile_instances(entries, "raster_bwd_kernel")
+    b1_ptxas = tile_instances(entries, "raster_fwd_kernel")
+    b5_ptxas = tile_instances(entries, "raster_fwd_2dgs_kernel", "cbm")
     emit({"phase": "build", "library": so.name,
           "nvcc_seconds": native.build_seconds, "ptxas": entries,
           "raster_bwd_ptxas": b2_ptxas, "raster_bwd_2dgs_ptxas": b6_ptxas,
+          "raster_fwd_ptxas": b1_ptxas, "raster_fwd_2dgs_ptxas": b5_ptxas,
           "pack_rows_ptxas": pack_instances(entries),
           "seconds": time.perf_counter() - t0})
 
@@ -1201,6 +1274,7 @@ def main():
             res = st.compare(errs)
             res.update(st.compare_bwd(errs, seed=100 + view))
             res["b2_regions"] = region_summary(b2_regions(rv, st))
+            res["b1_regions"] = region_summary(b1_regions(rv, st))
         return dict(view=view, sh_degree=sh_degree, raster_bwd_ms=bwd_ms,
                     n_isects=int(st.b.n_isects), isect_capacity=st.cfg.cap,
                     cutoff=st.cfg.cutoff, **res)
@@ -1247,6 +1321,7 @@ def main():
                                      f"pixel) slots outside B6's candidate "
                                      f"regions on a trained view")
             res["b6_regions"] = region_summary(c6)
+            res["b5_regions"] = region_summary(b5_regions(r2, st))
         return dict(view=view, sh_degree=sh_degree, raster_bwd_2dgs_ms=bwd_ms,
                     n_isects=int(st.b.n_isects), isect_capacity=st.cfg.cap,
                     **res)
@@ -1349,6 +1424,7 @@ def main():
             res = st.compare(errs)
             res.update(st.compare_bwd(errs, seed=ts))
             res["b2_regions"] = region_summary(b2_regions(rv, st))
+            res["b1_work"] = b1_work(rv, st, b1_ptxas)
             cases.append(dict(tile_size=ts, cutoff=cutoff,
                               n_isects=int(st.b.n_isects), **res))
     # B1 and B2 at 40 channels (the 64-channel instantiation)
@@ -1357,11 +1433,14 @@ def main():
                           generator=g40).to(dev)
     prep40 = prep_small[:4] + (colors40,) + prep_small[5:]
     for cutoff in ("exact", "soft"):
-        st = stages_for(prep40, sw, sh, 16, cutoff)
-        res = st.compare(errs)
-        res.update(st.compare_bwd(errs, seed=40))
-        cases.append(dict(tile_size=16, cutoff=cutoff, channels=40,
-                          n_isects=int(st.b.n_isects), **res))
+        for ts in (16, 32):  # tile 32: B1's 1024-thread wide build
+            st = stages_for(prep40, sw, sh, ts, cutoff)
+            res = st.compare(errs)
+            if ts == 16:
+                res.update(st.compare_bwd(errs, seed=40))
+            res["b1_work"] = b1_work(rv, st, b1_ptxas)
+            cases.append(dict(tile_size=ts, cutoff=cutoff, channels=40,
+                              n_isects=int(st.b.n_isects), **res))
     # the sorted table's precision branches of B3, B1 and B2 (the backward
     # also with packed gradient rows)
     for name, knobs in PRECISION_CASES.items():
@@ -1371,6 +1450,7 @@ def main():
                 res = st.compare(errs)
                 res.update(st.compare_bwd(errs, seed=ts))
                 res["b2_regions"] = region_summary(b2_regions(rv, st))
+                res["b1_regions"] = region_summary(b1_regions(rv, st))
                 cases.append(dict(tile_size=ts, cutoff=cutoff, knobs=name,
                                   n_isects=int(st.b.n_isects), **res))
     # B5, B6 and B3's no-cull branch on the same scene's surfels
@@ -1388,7 +1468,8 @@ def main():
             cases.append(dict(tile_size=16, cutoff=cutoff, surfels=True,
                               log_composite=log_composite,
                               n_isects=int(st.b.n_isects),
-                              b6_work=b6_work(r2, st, b6_ptxas), **res))
+                              b6_work=b6_work(r2, st, b6_ptxas),
+                              b5_work=b5_work(r2, st, b5_ptxas), **res))
     del st
     torch.cuda.synchronize()
     emit({"phase": "kernels", "cases": cases, "max_abs_err": errs,
@@ -1548,7 +1629,7 @@ def main():
         )
         k["raster_fwd"] = dict(
             ms=cuda_ms(lambda: rv.raster_fwd(st.b.S, st.b.starts, st.masks,
-                                             cfg), 10),
+                                             cfg, order=st.runs), 10),
             plain_ms=cuda_ms(lambda: rv._fwd_plain(
                 st.b.S, st.b.starts, st.masks, cfg), 1),
             library_ms=None,
@@ -1579,13 +1660,23 @@ def main():
                             raster_bwd_ms=raster_bwd_ms,
                             raster_bwd_build=rv.bwd_build(
                                 cfg.channels, ts, dense=rv.bwd_dense(cfg)),
+                            raster_fwd_build=rv.fwd_build(
+                                cfg.channels, ts, dense=rv.bwd_dense(cfg)),
                             b2_regions=b2_reg,
+                            b1_regions=region_summary(b1_regions(rv, st)),
                             mean_alpha=float(alpha.mean())))
         if (ts, cutoff) == (16, "exact"):
             perf = k
         del st
+    # B1 and B2 at tile 32 over tile 16 (exact)
+    by_ts = {r["tile_size"]: r for r in rows_1m if r["cutoff"] == "exact"}
+    tile32_over_16 = dict(
+        raster_fwd=by_ts[32]["kernels"]["raster_fwd"]["ms"]
+        / by_ts[16]["kernels"]["raster_fwd"]["ms"],
+        raster_bwd=by_ts[32]["raster_bwd_ms"] / by_ts[16]["raster_bwd_ms"])
     emit({"phase": "scene_1m", "gaussians": N_1M, "width": WIDTH,
           "height": HEIGHT, "binned_rows_tile16": binned_rows, "runs": rows_1m,
+          "tile32_over_16": tile32_over_16,
           "seconds": time.perf_counter() - t0})
 
     def raster_grads(cfg, grad_dtype):
@@ -1784,6 +1875,7 @@ def main():
         if cutoff == "exact":
             perf.update(k)
             run["b2_work"] = b2_work(rv, st, b2_ptxas, cuda_ms)
+            run["b1_work"] = b1_work(rv, st, b1_ptxas, cuda_ms)
             run["bf16"] = bf16_case(st, leaves, bwd_args, ids)
             perf.update(run["bf16"]["kernels"])
         runs_bwd.append(run)
@@ -1796,13 +1888,33 @@ def main():
     st = stages_for(prep_1m[:4] + (colors40,) + prep_1m[5:], WIDTH, HEIGHT,
                     16, "exact")
     st.cotangent(40)
+    # B1's distance from its plain version here (reported: the kernels
+    # phase holds 40 channels to FWD_TOL on its scene; here 40 random
+    # colours summed over ~600-pair runs in another order than the plain
+    # version's per-chunk einsum come to ~1e-4), and its bound
+    ref40, pc40 = rv._fwd_plain(st.b.S, st.b.starts, st.masks, st.cfg,
+                                with_counts=True)
+    err40 = float((ref40 - st.out).abs().max())
+    if not math.isfinite(err40):
+        raise AssertionError("raster_fwd at 40 channels: not finite")
+    del ref40
+    rows40 = int(st.b.starts[st.cfg.n_tiles] - st.b.starts[0])
     wide40 = dict(
         channels=40, n_isects=int(st.b.n_isects),
-        raster_fwd_ms=cuda_ms(lambda: rv.raster_fwd(
-            st.b.S, st.b.starts, st.masks, st.cfg), 5),
+        raster_fwd_build=rv.fwd_build(40, 16),
+        raster_fwd=bound(dict(
+            ms=cuda_ms(lambda: rv.raster_fwd(
+                st.b.S, st.b.starts, st.masks, st.cfg, order=st.runs), 5),
+            max_abs_err=err40, pair_counts=pc40,
+            bytes=4 * (6 + 40) * rows40 + 4 * (st.cfg.n_tiles_v + 1)
+            + 4 * st.cfg.n_tiles + 4 * st.cfg.n_tiles * st.cfg.pixels * 41,
+            ops=FWD_OPS_EVALUATED * pc40["evaluated"]
+            + FWD_OPS_TESTED["exact"] * pc40["tested"]
+            + (1 + 2 * 40) * pc40["composited"])),
         raster_bwd_ms=cuda_ms(lambda: rv.raster_bwd(
             st.b.S, st.b.starts, st.masks, st.out, st.v_tiles, st.cfg,
             False), 3))
+    wide40["raster_fwd_ms"] = wide40["raster_fwd"]["ms"]
     del st, colors40
     emit({"phase": "train_1m", "gaussians": N_1M, "width": WIDTH,
           "height": HEIGHT, "runs": runs_bwd, "wide40": wide40,
@@ -1857,6 +1969,7 @@ def main():
     profile2 = device_profile(fwd_bwd_2dgs)
     k2 = st.kernel_numbers(cuda_ms)
     work2 = b6_work(r2, st, b6_ptxas, cuda_ms)
+    work5 = b5_work(r2, st, b5_ptxas, cuda_ms)
     # B9a on the surfels' two gathers beside their library calls
     pack2 = dict(
         S_ms=cuda_ms(lambda: rv.pack_rows(list(st.b.rows), cfg2.d_s,
@@ -1877,6 +1990,7 @@ def main():
         + 4 * cfg2.d_s * cfg2.cap))
     perf.update(k2)
     n_rows2 = int(st.b.starts[cfg2.n_tiles] - st.b.starts[0])
+    n_isects2 = int(st.b.n_isects)
     # B4 on the surfels' gradient rows beside index_add_, with its bound
     d_g2, M2, n2 = cfg2.d_g(False), cfg2.C * cfg2.n, int(st.b.n_isects)
     rows2 = rv.unpack_rows(st.gbuf, d_g2, st.b.perm)
@@ -1967,15 +2081,23 @@ def main():
                        probed_surfels=int((ag.sum(-1) > 0).sum()),
                        check=check2_abs)
     del out_ag, leaves_ag, probe, ag
+    # B5 at tile 32 (512 threads at 2 pixels a thread) beside tile 16
+    del st
+    st = stages_2dgs(prep2_1m, WIDTH, HEIGHT, "exact", ts=32)
+    b5_tile32 = dict(check=st.compare(errs), build=r2.fwd_build(
+        cfg2.channels, 32), ms=cuda_ms(lambda: r2.raster_fwd_2dgs(
+            st.b.S, st.b.starts, st.masks, st.cfg, st.zch), 10),
+        tile16_ms=k2["raster_fwd_2dgs"]["ms"])
     emit({"phase": "train_1m_2dgs", "gaussians": N_1M, "width": WIDTH,
           "height": HEIGHT, "tile_size": 16, "cutoff": cfg2.cutoff,
-          "channels": cfg2.channels, "n_isects": int(st.b.n_isects),
+          "channels": cfg2.channels, "n_isects": n_isects2,
           "rows_in_tiles": n_rows2, "isect_capacity": cfg2.cap,
           "fwd_bwd_ms": fb2_ms, "fwd_bwd_ms_samples": fb2_samples,
           "fwd_ms": f2_ms,
           "mpix_per_s": WIDTH * HEIGHT / (fb2_ms * 1e-3) / 1e6,
           "launches_per_fwd_bwd": launches2, "kernels": k2,
-          "b6_work": work2, "pack_rows_2dgs": pack2,
+          "b6_work": work2, "b5_work": work5, "b5_tile32": b5_tile32,
+          "pack_rows_2dgs": pack2,
           "segsum_rows_2dgs": segsum2,
           "expand_no_cull": expand_no_cull,
           "mean_alpha": float(out2[1].mean()), "profile": profile2,
@@ -2082,7 +2204,7 @@ def main():
                 + 4 * cfg.d_s * L)),
             raster_fwd=bound(dict(
                 ms=cuda_ms(lambda: rv.raster_fwd(b.S, b.starts, st.masks,
-                                                 cfg), 10),
+                                                 cfg, order=st.runs), 10),
                 plain_ms=once_ms(lambda: rv._fwd_plain(b.S, b.starts,
                                                        st.masks, cfg)),
                 library_ms=None, bytes=table_bytes + tile_bytes,
@@ -2118,6 +2240,7 @@ def main():
         checks_b[name]["n_isects"] = int(st.b.n_isects)
         if name == "bench":
             checks_b[name]["b2_work"] = b2_work(rv, st, b2_ptxas, cuda_ms)
+            checks_b[name]["b1_work"] = b1_work(rv, st, b1_ptxas, cuda_ms)
         kern_b[name] = tile_numbers(st)
         del st
     # the kernel table's rows of the new branches: each alone

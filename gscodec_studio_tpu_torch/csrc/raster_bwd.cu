@@ -63,10 +63,11 @@
 //     values of its pixels in registers before any warp reduction; a
 //     warp's pixels form a cell 8 pixels wide (8 x 8 at PPT 2, 8 x 4 at 1);
 //   * a candidate region per pair, formed in double precision as the chunk
-//     is staged (pair_region), from the unpacked f32 values the pair math
-//     reads: alpha >= 1/255 needs op >= 1/255 and sigma <= L = ln(255 op),
-//     the ellipse {0.5 d^T A d <= L} of the conic A = [[ca, cb], [cb, cc]],
-//     whose bounding box is |dx| <= sqrt(2 L cc / det A), |dy| <=
+//     is staged (gsc::conic_region, csrc/regions.cuh, which B1 shares),
+//     from the unpacked f32 values the pair math reads: alpha >= 1/255
+//     needs op >= 1/255 and sigma <= L = ln(255 op), the ellipse
+//     {0.5 d^T A d <= L} of the conic A = [[ca, cb], [cb, cc]], whose
+//     bounding box is |dx| <= sqrt(2 L cc / det A), |dy| <=
 //     sqrt(2 L ca / det A). The bounds are widened far above float
 //     rounding; a conic that is not positive definite, or too near it for
 //     the float sigma to hold the bound (det A < kCond * ca * cc), gets
@@ -106,6 +107,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "regions.cuh"
 #include "tile_common.cuh"
 
 namespace {
@@ -117,13 +119,8 @@ constexpr float kMaxAlpha = 0.999f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxPixels = 1024;  // tile 32
 constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's most
-// a pair's candidate region in shared memory: the box's half widths rx, ry
-// and the widened bound lm on the float sigma
-constexpr int kRegion = 3;
-// below this det A against ca * cc, no bound: there the float sigma's
-// rounding, up to ~8 ulp times (1 + |rho|) / (1 - |rho|) of it with rho the
-// conic's correlation, reaches 1% of sigma
-constexpr double kCond = 1e-4;
+// a pair's candidate region in shared memory (gsc::conic_region)
+constexpr int kRegion = gsc::kConicRegion;
 
 // pixels a thread: several where the cotangent leaves registers free
 constexpr int ppt_for(int chm) { return chm <= 32 ? 2 : 1; }
@@ -176,64 +173,6 @@ struct BwdArgs {
 // gradient values are held to a tolerance, not to bits.
 __device__ __forceinline__ float madd(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
-}
-
-// The f32 values x, y, ca, cb, cc, op of S's column `col`, unpacked as
-// gsc::stage_chunk_3dgs unpacks them: the regions are formed from global
-// memory while the chunk is staged, which saves a barrier a chunk.
-__device__ __forceinline__ void load_geometry(const BwdArgs& a, int64_t col,
-                                              float (&g)[6]) {
-  const float* S = a.S;
-  const int64_t cap = a.cap;
-  int r = 0;
-  if (a.geom_packed) {
-    const uint32_t w = __float_as_uint(S[col]);
-    g[0] = gsc::u16_x(w);
-    g[1] = gsc::u16_y(w);
-    r = 1;
-  } else {
-    g[0] = S[col];
-    g[1] = S[cap + col];
-    r = 2;
-  }
-  if (a.attr_packed) {
-    const uint32_t w0 = __float_as_uint(S[r * cap + col]);
-    const uint32_t w1 = __float_as_uint(S[(r + 1) * cap + col]);
-    g[2] = gsc::pair_hi(w0);
-    g[3] = gsc::pair_lo(w0);
-    g[4] = gsc::pair_hi(w1);
-    g[5] = gsc::pair_lo(w1);
-  } else {
-    for (int i = 0; i < 4; ++i) g[2 + i] = S[(r + i) * cap + col];
-  }
-}
-
-// The candidate region of a pair (the one that raster_v2._bwd_regions
-// mirrors): outside the box |dx| <= rx, |dy| <= ry, or where the float
-// sigma exceeds lm, no pixel reaches alpha >= 1/255. op < 1/255: no pixel
-// passes (rx = ry = lm = -1); no bound: +inf. The margins, each far above
-// the float rounding of the pair math: L * 1.02 + 0.01 (the float sigma
-// within 1% of the exact one where det A >= kCond * ca * cc, and the float
-// exp and product within a few ulps), the half widths * 1.001 + 0.1 px.
-__device__ __forceinline__ void pair_region(const float (&g)[6],
-                                            float* reg, int k) {
-  const float op = g[5];
-  float rx = -1.0f, ry = -1.0f, lm = -1.0f;
-  if (op >= kAlphaThreshold) {
-    const double Lm = 1.02 * fmax(log(255.0 * (double)op), 0.0) + 0.01;
-    const double ca = g[2], cb = g[3], cc = g[4];
-    const double det = ca * cc - cb * cb;
-    if (ca > 0.0 && cc > 0.0 && det >= kCond * ca * cc) {
-      rx = (float)(sqrt(2.0 * Lm * cc / det) * 1.001 + 0.1);
-      ry = (float)(sqrt(2.0 * Lm * ca / det) * 1.001 + 0.1);
-      lm = (float)Lm;
-    } else {
-      rx = ry = lm = INFINITY;
-    }
-  }
-  reg[k] = rx;
-  reg[K + k] = ry;
-  reg[2 * K + k] = lm;
 }
 
 // One level of the transposing reduction over the first N of a lane's
@@ -392,8 +331,9 @@ __global__ void __launch_bounds__(MAXT, MINB)
                           a.attr_packed, tid, blockDim.x);
     for (int k = lo + tid; k < hi; k += blockDim.x) {
       float g[6];
-      load_geometry(a, col0 + k, g);
-      pair_region(g, reg, k);
+      gsc::load_geometry(a.S, a.cap, a.geom_packed, a.attr_packed, col0 + k,
+                         g);
+      gsc::conic_region(g, reg, k);
     }
     __syncthreads();
     // LOG: tp is the last passing T * exp(incl) (exact cutoff), s1 and s2
@@ -415,8 +355,10 @@ __global__ void __launch_bounds__(MAXT, MINB)
         const int k = s0 + kk;
         if (k >= lo && k < hi) {
           const float x = chunk[k], y = chunk[K + k];
-          const float rx = reg[k], ry = reg[K + k];
           // the cell against the pair's box: the same for the whole warp
+          // (gsc::cell_meets_box's test, written out: through the call the
+          // kernel ran 3% slower on the H100, PERF.md)
+          const float rx = reg[k], ry = reg[K + k];
           const float ex = x - fminf(fmaxf(x, cell_x0), cell_x1);
           const float ey = y - fminf(fmaxf(y, cell_y0), cell_y1);
           if (fabsf(ex) <= rx && fabsf(ey) <= ry) {

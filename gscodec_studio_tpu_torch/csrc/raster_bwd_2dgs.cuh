@@ -58,12 +58,13 @@
 //     warp's pixels form a square 8 x 8 cell (at PPT 2), which a surfel's
 //     round footprint meets in fewer warps than it meets 4 x 16 strips;
 //   * a candidate region per pair, formed once a chunk in double precision
-//     (pair_region): the screen-filter disk and the ellipse that the
-//     surfel's disk {u^2 + v^2 <= 2 ln(255 op)} projects to (from the dual
-//     conic M diag(rho^2, rho^2, -1) M^T), both widened by margins far above
-//     float rounding; a pixel outside both cannot reach alpha >= 1/255, so
-//     its pair math is skipped, and a warp none of whose pixels is a
-//     candidate skips the pair. Skipping a pair that fails the alpha test
+//     (gsc::surfel_region in csrc/regions.cuh, B5's too): the
+//     screen-filter disk and the ellipse that the surfel's disk {u^2 + v^2
+//     <= 2 ln(255 op)} projects to (from the dual conic M diag(rho^2,
+//     rho^2, -1) M^T), both widened by margins far above float rounding; a
+//     pixel outside both cannot reach alpha >= 1/255, so its pair math is
+//     skipped, and a warp none of whose pixels is a candidate skips the
+//     pair. Skipping a pair that fails the alpha test
 //     changes no state, so the results are the same;
 //   * a transposing warp reduction: the d_g values, in groups of 32, in
 //     16 + 8 + 4 + 2 + 1 exchange-and-add steps after which lane r holds
@@ -86,6 +87,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "regions.cuh"
 #include "tile_common.cuh"
 
 namespace gsc {
@@ -114,13 +116,8 @@ constexpr int kAOP = 11;
 constexpr int kACOL = 12;
 constexpr int kMaxPixels = 1024;  // tile 32
 constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's most
-// a pair's candidate region in shared memory: the ellipse's centre (2) and
-// quadratic form (3), its bound (1: inside when q <= bound), the
-// screen-filter disk's squared radius (1)
-constexpr int kRegion = 7;
-// below this |det M| against its centred columns' norms, no bound
-// (pair_region)
-constexpr double kFlat = 1e-3;
+// a pair's candidate region in shared memory (gsc::surfel_region)
+constexpr int kRegion = gsc::kSurfelRegion;
 
 // pixels a thread: several where the cotangent leaves registers free
 constexpr int ppt_for(int cbm) { return cbm <= 32 ? 2 : 1; }
@@ -149,88 +146,6 @@ struct Bwd2Args {
   int dp;  // a pair's pitch in the partials: d_g, made odd (no conflicts)
   float* out;  // [d_g, cap], zero-filled by the caller
 };
-
-// The region outside which a pixel cannot composite the pair (the one that
-// raster_v2_2dgs._pair_regions mirrors). alpha = op * exp(-sigma) >= 1/255
-// needs op >= 1/255 and sigma = 0.5 * min(gw3d, gw2d) <= L = ln(255 op):
-// either the pixel is within sqrt(L) of (x, y) (gw2d = 2 |d|^2), or its ray
-// meets the surfel's plane at u^2 + v^2 <= 2 L. The plane point (u, v, 1)
-// maps to the screen point M (u, v, 1), so the second set is the image of a
-// disk of radius rho: an ellipse when the disk stays off the line
-// M_2 . (u, v, 1) = 0, with the dual conic Q = M diag(rho^2, rho^2, -1) M^T,
-// centre (Q02, Q12) / Q22 and covariance Sigma = Q[:2, :2] / -Q22 + c c^T;
-// else (or when it is near that) no bound, every pixel a candidate. No bound
-// either when the camera lies nearly in the surfel's plane, where the
-// pixel's float cross product h_u x h_v may be rounding noise: |det M| under
-// kFlat times the product of the column norms of M taken about the
-// ellipse's centre (rows 0 and 1 less cx and cy times row 2; the columns
-// are then the surfel's two axes and its centre seen from a camera centred
-// on it, so the ratio is about the cosine between the plane's normal and
-// the view ray; some 0.03% of a random scene's pairs). The margins, each
-// some 1000 times the float rounding of the pair math:
-// L * 1.01 + 0.01; Sigma * 1.05 + 0.21 I (the ellipse grown by 0.1 px:
-// (1 + e) Sigma + (1 + 1/e) m^2 I holds the ellipse widened by m) +
-// 1e-3 trace(Sigma) I (no axis under 1/1000 of the long one, so the float
-// test is well conditioned); the disk's radius + 0.1 px.
-__device__ void pair_region(const float* chunk, int k, float* reg) {
-  const float op = chunk[kAOP * K + k];
-  float ex = 0.0f, ey = 0.0f, qa = 0.0f, qb = 0.0f, qc = 0.0f;
-  float bound = 1.0f, r2 = -1.0f;
-  if (!(op >= kAlphaThreshold)) {
-    bound = -1.0f;  // no pixel composites the pair
-  } else {
-    const double Lm = 1.01 * fmax(log(255.0 * (double)op), 0.0) + 0.01;
-    const double rf = sqrt(Lm) + 0.1;
-    r2 = (float)(rf * rf);
-    const double rho2 = 2.0 * Lm;
-    double m[9];
-    for (int i = 0; i < 9; ++i) m[i] = chunk[(kAM + i) * K + k];
-    auto Q = [&](int a, int b) {
-      return rho2 * (m[3 * a] * m[3 * b] + m[3 * a + 1] * m[3 * b + 1]) -
-             m[3 * a + 2] * m[3 * b + 2];
-    };
-    const double q22 = Q(2, 2);
-    const double scale = rho2 * (m[6] * m[6] + m[7] * m[7]) + m[8] * m[8];
-    const double cx = Q(0, 2) / q22, cy = Q(1, 2) / q22;
-    // M's rows about the ellipse's centre
-    double u[3], v[3], w[3];
-    for (int i = 0; i < 3; ++i) {
-      w[i] = m[6 + i];
-      u[i] = m[i] - cx * w[i];
-      v[i] = m[3 + i] - cy * w[i];
-    }
-    const double det_m = u[0] * (v[1] * w[2] - v[2] * w[1]) -
-                         u[1] * (v[0] * w[2] - v[2] * w[0]) +
-                         u[2] * (v[0] * w[1] - v[1] * w[0]);
-    const double cols = sqrt((u[0] * u[0] + v[0] * v[0] + w[0] * w[0]) *
-                             (u[1] * u[1] + v[1] * v[1] + w[1] * w[1]) *
-                             (u[2] * u[2] + v[2] * v[2] + w[2] * w[2]));
-    if (q22 < -1e-6 * scale && fabs(det_m) >= kFlat * cols) {
-      const double s00 = Q(0, 0) / -q22 + cx * cx;
-      const double s11 = Q(1, 1) / -q22 + cy * cy;
-      const double s01 = Q(0, 1) / -q22 + cx * cy;
-      const double iso = 0.21 + 1e-3 * (s00 + s11);
-      const double a00 = 1.05 * s00 + iso, a11 = 1.05 * s11 + iso;
-      const double a01 = 1.05 * s01;
-      const double det = a00 * a11 - a01 * a01;
-      if (det > 0.0 && a00 > 0.0 && a11 > 0.0) {
-        ex = (float)cx;
-        ey = (float)cy;
-        qa = (float)(a11 / det);
-        qb = (float)(-a01 / det);
-        qc = (float)(a00 / det);
-      }
-      // else no bound: q = 0 <= 1 everywhere
-    }
-  }
-  reg[0 * K + k] = ex;
-  reg[1 * K + k] = ey;
-  reg[2 * K + k] = qa;
-  reg[3 * K + k] = qb;
-  reg[4 * K + k] = qc;
-  reg[5 * K + k] = bound;
-  reg[6 * K + k] = r2;
-}
 
 // One level of the transposing reduction over N values a lane: lanes that
 // differ in bit N/2 swap halves, each keeps the half its bit selects and
@@ -370,7 +285,9 @@ __global__ void __launch_bounds__(MAXT, MINB)
     __syncthreads();
     const int lo = max(off - c * K, 0);
     const int hi = min(end - c * K, K);
-    for (int k = lo + tid; k < hi; k += blockDim.x) pair_region(chunk, k, reg);
+    for (int k = lo + tid; k < hi; k += blockDim.x) {
+      gsc::surfel_region(chunk, k, reg);
+    }
     __syncthreads();
     // LOG: tp is the last passing T * exp(incl) (exact cutoff), s1 and s2
     // the chunk's running sums; exact: a pixel takes pairs until its cutoff

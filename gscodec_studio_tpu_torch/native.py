@@ -28,7 +28,7 @@ SOURCES = ("pack.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
            "raster_v1_fwd.cu", "raster_v1_bwd.cu", "cumsum_rows.cu",
            "skel_composite.cu")
 # included by the sources; in the hash
-HEADERS = ("tile_common.cuh", "raster_bwd_2dgs.cuh")
+HEADERS = ("tile_common.cuh", "regions.cuh", "raster_bwd_2dgs.cuh")
 # --fmad=false: the kernels' float expressions round exactly as their plain
 # PyTorch versions (and the JAX package) do, which keeps the expansion's
 # ellipse cull bit-identical to its plain version. B2's gradient arithmetic
@@ -45,8 +45,8 @@ _SIGNATURES = {
     "gsc_pack_rows": (_P, _P, _I, _P, _L, _P, _I, _P),
     "gsc_expand": (_P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _I,
                    _I, _P, _P, _P),
-    "gsc_raster_fwd": (_P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _P, _P),
+    "gsc_raster_fwd": (_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _P, _P),
     "gsc_raster_bwd": (_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _I, _P, _P),
     "gsc_unpack_rows": (_P, _L, _I, _P, _L, _P, _P, _P),

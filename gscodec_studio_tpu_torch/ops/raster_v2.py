@@ -702,9 +702,19 @@ def _fwd_plain(S, starts, masks, cfg: V2Cfg, with_counts: bool = False):
     return out
 
 
-def raster_fwd(S, starts, masks, cfg: V2Cfg):
+def run_order(starts, cfg: V2Cfg) -> torch.Tensor:
+    """The tiles, longest run first (int32 [n_tiles]): the order in which
+    B1's and B2's blocks take them. On dense views one tile's run, ~80x the
+    mean, sets a launch's time, and started last it ends last. One argsort
+    a binning: _RasterCore hands the forward's to the backward."""
+    return torch.argsort(starts[1:cfg.n_tiles + 1] - starts[:cfg.n_tiles],
+                         descending=True).to(torch.int32)
+
+
+def raster_fwd(S, starts, masks, cfg: V2Cfg, order=None):
     """Sorted table -> per-tile outputs [n_tiles, P, CH+1] (colors, then
-    alpha = 1 - T_final). ``masks`` int32 [n_tiles], 0 disables a tile."""
+    alpha = 1 - T_final). ``masks`` int32 [n_tiles], 0 disables a tile;
+    ``order`` the blocks' tile order (run_order's, made here if None)."""
     if S.shape != (cfg.d_s, cfg.cap) or starts.shape != (cfg.n_tiles_v + 1,) \
             or masks.shape != (cfg.n_tiles,):
         raise ValueError("raster_fwd: S, starts or masks has the wrong shape")
@@ -724,14 +734,20 @@ def raster_fwd(S, starts, masks, cfg: V2Cfg):
     _check_cuda("raster_fwd S", S, torch.float32, dev)
     _check_cuda("raster_fwd starts", starts, torch.int32, dev)
     _check_cuda("raster_fwd masks", masks, torch.int32, dev)
+    if order is None:
+        order = run_order(starts, cfg)
+    if order.shape != (cfg.n_tiles,):
+        raise ValueError("raster_fwd: order has the wrong shape")
+    _check_cuda("raster_fwd order", order, torch.int32, dev)
     out = torch.empty((cfg.n_tiles, cfg.pixels, cfg.channels + 1),
                       dtype=torch.float32, device=dev)
     err = native.lib().gsc_raster_fwd(
         S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
+        order.data_ptr(),
         cfg.n_tiles, cfg.tile_width, cfg.tile_height, cfg.tile_size,
         cfg.channels, int(cfg.cutoff == "soft"), int(cfg.log_composite),
-        int(cfg.geom_packed), int(cfg.attr_packed), out.data_ptr(),
-        _stream(),
+        int(cfg.geom_packed), int(cfg.attr_packed), int(bwd_dense(cfg)),
+        out.data_ptr(), _stream(),
     )
     native.check(err, "gsc_raster_fwd")
     _count_launch("raster_fwd", _input_branches(cfg))
@@ -902,12 +918,13 @@ BWD_DENSE_GAUSSIANS = 32
 
 
 def bwd_dense(cfg: V2Cfg) -> bool:
-    """Whether B2 takes its build for dense tiles (csrc/raster_bwd.cu
-    kDenseThreads): fewer than BWD_DENSE_GAUSSIANS Gaussians (slots) a
-    tile, as the checkpoint's views at 120,000 slots have (~28), whose large
-    splats composite most pixels of a tile and leave a few tiles with runs
-    ~80x the mean. The 1M scene has ~230, the train phase's stand-in ~39,
-    and both ran faster at 2 pixels a thread (PERF.md)."""
+    """Whether B2 and B1 take their builds for dense tiles
+    (csrc/raster_bwd.cu and csrc/raster_fwd.cu kDenseThreads): fewer than
+    BWD_DENSE_GAUSSIANS Gaussians (slots) a tile, as the checkpoint's views
+    at 120,000 slots have (~28), whose large splats composite most pixels
+    of a tile and leave a few tiles with runs ~80x the mean. The 1M scene
+    has ~230, the train phase's stand-in ~39, and both ran faster at 2
+    pixels a thread (PERF.md)."""
     return cfg.C * cfg.n < BWD_DENSE_GAUSSIANS * cfg.n_tiles
 
 
@@ -919,7 +936,7 @@ def bwd_pixels_per_thread(channels: int) -> int:
 
 
 def _warp_layout(tile_size: int, ppt: int):
-    """The tile backward kernels' pixel layout (B2 and B6): ``ppt``
+    """The tile kernels' pixel layout (B1, B2, B5 and B6): ``ppt``
     neighbours of one tile row a lane, a warp the 32 lanes of a cell 8
     pixels wide and 32 / (8 / ppt) rows tall, the cells row-major. Returns
     (warps a tile, rows a cell, lane_of: int64 [P], pixel -> warp * 32 +
@@ -975,14 +992,43 @@ def bwd_build(channels: int, tile_size: int, absgrad: bool = False,
                 min_blocks=min_blocks, sub=sub)
 
 
-def _bwd_regions(geo):
-    """B2's candidate region of each pair (csrc/raster_bwd.cu
-    ``pair_region``, formed once a chunk from the unpacked values the pair
-    math reads): ``geo`` the f32 values [x, y, ca, cb, cc, op], each [...]
-    -> float32 (rx, ry, lm, rd) [...]. A pixel can pass the alpha test only
-    if |x - px| <= rx, |y - py| <= ry and its float sigma <= lm; op < 1/255
-    gives -1 (no pixel), a conic that is not positive definite, or has
-    det A < BWD_COND * ca * cc, +inf (no bound). ``rd`` is the radius of the
+FWD_SMALL_MIN_BLOCKS = 10  # raster_fwd.cu kSmallMinBlocks
+
+
+def fwd_build(channels: int, tile_size: int, dense: bool = False) -> dict:
+    """The build of B1 that a launch at these shapes takes
+    (csrc/raster_fwd.cu ``launch``; ``dense`` is bwd_dense): the channels'
+    template bound "chm", pixels a thread "ppt" (2 up to 32 channels, else
+    1, and 1 in the dense build), the block's "threads" and the launch
+    bounds "max_threads" and "min_blocks" (at bounds 3 and 8: dense and up
+    to 256 threads at 1 pixel a thread, 256; else up to 128 threads, 128
+    for FWD_SMALL_MIN_BLOCKS blocks an SM; at 64 and 128 channels, 256 up
+    to 256 threads; else the tile-32 bound, 1024 / ppt)."""
+    chm = next(b for b in (3, 8, 16, 32, 64, 128) if channels <= b)
+    ppt = bwd_pixels_per_thread(channels)
+    threads = _warp_layout(tile_size, ppt)[0] * 32
+    min_blocks = 1
+    if chm <= 8 and dense and _warp_layout(tile_size, 1)[0] * 32 <= 256:
+        ppt, threads, max_threads = 1, _warp_layout(tile_size, 1)[0] * 32, 256
+    elif chm <= 8 and threads <= 128:
+        max_threads, min_blocks = 128, FWD_SMALL_MIN_BLOCKS
+    elif chm >= 64 and threads <= 256:
+        max_threads = 256
+    else:
+        max_threads = 1024 // ppt
+    return dict(chm=chm, ppt=ppt, threads=threads, max_threads=max_threads,
+                min_blocks=min_blocks)
+
+
+def _pair_regions(geo):
+    """The candidate region of each pair that B1 and B2 share
+    (csrc/regions.cuh ``conic_region``, formed once a chunk from the
+    unpacked values the pair math reads): ``geo`` the f32 values [x, y, ca,
+    cb, cc, op], each [...] -> float32 (rx, ry, lm, rd) [...]. A pixel can
+    pass the alpha test only if |x - px| <= rx, |y - py| <= ry and its
+    float sigma <= lm; op < 1/255 gives -1 (no pixel), a conic that is not
+    positive definite, or has det A < BWD_COND * ca * cc, +inf (no
+    bound). ``rd`` is the radius of the
     expansion's conservative disc, 0.5 lam_min d^2 <= L, with the same
     margins (not used by the kernel: the counts compare it with the box).
     Formed in float64 from the float32 values, as the kernel does."""
@@ -1019,24 +1065,42 @@ def _cell_bounds(cfg: V2Cfg, ppt: int):
 
 
 def _bwd_counts(S, starts, masks, cfg: V2Cfg):
-    """What B2 does on these inputs, from the plain walk (the backward's: a
-    tile stops when every pixel has T <= 1e-4 at a chunk's start), in B2's
-    layout (_warp_layout at bwd_build's pixels a lane). Returns a
-    dict of
+    """What B2 does on these inputs: _region_counts in B2's layout
+    (_warp_layout at bwd_build's pixels a lane)."""
+    ppt = bwd_build(cfg.channels, cfg.tile_size, dense=bwd_dense(cfg))["ppt"]
+    return _region_counts(S, starts, masks, cfg, ppt)
+
+
+def _fwd_counts(S, starts, masks, cfg: V2Cfg):
+    """What B1 does on these inputs: _region_counts in B1's layout
+    (_warp_layout at fwd_build's pixels a lane). B1 also stops a pixel's
+    candidates at its exact cutoff within a chunk, which the counts do
+    not."""
+    ppt = fwd_build(cfg.channels, cfg.tile_size, dense=bwd_dense(cfg))["ppt"]
+    return _region_counts(S, starts, masks, cfg, ppt)
+
+
+def _region_counts(S, starts, masks, cfg: V2Cfg, ppt: int):
+    """What the 3DGS tile kernels do on these inputs, from the plain walk
+    (a tile stops when every pixel has T <= 1e-4 at a chunk's start: the
+    backward's rule, and the forward's, whose exact cutoff leaves every
+    pixel's T above 1e-4), in the layout of ``ppt`` pixels a lane
+    (_warp_layout). Returns a dict of
       "run": int64 [n_tiles], rows of the tile's run that the walk reaches;
       "pairs": int64 [n_tiles], pairs that at least one pixel composited;
       "slots": int64 [n_tiles], composited (pair, pixel) slots;
       "evaluated_slots": the (pair, pixel) slots walked;
       "candidate_slots": those in a warp whose cell meets the pair's box
-        and whose float sigma is within the pair's bound lm (_bwd_regions):
+        and whose float sigma is within the pair's bound lm (_pair_regions):
         the ones that can pass (B2 forms the alpha of every pixel of a
-        (pair, warp) that holds one);
+        (pair, warp) that holds one, B1 that of every candidate pixel of a
+        thread that holds one);
       "missed_slots": slots that pass the alpha test outside them (0: the
         regions hold every pixel that passes);
       "pair_warp_walked": the (pair, warp) walked;
       "pair_warp_cells": {"box", "disc", "box_and_disc"}: the (pair, warp)
-        whose cell meets the pair's box (B2's test), its disc of radius rd,
-        or both: the ones that evaluate the pair's sigma;
+        whose cell meets the pair's box (B1's and B2's test), its disc of
+        radius rd, or both: the ones that evaluate the pair's sigma;
       "pair_warp_candidates": (pair, warp) with at least one candidate slot;
       "pair_warp_hits": (pair, warp) with at least one composited pixel,
         each a warp reduction (or the ballot shortcut) in the kernel;
@@ -1046,7 +1110,6 @@ def _bwd_counts(S, starts, masks, cfg: V2Cfg):
     dev = S.device
     nT, P = cfg.n_tiles, cfg.pixels
     off, end, c0, c1, px, py, lane, group = _tile_walk(S, starts, masks, cfg)
-    ppt = bwd_build(cfg.channels, cfg.tile_size, dense=bwd_dense(cfg))["ppt"]
     n_warps, _, lane_of = _warp_layout(cfg.tile_size, ppt)
     lane_of = lane_of.to(dev)
     warp_of = torch.div(lane_of, 32, rounding_mode="floor")
@@ -1092,7 +1155,7 @@ def _bwd_counts(S, starts, masks, cfg: V2Cfg):
             _, m, _, t_new = _composite(alpha, T[idx], cfg.cutoff,
                                         cfg.log_composite)
             comp = valid if m is None else valid & m  # [A, P, K]
-            rx, ry, lm, rd = (v[:, None, :] for v in _bwd_regions(geo))
+            rx, ry, lm, rd = (v[:, None, :] for v in _pair_regions(geo))
             xlo, xhi, ylo, yhi = (v[t][:, :, None] for v in cells)
             ex = xs - torch.minimum(torch.maximum(xs, xlo), xhi)
             ey = ys - torch.minimum(torch.maximum(ys, ylo), yhi)
@@ -1123,7 +1186,7 @@ def _bwd_counts(S, starts, masks, cfg: V2Cfg):
 
 
 def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
-               absgrad: bool = False, packed: bool = False):
+               absgrad: bool = False, packed: bool = False, order=None):
     """Tile backward: the sorted table, the forward's tile outputs and their
     cotangents [n_tiles, P, CH+1] -> per-intersection gradient rows
     [d_g, cap] (x, y, ca, cb, cc, op, colors[CH], and |x|, |y| with
@@ -1131,7 +1194,8 @@ def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
     tile reaches (early stop, masked tiles, the overflow tile, rows past
     n_isects) are zero. With ``packed`` the rows come as packed pairs,
     int32 [d_gp, cap] (_pack_grad_rows' layout): the same f32 sums,
-    truncated at the final write."""
+    truncated at the final write. ``order`` is the blocks' tile order
+    (run_order's, made here if None)."""
     tshape = (cfg.n_tiles, cfg.pixels, cfg.channels + 1)
     if S.shape != (cfg.d_s, cfg.cap) or starts.shape != (cfg.n_tiles_v + 1,) \
             or masks.shape != (cfg.n_tiles,) or tiles.shape != tshape \
@@ -1164,9 +1228,11 @@ def raster_bwd(S, starts, masks, tiles, v_tiles, cfg: V2Cfg,
     else:
         gbuf = torch.zeros((cfg.d_g(absgrad), cfg.cap), dtype=torch.float32,
                            device=dev)
-    # the longest runs first: on dense views one tile's run sets the time
-    order = torch.argsort(starts[1:cfg.n_tiles + 1] - starts[:cfg.n_tiles],
-                          descending=True).to(torch.int32)
+    if order is None:
+        order = run_order(starts, cfg)
+    if order.shape != (cfg.n_tiles,):
+        raise ValueError("raster_bwd: order has the wrong shape")
+    _check_cuda("raster_bwd order", order, torch.int32, dev)
     err = native.lib().gsc_raster_bwd(
         S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
         order.data_ptr(), tiles.data_ptr(), v_tiles.data_ptr(), cfg.n_tiles,
@@ -1340,21 +1406,22 @@ class _RasterCore(torch.autograd.Function):
         del ag_probe  # its gradient carries absgrad out of the backward
         b = _build_sorted(cfg, means2d, conics, colors, opacities, depths,
                           radii)
-        tiles = raster_fwd(b.S, b.starts, masks, cfg)
+        runs = run_order(b.starts, cfg)  # B1's and B2's tile order
+        tiles = raster_fwd(b.S, b.starts, masks, cfg, order=runs)
         ctx.mark_non_differentiable(b.n_isects)
         ctx.cfg, ctx.absgrad, ctx.packed = cfg, absgrad, packed
         ctx.save_for_backward(b.S, b.starts, masks, tiles, b.cum, b.order,
-                              b.perm, b.n_isects)
+                              b.perm, b.n_isects, runs)
         return tiles, b.n_isects
 
     @staticmethod
     def backward(ctx, v_tiles, _):
-        S, starts, masks, tiles, cum, order, perm, n_isects = \
+        S, starts, masks, tiles, cum, order, perm, n_isects, runs = \
             ctx.saved_tensors
         cfg = ctx.cfg
         gbuf = raster_bwd(S, starts, masks, tiles,
                           v_tiles.to(torch.float32).contiguous(), cfg,
-                          ctx.absgrad, ctx.packed)
+                          ctx.absgrad, ctx.packed, order=runs)
         if ctx.packed:
             g = _reduce_grads_packed(gbuf, perm, cum, order, n_isects,
                                      cfg.n_attr_eff, ctx.absgrad).T

@@ -41,6 +41,7 @@ they run the plain versions beside them (``_fwd_2dgs_plain``,
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -53,9 +54,9 @@ from gscodec_studio_tpu_torch.ops.raster_v2 import (
     TRANSMITTANCE_EPS, V2Cfg, bwd_pixels_per_thread)
 
 FILTER_INV_SQUARE = 2.0
-# B6 gives a pair no candidate region when |det M| is below this times the
-# product of M's column norms taken about the ellipse's centre: the camera
-# lies nearly in the surfel's plane (csrc/raster_bwd_2dgs.cuh kFlat)
+# B5 and B6 give a pair no candidate region when |det M| is below this
+# times the product of M's column norms taken about the ellipse's centre:
+# the camera lies nearly in the surfel's plane (csrc/regions.cuh kFlat)
 FLAT_RATIO = 1e-3
 
 # attribute-row offsets
@@ -443,12 +444,37 @@ def bwd_build(channels: int, tile_size: int, absgrad: bool = False) -> dict:
                 min_blocks=6 if small else 1)
 
 
+FWD_SMALL_MIN_BLOCKS = 8  # raster_fwd_2dgs.cu kSmallMinBlocks
+
+
+def fwd_build(channels: int, tile_size: int) -> dict:
+    """The build of B5 that a launch at these shapes takes
+    (csrc/raster_fwd_2dgs.cu ``launch``): the channels' template bound
+    "cbm", pixels a thread "ppt" (2 up to 32 channels, else 1), the block's
+    "threads" and the launch bounds "max_threads" and "min_blocks" (at
+    bounds 4 and 8 up to 128 threads, 128 for FWD_SMALL_MIN_BLOCKS blocks
+    an SM; at 64 and 128 channels 256 up to 256 threads; else the tile-32
+    bound, 1024 / ppt)."""
+    cbm = next(b for b in (4, 8, 16, 32, 64, 128) if channels <= b)
+    ppt = bwd_pixels_per_thread(channels)
+    threads = rv._warp_layout(tile_size, ppt)[0] * 32
+    min_blocks = 1
+    if cbm <= 8 and threads <= 128:
+        max_threads, min_blocks = 128, FWD_SMALL_MIN_BLOCKS
+    elif cbm >= 64 and threads <= 256:
+        max_threads = 256
+    else:
+        max_threads = 1024 // ppt
+    return dict(cbm=cbm, ppt=ppt, threads=threads, max_threads=max_threads,
+                min_blocks=min_blocks)
+
+
 def _pair_regions(chunk):
-    """The candidate region of each pair (csrc/raster_bwd_2dgs.cu
-    ``pair_region``, which B6 forms once a chunk and tests each pixel
-    against before its pair math): ``chunk`` [d_s, ...] sorted rows ->
-    float32 (ecx, ecy, qa, qb, qc, bound, r2) [...]. A pixel (px, py) is
-    a candidate when qa ex^2 + 2 qb ex ey + qc ey^2 <= bound (ex = px -
+    """The candidate region of each pair that B5 and B6 share
+    (csrc/regions.cuh ``surfel_region``, formed once a chunk and tested
+    against each pixel before its pair math): ``chunk`` [d_s, ...] sorted
+    rows -> float32 (ecx, ecy, qa, qb, qc, bound, r2) [...]. A pixel (px,
+    py) is a candidate when qa ex^2 + 2 qb ex ey + qc ey^2 <= bound (ex = px -
     ecx, ey = py - ecy) or (x - px)^2 + (y - py)^2 <= r2; outside both it
     cannot reach alpha >= 1/255. A pair seen nearly edge on (FLAT_RATIO)
     or reaching the camera's side gets no bound: qa = qb = qc = 0, every
@@ -493,8 +519,37 @@ def _pair_regions(chunk):
     return (*f32, bound, r2)
 
 
+def _pair_boxes(chunk, regions):
+    """B5's box of each pair's candidate region (csrc/regions.cuh
+    ``surfel_box``, which B5's warps test their cells against before the
+    pixels' test): ``chunk`` [d_s, ...] sorted rows and ``regions``
+    (_pair_regions) -> float32 (x0, x1, y0, y1) [...]. The disk's square
+    joined with the box of the float form's ellipse, half widths
+    sqrt(diag(Qf^-1)), each * 1.001 + 0.01 px; empty (x0 = +inf) where no
+    pixel composites, unbounded where the ellipse is. Formed in float64
+    from the float32 values, as the kernel does."""
+    ecx, ecy, qa, qb, qc, bound, r2 = (v.double() for v in regions)
+    det = qa * qc - qb * qb
+    rb = torch.sqrt(r2) * 1.001 + 0.01
+    hx = torch.sqrt(qc / det) * 1.001 + 0.01
+    hy = torch.sqrt(qa / det) * 1.001 + 0.01
+    mx, my = chunk[_AX].double(), chunk[_AY].double()
+    box = [torch.fmin(mx - rb, ecx - hx), torch.fmax(mx + rb, ecx + hx),
+           torch.fmin(my - rb, ecy - hy), torch.fmax(my + rb, ecy + hy)]
+    unbounded = ~(det > 0.0)
+    empty = ~(bound > 0.0)
+    out = []
+    for i, v in enumerate(box):
+        lo = i % 2 == 0
+        v = torch.where(unbounded, -math.inf if lo else math.inf, v)
+        v = torch.where(empty, math.inf if lo else -math.inf, v)
+        out.append(v.float())
+    return tuple(out)
+
+
 def _candidates(chunk, px, py):
-    """Which (pair, pixel) slots B6 evaluates: [A, P, K] from ``chunk``
+    """Which (pair, pixel) slots B5 and B6 evaluate (B5 also none past a
+    pixel's exact cutoff in a chunk): [A, P, K] from ``chunk``
     [d_s, A, K] and pixel centres [A, P, 1], as the kernel tests them."""
     ecx, ecy, qa, qb, qc, bound, r2 = [v[:, None, :] for v in
                                        _pair_regions(chunk)]
@@ -506,19 +561,38 @@ def _candidates(chunk, px, py):
 
 
 def _bwd_2dgs_counts(S, starts, masks, cfg: V2Cfg):
-    """What B6 does on these inputs, from the plain walk (the backward's: a
-    tile stops when every pixel has T <= 1e-4 at a chunk's start), in B6's
-    layout: ``bwd_pixels_per_thread`` neighbours of one tile row a lane,
-    and a warp the 32 lanes of a cell 8 pixels wide, the cells row-major.
-    Returns a dict of
+    """What B6 does on these inputs: _region_counts_2dgs in B6's layout."""
+    return _region_counts_2dgs(S, starts, masks, cfg,
+                               bwd_pixels_per_thread(cfg.channels))
+
+
+def _fwd_2dgs_counts(S, starts, masks, cfg: V2Cfg):
+    """What B5 does on these inputs: _region_counts_2dgs in B5's layout,
+    with its warps' test of the regions' boxes."""
+    return _region_counts_2dgs(S, starts, masks, cfg, fwd_build(
+        cfg.channels, cfg.tile_size)["ppt"], boxes=True)
+
+
+def _region_counts_2dgs(S, starts, masks, cfg: V2Cfg, ppt: int,
+                        boxes: bool = False):
+    """What the 2DGS tile kernels do on these inputs, from the plain walk
+    (a tile stops when every pixel has T <= 1e-4 at a chunk's start: the
+    backward's rule, and the forward's, whose exact cutoff leaves every
+    pixel's T above 1e-4), in the layout of ``ppt`` neighbours of one tile
+    row a lane, and a warp the 32 lanes of a cell 8 pixels wide, the cells
+    row-major. Returns a dict of
       "run": int64 [n_tiles], rows of the tile's run that the walk reaches;
       "pairs": int64 [n_tiles], pairs that at least one pixel composited;
       "slots": int64 [n_tiles], composited (pair, pixel) slots;
       "evaluated_slots": the (pair, pixel) slots walked;
       "candidate_slots": those inside the pair's candidate region
-        (_candidates), the ones B6 evaluates;
-      "missed_slots": slots that pass the alpha test outside it (0: the
-        region holds every pixel that passes);
+        (_candidates), the ones B5 and B6 evaluate; with ``boxes``, also
+        in a warp whose cell meets the region's box (_pair_boxes, B5's
+        test);
+      "missed_slots": slots that pass the alpha test outside them (0: the
+        regions hold every pixel that passes);
+      "pair_warp_cells" (with ``boxes``): the (pair, warp) whose cell
+        meets the box, the ones that test their pixels;
       "pair_warp_candidates": (pair, warp) with at least one candidate,
         the ones that evaluate the pair;
       "pair_warp_hits": (pair, warp) with at least one composited pixel,
@@ -530,14 +604,16 @@ def _bwd_2dgs_counts(S, starts, masks, cfg: V2Cfg):
     nT, P = cfg.n_tiles, cfg.pixels
     off, end, c0, c1, px, py, lane, group = rv._tile_walk(S, starts, masks,
                                                           cfg)
-    n_warps, _, lane_of = rv._warp_layout(
-        cfg.tile_size, bwd_pixels_per_thread(cfg.channels))
+    n_warps, _, lane_of = rv._warp_layout(cfg.tile_size, ppt)
     lane_of = lane_of.to(dev)
+    warp_of = torch.div(lane_of, 32, rounding_mode="floor")
+    cells = [v.to(dev) for v in rv._cell_bounds(cfg, ppt)]
     i64 = dict(dtype=torch.int64, device=dev)
     counts = {k: torch.zeros(nT, **i64) for k in ("run", "pairs", "slots")}
     totals = {k: torch.zeros((), **i64) for k in (
         "evaluated_slots", "candidate_slots", "missed_slots",
-        "pair_warp_candidates", "pair_warp_hits", "single_lane_hits")}
+        "pair_warp_candidates", "pair_warp_hits", "single_lane_hits",
+        "pair_warp_cells")}
 
     def by_warp(mask):
         """[A, P, K] -> lanes hit [A, n_warps, K]."""
@@ -569,6 +645,14 @@ def _bwd_2dgs_counts(S, starts, masks, cfg: V2Cfg):
             walked = inr[:, None, :].expand_as(comp)
             cand = _candidates(chunk, pxa, pya) & walked
             t = idx + g0
+            if boxes:
+                x0, x1, y0, y1 = (v[:, None, :] for v in _pair_boxes(
+                    chunk, _pair_regions(chunk)))
+                xlo, xhi, ylo, yhi = (v[t][:, :, None] for v in cells)
+                box = ((x0 <= xhi) & (x1 >= xlo) & (y0 <= yhi) & (y1 >= ylo)
+                       & inr[:, None, :])  # [A, n_warps, K]
+                cand = cand & box[:, warp_of]
+                totals["pair_warp_cells"] += box.sum()
             counts["run"][t] += inr.sum(-1)
             counts["pairs"][t] += comp.any(1).sum(-1)
             counts["slots"][t] += comp.sum((1, 2))
@@ -580,6 +664,8 @@ def _bwd_2dgs_counts(S, starts, masks, cfg: V2Cfg):
             totals["pair_warp_hits"] += (lanes_hit > 0).sum()
             totals["single_lane_hits"] += (lanes_hit == 1).sum()
             T[idx] = t_new
+    if not boxes:
+        del totals["pair_warp_cells"]
     return dict(**counts, **{k: int(v) for k, v in totals.items()},
                 warps_per_tile=n_warps)
 

@@ -8,10 +8,12 @@ file imports no JAX, so it also runs on a machine without it:
 Tolerances: pack, expansion and unpack bit for bit (no pair of these
 seeds lies on the cull bound); tile forward max abs 1e-4 (summation order
 on the card; for 2DGS relative to each output channel's max(1, |largest|),
-the median bit for bit); tile backward 1e-4 of each gradient row's largest
-|value| and segment sums 1e-5 of the largest |sum| (the kernels sum in
-another order than their plain versions); every backward kernel gives the
-same bits when it runs twice on the same inputs. The packed-pair
+the median bit for bit; the redesigned B1 and B5 also the same bits twice,
+and no passing slot outside their regions); tile backward 1e-4 of each
+gradient row's largest |value| and segment sums 1e-5 of the largest |sum|
+(the kernels sum in another order than their plain versions); every
+backward kernel gives the same bits when it runs twice on the same
+inputs. The packed-pair
 branches (grad_dtype "bf16"): the packed tile backward is the f32 branch's
 output truncated, bit for bit, and each half lies within one bf16 step
 (2^-7 of its value) plus the f32 tolerance of its plain version's half;
@@ -542,7 +544,7 @@ def test_2dgs_kernels_match_plain(cuda, log_composite, ts, CB):
     |value| and the same bits twice; in the product and the log branch, at
     tiles 8 to 32 and 4 to 128 channels (each of B6's builds and
     pixels-a-thread layouts, the halved partials of the widest tables, and
-    B5's 1024-thread build)."""
+    B5's tile-32 builds: 512 threads, and 1024 at 1 pixel a thread)."""
     key = "raster_fwd_2dgs_log" if log_composite else "raster_fwd_2dgs"
     for cutoff in ("exact", "soft"):
         t2, cfg, b, masks, g = _surfel_case(cuda, 13, cutoff,
@@ -773,8 +775,7 @@ def test_backward_kernel_redesign_matches_plain(cuda, ts, CH):
     other (60000); within 1e-4 of each row's largest |value| of the plain
     version, the same bits twice, the packed output the f32 one truncated;
     and no slot that passes the alpha test outside its pair's candidate
-    region. The forward's tiles come from the plain version (B1 takes tile
-    32 up to 32 channels)."""
+    region. The forward's tiles come from the plain version."""
     cases = [(n, cutoff, knobs)
              for n in ((3000, 60000) if CH <= 8 else (3000,))
              for cutoff in ("exact", "soft") for knobs in ({}, KNOBS[3])]
@@ -838,3 +839,87 @@ def test_2dgs_backward_absgrad_matches_plain(cuda, log_composite):
             off = t2.raster_bwd_2dgs(b.S, b.starts, masks, tiles, v,
                                      dc.replace(cfg, absgrad=False), 3)
             assert torch.equal(out[:-2], off)
+
+
+def _forward_close(out, ref):
+    return float((out - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("ts", [8, 16, 32])
+@pytest.mark.parametrize("CH", [1, 3, 8, 40, 64, 128])
+def test_forward_kernel_redesign_matches_plain(cuda, ts, CH):
+    """B1 (the redesigned kernel) in every branch at tiles 8, 16 and 32 and
+    1 to 128 channels: both cutoffs, the product and the log scan, f32,
+    bf16 and u16 input rows (each alone and all together), and at up to 8
+    channels both the dense build (3000 Gaussians a camera) and the other
+    (60000); within 1e-4 (max abs) of the plain version, the same bits
+    twice, one launch under its branch's key, and no slot that passes the
+    alpha test outside its pair's candidate region in B1's layout."""
+    cases = [(n, cutoff, knobs)
+             for n in ((3000, 60000) if CH <= 8 else (3000,))
+             for cutoff in ("exact", "soft") for knobs in [{}] + KNOBS]
+    for n, cutoff, knobs in cases:
+        m2, con, col, op, dep, radii = _scene(11, N=n, CH=CH)
+        C, N = dep.shape
+        cfg = _cfg(C, N, 200, 136, ts, CH, cutoff, cap=1 << 20, **knobs)
+        b = tr._build_sorted(cfg, *[torch.as_tensor(x, device=cuda)
+                                    for x in (m2, con, col, op, dep,
+                                              radii)])
+        assert int(b.n_isects) < cfg.cap
+        g = torch.Generator(device="cpu").manual_seed(ts + CH)
+        masks = (torch.rand(cfg.n_tiles, generator=g) > 0.2).to(
+            device=cuda, dtype=torch.int32)
+        keys = tr.launch_keys("raster_fwd", tr._input_branches(cfg))
+        before = {k: tr.LAUNCHES[k] for k in keys}
+        out = tr.raster_fwd(b.S, b.starts, masks, cfg)
+        assert all(tr.LAUNCHES[k] == before[k] + 1 for k in keys)
+        ref = tr._fwd_plain(b.S, b.starts, masks, cfg)
+        assert _forward_close(out, ref), (n, cutoff, knobs)
+        assert torch.equal(out, tr.raster_fwd(b.S, b.starts, masks, cfg))
+        assert float(out[..., -1].max()) > 0.5
+        c = tr._fwd_counts(b.S, b.starts, masks, cfg)
+        assert c["missed_slots"] == 0
+        assert c["candidate_slots"] < c["evaluated_slots"]
+        assert tr.bwd_dense(cfg) == (n == 3000 and ts < 32)
+
+
+@pytest.mark.parametrize("CH", [40, 64, 128])
+def test_forward_kernel_tile32_wide_channels(cuda, CH):
+    """B1 at tile 32 above 32 channels (the 64- and 128-channel bounds at
+    1024 pixels a tile, which the first design could not launch: error 701,
+    too many registers for the block) against the plain version, both
+    cutoffs, within 1e-4."""
+    for cutoff in ("exact", "soft"):
+        cfg, b, masks, tiles, _ = _sorted_case(cuda, 9, 32, cutoff, CH=CH)
+        ref = tr._fwd_plain(b.S, b.starts, masks, cfg)
+        assert _forward_close(tiles, ref), cutoff
+        assert float(tiles[..., -1].max()) > 0.5
+
+
+@pytest.mark.parametrize("CB", [4, 7, 16, 40, 64, 128])
+@pytest.mark.parametrize("ts", [8, 16, 32])
+def test_2dgs_forward_redesign_matches_plain(cuda, ts, CB):
+    """B5 (the redesigned kernel) at tiles 8 to 32 and 4 to 128 channels,
+    both cutoffs, the product and the log scan, with surfels that
+    composite one pixel each among the scene's: within 1e-4 of each output
+    channel's scale (max(1, |largest|)) of the plain version, the median
+    bit for bit, the same bits twice, and no slot that passes the alpha
+    test outside its pair's candidate region in B5's layout."""
+    for log_composite in (False, True):
+        for cutoff in ("exact", "soft"):
+            t2, cfg, b, masks, g = _surfel_case(
+                cuda, 14, cutoff, log_composite=log_composite, ts=ts, CB=CB,
+                tiny=40)
+            zch = cfg.channels - 4
+            args = (b.S, b.starts, masks, cfg, zch)
+            out = t2.raster_fwd_2dgs(*args)
+            ref = t2._fwd_2dgs_plain(*args)
+            scale = ref.abs().amax(dim=(0, 1)).clamp(min=1.0)
+            assert float(((out - ref).abs().amax(dim=(0, 1))
+                          / scale).max()) <= 1e-4, (log_composite, cutoff)
+            assert torch.equal(out[..., -1], ref[..., -1])
+            assert torch.equal(out, t2.raster_fwd_2dgs(*args))
+            assert float(out[..., cfg.channels].max()) > 0.5
+            c = t2._fwd_2dgs_counts(b.S, b.starts, masks, cfg)
+            assert c["missed_slots"] == 0
+            assert c["candidate_slots"] < c["evaluated_slots"]

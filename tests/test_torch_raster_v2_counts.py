@@ -1,6 +1,6 @@
 """raster_v2._bwd_counts, the count of what the 3DGS tile backward (B2)
 evaluates and sums over a tile's pixels, against a pair-by-pair walk of
-B2's layout written out here; and the candidate regions (_bwd_regions)
+B2's layout written out here; and the candidate regions (_pair_regions)
 inside which B2 evaluates a pair, which must hold every pixel that passes
 the alpha test, on seeded random conics (near-degenerate ones, opacities
 just above 1/255, bf16 and u16 values among them).
@@ -97,7 +97,7 @@ def _walk(S, starts, masks, cfg):
                     comp = valid
                     T = t_incl
                 excl = excl * (1.0 - alpha)
-                rx, ry, lm, rd = (float(v) for v in rv._bwd_regions(
+                rx, ry, lm, rd = (float(v) for v in rv._pair_regions(
                     [x, y, ca, cb, cc, op]))
                 ex = x - torch.minimum(torch.maximum(x, cells[0]), cells[1])
                 ey = y - torch.minimum(torch.maximum(y, cells[2]), cells[3])
@@ -187,7 +187,7 @@ def test_regions_hold_every_passing_pixel(rows):
     if rows == "u16":
         geo = list(rv.unpack_u16_xy(rv.pack_u16_xy(geo[0], geo[1]))) + \
             geo[2:]
-    rx, ry, lm, _ = rv._bwd_regions(geo)
+    rx, ry, lm, _ = rv._pair_regions(geo)
     # pixel centres within 160 px of the centres
     g = torch.arange(-140, 181, dtype=torch.float32) + 0.5
     py, px = torch.meshgrid(g, g, indexing="ij")
@@ -222,7 +222,7 @@ def test_regions_of_faint_and_bad_pairs():
         [0.5, 0.5, 0.5, 0.5], [0.5, 0.5, 0.5, 0.5],
         [1.0, 1.0, -1.0, float("nan")], [0.0, 2.0, 0.0, 0.0],
         [1.0, 1.0, 1.0, 1.0], [0.5 / 255.0, 0.9, 0.9, 0.9])]
-    rx, ry, lm, _ = rv._bwd_regions(geo)
+    rx, ry, lm, _ = rv._pair_regions(geo)
     assert rx[0] == ry[0] == lm[0] == -1.0
     for i in (1, 2, 3):
         assert math.isinf(rx[i]) and math.isinf(ry[i]) and math.isinf(lm[i])
