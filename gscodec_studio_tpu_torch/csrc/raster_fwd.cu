@@ -68,8 +68,10 @@
 //     them without branches and a pixel's state is kept where it
 //     composites the pair, so their dependency chains interleave (B2 ran
 //     1.2x slower with a branch per pixel);
-//   * the blocks take the tiles longest run first (the wrapper's order,
-//     raster_v2.run_order, which B2 reads too);
+//   * in training the blocks take the tiles longest run first (the order
+//     raster_v2.run_order makes for B1 and B2 together); a render with no
+//     backward takes them in index order: on an H100 at the 1M scene the
+//     order saves B1 alone 0.025-0.03 ms and its argsort costs 0.07-0.1;
 //   * occupancy: the builds at PPT 2 are bounded by tile 32's 512 threads,
 //     and at bounds 3 and 8 tile 16 gets one for 10 blocks an SM (below);
 //     64 and 128 channels (1 pixel a thread) get a build for tiles of up to
@@ -118,7 +120,7 @@ struct FwdArgs {
   int64_t cap;
   const int* starts;  // [n_tiles + 2] first row of each tile's run
   const int* masks;  // [n_tiles] 0 disables a tile
-  const int* order;  // [n_tiles] the tile each block takes
+  const int* order;  // [n_tiles] the tile each block takes; null: index order
   int tile_width, tile_height, tile_size, ch, geom_packed, attr_packed;
   float* out;  // [n_tiles, tile_size^2, ch + 1]
 };
@@ -131,7 +133,7 @@ __global__ void __launch_bounds__(MAXT, MINB)
   float* chunk = sm;  // [(6 + ch) * K]
   float* reg = chunk + (6 + ch) * K;  // [kRegion * K]
 
-  const int t = a.order[blockIdx.x];
+  const int t = a.order ? a.order[blockIdx.x] : blockIdx.x;
   const int ts = a.tile_size;
   const int P = ts * ts;
   const int tid = threadIdx.x;

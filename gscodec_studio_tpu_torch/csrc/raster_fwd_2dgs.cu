@@ -105,6 +105,7 @@ struct Fwd2Args {
   int64_t cap;
   const int* starts;  // [n_tiles + 2] first row of each tile's run
   const int* masks;  // [n_tiles] 0 disables a tile
+  const int* order;  // [n_tiles] the tile each block takes; null: index order
   int tile_width, tile_height, tile_size, cb, zch;
   float* out;  // [n_tiles, tile_size^2, cb + 3]
 };
@@ -120,7 +121,7 @@ __global__ void __launch_bounds__(MAXT, MINB)
   float* box = reg + gsc::kSurfelRegion * K;  // [kSurfelBox * K]
   const float* zs = chunk + (kACOL + a.zch) * K;
 
-  const int t = blockIdx.x;
+  const int t = a.order ? a.order[blockIdx.x] : blockIdx.x;
   const int ts = a.tile_size;
   const int P = ts * ts;
   const int tid = threadIdx.x;
@@ -388,7 +389,8 @@ cudaError_t launch(const Fwd2Args& a, bool soft, bool log, int n_tiles,
 
 extern "C" int gsc_raster_fwd_2dgs(const void* S, long long cap,
                                    const void* starts, const void* masks,
-                                   int n_tiles, int tile_width,
+                                   const void* order, int n_tiles,
+                                   int tile_width,
                                    int tile_height, int tile_size, int cb,
                                    int zch, int soft, int log_composite,
                                    void* out, void* stream) {
@@ -400,7 +402,8 @@ extern "C" int gsc_raster_fwd_2dgs(const void* S, long long cap,
   if (n_tiles == 0) return (int)cudaGetLastError();
   const Fwd2Args a{static_cast<const float*>(S), (int64_t)cap,
                    static_cast<const int*>(starts),
-                   static_cast<const int*>(masks), tile_width, tile_height,
+                   static_cast<const int*>(masks),
+                   static_cast<const int*>(order), tile_width, tile_height,
                    tile_size, cb, zch, static_cast<float*>(out)};
   cudaStream_t st = (cudaStream_t)stream;
   const bool sf = soft != 0;

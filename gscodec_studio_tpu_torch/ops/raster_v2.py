@@ -704,9 +704,13 @@ def _fwd_plain(S, starts, masks, cfg: V2Cfg, with_counts: bool = False):
 
 def run_order(starts, cfg: V2Cfg) -> torch.Tensor:
     """The tiles, longest run first (int32 [n_tiles]): the order in which
-    B1's and B2's blocks take them. On dense views one tile's run, ~80x the
-    mean, sets a launch's time, and started last it ends last. One argsort
-    a binning: _RasterCore hands the forward's to the backward."""
+    B1's and B2's blocks take them in training. On dense views one tile's
+    run, ~80x the mean, sets a launch's time, and started last it ends
+    last. One argsort a binning: _RasterCore makes it only where a backward
+    follows and hands the forward's to the backward; a render with no
+    backward leaves B1 in index order, where the argsort costs more than
+    the order saves (0.07-0.1 ms against 0.025-0.03 on an H100 at the 1M
+    scene, chip_smoke.py's b1_order)."""
     return torch.argsort(starts[1:cfg.n_tiles + 1] - starts[:cfg.n_tiles],
                          descending=True).to(torch.int32)
 
@@ -714,7 +718,7 @@ def run_order(starts, cfg: V2Cfg) -> torch.Tensor:
 def raster_fwd(S, starts, masks, cfg: V2Cfg, order=None):
     """Sorted table -> per-tile outputs [n_tiles, P, CH+1] (colors, then
     alpha = 1 - T_final). ``masks`` int32 [n_tiles], 0 disables a tile;
-    ``order`` the blocks' tile order (run_order's, made here if None)."""
+    ``order`` the blocks' tile order (run_order's; index order if None)."""
     if S.shape != (cfg.d_s, cfg.cap) or starts.shape != (cfg.n_tiles_v + 1,) \
             or masks.shape != (cfg.n_tiles,):
         raise ValueError("raster_fwd: S, starts or masks has the wrong shape")
@@ -734,16 +738,15 @@ def raster_fwd(S, starts, masks, cfg: V2Cfg, order=None):
     _check_cuda("raster_fwd S", S, torch.float32, dev)
     _check_cuda("raster_fwd starts", starts, torch.int32, dev)
     _check_cuda("raster_fwd masks", masks, torch.int32, dev)
-    if order is None:
-        order = run_order(starts, cfg)
-    if order.shape != (cfg.n_tiles,):
-        raise ValueError("raster_fwd: order has the wrong shape")
-    _check_cuda("raster_fwd order", order, torch.int32, dev)
+    if order is not None:
+        if order.shape != (cfg.n_tiles,):
+            raise ValueError("raster_fwd: order has the wrong shape")
+        _check_cuda("raster_fwd order", order, torch.int32, dev)
     out = torch.empty((cfg.n_tiles, cfg.pixels, cfg.channels + 1),
                       dtype=torch.float32, device=dev)
     err = native.lib().gsc_raster_fwd(
         S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
-        order.data_ptr(),
+        0 if order is None else order.data_ptr(),
         cfg.n_tiles, cfg.tile_width, cfg.tile_height, cfg.tile_size,
         cfg.channels, int(cfg.cutoff == "soft"), int(cfg.log_composite),
         int(cfg.geom_packed), int(cfg.attr_packed), int(bwd_dense(cfg)),
@@ -1401,12 +1404,13 @@ def repack_sums(seg: torch.Tensor, n_attr: int,
 
 class _RasterCore(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, absgrad, packed, means2d, conics, colors,
-                opacities, depths, radii, masks, ag_probe):
+    def forward(ctx, cfg, absgrad, packed, ordered, means2d, conics,
+                colors, opacities, depths, radii, masks, ag_probe):
         del ag_probe  # its gradient carries absgrad out of the backward
         b = _build_sorted(cfg, means2d, conics, colors, opacities, depths,
                           radii)
-        runs = run_order(b.starts, cfg)  # B1's and B2's tile order
+        # B1's and B2's tile order, where a backward follows
+        runs = run_order(b.starts, cfg) if ordered else None
         tiles = raster_fwd(b.S, b.starts, masks, cfg, order=runs)
         ctx.mark_non_differentiable(b.n_isects)
         ctx.cfg, ctx.absgrad, ctx.packed = cfg, absgrad, packed
@@ -1429,7 +1433,7 @@ class _RasterCore(torch.autograd.Function):
             g = _reduce_grads(gbuf, perm, cum, order, n_isects).T
         C, N, CH = cfg.C, cfg.n, cfg.channels
         v_ag = g[:, 6 + CH:8 + CH].reshape(C, N, 2) if ctx.absgrad else None
-        return (None, None, None, g[:, 0:2].reshape(C, N, 2),
+        return (None, None, None, None, g[:, 0:2].reshape(C, N, 2),
                 g[:, 2:5].reshape(C, N, 3), g[:, 6:6 + CH].reshape(C, N, CH),
                 g[:, 5].reshape(C, N), None, None, None, v_ag)
 
@@ -1498,9 +1502,12 @@ def rasterize_to_pixels_v2(
     else:
         masks_arr = torch.as_tensor(masks, device=dev).reshape(
             cfg.n_tiles).to(torch.int32)
+    ordered = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (means2d, conics, colors, opacities, absgrad_probe))
     tiles, n_isects = _RasterCore.apply(
-        cfg, absgrad_probe is not None, grad_dtype == "bf16", means2d,
-        conics, colors, opacities,
+        cfg, absgrad_probe is not None, grad_dtype == "bf16", ordered,
+        means2d, conics, colors, opacities,
         depths, radii, masks_arr, absgrad_probe,
     )
 

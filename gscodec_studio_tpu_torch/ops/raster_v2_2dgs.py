@@ -278,20 +278,30 @@ def _check_cuda_tile_args(name, S, starts, masks, cfg: V2Cfg):
     rv._check_cuda(f"{name} masks", masks, torch.int32, dev)
 
 
-def raster_fwd_2dgs(S, starts, masks, cfg: V2Cfg, zch: int):
+def raster_fwd_2dgs(S, starts, masks, cfg: V2Cfg, zch: int, order=None):
     """Sorted 2DGS table -> per-tile outputs [n_tiles, P, CB + 3]: colors
     (the CB composited channels), alpha = 1 - T_final, the distortion and
     the median depth. ``zch`` is the depth's channel; ``masks`` int32
-    [n_tiles], 0 disables a tile."""
+    [n_tiles], 0 disables a tile; ``order`` the blocks' tile order (index
+    order if None, as the path runs it: B6 takes no order, and on an H100
+    at the 1M scene rv.run_order's longest-run-first order saves B5 about
+    0.04 ms against an argsort of 0.11-0.14 ms, chip_smoke.py's
+    b5_order)."""
     _check_tile_args("raster_fwd_2dgs", S, starts, masks, cfg, zch)
     if rv._on_cpu(S, "raster_fwd_2dgs"):
         return _fwd_2dgs_plain(S, starts, masks, cfg, zch)
     _check_cuda_tile_args("raster_fwd_2dgs", S, starts, masks, cfg)
+    if order is not None:
+        if order.shape != (cfg.n_tiles,):
+            raise ValueError("raster_fwd_2dgs: order has the wrong shape")
+        rv._check_cuda("raster_fwd_2dgs order", order, torch.int32,
+                       S.device)
     out = torch.empty((cfg.n_tiles, cfg.pixels, cfg.chp),
                       dtype=torch.float32, device=S.device)
     err = native.lib().gsc_raster_fwd_2dgs(
         S.data_ptr(), cfg.cap, starts.data_ptr(), masks.data_ptr(),
-        cfg.n_tiles, cfg.tile_width, cfg.tile_height, cfg.tile_size,
+        0 if order is None else order.data_ptr(), cfg.n_tiles,
+        cfg.tile_width, cfg.tile_height, cfg.tile_size,
         cfg.channels, zch, int(cfg.cutoff == "soft"),
         int(cfg.log_composite), out.data_ptr(), rv._stream(),
     )

@@ -853,8 +853,9 @@ def test_forward_kernel_redesign_matches_plain(cuda, ts, CH):
     bf16 and u16 input rows (each alone and all together), and at up to 8
     channels both the dense build (3000 Gaussians a camera) and the other
     (60000); within 1e-4 (max abs) of the plain version, the same bits
-    twice, one launch under its branch's key, and no slot that passes the
-    alpha test outside its pair's candidate region in B1's layout."""
+    twice and in the longest-run-first tile order, one launch under its
+    branch's key, and no slot that passes the alpha test outside its
+    pair's candidate region in B1's layout."""
     cases = [(n, cutoff, knobs)
              for n in ((3000, 60000) if CH <= 8 else (3000,))
              for cutoff in ("exact", "soft") for knobs in [{}] + KNOBS]
@@ -876,6 +877,8 @@ def test_forward_kernel_redesign_matches_plain(cuda, ts, CH):
         ref = tr._fwd_plain(b.S, b.starts, masks, cfg)
         assert _forward_close(out, ref), (n, cutoff, knobs)
         assert torch.equal(out, tr.raster_fwd(b.S, b.starts, masks, cfg))
+        assert torch.equal(out, tr.raster_fwd(
+            b.S, b.starts, masks, cfg, order=tr.run_order(b.starts, cfg)))
         assert float(out[..., -1].max()) > 0.5
         c = tr._fwd_counts(b.S, b.starts, masks, cfg)
         assert c["missed_slots"] == 0
@@ -903,8 +906,9 @@ def test_2dgs_forward_redesign_matches_plain(cuda, ts, CB):
     both cutoffs, the product and the log scan, with surfels that
     composite one pixel each among the scene's: within 1e-4 of each output
     channel's scale (max(1, |largest|)) of the plain version, the median
-    bit for bit, the same bits twice, and no slot that passes the alpha
-    test outside its pair's candidate region in B5's layout."""
+    bit for bit, the same bits twice and in the longest-run-first tile
+    order, and no slot that passes the alpha test outside its pair's
+    candidate region in B5's layout."""
     for log_composite in (False, True):
         for cutoff in ("exact", "soft"):
             t2, cfg, b, masks, g = _surfel_case(
@@ -919,6 +923,8 @@ def test_2dgs_forward_redesign_matches_plain(cuda, ts, CB):
                           / scale).max()) <= 1e-4, (log_composite, cutoff)
             assert torch.equal(out[..., -1], ref[..., -1])
             assert torch.equal(out, t2.raster_fwd_2dgs(*args))
+            assert torch.equal(out, t2.raster_fwd_2dgs(
+                *args, order=tr.run_order(b.starts, cfg)))
             assert float(out[..., cfg.channels].max()) > 0.5
             c = t2._fwd_2dgs_counts(b.S, b.starts, masks, cfg)
             assert c["missed_slots"] == 0

@@ -192,3 +192,29 @@ def test_fwd_build(channels, tile_size, dense, want):
     # the block covers the tile: warps of 8-wide cells, 32 / (8 / ppt) rows
     rows = 32 // (8 // b["ppt"])
     assert b["threads"] == 32 * -(-tile_size // 8) * -(-tile_size // rows)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_tile_order_only_where_a_backward_follows(monkeypatch, grad):
+    """rasterize_to_pixels_v2 makes the longest-run-first tile order (one
+    argsort a binning, for B1 and B2) only where autograd records the
+    render; a render with no backward leaves B1 in index order."""
+    f, radii = _scene(1, 150)
+    made = []
+    run_order = rv.run_order
+
+    def counted(starts, cfg):
+        made.append(cfg.n_tiles)
+        return run_order(starts, cfg)
+
+    monkeypatch.setattr(rv, "run_order", counted)
+    m2 = f[0].clone().requires_grad_(True)
+    with torch.set_grad_enabled(grad):
+        img, _, _ = rv.rasterize_to_pixels_v2(
+            m2, *f[1:], radii, 40, 24, tile_size=8,
+            isect_capacity=rv.CAP_BLOCK, device="cpu")
+    assert made == ([15] if grad else [])
+    if grad:
+        img.sum().backward()
+        assert made == [15]  # the backward reads the forward's order
+        assert bool(torch.isfinite(m2.grad).all())
