@@ -45,7 +45,12 @@ Phases, one JSON line each with its own ``seconds``:
   train_1m  the same scene, tile 16, both cutoffs: forward + backward of
             rendering.rasterization with a seeded cotangent (median ms,
             Mpix/s, launches), and the backward kernels' time, bound, plain
-            and library times and errors at its shapes; B2's work (b2_work:
+            and library times and errors at its shapes (B9b's second
+            launch, through the depth order, under per_gaussian, and its
+            first at 1, 2, 3 and 9 rows through perm beside an identity
+            permutation, row_sweep); B4's work (b4_work:
+            raster_v2.segsum_counts, the range lengths, the first design's
+            longest warp walk and the merge-path blocks'); B2's work (b2_work:
             as b6_work, in B2's layout, with the (pair, warp) that the
             expansion's disc would leave beside B2's box, the build's
             registers and spills, B2 on the longest tile alone), and
@@ -68,6 +73,8 @@ Phases, one JSON line each with its own ``seconds``:
             rasterize_to_pixels_2dgs_v2 with an absgrad probe (B6's absgrad
             rows: launches, the probe's gradient, the rows against their
             plain version and twice for the same bits, time and bound);
+            B4 and B9b on the surfels' 19 gradient rows (segsum_rows_2dgs,
+            unpack_rows_2dgs with its row sweep up to 19 rows, b4_work);
   bench_1m  bench.py's default configuration through the port: the same
             scene, tile 32, soft cutoff, grad_dtype "bf16", attr_dtype
             "bf16", log_composite, capacity 1.2x the probed elliptical rows,
@@ -95,7 +102,7 @@ Phases, one JSON line each with its own ``seconds``:
             held-out PSNR, step ms, launches; then B6 timed on each
             training view and the slowest view's 2DGS kernels held against
             their plain versions, with B5's and B6's regions checked
-            there;
+            there and B4's work (b4_work);
   train_ladder  the garden ladder's recipe (examples/garden_benchmark.py,
             results/garden_ladder_r5/stats.json) through Runner on the same
             stand-in: MCMC at a capacity of 120,000, the compression
@@ -138,7 +145,11 @@ Phases, one JSON line each with its own ``seconds``:
             its plain version on the one with the stop at 24.
 The kernels and train_1m phases also hold the packed-pair branches (B2p,
 B4p) against their plain versions, and train_1m times the bf16 case beside
-the f32 one. Then a line {"kernels": [...]} with each kernel's numbers
+the f32 one. Wherever a backward is checked (check_reduction), the
+gradient reduction's three launches on its rows are held against their
+plain versions, B9b bit for bit and B4 within the rounding bound of its
+order of additions (raster_v2.segsum_rows_bound), and each runs twice for
+the same bits. Then a line {"kernels": [...]} with each kernel's numbers
 (launches from its main path: the train phase, for B5 and B6 the
 train_2dgs phase, for B2p and B4p the train_ladder phase, for the precision
 branches of B3, B1 and B2 one fwd+bwd of bench_1m, for B5/B6's log branch
@@ -176,9 +187,6 @@ LADDER_GATE = 5  # the entropy and mask gates' step in the ladder phase
 MCMC_2DGS_STEPS = 20
 FWD_TOL = 1e-4  # kernel vs plain forward, max abs on colors and alpha
 BWD_TOL = 1e-4  # kernel vs plain backward, relative to each row's max |.|
-# kernel vs plain segment sums (f32 and packed pairs): the same summands in
-# another order, so within segsum_bound's rounding bound of each entry
-F32_UNIT = 2.0 ** -24  # float32 unit roundoff
 # packed pairs: each half within one bf16 step (2^-7 of its value) of the
 # plain version's half, plus the f32 branch's tolerance; bf16 gradients
 # within 1.5e-2 of each gradient's scale of the f32 ones (the JAX package's
@@ -245,6 +253,8 @@ V1_BWD_OPS_COMPOSITED = 28  # + 3*CH + 6 + CH
 # tests (18); per composited pair the weight, three multiply-adds and
 # T * (1 - alpha) (9).
 SKEL_OPS_EVALUATED, SKEL_OPS_COMPOSITED = 18, 9
+UNPACK_SWEEP_ROWS = (1, 2, 3, 9, 19)  # B9b's rows against the identity
+UNPACK_GROUPS = (1, 2, 3, 4)  # B9b's row groups timed beside all rows
 CUMSUM_SHAPE = (9, 1 << 23)  # B10's input: 9 rows as the JAX table's
 
 KERNELS = {
@@ -843,7 +853,7 @@ class Stages:
         """The backward kernels against their plain versions on a seeded
         cotangent of the tile outputs: raster_bwd with absgrad off and on
         (BWD_TOL of each row's largest |value|), unpack_rows bit for bit,
-        segsum_rows within segsum_bound of each sum; each kernel run
+        segsum_rows within segsum_rows_bound of each sum; each kernel run
         twice gives the same bits. ``errs`` takes the largest absolute
         errors, the result both kinds. Keeps the absgrad-off inputs for
         timing."""
@@ -869,27 +879,8 @@ class Stages:
             res[f"bwd_max_abs_err_absgrad_{int(absgrad)}"] = abs_err
             if not absgrad:
                 self.gbuf = gbuf
-        d_g = self.gbuf.shape[0]
-        rows = rv.unpack_rows(self.gbuf, d_g, b.perm)
-        if not (torch.equal(rows, rv._unpack_rows_plain(self.gbuf, d_g,
-                                                        b.perm))
-                and torch.equal(rows, rv.unpack_rows(self.gbuf, d_g,
-                                                     b.perm))):
-            raise AssertionError("unpack_rows differs from its plain version "
-                                 "or between two runs")
-        errs["unpack_rows"] = max(errs.get("unpack_rows", 0.0), 0.0)
-        self.rows = rows
-        seg = rv.segsum_rows(rows, b.cum, b.n_isects)
-        err, abs_err, share = check_segsum(
-            rv, seg, rv._segsum_plain(rows, b.cum, b.n_isects), rows, b,
-            "segsum_rows")
-        if not torch.equal(seg, rv.segsum_rows(rows, b.cum, b.n_isects)):
-            raise AssertionError("segsum_rows differs between two runs")
-        errs["segsum_rows"] = max(errs.get("segsum_rows", 0.0), abs_err)
-        res["segsum_rel_err"] = err
-        res["segsum_max_abs_err"] = abs_err
-        res["segsum_bound_share"] = share
-        self.seg = seg
+        self.rows, self.seg, red = check_reduction(rv, self.gbuf, b, errs)
+        res.update({"segsum_" + k: v for k, v in red.items()})
         res.update(self.compare_packed(errs, absgrads))
         return res
 
@@ -900,7 +891,7 @@ class Stages:
         BF16_STEP of its value plus BWD_TOL of its row's scale from the plain
         version's half (absgrad off and on), the share of bit-equal words
         reported; the unpack moves the words bit for bit; the packed
-        segment sums lie within segsum_bound of each sum; each kernel
+        segment sums lie within segsum_rows_bound of each sum; each kernel
         twice gives the same bits. Keeps the absgrad-off inputs for
         timing."""
         rv, cfg, b = self.rv, self.cfg, self.b
@@ -933,50 +924,125 @@ class Stages:
             res[f"packed_max_abs_err_absgrad_{int(absgrad)}"] = abs_err
             if not absgrad:
                 self.gpk = gp
-        d = self.gpk.shape[0]
-        rows = rv.unpack_rows(self.gpk, d, b.perm)
-        if not torch.equal(rows, rv._unpack_rows_plain(self.gpk, d, b.perm)):
-            raise AssertionError("unpack_rows moves packed words unlike its "
-                                 "plain version")
-        seg = rv.segsum_rows(rows, b.cum, b.n_isects)
-        err, abs_err, share = check_segsum(
-            rv, seg, rv._segsum_plain(rows, b.cum, b.n_isects), rows, b,
-            "segsum_rows packed")
-        if not torch.equal(seg, rv.segsum_rows(rows, b.cum, b.n_isects)):
-            raise AssertionError("segsum_rows packed differs between two runs")
-        errs["segsum_rows_packed"] = max(errs.get("segsum_rows_packed", 0.0),
-                                         abs_err)
-        res["segsum_packed_rel_err"] = err
-        res["segsum_packed_bound_share"] = share
-        self.prows, self.pseg = rows, seg
+        self.prows, self.pseg, red = check_reduction(rv, self.gpk, b, errs)
+        res.update({"segsum_packed_" + k: v for k, v in red.items()})
         return res
 
 
-def segsum_bound(rv, rows, cum, n_isects):
-    """Largest |segsum_rows - _segsum_plain| that summation order alone can
-    give, per output entry. Both add a segment's n f32 terms in their own
-    order: the kernel in four running sums and a two-level tree (at most
-    n + 1 roundings on any term), index_add_ in some sequence (at most n).
-    Each is then within gamma(n + 1) * sum|x| of the exact sum, gamma(k) =
-    k u / (1 - k u) (Higham, Accuracy and Stability of Numerical
-    Algorithms, ch. 4), so the two within twice that. Zero for an empty
-    segment."""
-    if rows.dtype == torch.int32:
-        rows = torch.cat(rv.unpack_pairs(rows))
-    ids = rv.segment_ids(cum, n_isects)
-    asum = torch.zeros((rows.shape[0], cum.shape[0]), dtype=torch.float64,
-                       device=rows.device).index_add_(
-        1, ids, rows[:, :ids.shape[0]].abs().double())
-    ku = (torch.bincount(ids, minlength=cum.shape[0]).double() + 1) * F32_UNIT
-    return 2 * ku / (1 - ku) * asum
+def check_reduction(rv, gbuf, b, errs):
+    """The backward's gradient reduction (raster_v2._reduce_grads' three
+    launches) on gradient rows ``gbuf`` (f32, or packed pairs) in S's
+    column order: B9b through ``perm`` against its plain version bit for
+    bit, B4 within segsum_rows_bound of its plain version, B9b through
+    ``order`` on the sums bit for bit, and each of the three launches
+    again for the same bits. ``errs`` takes B4's largest absolute error;
+    returns the expansion-order rows, the sums and B4's errors (largest
+    |error| over its row's largest |sum|, largest |error|, largest share
+    of the bound)."""
+    d = gbuf.shape[0]
+    key = "segsum_rows_packed" if gbuf.dtype == torch.int32 else \
+        "segsum_rows"
+    rows = rv.unpack_rows(gbuf, d, b.perm)
+    if not (torch.equal(rows, rv._unpack_rows_plain(gbuf, d, b.perm))
+            and torch.equal(rows, rv.unpack_rows(gbuf, d, b.perm))):
+        raise AssertionError(f"unpack_rows of {gbuf.dtype} rows differs from "
+                             f"its plain version or between two runs")
+    seg = rv.segsum_rows(rows, b.cum, b.n_isects)
+    err, abs_err, share = check_segsum(
+        rv, seg, rv._segsum_plain(rows, b.cum, b.n_isects), rows, b, key)
+    if not torch.equal(seg, rv.segsum_rows(rows, b.cum, b.n_isects)):
+        raise AssertionError(f"{key} differs between two runs")
+    out = rv.unpack_rows(seg, seg.shape[0], b.order)
+    if not (torch.equal(out, rv._unpack_rows_plain(seg, seg.shape[0],
+                                                   b.order))
+            and torch.equal(out, rv.unpack_rows(seg, seg.shape[0],
+                                                b.order))):
+        raise AssertionError("unpack_rows of the sums through the depth "
+                             "order differs from its plain version or "
+                             "between two runs")
+    note_err(errs, ["unpack_rows"], 0.0)
+    note_err(errs, [key], abs_err)
+    return rows, seg, dict(rel_err=err, max_abs_err=abs_err,
+                           bound_share=share)
+
+
+def segsum_numbers(st, packed=False):
+    """B4's time (B4p's with ``packed``) on a Stages' expansion-order rows
+    (after its compare_bwd), its plain version's, the library's (zeros and
+    index_add_ of the rows, or of their unpacked halves) and its bound:
+    the rows' first n_isects columns read, the count prefix read, the sums
+    written."""
+    rv, b = st.rv, st.b
+    rows = st.prows if packed else st.rows
+    n, M = int(b.n_isects), b.cum.shape[0]
+    d_out = (2 if packed else 1) * rows.shape[0]
+    ids = rv.segment_ids(b.cum, b.n_isects)
+    vals = torch.cat(rv.unpack_pairs(rows[:, :n])) if packed else \
+        rows[:, :n]
+    return bound(dict(
+        ms=cuda_ms(lambda: rv.segsum_rows(rows, b.cum, b.n_isects), 10),
+        plain_ms=cuda_ms(lambda: rv._segsum_plain(rows, b.cum, b.n_isects),
+                         3),
+        library_ms=cuda_ms(lambda: torch.zeros(
+            (d_out, M), device=rows.device).index_add_(1, ids, vals), 10),
+        bytes=4 * rows.shape[0] * n + 4 * M + 4 * d_out * M,
+        ops=d_out * n))
+
+
+def unpack_numbers(st):
+    """B9b's two launches on a Stages' f32 gradient rows (after its
+    compare_bwd), each with its time, its plain version's, index_copy_'s
+    and its bound (the rows read, the int64 index read, the rows written):
+    through ``perm`` on the [d, cap] rows in S's order, and, under
+    ``per_gaussian``, through ``order`` on the [d, M] sums. Beside them
+    ``row_sweep``: the first launch at 1, 2, 3, 9 and 19 rows (as many as
+    there are) through ``perm`` and through torch.arange's identity, a
+    coalesced gather of the same words; ``group_sweep``: the first launch
+    with its rows gathered 1, 2, 3, 4 and all at a time, beside the group
+    that raster_v2.unpack_row_group gives each launch."""
+    rv, b = st.rv, st.b
+
+    def launch(src, idx):
+        d, L = src.shape[0], idx.shape[0]
+        return bound(dict(
+            ms=cuda_ms(lambda: rv.unpack_rows(src, d, idx), 10),
+            plain_ms=cuda_ms(lambda: rv._unpack_rows_plain(src, d, idx), 10),
+            library_ms=cuda_ms(lambda: torch.empty_like(src).index_copy_(
+                1, idx, src), 10),
+            bytes=(8 * d + 8) * L, ops=0, rows=d, columns=L))
+
+    ident = torch.arange(b.perm.shape[0], device=b.perm.device)
+    sweep = []
+    for n in UNPACK_SWEEP_ROWS:
+        if n <= st.gbuf.shape[0]:
+            perm_ms = cuda_ms(lambda: rv.unpack_rows(st.gbuf, n, b.perm), 10)
+            ident_ms = cuda_ms(lambda: rv.unpack_rows(st.gbuf, n, ident), 10)
+            sweep.append(dict(rows=n, perm_ms=perm_ms, identity_ms=ident_ms,
+                              perm_over_identity=perm_ms / ident_ms))
+    d = st.gbuf.shape[0]
+    groups = [dict(group=g, ms=cuda_ms(lambda: rv.unpack_rows(
+        st.gbuf, d, b.perm, group=g), 10)) for g in UNPACK_GROUPS + (d,)
+        if g <= d]
+    hints = {}
+    for what, src, idx in (("first", st.gbuf, b.perm),
+                           ("second", st.seg, b.order)):
+        for g in (None, d):
+            for streaming in (True, False):
+                hints[f"{what}_group_{g or 'default'}_stream_{streaming}"] = \
+                    cuda_ms(lambda: rv.unpack_rows(
+                        src, d, idx, group=g, streaming=streaming), 10)
+    return dict(launch(st.gbuf, b.perm), per_gaussian=launch(st.seg, b.order),
+                row_sweep=sweep, group_sweep=groups, hint_sweep=hints,
+                group=rv.unpack_row_group(st.gbuf.shape[1], d),
+                per_gaussian_group=rv.unpack_row_group(st.seg.shape[1], d))
 
 
 def check_segsum(rv, seg, ref, rows, b, what):
     """segsum_rows' output ``seg`` against its plain version's ``ref``
-    within segsum_bound; (largest |error| over each row's largest |sum|,
-    largest |error|, largest share of the bound used)."""
+    within raster_v2.segsum_rows_bound; (largest |error| over each row's
+    largest |sum|, largest |error|, largest share of the bound used)."""
     diff = (seg - ref).abs()
-    bnd = segsum_bound(rv, rows, b.cum, b.n_isects)
+    bnd = rv.segsum_rows_bound(rows, b.cum, b.n_isects)
     if not bool((diff.double() <= bnd).all()):
         raise AssertionError(f"{what} differs from its plain version by more "
                              "than the f32 summation-order bound")
@@ -1052,7 +1118,8 @@ class Stages2DGS:
     def compare_bwd(self, errs, seed=0):
         """B6 against its plain version on a seeded cotangent of the tile
         outputs (BWD_TOL of each row's largest |value|), twice for the same
-        bits. Keeps the inputs for timing."""
+        bits, then the gradient reduction on its rows (check_reduction).
+        Keeps the inputs for timing."""
         rv, r2, cfg, b = self.rv, self.r2, self.cfg, self.b
         g = torch.Generator(device="cpu").manual_seed(seed)
         self.v_tiles = torch.randn(self.out.shape, generator=g).to(
@@ -1073,7 +1140,9 @@ class Stages2DGS:
         note_err(errs, rv.launch_keys("raster_bwd_2dgs",
                                       r2.bwd_branches(cfg)), abs_err)
         self.gbuf = gbuf
-        return {"bwd2_rel_err": err, "bwd2_max_abs_err": abs_err}
+        self.rows, self.seg, red = check_reduction(rv, gbuf, b, errs)
+        return {"bwd2_rel_err": err, "bwd2_max_abs_err": abs_err,
+                **{"segsum_" + k: v for k, v in red.items()}}
 
     def kernel_numbers(self, cuda_ms):
         """B5's and B6's time, plain time and bound (tile_bound) at these
@@ -1393,6 +1462,8 @@ def main():
                                      f"regions on a trained view")
             res["b6_regions"] = region_summary(c6)
             res["b5_regions"] = region_summary(b5_regions(r2, st))
+            res["b4_work"] = rv.segsum_counts(st.b.cum, st.b.n_isects,
+                                              st.gbuf.shape[0])
         return dict(view=view, sh_degree=sh_degree, raster_bwd_2dgs_ms=bwd_ms,
                     n_isects=int(st.b.n_isects), isect_capacity=st.cfg.cap,
                     **res)
@@ -1773,7 +1844,7 @@ def main():
         torch.autograd.backward([img, alpha], [ct_img, ct_alpha])
         return [x.grad for x in xs]
 
-    def bf16_case(st, leaves, bwd_args, ids):
+    def bf16_case(st, leaves, bwd_args):
         """grad_dtype "bf16" at train_1m's shapes (exact cutoff): fwd+bwd
         median and profile, the rasterizer's gradient rows against the f32
         case's (checked), the leaves' gradients against the last f32 call's
@@ -1819,12 +1890,10 @@ def main():
                                      f"ones by {row_err[name]} of their scale")
         fb_ms, fb_samples = median_ms(fwd_bwd16, 5)
         profile = device_profile(fwd_bwd16)
-        CH, P, L, M = cfg.channels, cfg.pixels, cfg.cap, cfg.C * cfg.n
-        n_isects = int(st.b.n_isects)
+        CH, P, L = cfg.channels, cfg.pixels, cfg.cap
         n_rows = int(st.b.starts[cfg.n_tiles] - st.b.starts[0])
         pc = st.pair_counts
         d_g, d_p = cfg.d_g(False), cfg.d_gp(False)
-        halves = torch.cat(rv.unpack_pairs(st.prows))[:, :n_isects]
         seg_pairs = rv.repack_sums(st.pseg, cfg.n_attr_eff, False)
         k = {}
         k["raster_bwd_packed"] = tile_bound(dict(
@@ -1837,15 +1906,7 @@ def main():
             pair_counts=pc), pc, b2_regions(rv, st)["candidate_slots"],
             FWD_OPS_EVALUATED, FWD_OPS_TESTED[cfg.cutoff] * pc["tested"]
             + (BWD_OPS_COMPOSITED + 3 * CH + d_g) * pc["composited"])
-        k["segsum_rows_packed"] = bound(dict(
-            ms=cuda_ms(lambda: rv.segsum_rows(st.prows, st.b.cum,
-                                              st.b.n_isects), 10),
-            plain_ms=cuda_ms(lambda: rv._segsum_plain(
-                st.prows, st.b.cum, st.b.n_isects), 3),
-            library_ms=cuda_ms(lambda: torch.zeros(
-                (2 * d_p, M), device=dev).index_add_(1, ids, halves), 10),
-            bytes=4 * d_p * n_isects + 4 * M + 4 * 2 * d_p * M,
-            ops=2 * d_p * n_isects))
+        k["segsum_rows_packed"] = segsum_numbers(st, packed=True)
         unpack_ms = dict(
             packed_rows=d_p,
             packed_ms=cuda_ms(lambda: rv.unpack_rows(st.gpk, d_p, st.b.perm),
@@ -1903,15 +1964,12 @@ def main():
         profile = device_profile(fwd_bwd)
 
         CH, P, L = cfg.channels, cfg.pixels, cfg.cap
-        M = cfg.C * cfg.n
         d_g = cfg.d_g(False)
         n_isects = int(st.b.n_isects)
         n_rows = int(st.b.starts[cfg.n_tiles] - st.b.starts[0])
         pc = st.pair_counts
         bwd_args = (st.b.S, st.b.starts, st.masks, st.out, st.v_tiles, cfg,
                     False)
-        ids = rv.segment_ids(st.b.cum, st.b.n_isects)
-        rows_n = st.rows[:, :n_isects]
         k = {}
         k["raster_bwd"] = tile_bound(dict(
             ms=cuda_ms(lambda: rv.raster_bwd(*bwd_args), 10),
@@ -1923,27 +1981,8 @@ def main():
             pair_counts=pc), pc, b2_regions(rv, st)["candidate_slots"],
             FWD_OPS_EVALUATED, FWD_OPS_TESTED[cutoff] * pc["tested"]
             + (BWD_OPS_COMPOSITED + 3 * CH + d_g) * pc["composited"])
-        k["segsum_rows"] = bound(dict(
-            ms=cuda_ms(lambda: rv.segsum_rows(st.rows, st.b.cum,
-                                              st.b.n_isects), 10),
-            plain_ms=cuda_ms(lambda: rv._segsum_plain(st.rows, st.b.cum,
-                                                      st.b.n_isects), 3),
-            library_ms=cuda_ms(lambda: torch.zeros(
-                (d_g, M), device=dev).index_add_(1, ids, rows_n), 10),
-            bytes=4 * d_g * n_isects + 4 * M + 4 * d_g * M,
-            ops=d_g * n_isects))
-        k["unpack_rows"] = bound(dict(
-            ms=cuda_ms(lambda: rv.unpack_rows(st.gbuf, d_g, st.b.perm), 10),
-            plain_ms=cuda_ms(lambda: rv._unpack_rows_plain(
-                st.gbuf, d_g, st.b.perm), 10),
-            library_ms=cuda_ms(lambda: torch.empty_like(st.gbuf).index_copy_(
-                1, st.b.perm, st.gbuf), 10),
-            bytes=(4 * d_g + 8 + 4 * d_g) * L, ops=0,
-            per_gaussian_ms=cuda_ms(lambda: rv.unpack_rows(
-                st.seg, d_g, st.b.order), 10),
-            per_gaussian_library_ms=cuda_ms(
-                lambda: torch.empty_like(st.seg).index_copy_(
-                    1, st.b.order, st.seg), 10)))
+        k["segsum_rows"] = segsum_numbers(st)
+        k["unpack_rows"] = unpack_numbers(st)
         run = dict(
             tile_size=16, cutoff=cutoff, n_isects=n_isects,
             rows_in_tiles=n_rows, isect_capacity=L, fwd_bwd_ms=fb_ms,
@@ -1953,9 +1992,10 @@ def main():
             check=dict(fwd_check, **bwd_check))
         if cutoff == "exact":
             perf.update(k)
+            run["b4_work"] = rv.segsum_counts(st.b.cum, st.b.n_isects, d_g)
             run["b2_work"] = b2_work(rv, st, b2_ptxas, cuda_ms)
             run["b1_work"] = b1_work(rv, st, b1_ptxas, cuda_ms)
-            run["bf16"] = bf16_case(st, leaves, bwd_args, ids)
+            run["bf16"] = bf16_case(st, leaves, bwd_args)
             perf.update(run["bf16"]["kernels"])
         runs_bwd.append(run)
         del st
@@ -2085,20 +2125,12 @@ def main():
     perf.update(k2)
     n_rows2 = int(st.b.starts[cfg2.n_tiles] - st.b.starts[0])
     n_isects2 = int(st.b.n_isects)
-    # B4 on the surfels' gradient rows beside index_add_, with its bound
-    d_g2, M2, n2 = cfg2.d_g(False), cfg2.C * cfg2.n, int(st.b.n_isects)
-    rows2 = rv.unpack_rows(st.gbuf, d_g2, st.b.perm)
-    ids2 = rv.segment_ids(st.b.cum, st.b.n_isects)
-    segsum2 = bound(dict(
-        ms=cuda_ms(lambda: rv.segsum_rows(rows2, st.b.cum, st.b.n_isects),
-                   10),
-        plain_ms=cuda_ms(lambda: rv._segsum_plain(rows2, st.b.cum,
-                                                  st.b.n_isects), 3),
-        library_ms=cuda_ms(lambda: torch.zeros(
-            (d_g2, M2), device=dev).index_add_(1, ids2, rows2[:, :n2]), 10),
-        bytes=4 * d_g2 * n2 + 4 * M2 + 4 * d_g2 * M2, ops=d_g2 * n2,
-        rows=d_g2, intersections=n2))
-    del rows2, ids2
+    # B4 and B9b on the surfels' gradient rows beside index_add_ and
+    # index_copy_, with their bounds, and B4's work
+    segsum2 = dict(segsum_numbers(st), rows=cfg2.d_g(False),
+                   intersections=n_isects2)
+    unpack2 = unpack_numbers(st)
+    work4 = rv.segsum_counts(st.b.cum, st.b.n_isects, cfg2.d_g(False))
 
     # the log scan's leg: rasterization_2dgs(log_composite=True), B5/B6's
     # log branch held against its plain version on its own inputs
@@ -2193,7 +2225,8 @@ def main():
           "b6_work": work2, "b5_work": work5, "b5_tile32": b5_tile32,
           "b5_order": b5_order,
           "pack_rows_2dgs": pack2,
-          "segsum_rows_2dgs": segsum2,
+          "segsum_rows_2dgs": segsum2, "unpack_rows_2dgs": unpack2,
+          "b4_work": work4,
           "expand_no_cull": expand_no_cull,
           "mean_alpha": float(out2[1].mean()), "profile": profile2,
           "check": check2, "log_composite": log_leg, "absgrad": absgrad_leg,

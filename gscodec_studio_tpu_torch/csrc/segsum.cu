@@ -1,6 +1,6 @@
 // Segment sums: per-Gaussian sums of the per-intersection gradient rows,
 // read in expansion order, where compacted id r owns the contiguous range
-// [min(cum[r-1], n_isects), min(cum[r], n_isects)) (cum[-1] read as 0).
+// [e[r-1], e[r]), e[r] = min(cum[r], n_isects) (e[-1] read as 0).
 //
 // Replaces gscodec_studio_tpu/ops/raster_v2.py:_segsum_kernel /
 // segsum_rows. The TPU kernel sums id-sorted rows per block of 128 ids as
@@ -10,14 +10,33 @@
 // every later id's range empty, as in the JAX reduction.
 //
 // Bound on the H100: bytes. The rows of the first n_isects columns are
-// read once, the count prefix once, and d sums written per id. Design: four
-// lanes per id (ranges average a few columns, and a whole warp per id left
-// most lanes idle: 0.62 ms against 0.29 for index_add_ at 1M Gaussians);
-// lane l of an id adds columns lo + l, lo + l + 4, ... of each row in
-// ascending order, then the four lanes reduce with shuffles in a fixed
-// tree and the first writes the sum. A long range (a large splat) is
-// still split four ways. No atomics: the same inputs give the same bits on
-// every run.
+// read once, the count prefix once, and d sums written per id (0.041 ms at
+// the 1M scene's 3DGS rows, 0.089 ms at its 2DGS rows). What held the
+// first design back: it gave each id 4 lanes and 8 ids a warp, so a warp
+// took as long as its longest range, and one surfel whose range covers
+// the screen (4,346 columns of 19 rows at the 1M scene) set the launch at
+// 6.7% of the bound.
+//
+// Design: a merge-path decomposition (Merrill and Garland, "Merge-based
+// Parallel Sparse Matrix-Vector Multiplication", SC16). The merged
+// sequence puts id r's columns before its end item, which sits at
+// r + e[r]; each block takes kItems items of it and finds its first id
+// and column by a search of cum (one warp, 32 probes a step), so no
+// range, however long, gives one block more than kItems columns. Inside
+// a block the columns are cut into 32-column chunks, ceil(chunks /
+// kWarps) a warp; for each row a lane loads one 4-byte word a chunk
+// (neighbouring lanes on neighbouring columns: every load is coalesced),
+// the warp's chunks run their segmented scans of shuffles side by side,
+// then a running sum carries a piece into the warp's next chunk, and for
+// an id that crosses warps one thread adds its pieces in warp order. The
+// block writes each id whose end item it holds (0 for an empty id), and
+// leaves the sum of the id still open at its end in a scratch row; a
+// second pass adds each open id's partial sums, in block order, to the
+// sum that the block holding its end wrote. The id and head of every
+// column are found once a block and serve every row; a row's loads are
+// issued one row ahead, and its sums go out behind one barrier (two
+// buffers, by row parity). No atomics: the order of the additions is
+// fixed, so the same inputs give the same bits on every run.
 //
 // Packed-pair branch (``packed``; replaces the packed_pairs branch of
 // _segsum_kernel, raster_v2.py:1412-1431): each input word holds two
@@ -26,7 +45,7 @@
 // of the low halves. A half is read with integer masking and shifting and
 // reinterpreted as f32 (exact: it is a bf16 value), so no float operation
 // ever sees a packed word, whose bits could read as a subnormal float. The
-// walk and the shuffle order are the f32 branch's.
+// walk and the order of the additions are the f32 branch's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,69 +55,308 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kLanes = 4;  // lanes per id
+// merged items a block and its warps (raster_v2.SEG_BLOCK_ITEMS, SEG_WARPS)
+constexpr int kItems = 2048;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kChunks = kItems / 32 / kWarps;  // a warp's most chunks
 
-__device__ __forceinline__ float lane_sum(float s) {
-#pragma unroll
-  for (int o = kLanes / 2; o > 0; o >>= 1) {
-    s += __shfl_down_sync(kFull, s, o, kLanes);
+__device__ __forceinline__ int range_end(const int* __restrict__ cum, int r,
+                                         int n) {
+  return min(cum[r], n);
+}
+
+// the number of end items among the first k items of the merged sequence:
+// the first r with r + e[r] >= k (M if none), by one warp, whose 32 probes
+// cut the range 32-fold a step
+__device__ int ends_before(const int* __restrict__ cum, int M, int n,
+                           int64_t k, int lane) {
+  int lo = 0, hi = M;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int p = lo + lane * step;
+    const bool before = p < hi && (int64_t)p + range_end(cum, p, n) < k;
+    const int c = __popc(__ballot_sync(kFull, before));  // a prefix
+    if (c == 0) break;
+    hi = min(lo + c * step, hi);
+    lo += (c - 1) * step + 1;
   }
-  return s;
+  return lo;
+}
+
+// the block's local id of local column c: the first q with end[q] > c
+__device__ __forceinline__ int local_id(const int* end, int nq, int c) {
+  int lo = 0, hi = nq - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (end[mid] > c) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
 }
 
 template <bool PACKED>
-__global__ void segsum_kernel(const void* __restrict__ rows, int64_t L,
-                              int d, const int* __restrict__ cum, int M,
-                              const int* __restrict__ n_isects,
-                              float* __restrict__ out) {
-  const int64_t id =
-      (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / kLanes;
-  const int sub = threadIdx.x % kLanes;
-  // lanes past the last id stay for the shuffles with an empty range
-  const int n = *n_isects;
-  const int lo = id >= M ? 0 : (id == 0 ? 0 : min(cum[id - 1], n));
-  const int hi = id >= M ? 0 : min(cum[id], n);
-  for (int r = 0; r < d; ++r) {
-    if (PACKED) {
-      const uint32_t* row =
-          static_cast<const uint32_t*>(rows) + (int64_t)r * L;
-      float sh = 0.0f, sl = 0.0f;
-      for (int j = lo + sub; j < hi; j += kLanes) {
-        const uint32_t u = row[j];
-        sh += gsc::pair_hi(u);
-        sl += gsc::pair_lo(u);
-      }
-      sh = lane_sum(sh);
-      sl = lane_sum(sl);
-      if (sub == 0 && id < M) {
-        out[(int64_t)r * M + id] = sh;
-        out[(int64_t)(d + r) * M + id] = sl;
-      }
-    } else {
-      const float* row = static_cast<const float*>(rows) + (int64_t)r * L;
-      float s = 0.0f;
-      for (int j = lo + sub; j < hi; j += kLanes) s += row[j];
-      s = lane_sum(s);
-      if (sub == 0 && id < M) out[(int64_t)r * M + id] = s;
+__device__ __forceinline__ float half_of(uint32_t u, int v) {
+  if (PACKED) return v == 0 ? gsc::pair_hi(u) : gsc::pair_lo(u);
+  return __uint_as_float(u);
+}
+
+template <bool PACKED>
+__global__ void __launch_bounds__(kThreads)
+    segsum_blocks(const uint32_t* __restrict__ rows, int64_t L, int d,
+                  const int* __restrict__ cum, int M,
+                  const int* __restrict__ n_isects, int nb,
+                  float* __restrict__ carry, int* __restrict__ carry_id,
+                  float* __restrict__ out) {
+  constexpr int NV = PACKED ? 2 : 1;  // sums a word
+  __shared__ int s_end[kItems + 1];   // local ids' ends, local columns
+  __shared__ float s_sum[2][NV][kItems + 1];  // by row parity
+  __shared__ float s_first[2][NV][kWarps];  // a piece crossing a warp's
+  __shared__ float s_last[2][NV][kWarps];   // start; one crossing its end
+  __shared__ int s_fq[kWarps], s_lq[kWarps], s_flags[kWarps];
+  __shared__ int s_ij[4];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int n = (int)min((int64_t)*n_isects, L);
+  const int64_t K = (int64_t)M + range_end(cum, M - 1, n);
+  const int64_t k0 = (int64_t)b * kItems;
+  if (k0 >= K) {  // the grid is sized for n_isects = L
+    if (tid == 0) carry_id[b] = -1;
+    return;
+  }
+  if (w < 2) {  // warp 0 finds the block's start, warp 1 its end
+    const int64_t k = w == 0 ? k0 : min(k0 + kItems, K);
+    const int i = ends_before(cum, M, n, k, lane);
+    if (lane == 0) {
+      s_ij[2 * w] = i;
+      s_ij[2 * w + 1] = (int)(k - i);
     }
   }
+  __syncthreads();
+  const int i0 = s_ij[0], j0 = s_ij[1], i1 = s_ij[2], j1 = s_ij[3];
+  const int n_done = i1 - i0;            // ids whose end item is here
+  const int nq = n_done + (i1 < M);      // and the one still open
+  for (int q = tid; q < nq; q += kThreads) {
+    s_end[q] = range_end(cum, i0 + q, n) - j0;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) s_sum[0][v][q] = s_sum[1][v][q] = 0.0f;
+  }
+  if (tid == 0) carry_id[b] = i1 < M ? i1 : -1;
+  __syncthreads();
+
+  // this warp's columns [cw0, cw1), in nch chunks of 32
+  const int nc = j1 - j0;
+  const int cpw = ((nc + 31) / 32 + kWarps - 1) / kWarps;
+  const int cw0 = min(w * cpw * 32, nc);
+  const int cw1 = min(cw0 + cpw * 32, nc);
+  const int nch = (cw1 - cw0 + 31) / 32;
+  // each column's local id, found once for every row; a lane heads its
+  // piece of a chunk where the column before it (in this warp) has another
+  // id, and ends it where the next one does
+  int dst[kChunks];
+  unsigned heads[kChunks + 1];
+  heads[kChunks] = kFull;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = cw0 + 32 * i + lane;
+    dst[i] = c < cw1 ? local_id(s_end, nq, c) : -1;
+    int up = __shfl_up_sync(kFull, dst[i], 1);
+    if (i > 0) {
+      const int prev = __shfl_sync(kFull, dst[i - 1], 31);
+      if (lane == 0) up = prev;
+    } else if (lane == 0) {
+      up = -2;  // the warp's first column heads its piece
+    }
+    heads[i] = __ballot_sync(kFull, c >= cw1 || up != dst[i]);
+  }
+  // the warp's first and last ids, and whether their pieces continue
+  // across its start or its end
+  const bool any = cw1 > cw0;
+  const int fq = any ? local_id(s_end, nq, cw0) : -1;
+  const int lq = any ? local_id(s_end, nq, cw1 - 1) : -1;
+  const bool fcs = any && cw0 > 0 && local_id(s_end, nq, cw0 - 1) == fq;
+  const bool lce = any && cw1 < nc && local_id(s_end, nq, cw1) == lq;
+  // a tail lane writes its piece's sum: to s_first if the piece crosses
+  // the warp's start, else to s_last if it crosses the end, else to the
+  // id's sum (-2, -3 and q in dst; -1 for no write)
+  int ft = -1;
+#pragma unroll
+  for (int i = kChunks - 1; i >= 0; --i) {
+    const int c = cw0 + 32 * i + lane;
+    const bool next_head = lane < 31 ? (heads[i] >> (lane + 1)) & 1u
+                                     : heads[i + 1] & 1u;
+    const unsigned tails = __ballot_sync(kFull, c < cw1 && next_head);
+    if (tails) ft = 32 * i + __ffs(tails) - 1;
+    if (!((tails >> lane) & 1u)) dst[i] = -1;
+  }
+  const int lt = lce ? cw1 - 1 - cw0 : -1;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int pos = 32 * i + lane;
+    if (dst[i] >= 0) {
+      if (fcs && pos == ft) {
+        dst[i] = -2;
+      } else if (pos == lt) {
+        dst[i] = -3;
+      }
+    }
+  }
+  if (lane == 0) {
+    s_fq[w] = fq;
+    s_lq[w] = lq;
+    s_flags[w] = (int)fcs | (int)lce << 1;
+  }
+  __syncthreads();
+  // thread t < kWarps: where the piece of an id crosses the end of warp t
+  // and not its start, the id takes its pieces in the next `links` warps;
+  // its local id is marked in s_end (no longer searched), which the
+  // copy below skips
+  int links = -1;
+  if (tid < kWarps && (s_flags[tid] & 2) &&
+      !((s_flags[tid] & 1) && s_fq[tid] == s_lq[tid])) {
+    links = 1;
+    while (tid + links < kWarps && (s_flags[tid + links] & 2) &&
+           s_fq[tid + links] == s_lq[tid + links])
+      ++links;
+    s_end[s_lq[tid]] = -1;
+  }
+  const int chain_q = links > 0 ? s_lq[tid] : 0;
+
+  uint32_t cur[kChunks], nxt[kChunks];
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = cw0 + 32 * i + lane;
+    cur[i] = c < cw1 ? rows[j0 + c] : 0u;
+  }
+  // one barrier a row: the sums and the warps' pieces alternate between
+  // two buffers, so a row's copy overlaps the next row's scans
+  for (int r = 0; r < d; ++r) {
+    const int buf = r & 1;
+    if (r + 1 < d) {  // the next row's words, one row ahead
+      const uint32_t* row = rows + (int64_t)(r + 1) * L + j0;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        const int c = cw0 + 32 * i + lane;
+        nxt[i] = c < cw1 ? row[c] : 0u;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      // each chunk's segmented inclusive scan, the chunks independent
+      float x[kChunks];
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) x[i] = half_of<PACKED>(cur[i], v);
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+        for (int i = 0; i < kChunks; ++i) {
+          if (i < nch) {
+            // the highest head at or below this lane (none: lane 0)
+            const int hl =
+                max(31 - __clz(heads[i] & (kFull >> (31 - lane))), 0);
+            const float y = __shfl_up_sync(kFull, x[i], o);
+            if (lane - o >= hl) x[i] = y + x[i];
+          }
+        }
+      }
+      // the sum of the piece open at the previous chunk's end goes to
+      // this chunk's first piece, where lane 0 does not head one
+      float run = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        if (i < nch) {
+          const float last = __shfl_sync(kFull, x[i], 31);
+          const int first_head = heads[i] ? __ffs(heads[i]) - 1 : 32;
+          if (lane < first_head) x[i] = run + x[i];
+          run = first_head == 32 ? run + last : last;
+          if (dst[i] >= 0) {
+            s_sum[buf][v][dst[i]] = x[i];
+          } else if (dst[i] == -2) {
+            s_first[buf][v][w] = x[i];
+          } else if (dst[i] == -3) {
+            s_last[buf][v][w] = x[i];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (links > 0) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        float acc = s_last[buf][v][tid];
+        for (int u = 1; u <= links; ++u) acc = acc + s_first[buf][v][tid + u];
+        if (chain_q < n_done) {
+          out[(int64_t)(v * d + r) * M + i0 + chain_q] = acc;
+        } else {
+          carry[(int64_t)(v * d + r) * nb + b] = acc;
+        }
+      }
+    }
+    for (int q = tid; q < nq; q += kThreads) {
+      if (s_end[q] < 0) continue;  // a chained id, written above
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const float s = s_sum[buf][v][q];
+        s_sum[buf][v][q] = 0.0f;
+        if (q < n_done) {
+          out[(int64_t)(v * d + r) * M + i0 + q] = s;
+        } else {
+          carry[(int64_t)(v * d + r) * nb + b] = s;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) cur[i] = nxt[i];
+  }
+}
+
+// The second pass: the first block of each run of blocks whose open id is
+// the same adds their partial sums in block order, then the sum that the
+// block holding the id's end wrote.
+__global__ void segsum_carry(const float* __restrict__ carry,
+                             const int* __restrict__ carry_id, int nb, int M,
+                             float* __restrict__ out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y;
+  if (b >= nb) return;
+  const int id = carry_id[b];
+  if (id < 0 || (b > 0 && carry_id[b - 1] == id)) return;
+  const float* row = carry + (int64_t)r * nb;
+  float acc = row[b];
+  for (int t = b + 1; t < nb && carry_id[t] == id; ++t) acc = acc + row[t];
+  float* o = out + (int64_t)r * M + id;
+  *o = acc + *o;
 }
 
 }  // namespace
 
 // rows: f32 [d, L], or with packed uint32 words [d, L]; out: f32 [d, M],
-// or with packed [2d, M].
+// or with packed [2d, M]; carry: f32 scratch [d or 2d, nb] and carry_id
+// int32 [nb], nb >= ceil((M + L) / kItems) blocks.
 extern "C" int gsc_segsum_rows(const void* rows, long long L, int d,
                                const void* cum, int M, const void* n_isects,
-                               int packed, void* out, void* stream) {
-  if (d < 0 || M < 0 || L < 0) return (int)cudaErrorInvalidValue;
+                               int packed, int nb, void* carry,
+                               void* carry_id, void* out, void* stream) {
+  if (d < 0 || M < 0 || L < 0 || L > INT32_MAX || nb < 0 ||
+      (int64_t)nb * kItems < (int64_t)M + L || d > 65535 / 2)
+    return (int)cudaErrorInvalidValue;
   if (M > 0 && d > 0) {
-    const int threads = 256;  // 64 ids per block
-    const int64_t blocks = ((int64_t)M * kLanes + threads - 1) / threads;
-    auto kernel = packed ? segsum_kernel<true> : segsum_kernel<false>;
-    kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        rows, (int64_t)L, d, static_cast<const int*>(cum), M,
-        static_cast<const int*>(n_isects), static_cast<float*>(out));
+    cudaStream_t s = (cudaStream_t)stream;
+    auto blocks = packed ? segsum_blocks<true> : segsum_blocks<false>;
+    blocks<<<(unsigned)nb, kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(rows), (int64_t)L, d,
+        static_cast<const int*>(cum), M, static_cast<const int*>(n_isects),
+        nb, static_cast<float*>(carry), static_cast<int*>(carry_id),
+        static_cast<float*>(out));
+    const dim3 grid((unsigned)((nb + 127) / 128),
+                    (unsigned)((packed ? 2 : 1) * d));
+    segsum_carry<<<grid, 128, 0, s>>>(static_cast<const float*>(carry),
+                                      static_cast<const int*>(carry_id), nb,
+                                      M, static_cast<float*>(out));
   }
   return (int)cudaGetLastError();
 }

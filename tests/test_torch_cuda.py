@@ -929,3 +929,93 @@ def test_2dgs_forward_redesign_matches_plain(cuda, ts, CB):
             c = t2._fwd_2dgs_counts(b.S, b.starts, masks, cfg)
             assert c["missed_slots"] == 0
             assert c["candidate_slots"] < c["evaluated_slots"]
+
+
+def _segsum_counts_case(name):
+    """Range lengths (and a truncation, or None) that cut B4's merge-path
+    blocks of SEG_BLOCK_ITEMS items in each way the kernel must handle."""
+    rng = np.random.default_rng(21)
+    items = tr.SEG_BLOCK_ITEMS
+    if name == "id_over_many_blocks":
+        return np.array([3, 9 * items + 77, 2, 5, 0, 4]), None
+    if name == "end_at_block_edge":
+        # id 0's end item is block 0's last item, id 2's columns fill
+        # block 1 and its end item opens block 2
+        return np.array([items - 1, 0, items - 1, 3, 4]), None
+    if name == "empty_runs":
+        c = rng.integers(0, 6, 6000)
+        c[100:400], c[1000:1000 + 3 * items] = 0, 0
+        c[500] = 3 * items
+        return c, None
+    if name == "one_id":
+        return np.array([1700]), None
+    if name == "ragged":  # M not a multiple of a block's items
+        return rng.integers(0, 4, 3 * items + 37), None
+    if name == "all_empty":
+        return np.zeros(5000, np.int64), None
+    if name == "truncated":  # a truncation inside the long range
+        c = np.array([5, 4 * items + 13, 7, 3, 0, 9])
+        return c, 5 + 2 * items + 100
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("name", [
+    "id_over_many_blocks", "end_at_block_edge", "empty_runs", "one_id",
+    "ragged", "all_empty", "truncated"])
+def test_segsum_kernel_merge_path_cases(cuda, name, packed):
+    """B4 (f32) and B4p (packed pairs) on ranges that cross B4's blocks,
+    end at a block's edge, run empty, stand alone (M = 1), leave a ragged
+    last block, are all empty or are truncated inside: within
+    segsum_rows_bound of the plain version (the same summands in another
+    order), 0 for every empty id, and the same bits twice."""
+    counts, cut = _segsum_counts_case(name)
+    cum = torch.tensor(np.cumsum(counts), dtype=torch.int32, device=cuda)
+    total = int(counts.sum())
+    n = torch.tensor([total if cut is None else cut], dtype=torch.int32,
+                     device=cuda)
+    L = max(-(-total // 512) * 512, 512)
+    g = torch.Generator(device="cpu").manual_seed(len(counts))
+    d = 5
+    vals = torch.randn((2 * d, L), generator=g).to(cuda)
+    rows = tr.pack_pairs(vals[:d], vals[d:]) if packed else vals[:d]
+    out = tr.segsum_rows(rows, cum, n)
+    ref = tr._segsum_plain(rows, cum, n)
+    assert out.shape == ((2 if packed else 1) * d, len(counts))
+    assert bool(((out - ref).abs().double()
+                 <= tr.segsum_rows_bound(rows, cum, n)).all())
+    e = np.minimum(np.cumsum(counts), int(n))
+    empty = torch.tensor(np.diff(e, prepend=0) == 0, device=cuda)
+    assert not bool(out[:, empty].any())
+    assert torch.equal(out, tr.segsum_rows(rows, cum, n))
+
+
+@pytest.mark.parametrize("words", ["f32", "packed"])
+@pytest.mark.parametrize("n", [1, 2, 3, 9, 19])
+def test_unpack_kernel_row_groups_match_plain(cuda, n, words):
+    """B9b at 1 to 19 rows of 3M columns (12 MB a row, so the gather takes
+    the rows in groups of unpack_row_group; 19 rows are not a multiple of
+    it), f32 and packed-pair words, with and without a permutation: bit for
+    bit its plain version, and the [d, M] sums' shape (all rows in one
+    group) likewise."""
+    L = 3_000_000
+    g = torch.Generator(device="cpu").manual_seed(n)
+    if words == "f32":
+        block = torch.randn((n + 1, L), generator=g).to(cuda)
+    else:
+        block = torch.randint(-2**31, 2**31, (n + 1, L), dtype=torch.int32,
+                              generator=g).to(cuda)
+    group = tr.unpack_row_group(L, n)
+    assert group < n or n <= 2
+    if n == 19:
+        assert n % group
+    perm = torch.randperm(L, generator=g).to(cuda)
+    for idx in (None, perm):
+        out = tr.unpack_rows(block, n, idx)
+        assert torch.equal(out, tr._unpack_rows_plain(block, n, idx))
+    sums = block[:, :1_000_000].contiguous()
+    if 4 * n * sums.shape[1] <= tr.UNPACK_L2_BYTES:
+        assert tr.unpack_row_group(sums.shape[1], n) == n
+    out = tr.unpack_rows(sums, n, perm[perm < 1_000_000])
+    assert torch.equal(out, tr._unpack_rows_plain(
+        sums, n, perm[perm < 1_000_000]))
