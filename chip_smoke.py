@@ -971,7 +971,7 @@ def segsum_numbers(st, packed=False):
     (after its compare_bwd), its plain version's, the library's (zeros and
     index_add_ of the rows, or of their unpacked halves) and its bound:
     the rows' first n_isects columns read, the count prefix read, the sums
-    written."""
+    written; and its device profile (the two passes' times apart)."""
     rv, b = st.rv, st.b
     rows = st.prows if packed else st.rows
     n, M = int(b.n_isects), b.cum.shape[0]
@@ -980,6 +980,8 @@ def segsum_numbers(st, packed=False):
     vals = torch.cat(rv.unpack_pairs(rows[:, :n])) if packed else \
         rows[:, :n]
     return bound(dict(
+        profile=device_profile(lambda: rv.segsum_rows(rows, b.cum,
+                                                      b.n_isects), 5),
         ms=cuda_ms(lambda: rv.segsum_rows(rows, b.cum, b.n_isects), 10),
         plain_ms=cuda_ms(lambda: rv._segsum_plain(rows, b.cum, b.n_isects),
                          3),
@@ -1023,16 +1025,8 @@ def unpack_numbers(st):
     groups = [dict(group=g, ms=cuda_ms(lambda: rv.unpack_rows(
         st.gbuf, d, b.perm, group=g), 10)) for g in UNPACK_GROUPS + (d,)
         if g <= d]
-    hints = {}
-    for what, src, idx in (("first", st.gbuf, b.perm),
-                           ("second", st.seg, b.order)):
-        for g in (None, d):
-            for streaming in (True, False):
-                hints[f"{what}_group_{g or 'default'}_stream_{streaming}"] = \
-                    cuda_ms(lambda: rv.unpack_rows(
-                        src, d, idx, group=g, streaming=streaming), 10)
     return dict(launch(st.gbuf, b.perm), per_gaussian=launch(st.seg, b.order),
-                row_sweep=sweep, group_sweep=groups, hint_sweep=hints,
+                row_sweep=sweep, group_sweep=groups,
                 group=rv.unpack_row_group(st.gbuf.shape[1], d),
                 per_gaussian_group=rv.unpack_row_group(st.seg.shape[1], d))
 

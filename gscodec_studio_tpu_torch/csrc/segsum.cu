@@ -18,25 +18,27 @@
 // 6.7% of the bound.
 //
 // Design: a merge-path decomposition (Merrill and Garland, "Merge-based
-// Parallel Sparse Matrix-Vector Multiplication", SC16). The merged
-// sequence puts id r's columns before its end item, which sits at
-// r + e[r]; each block takes kItems items of it and finds its first id
-// and column by a search of cum (one warp, 32 probes a step), so no
-// range, however long, gives one block more than kItems columns. Inside
-// a block the columns are cut into 32-column chunks, ceil(chunks /
-// kWarps) a warp; for each row a lane loads one 4-byte word a chunk
-// (neighbouring lanes on neighbouring columns: every load is coalesced),
-// the warp's chunks run their segmented scans of shuffles side by side,
-// then a running sum carries a piece into the warp's next chunk, and for
-// an id that crosses warps one thread adds its pieces in warp order. The
-// block writes each id whose end item it holds (0 for an empty id), and
-// leaves the sum of the id still open at its end in a scratch row; a
-// second pass adds each open id's partial sums, in block order, to the
-// sum that the block holding its end wrote. The id and head of every
-// column are found once a block and serve every row; a row's loads are
-// issued one row ahead, and its sums go out behind one barrier (two
-// buffers, by row parity). No atomics: the order of the additions is
-// fixed, so the same inputs give the same bits on every run.
+// Parallel Sparse Matrix-Vector Multiplication", SC16), with the warp as
+// its unit. The merged sequence puts id r's columns before its end item,
+// which sits at r + e[r]; each warp takes kItems items of it, so no
+// range, however long, gives a warp more than kItems columns. A first
+// pass over cum writes each warp's first id. A lane takes kPer
+// consecutive columns, from the 16-byte boundary at or below the warp's
+// first, and for each row loads them as two 16-byte words (issued one row
+// ahead): every load is coalesced. It sums its pieces in column order and
+// writes those that begin and end in it; a segmented scan of shuffles
+// over the lanes gives the piece that reaches into a lane from the lanes
+// before it. The sums go to the warp's shared row and out coalesced: each
+// id whose end item the warp holds (0 for an empty id), and the sum of
+// the id still open at its end to a scratch row. A last pass adds each
+// open id's partial sums, in warp order, to the sum that the warp holding
+// its end wrote. The warps share no barrier: a block is kWarps of them.
+// The id, head and tail of every column are found once and serve every
+// row. No atomics: the order of the additions is fixed, so the same
+// inputs give the same bits on every run. (Two earlier forms of this
+// design, blocks of 2,048 items that chained pieces across warps at a
+// barrier a row, and warps of 32-column chunks, a scan of shuffles each,
+// ran slower than the first design at the 3DGS rows.)
 //
 // Packed-pair branch (``packed``; replaces the packed_pairs branch of
 // _segsum_kernel, raster_v2.py:1412-1431): each input word holds two
@@ -55,36 +57,39 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-// merged items a block and its warps (raster_v2.SEG_BLOCK_ITEMS, SEG_WARPS)
-constexpr int kItems = 2048;
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kChunks = kItems / 32 / kWarps;  // a warp's most chunks
+// merged items a warp (raster_v2.SEG_WARP_ITEMS): its columns, from the
+// 16-byte boundary at or below its first, fit 32 lanes of kPer columns
+constexpr int kItems = 252;
+constexpr int kPer = 8;  // columns a lane, two 16-byte words
+constexpr int kWarps = 8;  // warps a block
 
 __device__ __forceinline__ int range_end(const int* __restrict__ cum, int r,
                                          int n) {
   return min(cum[r], n);
 }
 
-// the number of end items among the first k items of the merged sequence:
-// the first r with r + e[r] >= k (M if none), by one warp, whose 32 probes
-// cut the range 32-fold a step
-__device__ int ends_before(const int* __restrict__ cum, int M, int n,
-                           int64_t k, int lane) {
-  int lo = 0, hi = M;  // the answer lies in [lo, hi]
-  while (lo < hi) {
-    const int step = (hi - lo + 31) / 32;
-    const int p = lo + lane * step;
-    const bool before = p < hi && (int64_t)p + range_end(cum, p, n) < k;
-    const int c = __popc(__ballot_sync(kFull, before));  // a prefix
-    if (c == 0) break;
-    hi = min(lo + c * step, hi);
-    lo += (c - 1) * step + 1;
-  }
-  return lo;
+// The partition: first[w] is the number of end items among the first
+// w * kItems items of the merged sequence (the first r with
+// r + e[r] >= w * kItems, M if none), for each warp w that holds items
+// and the one after the last. Thread r, r in [0, M], writes the
+// boundaries that fall after id r-1's end item and at or before id r's
+// (for r = M, the first boundary after the last end item): one coalesced
+// pass over cum, each boundary written once.
+__global__ void segsum_bounds(const int* __restrict__ cum, int M,
+                              const int* __restrict__ n_isects, int64_t L,
+                              int nw, int* __restrict__ first) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r > M) return;
+  const int n = (int)min((int64_t)*n_isects, L);
+  const int64_t lo = r == 0 ? 0 : (int64_t)r + range_end(cum, r - 1, n);
+  const int64_t hi = r < M ? (int64_t)r + range_end(cum, r, n)
+                           : lo + kItems - 1;
+  for (int64_t w = (lo + kItems - 1) / kItems; w <= nw && w * kItems <= hi;
+       ++w)
+    first[w] = r;
 }
 
-// the block's local id of local column c: the first q with end[q] > c
+// the warp's local id of its local column c: the first q with end[q] > c
 __device__ __forceinline__ int local_id(const int* end, int nq, int c) {
   int lo = 0, hi = nq - 1;
   while (lo < hi) {
@@ -104,230 +109,164 @@ __device__ __forceinline__ float half_of(uint32_t u, int v) {
   return __uint_as_float(u);
 }
 
+// Each warp of the grid sums one kItems share of the merged sequence;
+// the warps of a block share nothing but the block.
 template <bool PACKED>
-__global__ void __launch_bounds__(kThreads)
-    segsum_blocks(const uint32_t* __restrict__ rows, int64_t L, int d,
-                  const int* __restrict__ cum, int M,
-                  const int* __restrict__ n_isects, int nb,
-                  float* __restrict__ carry, int* __restrict__ carry_id,
-                  float* __restrict__ out) {
+__global__ void __launch_bounds__(32 * kWarps)
+    segsum_warps(const uint32_t* __restrict__ rows, int64_t L, int d,
+                 const int* __restrict__ cum, int M,
+                 const int* __restrict__ n_isects, int nw,
+                 const int* __restrict__ first, float* __restrict__ carry,
+                 int* __restrict__ carry_id, float* __restrict__ out) {
   constexpr int NV = PACKED ? 2 : 1;  // sums a word
-  __shared__ int s_end[kItems + 1];   // local ids' ends, local columns
-  __shared__ float s_sum[2][NV][kItems + 1];  // by row parity
-  __shared__ float s_first[2][NV][kWarps];  // a piece crossing a warp's
-  __shared__ float s_last[2][NV][kWarps];   // start; one crossing its end
-  __shared__ int s_fq[kWarps], s_lq[kWarps], s_flags[kWarps];
-  __shared__ int s_ij[4];
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  __shared__ int s_end[kWarps][kItems + 1];  // local ids' ends
+  __shared__ float s_sum[kWarps][NV][kItems + 1];
+  const int lane = threadIdx.x & 31, wl = threadIdx.x >> 5;
+  const int wg = blockIdx.x * kWarps + wl;
+  if (wg >= nw) return;
   const int n = (int)min((int64_t)*n_isects, L);
   const int64_t K = (int64_t)M + range_end(cum, M - 1, n);
-  const int64_t k0 = (int64_t)b * kItems;
+  const int64_t k0 = (int64_t)wg * kItems;
   if (k0 >= K) {  // the grid is sized for n_isects = L
-    if (tid == 0) carry_id[b] = -1;
+    if (lane == 0) carry_id[wg] = -1;
     return;
   }
-  if (w < 2) {  // warp 0 finds the block's start, warp 1 its end
-    const int64_t k = w == 0 ? k0 : min(k0 + kItems, K);
-    const int i = ends_before(cum, M, n, k, lane);
-    if (lane == 0) {
-      s_ij[2 * w] = i;
-      s_ij[2 * w + 1] = (int)(k - i);
-    }
-  }
-  __syncthreads();
-  const int i0 = s_ij[0], j0 = s_ij[1], i1 = s_ij[2], j1 = s_ij[3];
-  const int n_done = i1 - i0;            // ids whose end item is here
-  const int nq = n_done + (i1 < M);      // and the one still open
-  for (int q = tid; q < nq; q += kThreads) {
-    s_end[q] = range_end(cum, i0 + q, n) - j0;
+  const int64_t k1 = min(k0 + kItems, K);
+  const int i0 = first[wg], i1 = first[wg + 1];
+  const int j0 = (int)(k0 - i0), j1 = (int)(k1 - i1);
+  const int n_done = i1 - i0;        // ids whose end item is here
+  const int nq = n_done + (i1 < M);  // and the one still open
+  int* end = s_end[wl];
+  for (int q = lane; q < nq; q += 32) {
+    end[q] = range_end(cum, i0 + q, n) - j0;
 #pragma unroll
-    for (int v = 0; v < NV; ++v) s_sum[0][v][q] = s_sum[1][v][q] = 0.0f;
+    for (int v = 0; v < NV; ++v) s_sum[wl][v][q] = 0.0f;
   }
-  if (tid == 0) carry_id[b] = i1 < M ? i1 : -1;
-  __syncthreads();
+  if (lane == 0) carry_id[wg] = i1 < M ? i1 : -1;
+  __syncwarp();
 
-  // this warp's columns [cw0, cw1), in nch chunks of 32
-  const int nc = j1 - j0;
-  const int cpw = ((nc + 31) / 32 + kWarps - 1) / kWarps;
-  const int cw0 = min(w * cpw * 32, nc);
-  const int cw1 = min(cw0 + cpw * 32, nc);
-  const int nch = (cw1 - cw0 + 31) / 32;
-  // each column's local id, found once for every row; a lane heads its
-  // piece of a chunk where the column before it (in this warp) has another
-  // id, and ends it where the next one does
-  int dst[kChunks];
-  unsigned heads[kChunks + 1];
-  heads[kChunks] = kFull;
+  // The lane's kPer columns, from the 16-byte boundary at or below j0, and
+  // each one's local id (-1 before j0, nq from j1: pieces never written),
+  // found once for every row. A column heads its piece where the column
+  // before it has another id, and is its tail where the next one does.
+  const int a0 = (j0 & ~3) + kPer * lane;
+  const bool vec = (L & 3) == 0 && ((uintptr_t)rows & 15) == 0;
+  int q[kPer];
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int c = cw0 + 32 * i + lane;
-    dst[i] = c < cw1 ? local_id(s_end, nq, c) : -1;
-    int up = __shfl_up_sync(kFull, dst[i], 1);
-    if (i > 0) {
-      const int prev = __shfl_sync(kFull, dst[i - 1], 31);
-      if (lane == 0) up = prev;
-    } else if (lane == 0) {
-      up = -2;  // the warp's first column heads its piece
-    }
-    heads[i] = __ballot_sync(kFull, c >= cw1 || up != dst[i]);
+  for (int t = 0; t < kPer; ++t) {
+    const int c = a0 + t - j0;
+    q[t] = c < 0 ? -1 : a0 + t >= j1 ? nq : local_id(end, nq, c);
   }
-  // the warp's first and last ids, and whether their pieces continue
-  // across its start or its end
-  const bool any = cw1 > cw0;
-  const int fq = any ? local_id(s_end, nq, cw0) : -1;
-  const int lq = any ? local_id(s_end, nq, cw1 - 1) : -1;
-  const bool fcs = any && cw0 > 0 && local_id(s_end, nq, cw0 - 1) == fq;
-  const bool lce = any && cw1 < nc && local_id(s_end, nq, cw1) == lq;
-  // a tail lane writes its piece's sum: to s_first if the piece crosses
-  // the warp's start, else to s_last if it crosses the end, else to the
-  // id's sum (-2, -3 and q in dst; -1 for no write)
-  int ft = -1;
+  int before = __shfl_up_sync(kFull, q[kPer - 1], 1);
+  int after = __shfl_down_sync(kFull, q[0], 1);
+  if (lane == 0) before = -2;
+  if (lane == 31) after = nq + 1;
+  unsigned hb = 0, tb = 0;  // head and tail bits of the lane's columns
 #pragma unroll
-  for (int i = kChunks - 1; i >= 0; --i) {
-    const int c = cw0 + 32 * i + lane;
-    const bool next_head = lane < 31 ? (heads[i] >> (lane + 1)) & 1u
-                                     : heads[i + 1] & 1u;
-    const unsigned tails = __ballot_sync(kFull, c < cw1 && next_head);
-    if (tails) ft = 32 * i + __ffs(tails) - 1;
-    if (!((tails >> lane) & 1u)) dst[i] = -1;
+  for (int t = 0; t < kPer; ++t) {
+    if (q[t] != (t > 0 ? q[t - 1] : before)) hb |= 1u << t;
+    if (q[t] != (t < kPer - 1 ? q[t + 1] : after)) tb |= 1u << t;
   }
-  const int lt = lce ? cw1 - 1 - cw0 : -1;
+  // the lane's first piece began in an earlier lane where its first column
+  // heads nothing; its sum then takes the earlier lanes' partial sums
+  const bool lead = !(hb & 1u) && tb;
+  int q_lead = -1;
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int pos = 32 * i + lane;
-    if (dst[i] >= 0) {
-      if (fcs && pos == ft) {
-        dst[i] = -2;
-      } else if (pos == lt) {
-        dst[i] = -3;
-      }
-    }
-  }
-  if (lane == 0) {
-    s_fq[w] = fq;
-    s_lq[w] = lq;
-    s_flags[w] = (int)fcs | (int)lce << 1;
-  }
-  __syncthreads();
-  // thread t < kWarps: where the piece of an id crosses the end of warp t
-  // and not its start, the id takes its pieces in the next `links` warps;
-  // its local id is marked in s_end (no longer searched), which the
-  // copy below skips
-  int links = -1;
-  if (tid < kWarps && (s_flags[tid] & 2) &&
-      !((s_flags[tid] & 1) && s_fq[tid] == s_lq[tid])) {
-    links = 1;
-    while (tid + links < kWarps && (s_flags[tid + links] & 2) &&
-           s_fq[tid + links] == s_lq[tid + links])
-      ++links;
-    s_end[s_lq[tid]] = -1;
-  }
-  const int chain_q = links > 0 ? s_lq[tid] : 0;
+  for (int t = kPer - 1; t >= 0; --t)
+    if ((tb >> t) & 1u) q_lead = q[t];
+  // the scan over lanes restarts at the last lane at or below this one
+  // whose last piece began in it
+  const int hl =
+      max(31 - __clz(__ballot_sync(kFull, hb != 0) & (kFull >> (31 - lane))),
+          0);
 
-  uint32_t cur[kChunks], nxt[kChunks];
+  uint4 cur[2], nxt[2];
+  auto load = [&](int r, uint4* w) {
+    const uint32_t* row = rows + (int64_t)r * L;
+    if (vec) {
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int c = cw0 + 32 * i + lane;
-    cur[i] = c < cw1 ? rows[j0 + c] : 0u;
-  }
-  // one barrier a row: the sums and the warps' pieces alternate between
-  // two buffers, so a row's copy overlaps the next row's scans
+      for (int h = 0; h < 2; ++h)
+        w[h] = a0 + 4 * h < j1
+                   ? *reinterpret_cast<const uint4*>(row + a0 + 4 * h)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      uint32_t u[kPer];
+#pragma unroll
+      for (int t = 0; t < kPer; ++t)
+        u[t] = a0 + t >= j0 && a0 + t < j1 ? row[a0 + t] : 0u;
+      w[0] = make_uint4(u[0], u[1], u[2], u[3]);
+      w[1] = make_uint4(u[4], u[5], u[6], u[7]);
+    }
+  };
+  load(0, cur);
   for (int r = 0; r < d; ++r) {
-    const int buf = r & 1;
-    if (r + 1 < d) {  // the next row's words, one row ahead
-      const uint32_t* row = rows + (int64_t)(r + 1) * L + j0;
-#pragma unroll
-      for (int i = 0; i < kChunks; ++i) {
-        const int c = cw0 + 32 * i + lane;
-        nxt[i] = c < cw1 ? row[c] : 0u;
-      }
-    }
-#pragma unroll
+    if (r + 1 < d) load(r + 1, nxt);  // the next row's words, one row ahead
+    const uint32_t u[kPer] = {cur[0].x, cur[0].y, cur[0].z, cur[0].w,
+                              cur[1].x, cur[1].y, cur[1].z, cur[1].w};
+#pragma unroll 1
     for (int v = 0; v < NV; ++v) {
-      // each chunk's segmented inclusive scan, the chunks independent
-      float x[kChunks];
+      // the lane's pieces in column order: those that begin and end in it
+      // are written at their tails
+      float s = 0.0f, lead_sum = 0.0f;
 #pragma unroll
-      for (int i = 0; i < kChunks; ++i) x[i] = half_of<PACKED>(cur[i], v);
+      for (int t = 0; t < kPer; ++t) {
+        const float x = half_of<PACKED>(u[t], v);
+        s = (hb >> t) & 1u ? x : s + x;
+        if ((tb >> t) & 1u) {
+          if (hb & ((2u << t) - 1u)) {
+            if (q[t] >= 0 && q[t] < nq) s_sum[wl][v][q[t]] = s;
+          } else {
+            lead_sum = s;
+          }
+        }
+      }
+      // the last piece's partial sums over the lanes, restarting where it
+      // began; the first piece of a lane takes the lanes' sum before it
+      float incl = s;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-#pragma unroll
-        for (int i = 0; i < kChunks; ++i) {
-          if (i < nch) {
-            // the highest head at or below this lane (none: lane 0)
-            const int hl =
-                max(31 - __clz(heads[i] & (kFull >> (31 - lane))), 0);
-            const float y = __shfl_up_sync(kFull, x[i], o);
-            if (lane - o >= hl) x[i] = y + x[i];
-          }
-        }
+        const float y = __shfl_up_sync(kFull, incl, o);
+        if (lane - o >= hl) incl = y + incl;
       }
-      // the sum of the piece open at the previous chunk's end goes to
-      // this chunk's first piece, where lane 0 does not head one
-      float run = 0.0f;
-#pragma unroll
-      for (int i = 0; i < kChunks; ++i) {
-        if (i < nch) {
-          const float last = __shfl_sync(kFull, x[i], 31);
-          const int first_head = heads[i] ? __ffs(heads[i]) - 1 : 32;
-          if (lane < first_head) x[i] = run + x[i];
-          run = first_head == 32 ? run + last : last;
-          if (dst[i] >= 0) {
-            s_sum[buf][v][dst[i]] = x[i];
-          } else if (dst[i] == -2) {
-            s_first[buf][v][w] = x[i];
-          } else if (dst[i] == -3) {
-            s_last[buf][v][w] = x[i];
-          }
-        }
-      }
+      const float excl = __shfl_up_sync(kFull, incl, 1);
+      if (lead && q_lead >= 0 && q_lead < nq)
+        s_sum[wl][v][q_lead] = excl + lead_sum;
     }
-    __syncthreads();
-    if (links > 0) {
+    __syncwarp();
+    // every id of the warp, coalesced (0 for an empty one), then the
+    // open id's partial sum
+    for (int qq = lane; qq < nq; qq += 32) {
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        float acc = s_last[buf][v][tid];
-        for (int u = 1; u <= links; ++u) acc = acc + s_first[buf][v][tid + u];
-        if (chain_q < n_done) {
-          out[(int64_t)(v * d + r) * M + i0 + chain_q] = acc;
+        const float sum = s_sum[wl][v][qq];
+        s_sum[wl][v][qq] = 0.0f;
+        if (qq < n_done) {
+          out[(int64_t)(v * d + r) * M + i0 + qq] = sum;
         } else {
-          carry[(int64_t)(v * d + r) * nb + b] = acc;
+          carry[(int64_t)(v * d + r) * nw + wg] = sum;
         }
       }
     }
-    for (int q = tid; q < nq; q += kThreads) {
-      if (s_end[q] < 0) continue;  // a chained id, written above
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        const float s = s_sum[buf][v][q];
-        s_sum[buf][v][q] = 0.0f;
-        if (q < n_done) {
-          out[(int64_t)(v * d + r) * M + i0 + q] = s;
-        } else {
-          carry[(int64_t)(v * d + r) * nb + b] = s;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) cur[i] = nxt[i];
+    __syncwarp();
+    cur[0] = nxt[0];
+    cur[1] = nxt[1];
   }
 }
 
-// The second pass: the first block of each run of blocks whose open id is
-// the same adds their partial sums in block order, then the sum that the
-// block holding the id's end wrote.
+// The second pass: the first warp of each run of warps whose open id is
+// the same adds their partial sums in warp order, then the sum that the
+// warp holding the id's end wrote.
 __global__ void segsum_carry(const float* __restrict__ carry,
-                             const int* __restrict__ carry_id, int nb, int M,
+                             const int* __restrict__ carry_id, int nw, int M,
                              float* __restrict__ out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y;
-  if (b >= nb) return;
-  const int id = carry_id[b];
-  if (id < 0 || (b > 0 && carry_id[b - 1] == id)) return;
-  const float* row = carry + (int64_t)r * nb;
-  float acc = row[b];
-  for (int t = b + 1; t < nb && carry_id[t] == id; ++t) acc = acc + row[t];
+  if (w >= nw) return;
+  const int id = carry_id[w];
+  if (id < 0 || (w > 0 && carry_id[w - 1] == id)) return;
+  const float* row = carry + (int64_t)r * nw;
+  float acc = row[w];
+  for (int t = w + 1; t < nw && carry_id[t] == id; ++t) acc = acc + row[t];
   float* o = out + (int64_t)r * M + id;
   *o = acc + *o;
 }
@@ -335,28 +274,34 @@ __global__ void segsum_carry(const float* __restrict__ carry,
 }  // namespace
 
 // rows: f32 [d, L], or with packed uint32 words [d, L]; out: f32 [d, M],
-// or with packed [2d, M]; carry: f32 scratch [d or 2d, nb] and carry_id
-// int32 [nb], nb >= ceil((M + L) / kItems) blocks.
+// or with packed [2d, M]; carry: f32 scratch [d or 2d, nw]; ids: int32
+// scratch [2 nw + 1], the warps' open ids, then the partition's first ids;
+// nw >= ceil((M + L) / kItems) warps.
 extern "C" int gsc_segsum_rows(const void* rows, long long L, int d,
                                const void* cum, int M, const void* n_isects,
-                               int packed, int nb, void* carry,
-                               void* carry_id, void* out, void* stream) {
-  if (d < 0 || M < 0 || L < 0 || L > INT32_MAX || nb < 0 ||
-      (int64_t)nb * kItems < (int64_t)M + L || d > 65535 / 2)
+                               int packed, int nw, void* carry,
+                               void* ids, void* out, void* stream) {
+  if (d < 0 || M < 0 || L < 0 || L > INT32_MAX || nw < 0 ||
+      (int64_t)nw * kItems < (int64_t)M + L || d > 65535 / 2)
     return (int)cudaErrorInvalidValue;
   if (M > 0 && d > 0) {
     cudaStream_t s = (cudaStream_t)stream;
-    auto blocks = packed ? segsum_blocks<true> : segsum_blocks<false>;
-    blocks<<<(unsigned)nb, kThreads, 0, s>>>(
+    int* carry_id = static_cast<int*>(ids);
+    int* first = carry_id + nw;
+    segsum_bounds<<<(unsigned)(M / 256 + 1), 256, 0, s>>>(
+        static_cast<const int*>(cum), M, static_cast<const int*>(n_isects),
+        (int64_t)L, nw, first);
+    auto warps = packed ? segsum_warps<true> : segsum_warps<false>;
+    warps<<<(unsigned)((nw + kWarps - 1) / kWarps), 32 * kWarps, 0, s>>>(
         static_cast<const uint32_t*>(rows), (int64_t)L, d,
         static_cast<const int*>(cum), M, static_cast<const int*>(n_isects),
-        nb, static_cast<float*>(carry), static_cast<int*>(carry_id),
+        nw, first, static_cast<float*>(carry), carry_id,
         static_cast<float*>(out));
-    const dim3 grid((unsigned)((nb + 127) / 128),
+    const dim3 grid((unsigned)((nw + 127) / 128),
                     (unsigned)((packed ? 2 : 1) * d));
     segsum_carry<<<grid, 128, 0, s>>>(static_cast<const float*>(carry),
-                                      static_cast<const int*>(carry_id), nb,
-                                      M, static_cast<float*>(out));
+                                      carry_id, nw, M,
+                                      static_cast<float*>(out));
   }
   return (int)cudaGetLastError();
 }

@@ -21,17 +21,20 @@
 // coalesced across the warp. Each output column is written by exactly one
 // thread.
 //
-// What held the gather back: through perm, neighbouring output columns
-// read words of other tiles' runs, each in its own 32-byte sector, and
-// the source rows of a [9, cap] block at the 1M scene (118 MB; 263 MB at
-// 2DGS's 19 rows) do not fit the 50 MB L2, so a sector is fetched again
-// for most of its 8 words. Design: the gather takes the rows in groups
-// small enough that a group's source rows stay in L2 while the whole grid
-// reads them (raster_v2.unpack_row_group: rows of at most UNPACK_L2_BYTES
-// together, all rows at once where they fit, as the [d, M] sums do); the
-// grid is group-major, and the card starts blocks in index order, so
-// the groups run one after another. The inverse and the output are
-// streamed past L2 (__ldcs, __stcs) so they do not evict the group.
+// What holds the gather back: through a permutation neighbouring output
+// columns read words of other tiles' runs (or other Gaussians), each in
+// its own 32-byte sector, and a block of rows larger than the 50 MB L2
+// fetches a sector again for most of its 8 words. Design: the gather
+// takes the rows in groups small enough that a group's source rows stay
+// in L2 while the whole grid reads them (raster_v2.unpack_row_group: rows
+// of at most UNPACK_L2_BYTES together, all rows where they fit); the grid
+// is group-major, and the card starts blocks in index order, so the
+// groups run one after another. On the H100 this halves the second
+// launch at the 1M scene's 2DGS sums ([19, 1M], 76 MB: groups of 8 rows)
+// and leaves the first within a few per cent: its rows, 13 MB each, cost
+// about the same per row whether 1 or 9 are read at once, which points at
+// the L2's rate of random sectors rather than its size. Streaming hints
+// on the inverse and the output (__ldcs, __stcs) gained nothing there.
 //
 // The kernel moves 4-byte words and never reads them as floats: the
 // packed-pair gradient rows (csrc/raster_bwd.cu, grad_dtype "bf16") go
@@ -53,7 +56,6 @@ __global__ void invert_kernel(const int64_t* __restrict__ idx, int64_t L,
 
 // block b of the grid gathers row group b / nbx over the columns of its
 // column block b % nbx
-template <bool STREAM>
 __global__ void unpack_kernel(const uint32_t* __restrict__ block,
                               int64_t L_src, int n, int group, int64_t nbx,
                               const int32_t* __restrict__ inv, int64_t L,
@@ -62,16 +64,8 @@ __global__ void unpack_kernel(const uint32_t* __restrict__ block,
   const int64_t j = (blockIdx.x - g * nbx) * (int64_t)kThreads + threadIdx.x;
   if (j >= L) return;
   const int r0 = (int)g * group, r1 = min(r0 + group, n);
-  const int64_t src =
-      inv ? (int64_t)(STREAM ? __ldcs(inv + j) : inv[j]) : j;
-  for (int r = r0; r < r1; ++r) {
-    const uint32_t u = block[r * L_src + src];
-    if (STREAM) {
-      __stcs(out + r * L + j, u);
-    } else {
-      out[r * L + j] = u;
-    }
-  }
+  const int64_t src = inv ? (int64_t)inv[j] : j;
+  for (int r = r0; r < r1; ++r) out[r * L + j] = block[r * L_src + src];
 }
 
 }  // namespace
@@ -79,9 +73,8 @@ __global__ void unpack_kernel(const uint32_t* __restrict__ block,
 // idx: int64 permutation of [0, L) or null; inv: int32 scratch [L], used
 // only with idx; group: rows gathered together (1 <= group).
 extern "C" int gsc_unpack_rows(const void* block, long long L_src, int n,
-                               int group, int streaming, const void* idx,
-                               long long L, void* inv, void* out,
-                               void* stream) {
+                               int group, const void* idx, long long L,
+                               void* inv, void* out, void* stream) {
   if (n < 0 || L < 0 || L_src < L || L > INT32_MAX || group < 1 ||
       (idx && !inv))
     return (int)cudaErrorInvalidValue;
@@ -94,8 +87,7 @@ extern "C" int gsc_unpack_rows(const void* block, long long L_src, int n,
       invert_kernel<<<(unsigned)nbx, kThreads, 0, s>>>(
           static_cast<const int64_t*>(idx), (int64_t)L,
           static_cast<int32_t*>(inv));
-    auto kernel = streaming ? unpack_kernel<true> : unpack_kernel<false>;
-    kernel<<<(unsigned)(nbx * groups), kThreads, 0, s>>>(
+    unpack_kernel<<<(unsigned)(nbx * groups), kThreads, 0, s>>>(
         static_cast<const uint32_t*>(block), (int64_t)L_src, n, group, nbx,
         idx ? static_cast<const int32_t*>(inv) : nullptr, (int64_t)L,
         static_cast<uint32_t*>(out));

@@ -49,7 +49,7 @@ _SIGNATURES = {
                        _I, _I, _P, _P),
     "gsc_raster_bwd": (_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _I, _P, _P),
-    "gsc_unpack_rows": (_P, _L, _I, _I, _I, _P, _L, _P, _P, _P),
+    "gsc_unpack_rows": (_P, _L, _I, _I, _P, _L, _P, _P, _P),
     "gsc_segsum_rows": (_P, _L, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P),
     "gsc_raster_fwd_2dgs": (_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _P, _P),

@@ -1279,8 +1279,7 @@ def unpack_row_group(L_src: int, n: int) -> int:
 
 def unpack_rows(block: torch.Tensor, n: int,
                 idx: Optional[torch.Tensor] = None,
-                group: Optional[int] = None,
-                streaming: bool = True) -> torch.Tensor:
+                group: Optional[int] = None) -> torch.Tensor:
     """The first n rows of an f32 or int32 [R, L_src] block as one [n, L]
     tensor of its dtype; with ``idx`` (an int64 permutation of [0, L),
     L <= L_src) column j goes to column idx[j]: the scatter that undoes
@@ -1307,7 +1306,6 @@ def unpack_rows(block: torch.Tensor, n: int,
     err = native.lib().gsc_unpack_rows(
         block.data_ptr(), block.shape[1], n,
         unpack_row_group(block.shape[1], n) if group is None else group,
-        int(streaming),
         None if idx is None else idx.data_ptr(), L,
         None if inv is None else inv.data_ptr(), out.data_ptr(), _stream(),
     )
@@ -1329,11 +1327,11 @@ def segment_ids(cum: torch.Tensor, n_isects: torch.Tensor) -> torch.Tensor:
     return torch.searchsorted(cum, j, right=True)
 
 
-# B4's partition (csrc/segsum.cu kItems, kWarps): each block takes this many
-# items of the merged sequence of columns and range ends, in 8 warps of 32
-# lanes; a warp takes ceil(chunks / 8) of the block's 32-column chunks
-SEG_BLOCK_ITEMS = 2048
-SEG_WARPS = 8
+# B4's partition (csrc/segsum.cu kItems, kPer): each warp takes this many
+# items of the merged sequence of columns and range ends, a lane 8 of its
+# columns (from the 16-byte boundary at or below the warp's first)
+SEG_WARP_ITEMS = 252
+SEG_LANE_COLUMNS = 8
 
 
 def _range_ends(cum: torch.Tensor, n_isects: torch.Tensor) -> torch.Tensor:
@@ -1342,13 +1340,13 @@ def _range_ends(cum: torch.Tensor, n_isects: torch.Tensor) -> torch.Tensor:
 
 
 def segsum_partition(cum: torch.Tensor, n_isects: torch.Tensor,
-                     items: int = SEG_BLOCK_ITEMS):
+                     items: int = SEG_WARP_ITEMS):
     """B4's merge-path partition (Merrill and Garland, SC16) of the merged
     sequence in which id r's columns [e[r-1], e[r]) come before its end
     item, e = min(cum, n_isects): the end item of id r sits at r + e[r].
-    Block b takes the items [b * items, (b + 1) * items): the end items of
-    ids [i[b], i[b+1]) and the columns [j[b], j[b+1]). Returns (i, j),
-    int64 [blocks + 1]."""
+    Warp w takes the items [w * items, (w + 1) * items): the end items of
+    ids [i[w], i[w+1]) and the columns [j[w], j[w+1]). Returns (i, j),
+    int64 [warps + 1]."""
     e = _range_ends(cum, n_isects).cpu()
     M = e.shape[0]
     K = M + (int(e[-1]) if M else 0)
@@ -1358,14 +1356,14 @@ def segsum_partition(cum: torch.Tensor, n_isects: torch.Tensor,
 
 
 def segsum_counts(cum: torch.Tensor, n_isects: torch.Tensor, d: int,
-                  items: int = SEG_BLOCK_ITEMS) -> dict:
+                  items: int = SEG_WARP_ITEMS) -> dict:
     """B4's work on these ranges, for ``d`` gradient rows: the range
     lengths (max, p99 and mean over the live ids, the ids longer than one
-    block's items); the first design's longest walk (4 lanes an id, 8 ids
+    warp's items); the first design's longest walk (4 lanes an id, 8 ids
     a warp: a warp waits for its longest range's ceil(len / 4) loads of
-    each row); and the merge-path partition's blocks, the largest block's
-    columns and loads (columns x d) and a lane's loads (one word a row for
-    each of its warp's chunks)."""
+    each row); and the merge-path partition's warps, the largest warp's
+    columns and loads (columns x d) and a lane's loads (SEG_LANE_COLUMNS
+    words a row)."""
     e = _range_ends(cum, n_isects).cpu()
     lens = torch.diff(e, prepend=e.new_zeros(1))
     live = torch.sort(lens[lens > 0]).values
@@ -1373,22 +1371,20 @@ def segsum_counts(cum: torch.Tensor, n_isects: torch.Tensor, d: int,
     walk = torch.cat([walk, walk.new_zeros(-walk.shape[0] % 8)])
     _, j = segsum_partition(cum, n_isects, items)
     cols = torch.diff(j)
-    chunks = -(-cols // 32)
     n_live = live.shape[0]
+    top = int(cols.max()) if cols.numel() else 0
     return dict(
         ids=int(lens.shape[0]), live_ids=n_live,
         intersections=int(e[-1]) if lens.shape[0] else 0, rows=d,
         max_range=int(live[-1]) if n_live else 0,
         p99_range=int(live[-(-99 * n_live // 100) - 1]) if n_live else 0,
         mean_range=float(live.double().mean()) if n_live else 0.0,
-        ids_over_block=int((lens > items).sum()),
+        ids_over_warp=int((lens > items).sum()),
         parent_warp_loads=int(walk.reshape(-1, 8).amax(1).max()) * d
         if walk.numel() else 0,
-        block_items=items, blocks=int(cols.shape[0]),
-        max_block_columns=int(cols.max()) if cols.numel() else 0,
-        max_block_loads=int(cols.max()) * d if cols.numel() else 0,
-        max_lane_loads=int((-(-chunks // SEG_WARPS)).max()) * d
-        if cols.numel() else 0)
+        warp_items=items, warps=int(cols.shape[0]), max_warp_columns=top,
+        max_warp_loads=top * d,
+        max_lane_loads=SEG_LANE_COLUMNS * d if top else 0)
 
 
 def _segsum_plain(rows, cum, n_isects):
@@ -1407,8 +1403,8 @@ def segsum_rows_bound(rows: torch.Tensor, cum: torch.Tensor,
     give, per output entry (float64, the shape of the sums). Both add a
     segment's n f32 terms in their own order: the kernel as a tree of
     pairwise sums (a warp's segmented scan of 32 columns, a running sum
-    over a warp's chunks, the warps' and then the blocks' partial sums in
-    column order), index_add_ in some sequence. Any such order of n terms
+    over its chunks, then the warps' partial sums in order), index_add_ in
+    some sequence. Any such order of n terms
     (adding an exact zero rounds nothing) puts at most n - 1 roundings on
     a term, so each is within gamma(n + 1) * sum|x| of the exact sum,
     gamma(k) = k u / (1 - k u) (Higham, Accuracy and Stability of
@@ -1431,9 +1427,9 @@ def segsum_rows(rows: torch.Tensor, cum: torch.Tensor,
     r summing the columns [min(cum[r-1], n_isects), min(cum[r], n_isects))
     (cum[-1] read as 0). ``cum`` is the int32 inclusive count prefix [M];
     a truncated list (total > cap) leaves the cut ids with partial sums and
-    every later id empty. On the card, blocks of SEG_BLOCK_ITEMS items of
+    every later id empty. On the card, warps of SEG_WARP_ITEMS items of
     the merge-path partition (segsum_partition) and a second pass over the
-    partial sums of the ids that cross blocks: fixed order, no atomics.
+    partial sums of the ids that cross warps: fixed order, no atomics.
     Packed pairs (int32 [d, L]) give f32 [2d, M]: the sums of the high
     halves, then those of the low halves."""
     if rows.ndim != 2 or rows.dtype not in (torch.float32, torch.int32) \
@@ -1449,15 +1445,15 @@ def segsum_rows(rows: torch.Tensor, cum: torch.Tensor,
     d, M = rows.shape[0], cum.shape[0]
     d_out = (2 if packed else 1) * d
     out = torch.empty((d_out, M), dtype=torch.float32, device=dev)
-    # the merge-path blocks for n_isects = L, and each one's partial sums
-    # of the id still open at its end
-    nb = -(-(M + rows.shape[1]) // SEG_BLOCK_ITEMS)
-    carry = torch.empty((d_out, nb), dtype=torch.float32, device=dev)
-    carry_id = torch.empty(nb, dtype=torch.int32, device=dev)
+    # the merge-path warps for n_isects = L: each one's partial sums of
+    # the id still open at its end, that id, and each one's first id
+    nw = -(-(M + rows.shape[1]) // SEG_WARP_ITEMS)
+    carry = torch.empty((d_out, nw), dtype=torch.float32, device=dev)
+    ids = torch.empty(2 * nw + 1, dtype=torch.int32, device=dev)
     err = native.lib().gsc_segsum_rows(
         rows.data_ptr(), rows.shape[1], d, cum.data_ptr(), M,
-        n_isects.data_ptr(), int(packed), nb, carry.data_ptr(),
-        carry_id.data_ptr(), out.data_ptr(), _stream(),
+        n_isects.data_ptr(), int(packed), nw, carry.data_ptr(),
+        ids.data_ptr(), out.data_ptr(), _stream(),
     )
     native.check(err, "gsc_segsum_rows")
     LAUNCHES["segsum_rows_packed" if packed else "segsum_rows"] += 1

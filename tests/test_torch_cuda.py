@@ -933,39 +933,40 @@ def test_2dgs_forward_redesign_matches_plain(cuda, ts, CB):
 
 def _segsum_counts_case(name):
     """Range lengths (and a truncation, or None) that cut B4's merge-path
-    blocks of SEG_BLOCK_ITEMS items in each way the kernel must handle."""
+    warps of SEG_WARP_ITEMS items (8 a block) in each way the kernel must
+    handle."""
     rng = np.random.default_rng(21)
-    items = tr.SEG_BLOCK_ITEMS
-    if name == "id_over_many_blocks":
-        return np.array([3, 9 * items + 77, 2, 5, 0, 4]), None
-    if name == "end_at_block_edge":
-        # id 0's end item is block 0's last item, id 2's columns fill
-        # block 1 and its end item opens block 2
+    items = tr.SEG_WARP_ITEMS
+    if name == "id_over_many_warps":
+        return np.array([3, 90 * items + 77, 2, 5, 0, 4]), None
+    if name == "end_at_warp_edge":
+        # id 0's end item is warp 0's last item, id 2's columns fill warp 1
+        # and its end item opens warp 2
         return np.array([items - 1, 0, items - 1, 3, 4]), None
     if name == "empty_runs":
         c = rng.integers(0, 6, 6000)
-        c[100:400], c[1000:1000 + 3 * items] = 0, 0
-        c[500] = 3 * items
+        c[100:400], c[1000:1000 + 30 * items] = 0, 0
+        c[500] = 30 * items
         return c, None
     if name == "one_id":
         return np.array([1700]), None
     if name == "ragged":  # M not a multiple of a block's items
-        return rng.integers(0, 4, 3 * items + 37), None
+        return rng.integers(0, 4, 24 * items + 37), None
     if name == "all_empty":
         return np.zeros(5000, np.int64), None
     if name == "truncated":  # a truncation inside the long range
-        c = np.array([5, 4 * items + 13, 7, 3, 0, 9])
-        return c, 5 + 2 * items + 100
+        c = np.array([5, 40 * items + 13, 7, 3, 0, 9])
+        return c, 5 + 20 * items + 100
     raise ValueError(name)
 
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("name", [
-    "id_over_many_blocks", "end_at_block_edge", "empty_runs", "one_id",
+    "id_over_many_warps", "end_at_warp_edge", "empty_runs", "one_id",
     "ragged", "all_empty", "truncated"])
 def test_segsum_kernel_merge_path_cases(cuda, name, packed):
-    """B4 (f32) and B4p (packed pairs) on ranges that cross B4's blocks,
-    end at a block's edge, run empty, stand alone (M = 1), leave a ragged
+    """B4 (f32) and B4p (packed pairs) on ranges that cross B4's warps,
+    end at a warp's edge, run empty, stand alone (M = 1), leave a ragged
     last block, are all empty or are truncated inside: within
     segsum_rows_bound of the plain version (the same summands in another
     order), 0 for every empty id, and the same bits twice."""

@@ -65,7 +65,7 @@ def test_segsum_counts_match_numpy(rng, cut):
     if cut is not None:  # a truncation inside the full-screen range
         n_isects = torch.tensor([int(cut * total)], dtype=torch.int32)
     n = int(n_isects)
-    d, items = 19, 32  # the 48-tile range spans blocks
+    d, items = 19, 32  # the 48-tile range spans warps
     e = np.minimum(cum.numpy().astype(np.int64), n)
     lens = np.diff(e, prepend=0)
     live = np.sort(lens[lens > 0])
@@ -73,7 +73,6 @@ def test_segsum_counts_match_numpy(rng, cut):
     walk = np.concatenate([walk, np.zeros(-len(walk) % 8, np.int64)])
     i_ref, j_ref = _merged_blocks(e, items)
     cols = np.diff(j_ref)
-    lane_chunks = -(-(-(-cols // 32)) // rv.SEG_WARPS)
 
     i, j = rv.segsum_partition(cum, n_isects, items)
     np.testing.assert_array_equal(i.numpy(), i_ref)
@@ -84,20 +83,19 @@ def test_segsum_counts_match_numpy(rng, cut):
         max_range=int(live[-1]),
         p99_range=int(live[int(np.ceil(0.99 * len(live))) - 1]),
         mean_range=float(live.mean()),
-        ids_over_block=int((lens > items).sum()),
+        ids_over_warp=int((lens > items).sum()),
         parent_warp_loads=int(walk.reshape(-1, 8).max(1).max()) * d,
-        block_items=items, blocks=len(cols),
-        max_block_columns=int(cols.max()),
-        max_block_loads=int(cols.max()) * d,
-        max_lane_loads=int(lane_chunks.max()) * d)
+        warp_items=items, warps=len(cols),
+        max_warp_columns=int(cols.max()),
+        max_warp_loads=int(cols.max()) * d,
+        max_lane_loads=rv.SEG_LANE_COLUMNS * d)
     assert got.keys() == want.keys()
     for key in want:
         assert got[key] == pytest.approx(want[key], rel=1e-12), key
-    # the full-screen surfel's range: longer than a block, walked by one
-    # warp's lanes before and by one chunk a lane now
-    assert want["ids_over_block"] >= 1
+    # the full-screen surfel's range: longer than a warp's items, walked by
+    # one warp's 4 lanes before and by SEG_LANE_COLUMNS words a lane now
+    assert want["ids_over_warp"] >= 1
     assert got["parent_warp_loads"] >= -(-min(TW * TH, n) // 4) * d
-    assert got["max_lane_loads"] <= -(-items // 32 // rv.SEG_WARPS) * d
 
 
 def _jax_segsum(vals, cum, n):
