@@ -24,8 +24,9 @@
 // range, however long, gives a warp more than kItems columns. A first
 // pass over cum writes each warp's first id. A lane takes kPer
 // consecutive columns, from the 16-byte boundary at or below the warp's
-// first, and for each row loads them as two 16-byte words (issued one row
-// ahead): every load is coalesced. It sums its pieces in column order and
+// first, and for each row copies them as two 16-byte words into shared
+// memory by cp.async, two rows ahead: every load is coalesced, and none
+// holds a register while in flight. It sums its pieces in column order and
 // writes those that begin and end in it; a segmented scan of shuffles
 // over the lanes gives the piece that reaches into a lane from the lanes
 // before it. The sums go to the warp's shared row and out coalesced: each
@@ -49,6 +50,7 @@
 // ever sees a packed word, whose bits could read as a subnormal float. The
 // walk and the order of the additions are the f32 branch's.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,6 +64,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kItems = 252;
 constexpr int kPer = 8;  // columns a lane, two 16-byte words
 constexpr int kWarps = 8;  // warps a block
+constexpr int kStages = 3;  // rows in shared memory, kStages - 1 ahead
 
 __device__ __forceinline__ int range_end(const int* __restrict__ cum, int r,
                                          int n) {
@@ -121,6 +124,7 @@ __global__ void __launch_bounds__(32 * kWarps)
   constexpr int NV = PACKED ? 2 : 1;  // sums a word
   __shared__ int s_end[kWarps][kItems + 1];  // local ids' ends
   __shared__ float s_sum[kWarps][NV][kItems + 1];
+  __shared__ __align__(16) uint32_t s_rows[kWarps][kStages][32][kPer];
   const int lane = threadIdx.x & 31, wl = threadIdx.x >> 5;
   const int wg = blockIdx.x * kWarps + wl;
   if (wg >= nw) return;
@@ -180,29 +184,45 @@ __global__ void __launch_bounds__(32 * kWarps)
       max(31 - __clz(__ballot_sync(kFull, hb != 0) & (kFull >> (31 - lane))),
           0);
 
-  uint4 cur[2], nxt[2];
-  auto load = [&](int r, uint4* w) {
-    const uint32_t* row = rows + (int64_t)r * L;
-    if (vec) {
+  // the rows' words go through shared memory by cp.async, kStages - 1
+  // rows ahead of the one being summed; a lane reads back only the words
+  // it copied, and the copies hold no registers in flight
+  auto stage = [&](int r) {
+    if (r < d) {
+      const uint32_t* row = rows + (int64_t)r * L;
+      uint32_t* w = s_rows[wl][r % kStages][lane];
+      if (vec) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        w[h] = a0 + 4 * h < j1
-                   ? *reinterpret_cast<const uint4*>(row + a0 + 4 * h)
-                   : make_uint4(0u, 0u, 0u, 0u);
-    } else {
-      uint32_t u[kPer];
+        for (int h = 0; h < 2; ++h) {
+          if (a0 + 4 * h < j1) {
+            __pipeline_memcpy_async(w + 4 * h, row + a0 + 4 * h, 16);
+          } else {
+            *reinterpret_cast<uint4*>(w + 4 * h) = make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+      } else {
 #pragma unroll
-      for (int t = 0; t < kPer; ++t)
-        u[t] = a0 + t >= j0 && a0 + t < j1 ? row[a0 + t] : 0u;
-      w[0] = make_uint4(u[0], u[1], u[2], u[3]);
-      w[1] = make_uint4(u[4], u[5], u[6], u[7]);
+        for (int t = 0; t < kPer; ++t) {
+          if (a0 + t >= j0 && a0 + t < j1) {
+            __pipeline_memcpy_async(w + t, row + a0 + t, 4);
+          } else {
+            w[t] = 0u;
+          }
+        }
+      }
     }
+    __pipeline_commit();
   };
-  load(0, cur);
+#pragma unroll
+  for (int r = 0; r < kStages - 1; ++r) stage(r);
   for (int r = 0; r < d; ++r) {
-    if (r + 1 < d) load(r + 1, nxt);  // the next row's words, one row ahead
-    const uint32_t u[kPer] = {cur[0].x, cur[0].y, cur[0].z, cur[0].w,
-                              cur[1].x, cur[1].y, cur[1].z, cur[1].w};
+    stage(r + kStages - 1);
+    __pipeline_wait_prior(kStages - 1);
+    const uint4* got = reinterpret_cast<const uint4*>(
+        s_rows[wl][r % kStages][lane]);
+    const uint4 w0 = got[0], w1 = got[1];
+    const uint32_t u[kPer] = {w0.x, w0.y, w0.z, w0.w,
+                              w1.x, w1.y, w1.z, w1.w};
 #pragma unroll 1
     for (int v = 0; v < NV; ++v) {
       // the lane's pieces in column order: those that begin and end in it
@@ -248,8 +268,6 @@ __global__ void __launch_bounds__(32 * kWarps)
       }
     }
     __syncwarp();
-    cur[0] = nxt[0];
-    cur[1] = nxt[1];
   }
 }
 
