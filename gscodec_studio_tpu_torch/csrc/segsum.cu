@@ -115,7 +115,7 @@ __device__ __forceinline__ float half_of(uint32_t u, int v) {
 // Each warp of the grid sums one kItems share of the merged sequence;
 // the warps of a block share nothing but the block.
 template <bool PACKED>
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void __launch_bounds__(32 * kWarps, 4)
     segsum_warps(const uint32_t* __restrict__ rows, int64_t L, int d,
                  const int* __restrict__ cum, int M,
                  const int* __restrict__ n_isects, int nw,
@@ -156,10 +156,19 @@ __global__ void __launch_bounds__(32 * kWarps)
   const int a0 = (j0 & ~3) + kPer * lane;
   const bool vec = (L & 3) == 0 && ((uintptr_t)rows & 15) == 0;
   int q[kPer];
+  // one search for the lane's first column, then a walk over the ends
+  int qc = a0 - j0 < j1 - j0 ? local_id(end, nq, max(a0 - j0, 0)) : nq;
 #pragma unroll
   for (int t = 0; t < kPer; ++t) {
     const int c = a0 + t - j0;
-    q[t] = c < 0 ? -1 : a0 + t >= j1 ? nq : local_id(end, nq, c);
+    if (c < 0) {
+      q[t] = -1;
+    } else if (a0 + t >= j1) {
+      q[t] = nq;
+    } else {
+      while (end[qc] <= c) ++qc;
+      q[t] = qc;
+    }
   }
   int before = __shfl_up_sync(kFull, q[kPer - 1], 1);
   int after = __shfl_down_sync(kFull, q[0], 1);
@@ -172,12 +181,19 @@ __global__ void __launch_bounds__(32 * kWarps)
     if (q[t] != (t < kPer - 1 ? q[t + 1] : after)) tb |= 1u << t;
   }
   // the lane's first piece began in an earlier lane where its first column
-  // heads nothing; its sum then takes the earlier lanes' partial sums
+  // heads nothing; its sum then takes the earlier lanes' partial sums, and
+  // the tail of that piece (bit lb) keeps its own. Every other tail of a
+  // real id writes its piece's sum to its slot wq (-1: no write).
   const bool lead = !(hb & 1u) && tb;
+  const unsigned lb = lead ? tb & -tb : 0u;
   int q_lead = -1;
 #pragma unroll
   for (int t = kPer - 1; t >= 0; --t)
     if ((tb >> t) & 1u) q_lead = q[t];
+  if (q_lead >= nq) q_lead = -1;
+#pragma unroll
+  for (int t = 0; t < kPer; ++t)
+    if (!((tb >> t) & 1u) || ((lb >> t) & 1u) || q[t] >= nq) q[t] = -1;
   // the scan over lanes restarts at the last lane at or below this one
   // whose last piece began in it
   const int hl =
@@ -232,13 +248,8 @@ __global__ void __launch_bounds__(32 * kWarps)
       for (int t = 0; t < kPer; ++t) {
         const float x = half_of<PACKED>(u[t], v);
         s = (hb >> t) & 1u ? x : s + x;
-        if ((tb >> t) & 1u) {
-          if (hb & ((2u << t) - 1u)) {
-            if (q[t] >= 0 && q[t] < nq) s_sum[wl][v][q[t]] = s;
-          } else {
-            lead_sum = s;
-          }
-        }
+        if ((lb >> t) & 1u) lead_sum = s;
+        if (q[t] >= 0) s_sum[wl][v][q[t]] = s;
       }
       // the last piece's partial sums over the lanes, restarting where it
       // began; the first piece of a lane takes the lanes' sum before it
@@ -249,8 +260,7 @@ __global__ void __launch_bounds__(32 * kWarps)
         if (lane - o >= hl) incl = y + incl;
       }
       const float excl = __shfl_up_sync(kFull, incl, 1);
-      if (lead && q_lead >= 0 && q_lead < nq)
-        s_sum[wl][v][q_lead] = excl + lead_sum;
+      if (q_lead >= 0 && lead) s_sum[wl][v][q_lead] = excl + lead_sum;
     }
     __syncwarp();
     // every id of the warp, coalesced (0 for an empty one), then the
