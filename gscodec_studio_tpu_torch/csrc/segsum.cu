@@ -115,7 +115,7 @@ __device__ __forceinline__ float half_of(uint32_t u, int v) {
 // Each warp of the grid sums one kItems share of the merged sequence;
 // the warps of a block share nothing but the block.
 template <bool PACKED>
-__global__ void __launch_bounds__(32 * kWarps, 4)
+__global__ void __launch_bounds__(32 * kWarps, 5)
     segsum_warps(const uint32_t* __restrict__ rows, int64_t L, int d,
                  const int* __restrict__ cum, int M,
                  const int* __restrict__ n_isects, int nw,
@@ -281,20 +281,45 @@ __global__ void __launch_bounds__(32 * kWarps, 4)
   }
 }
 
-// The second pass: the first warp of each run of warps whose open id is
+// The last pass: the first warp of each run of warps whose open id is
 // the same adds their partial sums in warp order, then the sum that the
 // warp holding the id's end wrote.
 __global__ void segsum_carry(const float* __restrict__ carry,
                              const int* __restrict__ carry_id, int nw, int M,
                              float* __restrict__ out) {
+  // the run's next kLook warps are read with the warp's own id, all at
+  // once: a surfel whose range covers the screen spans ~20 warps, and a
+  // chain of dependent loads would set the pass
+  constexpr int kLook = 8;
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y;
   if (w >= nw) return;
-  const int id = carry_id[w];
-  if (id < 0 || (w > 0 && carry_id[w - 1] == id)) return;
   const float* row = carry + (int64_t)r * nw;
+  const int id = carry_id[w];
+  const int prev = w > 0 ? carry_id[w - 1] : -1;
   float acc = row[w];
-  for (int t = w + 1; t < nw && carry_id[t] == id; ++t) acc = acc + row[t];
+  int ids[kLook];
+  float vals[kLook];
+#pragma unroll
+  for (int k = 0; k < kLook; ++k) {
+    ids[k] = w + 1 + k < nw ? carry_id[w + 1 + k] : -1;
+    vals[k] = w + 1 + k < nw ? row[w + 1 + k] : 0.0f;
+  }
+  if (id < 0 || prev == id) return;
+  for (int t = w + 1;; t += kLook) {
+    bool more = true;
+#pragma unroll
+    for (int k = 0; k < kLook; ++k) {
+      more = more && ids[k] == id;
+      if (more) acc = acc + vals[k];
+    }
+    if (!more || t + kLook >= nw) break;
+#pragma unroll
+    for (int k = 0; k < kLook; ++k) {
+      ids[k] = t + kLook + k < nw ? carry_id[t + kLook + k] : -1;
+      vals[k] = t + kLook + k < nw ? row[t + kLook + k] : 0.0f;
+    }
+  }
   float* o = out + (int64_t)r * M + id;
   *o = acc + *o;
 }
