@@ -120,8 +120,7 @@ __global__ void __launch_bounds__(32 * kWarps, 5)
                  const int* __restrict__ cum, int M,
                  const int* __restrict__ n_isects, int nw,
                  const int* __restrict__ first, float* __restrict__ carry,
-                 float* __restrict__ head, int* __restrict__ carry_id,
-                 float* __restrict__ out) {
+                 int* __restrict__ carry_id, float* __restrict__ out) {
   constexpr int NV = PACKED ? 2 : 1;  // sums a word
   __shared__ int s_end[kWarps][kItems + 1];  // local ids' ends
   __shared__ float s_sum[kWarps][NV][kItems + 1];
@@ -264,21 +263,17 @@ __global__ void __launch_bounds__(32 * kWarps, 5)
       if (q_lead >= 0 && lead) s_sum[wl][v][q_lead] = excl + lead_sum;
     }
     __syncwarp();
-    // every id of the warp, coalesced (0 for an empty one); the first,
-    // which began in the warps before (in warp 0, none did), and the one
-    // still open leave their partial sums to the last pass
+    // every id of the warp, coalesced (0 for an empty one), then the
+    // open id's partial sum
     for (int qq = lane; qq < nq; qq += 32) {
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         const float sum = s_sum[wl][v][qq];
         s_sum[wl][v][qq] = 0.0f;
-        const int64_t rv = v * d + r;
-        if (qq == 0 && wg > 0 && n_done > 0) {
-          head[rv * nw + wg] = sum;
-        } else if (qq < n_done) {
-          out[rv * M + i0 + qq] = sum;
+        if (qq < n_done) {
+          out[(int64_t)(v * d + r) * M + i0 + qq] = sum;
         } else {
-          carry[rv * nw + wg] = sum;
+          carry[(int64_t)(v * d + r) * nw + wg] = sum;
         }
       }
     }
@@ -287,62 +282,52 @@ __global__ void __launch_bounds__(32 * kWarps, 5)
 }
 
 // The last pass: the first warp of each run of warps whose open id is
-// the same adds their partial sums in warp order, then the partial sum of
-// the warp holding the id's end item, and writes the id's sum.
+// the same adds their partial sums in warp order, then the sum that the
+// warp holding the id's end wrote.
 __global__ void segsum_carry(const float* __restrict__ carry,
-                             const float* __restrict__ head,
                              const int* __restrict__ carry_id, int nw, int M,
                              float* __restrict__ out) {
   // the run's next kLook warps are read with the warp's own id, all at
-  // once: a surfel whose range covers the screen spans ~20 warps
+  // once: a surfel whose range covers the screen spans ~20 warps, and a
+  // chain of dependent loads would set the pass
   constexpr int kLook = 8;
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y;
   if (w >= nw) return;
   const float* row = carry + (int64_t)r * nw;
-  const float* heads = head + (int64_t)r * nw;
   const int id = carry_id[w];
   const int prev = w > 0 ? carry_id[w - 1] : -1;
   float acc = row[w];
   int ids[kLook];
-  float vals[kLook], ends[kLook];
-  auto look = [&](int t) {
+  float vals[kLook];
 #pragma unroll
-    for (int k = 0; k < kLook; ++k) {
-      const bool in = t + k < nw;
-      ids[k] = in ? carry_id[t + k] : -1;
-      vals[k] = in ? row[t + k] : 0.0f;
-      ends[k] = in ? heads[t + k] : 0.0f;
-    }
-  };
-  look(w + 1);
+  for (int k = 0; k < kLook; ++k) {
+    ids[k] = w + 1 + k < nw ? carry_id[w + 1 + k] : -1;
+    vals[k] = w + 1 + k < nw ? row[w + 1 + k] : 0.0f;
+  }
   if (id < 0 || prev == id) return;
   for (int t = w + 1;; t += kLook) {
-    int k = 0;
+    bool more = true;
 #pragma unroll
-    for (int m = 0; m < kLook; ++m) {
-      if (k == m && ids[m] == id) {
-        acc = acc + vals[m];
-        ++k;
-      }
+    for (int k = 0; k < kLook; ++k) {
+      more = more && ids[k] == id;
+      if (more) acc = acc + vals[k];
     }
-    if (k < kLook) {  // warp t + k holds the id's end item
-      float e = 0.0f;
+    if (!more || t + kLook >= nw) break;
 #pragma unroll
-      for (int m = 0; m < kLook; ++m)
-        if (m == k) e = ends[m];
-      out[(int64_t)r * M + id] = acc + e;
-      return;
+    for (int k = 0; k < kLook; ++k) {
+      ids[k] = t + kLook + k < nw ? carry_id[t + kLook + k] : -1;
+      vals[k] = t + kLook + k < nw ? row[t + kLook + k] : 0.0f;
     }
-    look(t + kLook);
   }
+  float* o = out + (int64_t)r * M + id;
+  *o = acc + *o;
 }
 
 }  // namespace
 
 // rows: f32 [d, L], or with packed uint32 words [d, L]; out: f32 [d, M],
-// or with packed [2d, M]; carry: f32 scratch [2, d or 2d, nw], the warps'
-// partial sums of their open ids, then of their first ids; ids: int32
+// or with packed [2d, M]; carry: f32 scratch [d or 2d, nw]; ids: int32
 // scratch [2 nw + 1], the warps' open ids, then the partition's first ids;
 // nw >= ceil((M + L) / kItems) warps.
 extern "C" int gsc_segsum_rows(const void* rows, long long L, int d,
@@ -356,8 +341,6 @@ extern "C" int gsc_segsum_rows(const void* rows, long long L, int d,
     cudaStream_t s = (cudaStream_t)stream;
     int* carry_id = static_cast<int*>(ids);
     int* first = carry_id + nw;
-    const int d_out = (packed ? 2 : 1) * d;
-    float* head = static_cast<float*>(carry) + (int64_t)d_out * nw;
     segsum_bounds<<<(unsigned)(M / 256 + 1), 256, 0, s>>>(
         static_cast<const int*>(cum), M, static_cast<const int*>(n_isects),
         (int64_t)L, nw, first);
@@ -365,11 +348,12 @@ extern "C" int gsc_segsum_rows(const void* rows, long long L, int d,
     warps<<<(unsigned)((nw + kWarps - 1) / kWarps), 32 * kWarps, 0, s>>>(
         static_cast<const uint32_t*>(rows), (int64_t)L, d,
         static_cast<const int*>(cum), M, static_cast<const int*>(n_isects),
-        nw, first, static_cast<float*>(carry), head, carry_id,
+        nw, first, static_cast<float*>(carry), carry_id,
         static_cast<float*>(out));
-    const dim3 grid((unsigned)((nw + 127) / 128), (unsigned)d_out);
+    const dim3 grid((unsigned)((nw + 127) / 128),
+                    (unsigned)((packed ? 2 : 1) * d));
     segsum_carry<<<grid, 128, 0, s>>>(static_cast<const float*>(carry),
-                                      head, carry_id, nw, M,
+                                      carry_id, nw, M,
                                       static_cast<float*>(out));
   }
   return (int)cudaGetLastError();
