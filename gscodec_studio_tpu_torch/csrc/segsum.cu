@@ -115,7 +115,7 @@ __device__ __forceinline__ float half_of(uint32_t u, int v) {
 // Each warp of the grid sums one kItems share of the merged sequence;
 // the warps of a block share nothing but the block.
 template <bool PACKED>
-__global__ void __launch_bounds__(32 * kWarps, 5)
+__global__ void __launch_bounds__(32 * kWarps, PACKED ? 4 : 5)
     segsum_warps(const uint32_t* __restrict__ rows, int64_t L, int d,
                  const int* __restrict__ cum, int M,
                  const int* __restrict__ n_isects, int nw,
@@ -239,10 +239,11 @@ __global__ void __launch_bounds__(32 * kWarps, 5)
     const uint4 w0 = got[0], w1 = got[1];
     const uint32_t u[kPer] = {w0.x, w0.y, w0.z, w0.w,
                               w1.x, w1.y, w1.z, w1.w};
-#pragma unroll 1
+#pragma unroll
     for (int v = 0; v < NV; ++v) {
       // the lane's pieces in column order: those that begin and end in it
-      // are written at their tails
+      // are written at their tails (the two halves of a packed word side
+      // by side)
       float s = 0.0f, lead_sum = 0.0f;
 #pragma unroll
       for (int t = 0; t < kPer; ++t) {

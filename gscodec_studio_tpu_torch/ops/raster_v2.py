@@ -1446,14 +1446,15 @@ def segsum_rows(rows: torch.Tensor, cum: torch.Tensor,
     d_out = (2 if packed else 1) * d
     out = torch.empty((d_out, M), dtype=torch.float32, device=dev)
     # the merge-path warps for n_isects = L: each one's partial sums of
-    # the id still open at its end, that id, and each one's first id
+    # the id still open at its end, that id, and each one's first id (one
+    # allocation: f32 [d_out, nw], then int32 [2 nw + 1])
     nw = -(-(M + rows.shape[1]) // SEG_WARP_ITEMS)
-    carry = torch.empty((d_out, nw), dtype=torch.float32, device=dev)
-    ids = torch.empty(2 * nw + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(d_out * nw + 2 * nw + 1, dtype=torch.int32,
+                          device=dev)
     err = native.lib().gsc_segsum_rows(
         rows.data_ptr(), rows.shape[1], d, cum.data_ptr(), M,
-        n_isects.data_ptr(), int(packed), nw, carry.data_ptr(),
-        ids.data_ptr(), out.data_ptr(), _stream(),
+        n_isects.data_ptr(), int(packed), nw, scratch.data_ptr(),
+        scratch[d_out * nw:].data_ptr(), out.data_ptr(), _stream(),
     )
     native.check(err, "gsc_segsum_rows")
     LAUNCHES["segsum_rows_packed" if packed else "segsum_rows"] += 1
