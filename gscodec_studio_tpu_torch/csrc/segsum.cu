@@ -35,11 +35,9 @@
 // open id's partial sums, in warp order, to the sum that the warp holding
 // its end wrote. The warps share no barrier: a block is kWarps of them.
 // The id, head and tail of every column are found once and serve every
-// row. No atomics: the order of the additions is fixed, so the same
-// inputs give the same bits on every run. (Two earlier forms of this
-// design, blocks of 2,048 items that chained pieces across warps at a
-// barrier a row, and warps of 32-column chunks, a scan of shuffles each,
-// ran slower than the first design at the 3DGS rows.)
+// row. With no barrier, no range and few instructions a column, a warp
+// waits only on its loads. No atomics: the order of the additions is
+// fixed, so the same inputs give the same bits on every run.
 //
 // Packed-pair branch (``packed``; replaces the packed_pairs branch of
 // _segsum_kernel, raster_v2.py:1412-1431): each input word holds two
@@ -183,7 +181,7 @@ __global__ void __launch_bounds__(32 * kWarps, PACKED ? 4 : 5)
   // the lane's first piece began in an earlier lane where its first column
   // heads nothing; its sum then takes the earlier lanes' partial sums, and
   // the tail of that piece (bit lb) keeps its own. Every other tail of a
-  // real id writes its piece's sum to its slot wq (-1: no write).
+  // real id writes its piece's sum to the slot q[t] (-1: no write).
   const bool lead = !(hb & 1u) && tb;
   const unsigned lb = lead ? tb & -tb : 0u;
   int q_lead = -1;
