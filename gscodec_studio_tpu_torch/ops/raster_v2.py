@@ -1402,11 +1402,11 @@ def segsum_rows_bound(rows: torch.Tensor, cum: torch.Tensor,
     """Largest |segsum_rows - _segsum_plain| that summation order alone can
     give, per output entry (float64, the shape of the sums). Both add a
     segment's n f32 terms in their own order: the kernel as a tree of
-    pairwise sums (a warp's segmented scan of 32 columns, a running sum
-    over its chunks, then the warps' partial sums in order), index_add_ in
-    some sequence. Any such order of n terms
-    (adding an exact zero rounds nothing) puts at most n - 1 roundings on
-    a term, so each is within gamma(n + 1) * sum|x| of the exact sum,
+    pairwise sums (a lane's running sum over its 8 columns, a segmented
+    scan over the lanes, then the warps' partial sums in warp order),
+    index_add_ in some sequence. Any such order of n terms (adding an
+    exact zero rounds nothing) puts at most n - 1 roundings on a term, so
+    each is within gamma(n + 1) * sum|x| of the exact sum,
     gamma(k) = k u / (1 - k u) (Higham, Accuracy and Stability of
     Numerical Algorithms, ch. 4), and the two within twice that. Zero for
     an empty segment."""
@@ -1428,7 +1428,7 @@ def segsum_rows(rows: torch.Tensor, cum: torch.Tensor,
     (cum[-1] read as 0). ``cum`` is the int32 inclusive count prefix [M];
     a truncated list (total > cap) leaves the cut ids with partial sums and
     every later id empty. On the card, warps of SEG_WARP_ITEMS items of
-    the merge-path partition (segsum_partition) and a second pass over the
+    the merge-path partition (segsum_partition) and a last pass over the
     partial sums of the ids that cross warps: fixed order, no atomics.
     Packed pairs (int32 [d, L]) give f32 [2d, M]: the sums of the high
     halves, then those of the low halves."""
