@@ -7,8 +7,8 @@ Phases, one JSON line each with its own ``seconds``:
   device    nvidia-smi's name and power limit, torch and CUDA versions;
   build     the nvcc build of csrc/*.cu (route: plain-C .so + ctypes), with
             the registers and spills of every kernel entry (ptxas), and
-            B1's, B2's, B5's, B6's and B9a's instantiations by their
-            template arguments;
+            B1's, B2's, B5's, B6's, B7's, B8's and B9a's instantiations by
+            their template arguments;
   kernels   each kernel against its plain PyTorch version on the card: a
             20k-Gaussian scene at 320x240, tile 16 and 32, both cutoffs,
             the backward with absgrad off and on, and each backward kernel
@@ -121,8 +121,15 @@ Phases, one JSON line each with its own ``seconds``:
   train_2dgs_mcmc  Runner2DGS at strategy "mcmc" on the same stand-in,
             20 steps: loss, skipped steps, the allocated count;
   kernels_v1  the kernels phase's scene's scalar radii (tile 16 and 32,
-            both cutoffs) through the legacy v1 kernels B7 and B8 against
-            their plain versions (B8 also twice for the same bits);
+            both cutoffs; tile 32 also at 64 and 128 channels) through the
+            legacy v1 kernels B7 and B8 against their plain versions (both
+            also twice and in the longest-run-first tile order for the
+            same bits), with their work from the plain walk in their layout
+            (b7_work, b8_work: rasterize_pallas._region_counts, the slots
+            walked, the candidate ones, checked to hold every slot that
+            passes the alpha test, those tested and composited, the (pair,
+            warp) walked, meeting the box, with a candidate, hit and hit by
+            one lane; each kernel's build and its registers and spills);
   serve_v1  serve's 8 views through render_splats(rasterizer="pallas")
             (the v1 backend at its default soft cutoff), capacity 1.2x the
             probed scalar-radius rows; view 0's B7 against its plain
@@ -131,12 +138,17 @@ Phases, one JSON line each with its own ``seconds``:
             tile 16, soft and exact, the default capacity: forward and
             fwd+bwd median ms, Mpix/s, intersections against the capacity,
             the chunks walked, one B7 and one B8 launch per fwd+bwd, B7's
-            and B8's time, bound and plain time and their check, and the
-            "sort" reduction's cancellation (reported, not checked);
+            and B8's time, bound (on their candidate slots, the plain
+            walk's beside it) and plain time and their check, b7_work and
+            b8_work with each kernel on the longest tile alone, both in
+            index order beside the longest-run-first order and its
+            argsort, and the "sort" reduction's cancellation (reported,
+            not checked);
   train_v1  the train phase's run with Config(rasterizer="pallas"): loss,
             held-out PSNR, step ms, launches (one B7 and one B8 a step),
             a profiled step; then B8 timed on every training view and the
-            slowest view's B7 and B8 against their plain versions;
+            slowest view's B7 and B8 against their plain versions, with
+            b7_work, b8_work and the tile orders there;
   cumsum_skel  B10 (cumsum_rows) at [9, 2^23], signed and non-negative,
             against a float64 torch.cumsum within the rounding bound of its
             own order of additions, timed beside torch.cumsum; B11 (the
@@ -156,8 +168,9 @@ branches of B3, B1 and B2 one fwd+bwd of bench_1m, for B5/B6's log branch
 one fwd+bwd of train_1m_2dgs's log leg, for B6's absgrad rows its probed
 fwd+bwd, for B7 and B8 the train_v1 phase,
 for B10 and B11 the cumsum_skel phase; the tile kernels' bounds, B1's,
-B2's, B5's and B6's, on their candidate slots, tile_bound, with the plain
-walk's beside them in the phases), the card's name and power limit, and
+B2's, B5's, B6's, B7's and B8's, on their candidate slots, tile_bound,
+with the plain walk's beside them in the phases), the card's name and
+power limit, and
 the result line. Any failed check raises, and the script exits non-zero
 without the result line.
 """
@@ -236,8 +249,9 @@ BWD2_OPS_ABS = 4
 # once per staged column, and cut the bytes read.
 LOG_OPS_TESTED = {"exact": 15, "soft": 11}
 
-# raster_v1_fwd, from csrc/raster_v1_fwd.cu: per evaluated (pair, pixel)
-# dx, dy, the nine operations of sigma = 0.5 * (a dx dx + c dy dy)
+# raster_v1_fwd, from csrc/raster_v1_fwd.cu: per candidate (pair, pixel)
+# (tile_bound; the plain walk's bound on each evaluated one) dx, dy, the
+# nine operations of sigma = 0.5 * (a dx dx + c dy dy)
 # + b dx dy, its negation, exp, op * exp, min and two tests (17); the
 # transmittance step per tested pair (FWD_OPS_TESTED); the weight and CH
 # multiply-adds per composited pair (1 + 2*CH, as raster_fwd).
@@ -562,6 +576,26 @@ def tile_instances(entries, kernel, bound_key="chm"):
                             soft=m.group(3) == "1", log=m.group(4) == "1",
                             max_threads=int(m.group(5)),
                             min_blocks=int(m.group(6)),
+                            **{k: e.get(k) for k in (
+                                "registers", "spill_stores", "spill_loads",
+                                "stack")}))
+    return out
+
+
+def v1_instances(entries, kernel):
+    """The instantiations of B7's raster_v1_fwd_kernel or B8's
+    raster_v1_bwd_kernel (template <channel bound, pixels a thread, soft,
+    most threads, blocks an SM>) in the ptxas report, with their registers
+    and spills."""
+    out = []
+    for e in entries:
+        m = re.search(kernel + r"ILi(\d+)ELi(\d+)ELb([01])ELi(\d+)ELi(\d+)E",
+                      e["name"])
+        if m:
+            out.append(dict(chm=int(m.group(1)), ppt=int(m.group(2)),
+                            soft=m.group(3) == "1",
+                            max_threads=int(m.group(4)),
+                            min_blocks=int(m.group(5)),
                             **{k: e.get(k) for k in (
                                 "registers", "spill_stores", "spill_loads",
                                 "stack")}))
@@ -1182,11 +1216,17 @@ class V1Stages:
     """The legacy v1 path's binning and forward (ops/isect.py,
     ops/rasterize_pallas.py) on project_and_shade's outputs with scalar
     radii, keeping B7's and B8's inputs and outputs so each can be re-run,
-    timed and compared."""
+    timed and compared. ``channels`` replaces the colours by that many
+    seeded uniform channels."""
 
-    def __init__(self, rp, ti, prep, width, height, ts, cutoff, cap):
+    def __init__(self, rp, ti, prep, width, height, ts, cutoff, cap,
+                 channels=None):
         radii, means2d, depths, conics, colors, opac = prep[:6]
         C, N = depths.shape
+        if channels is not None:
+            g = torch.Generator(device="cpu").manual_seed(channels)
+            colors = torch.rand((C, N, channels), generator=g).to(
+                means2d.device)
         CH = colors.shape[-1]
         TW, TH = -(-width // ts), -(-height // ts)
         self.rp = rp
@@ -1208,15 +1248,24 @@ class V1Stages:
             rounding_mode="floor").sum())
 
     def compare(self, errs):
-        """B7 against its plain version within FWD_TOL; keeps the plain
-        walk's pair counts."""
-        c, a, self.pair_counts = self.rp._fwd_plain(*self.args, self.cfg,
-                                                    with_counts=True)
+        """B7 against its plain version within FWD_TOL, and twice (and in
+        the longest-run-first tile order) for the same bits; keeps the
+        plain walk's pair counts."""
+        rp = self.rp
+        c, a, self.pair_counts = rp._fwd_plain(*self.args, self.cfg,
+                                               with_counts=True)
         err = max(float((c - self.colors).abs().max()),
                   float((a - self.alphas).abs().max()))
         if not (math.isfinite(err) and err <= FWD_TOL):
             raise AssertionError(f"raster_v1_fwd max abs err {err} > "
                                  f"{FWD_TOL}")
+        order = rp.run_order(self.al.starts, self.al.ends)
+        for again in (rp.raster_v1_fwd(*self.args, self.cfg),
+                      rp.raster_v1_fwd(*self.args, self.cfg, order=order)):
+            if not (torch.equal(again[0], self.colors)
+                    and torch.equal(again[1], self.alphas)):
+                raise AssertionError("raster_v1_fwd differs between two "
+                                     "runs or tile orders")
         note_err(errs, ["raster_v1_fwd"], err)
         return {"v1_fwd_max_abs_err": err}
 
@@ -1235,8 +1284,9 @@ class V1Stages:
 
     def compare_bwd(self, errs, seed):
         """B8 against its plain version on a seeded cotangent within
-        BWD_TOL of each gradient column's largest |value|, and twice for
-        the same bits; keeps its output for timing."""
+        BWD_TOL of each gradient column's largest |value|, and twice (and
+        in the longest-run-first tile order) for the same bits; keeps its
+        output for timing."""
         rp = self.rp
         self.cotangent(seed)
         out = rp.raster_v1_bwd(*self.bwd_args)
@@ -1245,12 +1295,100 @@ class V1Stages:
         err = float((diff / ref.abs().amax(0).clamp(min=1e-30)).max())
         if not (math.isfinite(err) and err <= BWD_TOL):
             raise AssertionError(f"raster_v1_bwd rel err {err} > {BWD_TOL}")
-        if not torch.equal(out, rp.raster_v1_bwd(*self.bwd_args)):
-            raise AssertionError("raster_v1_bwd differs between two runs")
+        order = rp.run_order(self.al.starts, self.al.ends)
+        if not (torch.equal(out, rp.raster_v1_bwd(*self.bwd_args))
+                and torch.equal(out, rp.raster_v1_bwd(*self.bwd_args,
+                                                      order=order))):
+            raise AssertionError("raster_v1_bwd differs between two runs "
+                                 "or tile orders")
         note_err(errs, ["raster_v1_bwd"], float(diff.max()))
         self.v_packed = out
         return {"v1_bwd_rel_err": err, "v1_bwd_max_abs_err": float(
             diff.max())}
+
+    def regions(self):
+        """B7's and B8's work on these inputs (rp._region_counts, in their
+        layout): raises if a slot that passes the alpha test lies outside
+        its pair's candidate region; kept as self.counts."""
+        c = getattr(self, "counts", None)
+        if c is None:
+            c = self.rp._region_counts(*self.args, self.cfg)
+            if c["missed_slots"]:
+                raise AssertionError(f"{c['missed_slots']} passing (pair, "
+                                     f"pixel) slots outside B7's and B8's "
+                                     f"candidate regions")
+            self.counts = c
+        return c
+
+    def longest_tile_ms(self, fwd):
+        """B7 (``fwd``) or B8 on the tile of the longest walk alone (every
+        other tile's run made empty): the floor that one block per tile
+        puts under the launch."""
+        rp, c = self.rp, self.regions()
+        ends1 = self.al.starts.clone()
+        t = c["longest_tile"]
+        ends1[t] = self.al.ends[t]
+        args = (self.packed, self.al.starts, ends1)
+        if fwd:
+            return cuda_ms(lambda: rp.raster_v1_fwd(*args, self.cfg), 5)
+        return cuda_ms(lambda: rp.raster_v1_bwd(*args, *self.bwd_args[3:]),
+                       5)
+
+    def work(self, ptxas=None, tail=False):
+        """b7_work and b8_work: the counts of regions() (the per-tile
+        distribution of the rows walked, the pairs and the (pair, pixel)
+        slots composited as max, p99 and mean; the slots walked, the
+        candidate ones, those tested and composited; the (pair, warp)
+        walked, whose cell meets the box, with a candidate, the hits and the
+        single-lane ones), each kernel's build and, with ``ptxas``
+        (v1_instances of B7 and B8), its registers and spills; with
+        ``tail``, each kernel on the longest tile alone."""
+        rp, cfg = self.rp, self.cfg
+        c = self.regions()
+
+        def dist(x):
+            x = x.double()
+            return dict(max=int(x.max()), p99=float(torch.quantile(x, 0.99)),
+                        mean=float(x.mean()))
+
+        shared = dict(per_tile={k: dist(c[k]) for k in ("run", "pairs",
+                                                        "slots")},
+                      **{k: v for k, v in c.items()
+                         if not isinstance(v, torch.Tensor)})
+        res = {}
+        for name, build, fwd in (
+                ("b7_work", rp.v1_fwd_build(cfg.channels, cfg.tile_size),
+                 True),
+                ("b8_work", rp.v1_bwd_build(cfg.channels, cfg.tile_size),
+                 False)):
+            w = dict(build=build)
+            if ptxas is not None:
+                w["ptxas"] = [e for e in ptxas[name]
+                              if all(e[k] == build[k] for k in (
+                                  "chm", "ppt", "max_threads", "min_blocks"))
+                              and e["soft"] == (cfg.cutoff == "soft")]
+            if tail:
+                w["longest_tile_ms"] = self.longest_tile_ms(fwd)
+            res[name] = w
+        res["b7_work"].update(shared)
+        return res
+
+    def order_numbers(self):
+        """B7 and B8 in index order and longest run first, and the argsort
+        that makes the order (rp.run_order)."""
+        rp, cfg = self.rp, self.cfg
+        st, en = self.al.starts, self.al.ends
+        order = rp.run_order(st, en)
+        return dict(
+            argsort_ms=cuda_ms(lambda: rp.run_order(st, en), 10),
+            fwd_index_ms=cuda_ms(lambda: rp.raster_v1_fwd(*self.args, cfg),
+                                 10),
+            fwd_ordered_ms=cuda_ms(lambda: rp.raster_v1_fwd(
+                *self.args, cfg, order=order), 10),
+            bwd_index_ms=cuda_ms(lambda: rp.raster_v1_bwd(*self.bwd_args),
+                                 10),
+            bwd_ordered_ms=cuda_ms(lambda: rp.raster_v1_bwd(
+                *self.bwd_args, order=order), 10))
 
     def sort_cancellation(self):
         """The "sort" reduction's f32 running-sum differences against a
@@ -1275,30 +1413,31 @@ class V1Stages:
                 "rows_summed": cfg.cap2}
 
     def kernel_numbers(self):
-        """Time, plain time and bound of B7 and B8 on these inputs."""
+        """Time, plain time and bound of B7 and B8 on these inputs, the
+        bound on their candidate slots (tile_bound, regions()) with the
+        plain walk's beside it."""
         rp, cfg, pc = self.rp, self.cfg, self.pair_counts
         CH, P, T = cfg.channels, cfg.pixels, cfg.n_tiles
         d = cfg.d
+        cand = self.regions()["candidate_slots"]
         k = {}
-        k["raster_v1_fwd"] = bound(dict(
+        k["raster_v1_fwd"] = tile_bound(dict(
             ms=cuda_ms(lambda: rp.raster_v1_fwd(*self.args, cfg), 10),
             plain_ms=once_ms(lambda: rp._fwd_plain(*self.args, cfg)),
             library_ms=None,
             bytes=4 * d * self.n_isects + 8 * T + 4 * T * P * (CH + 1),
-            ops=V1_OPS_EVALUATED * pc["evaluated"]
-            + FWD_OPS_TESTED[cfg.cutoff] * pc["tested"]
-            + (1 + 2 * CH) * pc["composited"],
-            pair_counts=pc))
-        k["raster_v1_bwd"] = bound(dict(
+            pair_counts=pc), pc, cand, V1_OPS_EVALUATED,
+            FWD_OPS_TESTED[cfg.cutoff] * pc["tested"]
+            + (1 + 2 * CH) * pc["composited"])
+        k["raster_v1_bwd"] = tile_bound(dict(
             ms=cuda_ms(lambda: rp.raster_v1_bwd(*self.bwd_args), 10),
             plain_ms=once_ms(lambda: rp._bwd_plain(*self.plain_bwd_args)),
             library_ms=None,
             bytes=4 * d * self.n_isects + 8 * T + 4 * T * P * (CH + 3)
             + 4 * d * cfg.cap2,
-            ops=V1_OPS_EVALUATED * pc["evaluated"]
-            + FWD_OPS_TESTED[cfg.cutoff] * pc["tested"]
-            + (V1_BWD_OPS_COMPOSITED + 3 * CH + d) * pc["composited"],
-            pair_counts=pc))
+            pair_counts=pc), pc, cand, V1_OPS_EVALUATED,
+            FWD_OPS_TESTED[cfg.cutoff] * pc["tested"]
+            + (V1_BWD_OPS_COMPOSITED + 3 * CH + d) * pc["composited"])
         return k
 
 
@@ -1351,10 +1490,14 @@ def main():
     b2_ptxas = tile_instances(entries, "raster_bwd_kernel")
     b1_ptxas = tile_instances(entries, "raster_fwd_kernel")
     b5_ptxas = tile_instances(entries, "raster_fwd_2dgs_kernel", "cbm")
+    v1_ptxas = dict(b7_work=v1_instances(entries, "raster_v1_fwd_kernel"),
+                    b8_work=v1_instances(entries, "raster_v1_bwd_kernel"))
     emit({"phase": "build", "library": so.name,
           "nvcc_seconds": native.build_seconds, "ptxas": entries,
           "raster_bwd_ptxas": b2_ptxas, "raster_bwd_2dgs_ptxas": b6_ptxas,
           "raster_fwd_ptxas": b1_ptxas, "raster_fwd_2dgs_ptxas": b5_ptxas,
+          "raster_v1_fwd_ptxas": v1_ptxas["b7_work"],
+          "raster_v1_bwd_ptxas": v1_ptxas["b8_work"],
           "pack_rows_ptxas": pack_instances(entries),
           "seconds": time.perf_counter() - t0})
 
@@ -1497,6 +1640,8 @@ def main():
             st = view_stages(view)
             res = st.compare(errs)
             res.update(st.compare_bwd(errs, seed=300 + view))
+            res.update(st.work(v1_ptxas, tail=True),
+                       order=st.order_numbers())
         return dict(view=view, sh_degree=sh_degree, raster_v1_bwd_ms=bwd_ms,
                     n_isects=st.n_isects, isect_capacity=st.cfg.cap,
                     cutoff=st.cfg.cutoff, **res)
@@ -2722,13 +2867,19 @@ def main():
     t0 = time.perf_counter()
     prep_v1_small = prepared(small, sw, sh, elliptical=False)
     cases_v1 = []
-    for ts in (16, 32):
-        for cutoff in ("exact", "soft"):
-            v1 = V1Stages(rp, ti, prep_v1_small, sw, sh, ts, cutoff, 1 << 20)
-            res = v1.compare(errs)
-            res.update(v1.compare_bwd(errs, seed=ts))
-            cases_v1.append(dict(tile_size=ts, cutoff=cutoff,
-                                 n_isects=v1.n_isects, **res))
+    for ts, cutoff, channels in [
+            (ts, cutoff, None) for ts in (16, 32)
+            for cutoff in ("exact", "soft")] + [
+            (32, cutoff, ch) for ch in (64, 128)
+            for cutoff in ("exact", "soft")]:
+        v1 = V1Stages(rp, ti, prep_v1_small, sw, sh, ts, cutoff, 1 << 20,
+                      channels=channels)
+        res = v1.compare(errs)
+        res.update(v1.compare_bwd(errs, seed=ts))
+        cases_v1.append(dict(tile_size=ts, cutoff=cutoff,
+                             channels=v1.cfg.channels,
+                             n_isects=v1.n_isects, **res,
+                             **v1.work(v1_ptxas)))
     del v1, prep_v1_small
     torch.cuda.synchronize()
     emit({"phase": "kernels_v1", "cases": cases_v1,
@@ -2856,6 +3007,7 @@ def main():
             with torch.no_grad():
                 f_ms, f_samples = median_ms(forward_v1, 5)
             k = v1.kernel_numbers()
+            work = v1.work(v1_ptxas, tail=True)
             run = dict(
                 cutoff=cutoff, n_isects=v1.n_isects,
                 isect_capacity=cap_1m_v1, aligned_rows=v1.cfg.cap2,
@@ -2867,6 +3019,7 @@ def main():
                 mpix_per_s_fwd=WIDTH * HEIGHT / (f_ms * 1e-3) / 1e6,
                 mpix_per_s_fwd_bwd=WIDTH * HEIGHT / (fb_ms * 1e-3) / 1e6,
                 launches_per_fwd_bwd=launches, kernels=k, check=check,
+                **work, order=v1.order_numbers(),
                 sort_cancellation=v1.sort_cancellation(),
                 mean_alpha=float(alpha.mean()))
             if cutoff == "soft":

@@ -6,7 +6,9 @@
 // The forward and the backward of each splat kind include the same
 // function, so that they trust the same regions:
 //   * conic_region (3DGS: B1, csrc/raster_fwd.cu, and B2,
-//     csrc/raster_bwd.cu; mirrored by raster_v2._pair_regions);
+//     csrc/raster_bwd.cu; the legacy v1 kernels B7, csrc/raster_v1_fwd.cu,
+//     and B8, csrc/raster_v1_bwd.cu, through csrc/raster_v1.cuh; mirrored
+//     by raster_v2._pair_regions);
 //   * surfel_region (2DGS: B5, csrc/raster_fwd_2dgs.cu, and B6,
 //     csrc/raster_bwd_2dgs.cuh; mirrored by raster_v2_2dgs._pair_regions).
 // Both are formed in double precision once a chunk, from the f32 values

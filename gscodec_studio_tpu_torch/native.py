@@ -28,7 +28,8 @@ SOURCES = ("pack.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
            "raster_v1_fwd.cu", "raster_v1_bwd.cu", "cumsum_rows.cu",
            "skel_composite.cu")
 # included by the sources; in the hash
-HEADERS = ("tile_common.cuh", "regions.cuh", "raster_bwd_2dgs.cuh")
+HEADERS = ("tile_common.cuh", "regions.cuh", "raster_bwd_2dgs.cuh",
+           "raster_v1.cuh")
 # --fmad=false: the kernels' float expressions round exactly as their plain
 # PyTorch versions (and the JAX package) do, which keeps the expansion's
 # ellipse cull bit-identical to its plain version. B2's gradient arithmetic
@@ -55,8 +56,9 @@ _SIGNATURES = {
                             _I, _P, _P),
     "gsc_raster_bwd_2dgs": (_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _P, _P),
-    "gsc_raster_v1_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "gsc_raster_v1_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "gsc_raster_v1_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _P),
+    "gsc_raster_v1_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _P, _P),
     "gsc_cumsum_rows": (_P, _I, _L, _P, _P, _P),
     "gsc_skel_composite": (_P, _L, _P, _P, _I, _P, _P),
@@ -105,12 +107,15 @@ def build() -> Path:
         for s, o in zip(SOURCES, objs)
     ]
     logs = []
-    for s, proc in zip(SOURCES, procs):
+    for i, (s, proc) in enumerate(zip(SOURCES, procs)):
         text, _ = proc.communicate()
         logs.append(f"== {s}\n{text}")
         if proc.returncode != 0:
-            for other in procs:
-                other.wait()
+            # stop the rest and drain their pipes: a wait() alone blocks
+            # forever on one whose report fills its pipe
+            for other in procs[i + 1:]:
+                other.kill()
+                other.communicate()
             raise RuntimeError(f"nvcc failed on {s}:\n{text}")
     tmp_so = work / out.name
     link = subprocess.run(

@@ -16,6 +16,12 @@ Backward (``_RasterizePacked.backward``):
   5. B8 ``raster_v1_bwd`` (csrc/raster_v1_bwd.cu): the forward's walk
      replayed, each aligned row's gradient summed over its tile's pixels
      into [cap2, 6 + CH]; rows no tile computes are 0;
+B7 and B8 skip the pixels outside each pair's candidate region, the box of
+its opacity ellipse and a bound on its float sigma (raster_v2._pair_regions,
+csrc/regions.cuh, as B1 and B2), in B1's and B2's layout of 8-pixel-wide
+warp cells (v1_fwd_build, v1_bwd_build); ``_region_counts`` counts that
+work from the plain walk. Where a backward follows, both take the tiles
+longest run first (``run_order``).
   6. the per-Gaussian reduction, chosen by the module switch
      ``SEGRED_MODE``: "sort" (sort the rows by Gaussian id, f32 cumulative
      sums, differences at the expansion offsets), "scatter" (one
@@ -52,8 +58,10 @@ from gscodec_studio_tpu_torch import native
 from gscodec_studio_tpu_torch.ops.isect import (AlignedIsects, Intersections,
                                                 align_isects)
 from gscodec_studio_tpu_torch.ops.raster_v2 import (LAUNCHES, MAX_CHANNELS,
+                                                    _cell_bounds,
                                                     _check_cuda, _composite,
-                                                    _on_cpu, _stream)
+                                                    _on_cpu, _pair_regions,
+                                                    _stream, _warp_layout)
 
 ALPHA_THRESHOLD = 1.0 / 255.0
 TRANSMITTANCE_EPS = 1e-4
@@ -70,7 +78,7 @@ SEGRED_MODE = "sort"
 CUTOFF_MODE = "soft"
 
 SEGRED_MODES = ("sort", "scatter", "cumsum")
-_SMEM_BYTES = 232448  # an H100 block's dynamic shared memory
+_SMEM_BYTES = 232448  # raster_v1_bwd.cu kMaxSmem: a block's shared memory
 
 
 @dataclass(frozen=True)
@@ -305,9 +313,27 @@ def _check_kernel_cfg(name, cfg: RasterCfg):
         raise ValueError("tile_size above 32 does not fit one CUDA block")
 
 
-def raster_v1_fwd(packed, starts, ends, cfg: RasterCfg):
+def _order_arg(order, dev) -> int:
+    if order is None:
+        return 0
+    _check_cuda("tile order", order, torch.int32, dev)
+    return order.data_ptr()
+
+
+def run_order(starts, ends) -> torch.Tensor:
+    """The tiles, longest run first (int32 [n_tiles]): the order in which
+    B7's and B8's blocks take them in training (raster_v1_fwd's and
+    raster_v1_bwd's ``order``; rasterize_to_pixels makes one a binning
+    where a backward follows), so that a tile whose run is many times the
+    mean starts first instead of ending the launch."""
+    return torch.argsort(ends - starts, descending=True).to(torch.int32)
+
+
+def raster_v1_fwd(packed, starts, ends, cfg: RasterCfg, order=None):
     """Aligned table [cap2, 6 + CH] -> (colors [T, CH, P], alphas
-    [T, 1, P]); a tile with an empty run gives 0 and 0."""
+    [T, 1, P]); a tile with an empty run gives 0 and 0. ``order`` (int32
+    [n_tiles], e.g. run_order) is the tile each of B7's blocks takes, index
+    order if None; the outputs do not depend on it."""
     _check_args("raster_v1_fwd", packed, starts, ends, cfg)
     if _on_cpu(packed, "raster_v1_fwd"):
         return _fwd_plain(packed, starts, ends, cfg)
@@ -321,8 +347,9 @@ def raster_v1_fwd(packed, starts, ends, cfg: RasterCfg):
     alphas = torch.empty((cfg.n_tiles, 1, cfg.pixels), dtype=torch.float32,
                          device=dev)
     err = native.lib().gsc_raster_v1_fwd(
-        packed.data_ptr(), starts.data_ptr(), ends.data_ptr(), cfg.n_tiles,
-        cfg.tile_width, cfg.tile_height, cfg.tile_size, cfg.channels,
+        packed.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+        _order_arg(order, dev), cfg.n_tiles, cfg.tile_width,
+        cfg.tile_height, cfg.tile_size, cfg.channels,
         int(cfg.cutoff == "soft"), colors.data_ptr(), alphas.data_ptr(),
         _stream())
     native.check(err, "gsc_raster_v1_fwd")
@@ -330,22 +357,13 @@ def raster_v1_fwd(packed, starts, ends, cfg: RasterCfg):
     return colors, alphas
 
 
-def _bwd_sub(cfg: RasterCfg) -> int:
-    """Pairs whose per-warp partial sums B8 stages at once: 32, halved
-    until the chunk and the partials fit a block's shared memory."""
-    n_warps = (cfg.pixels + 31) // 32
-    sub = 32
-    while sub > 1 and 4 * cfg.d * (K_CHUNK + n_warps * sub) > _SMEM_BYTES:
-        sub //= 2
-    return sub
-
-
 def raster_v1_bwd(packed, starts, ends, colors, alphas, v_colors, v_alphas,
-                  cfg: RasterCfg):
+                  cfg: RasterCfg, order=None):
     """Per aligned row, its gradient terms summed over its tile's pixels,
     [cap2, 6 + CH]: d(x, y), d(conic a, b, c), d opacity, d colours; 0 in
     every row no live chunk holds. ``colors`` and ``alphas`` are B7's
-    outputs, ``v_colors`` and ``v_alphas`` their cotangents."""
+    outputs, ``v_colors`` and ``v_alphas`` their cotangents; ``order`` as
+    raster_v1_fwd's (the rows do not depend on it)."""
     _check_args("raster_v1_bwd", packed, starts, ends, cfg)
     # q_init[t] = sum_ch C_total[t] * v_c[t] (the JAX package's prepass)
     q_init = (colors * v_colors).sum(1, keepdim=True)
@@ -363,13 +381,171 @@ def raster_v1_bwd(packed, starts, ends, colors, alphas, v_colors, v_alphas,
     out = torch.zeros((cfg.cap2, cfg.d), dtype=torch.float32, device=dev)
     err = native.lib().gsc_raster_v1_bwd(
         packed.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-        v_colors.data_ptr(), v_alphas.data_ptr(), alphas.data_ptr(),
-        q_init.data_ptr(), cfg.n_tiles, cfg.tile_width, cfg.tile_height,
-        cfg.tile_size, cfg.channels, int(cfg.cutoff == "soft"),
-        _bwd_sub(cfg), out.data_ptr(), _stream())
+        _order_arg(order, dev), v_colors.data_ptr(), v_alphas.data_ptr(),
+        alphas.data_ptr(), q_init.data_ptr(), cfg.n_tiles, cfg.tile_width,
+        cfg.tile_height, cfg.tile_size, cfg.channels,
+        int(cfg.cutoff == "soft"), out.data_ptr(), _stream())
     native.check(err, "gsc_raster_v1_bwd")
     LAUNCHES["raster_v1_bwd"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# What B7 and B8 do: their builds and the work of their walk
+# ---------------------------------------------------------------------------
+
+
+def _tile_threads(tile_size: int, ppt: int) -> int:
+    return _warp_layout(tile_size, ppt)[0] * 32
+
+
+def v1_fwd_build(channels: int, tile_size: int) -> dict:
+    """The build of B7 that a launch at these shapes takes
+    (csrc/raster_v1_fwd.cu ``launch``): the channels' template bound
+    "chm", pixels a thread "ppt" (2 up to 32 channels, else 1), the block's
+    "threads" and the launch bounds "max_threads" and "min_blocks" (at
+    bounds 3 and 8 up to 128 threads: 128 for 10 blocks an SM; at 64 and
+    128 up to 256 threads: 256; else the tile-32 bound, 1024 / ppt)."""
+    chm = next(b for b in (3, 8, 16, 32, 64, 128) if channels <= b)
+    ppt = 2 if chm <= 32 else 1
+    threads = _tile_threads(tile_size, ppt)
+    min_blocks = 1
+    if chm <= 8 and threads <= 128:
+        max_threads, min_blocks = 128, 10
+    elif chm >= 64 and threads <= 256:
+        max_threads = 256
+    else:
+        max_threads = 1024 // ppt
+    return dict(chm=chm, ppt=ppt, threads=threads, max_threads=max_threads,
+                min_blocks=min_blocks)
+
+
+def v1_bwd_build(channels: int, tile_size: int) -> dict:
+    """The build of B8 that a launch at these shapes takes
+    (csrc/raster_v1_bwd.cu ``launch``): v1_fwd_build's keys, with B2's
+    launch bounds (at bounds 3 and 8: up to 128 threads for 8 blocks an
+    SM, else the tile-32 bound for 2; at 64 and 128, 256 threads or the
+    tile-32 bound; at 16 and 32 the tile-32 bound) and the pairs staged per
+    barrier "sub" (64 at bounds 3 and 8, else a chunk, halved until the
+    partials fit a block's shared memory)."""
+    b = v1_fwd_build(channels, tile_size)
+    chm, ppt, threads = b["chm"], b["ppt"], b["threads"]
+    if chm <= 8 and threads <= 128:
+        max_threads, min_blocks, sub = 128, 8, 64
+    elif chm <= 8:
+        max_threads, min_blocks, sub = 1024 // ppt, 2, 64
+    elif chm >= 64 and threads <= 256:
+        max_threads, min_blocks, sub = 256, 1, K_CHUNK
+    else:
+        max_threads, min_blocks, sub = 1024 // ppt, 1, K_CHUNK
+    dp = (6 + channels) | 1
+    fixed = (6 + channels + 3) * K_CHUNK * 4
+
+    def part(s):
+        return 2 * (threads // 32) * (s * dp * 4 + -(-s // 32) * 4)
+
+    while sub > 1 and fixed + part(sub) > _SMEM_BYTES:
+        sub //= 2
+    return dict(b, max_threads=max_threads, min_blocks=min_blocks, sub=sub)
+
+
+def _region_counts(packed, starts, ends, cfg: RasterCfg, ppt=None):
+    """What B7 and B8 do on these inputs, from the plain walk (the tile's
+    stop vote at each chunk), in the layout of ``ppt`` pixels a lane
+    (raster_v2._warp_layout; v1_bwd_build's, which B7 shares, if None),
+    with the candidate regions B1 and B2 share (raster_v2._pair_regions,
+    csrc/regions.cuh) formed from each row's f32 values. Returns a dict of
+      "run": int64 [n_tiles], rows of the tile's run that the walk reaches;
+      "pairs": int64 [n_tiles], pairs that at least one pixel composited;
+      "slots": int64 [n_tiles], composited (pair, pixel) slots;
+      "evaluated_slots": the (pair, pixel) slots walked, which the first
+        designs evaluated (up to the exact cutoff: _fwd_plain's count);
+      "candidate_slots": those of them in a warp whose cell meets the
+        pair's box and whose float sigma is within the pair's bound lm;
+      "missed_slots": slots that pass the alpha test outside the regions
+        (0: the regions hold every pixel that passes);
+      "tested", "composited": the slots that pass the alpha test (in
+        exact mode up to the pixel's cutoff) and those composited;
+      "pair_warp_walked", "pair_warp_cells" (those whose cell meets the
+        pair's box), "pair_warp_candidates", "pair_warp_hits" (B8's warp
+        reductions or ballot shortcuts) and "single_lane_hits";
+      "longest_run", "longest_tile": the longest run the walk reaches and
+        its tile; "warps_per_tile"."""
+    dev = packed.device
+    nT, P = cfg.n_tiles, cfg.pixels
+    if ppt is None:
+        ppt = v1_bwd_build(cfg.channels, cfg.tile_size)["ppt"]
+    first, nch, px, py, group = _walk(cfg, starts, ends, dev)
+    lane = torch.arange(K_CHUNK, device=dev)
+    n_warps, _, lane_of = _warp_layout(cfg.tile_size, ppt)
+    lane_of = lane_of.to(dev)
+    warp_of = torch.div(lane_of, 32, rounding_mode="floor")
+    cells = [v.to(dev) for v in _cell_bounds(cfg, ppt)]
+    i64 = dict(dtype=torch.int64, device=dev)
+    counts = {k: torch.zeros(nT, **i64) for k in ("run", "pairs", "slots")}
+    totals = {k: torch.zeros((), **i64) for k in (
+        "evaluated_slots", "candidate_slots", "missed_slots", "tested",
+        "composited", "pair_warp_walked", "pair_warp_cells",
+        "pair_warp_candidates", "pair_warp_hits", "single_lane_hits")}
+
+    def by_warp(mask):
+        """[A, P, K] -> lanes hit [A, n_warps, K]."""
+        A = mask.shape[0]
+        lanes = torch.zeros((A, n_warps * 32, K_CHUNK), dtype=torch.int32,
+                            device=dev).index_add_(1, lane_of,
+                                                   mask.to(torch.int32))
+        return (lanes > 0).view(A, n_warps, 32, K_CHUNK).sum(2)
+
+    for g0 in range(0, nT, group):
+        sl = slice(g0, min(nT, g0 + group))
+        n = sl.stop - sl.start
+        T = torch.ones((n, P, 1), dtype=torch.float32, device=dev)
+        for j in range(int(nch[sl].max()) if n else 0):
+            live = (nch[sl] > j) & (T.amax(dim=(1, 2)) > TRANSMITTANCE_EPS)
+            idx = live.nonzero().squeeze(1)
+            if idx.numel() == 0:
+                break
+            t = idx + g0
+            rows = (first[t] + j * K_CHUNK)[:, None] + lane  # [A, K]
+            buf = packed[rows]  # [A, K, D]
+            g = _chunk_geometry(buf, px[t], py[t], rows, ends[t])
+            valid, inr = g["valid"], g["in_range"]  # [A, P, K], [A, 1, K]
+            w, m, _, t_new = _composite(g["alpha"], T[idx], cfg.cutoff)
+            comp = valid if m is None else valid & m
+            walked = inr.expand_as(valid)
+            if m is None:
+                seen = walked
+            else:  # up to the first valid pair that is not composited
+                stop = (valid & ~comp).to(torch.int32)
+                seen = walked & ((torch.cumsum(stop, dim=-1) - stop) == 0)
+            rx, ry, lm, _ = (v[:, None, :] for v in _pair_regions(
+                [buf[..., r] for r in range(6)]))
+            xs, ys = buf[:, None, :, 0], buf[:, None, :, 1]
+            xlo, xhi, ylo, yhi = (v[t][:, :, None] for v in cells)
+            ex = xs - torch.minimum(torch.maximum(xs, xlo), xhi)
+            ey = ys - torch.minimum(torch.maximum(ys, ylo), yhi)
+            box = (ex.abs() <= rx) & (ey.abs() <= ry) & inr  # [A, W, K]
+            region = box[:, warp_of] & (g["sigma"] <= lm) & walked
+            cand = region & seen
+            counts["run"][t] += inr.sum((1, 2))
+            counts["pairs"][t] += comp.any(1).sum(-1)
+            counts["slots"][t] += comp.sum((1, 2))
+            totals["evaluated_slots"] += seen.sum()
+            totals["candidate_slots"] += cand.sum()
+            totals["missed_slots"] += (valid & ~region).sum()
+            totals["tested"] += (seen & valid).sum()
+            totals["composited"] += comp.sum()
+            totals["pair_warp_walked"] += n_warps * inr.sum()
+            totals["pair_warp_cells"] += box.sum()
+            totals["pair_warp_candidates"] += (by_warp(cand) > 0).sum()
+            lanes_hit = by_warp(comp)
+            totals["pair_warp_hits"] += (lanes_hit > 0).sum()
+            totals["single_lane_hits"] += (lanes_hit == 1).sum()
+            T[idx] = t_new
+    longest = int(torch.argmax(counts["run"])) if nT else 0
+    return dict(**counts, **{k: int(v) for k, v in totals.items()},
+                longest_run=int(counts["run"][longest]) if nT else 0,
+                longest_tile=longest, warps_per_tile=n_warps)
 
 
 # ---------------------------------------------------------------------------
@@ -407,27 +583,29 @@ def segment_reduce(v_packed, aligned_ids, exp_offsets, inv_perm, n_isects,
 
 class _RasterizePacked(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, flat_attrs, aligned_ids, starts, ends, exp_offsets,
-                inv_perm, n_isects):
+    def forward(ctx, cfg, ordered, flat_attrs, aligned_ids, starts, ends,
+                exp_offsets, inv_perm, n_isects):
         packed = _pack(flat_attrs, aligned_ids)
-        colors, alphas = raster_v1_fwd(packed, starts, ends, cfg)
+        # B7's and B8's tile order, where a backward follows
+        runs = run_order(starts, ends) if ordered else None
+        colors, alphas = raster_v1_fwd(packed, starts, ends, cfg, order=runs)
         ctx.cfg = cfg
         ctx.save_for_backward(packed, aligned_ids, starts, ends, colors,
-                              alphas, exp_offsets, inv_perm, n_isects)
+                              alphas, exp_offsets, inv_perm, n_isects, runs)
         return colors, alphas
 
     @staticmethod
     def backward(ctx, v_colors, v_alphas):
         (packed, aligned_ids, starts, ends, colors, alphas, exp_offsets,
-         inv_perm, n_isects) = ctx.saved_tensors
+         inv_perm, n_isects, runs) = ctx.saved_tensors
         cfg = ctx.cfg
         v_packed = raster_v1_bwd(
             packed, starts, ends, colors, alphas,
             v_colors.to(torch.float32).contiguous(),
-            v_alphas.to(torch.float32).contiguous(), cfg)
+            v_alphas.to(torch.float32).contiguous(), cfg, order=runs)
         v_flat = segment_reduce(v_packed, aligned_ids, exp_offsets, inv_perm,
                                 n_isects, cfg)
-        return None, v_flat, None, None, None, None, None, None
+        return None, None, v_flat, None, None, None, None, None, None
 
 
 def rasterize_to_pixels(
@@ -469,8 +647,13 @@ def rasterize_to_pixels(
         means2d.reshape(C * N, 2), conics.reshape(C * N, 3),
         opacities.reshape(C * N, 1), colors.reshape(C * N, CH),
     ], dim=-1).to(torch.float32)
+    # longest run first where a backward follows: on trained views one
+    # tile's run, ~10x the mean, sets B7's and B8's launches; a render with
+    # no backward keeps index order, where the argsort costs more than it
+    # saves (chip_smoke.py's scene_1m_v1 and train_v1 "order")
+    ordered = torch.is_grad_enabled() and flat_attrs.requires_grad
     tile_colors, tile_alphas = _RasterizePacked.apply(
-        cfg, flat_attrs, aligned.ids, aligned.starts, aligned.ends,
+        cfg, ordered, flat_attrs, aligned.ids, aligned.starts, aligned.ends,
         isect.exp_offsets, aligned.inv_perm, aligned.n_isects)
 
     ts = tile_size

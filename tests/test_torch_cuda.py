@@ -27,8 +27,9 @@ scan's sums in the kernels' order), and 2DGS's log branch as its product
 branch.
 The legacy v1 kernels (rasterizer="pallas"): B7 at the tile forward's
 tolerance and B8 at the tile backward's, against their plain versions,
-B8 bit for bit across two runs, and rasterization(rasterizer="pallas") on
-the card against the CPU. B10 (cumsum_rows) within the rounding bound of
+B8 bit for bit across two runs, both the same bits in the
+longest-run-first tile order, no passing slot outside their regions, and
+rasterization(rasterizer="pallas") on the card against the CPU. B10 (cumsum_rows) within the rounding bound of
 its own order of additions (raster_v2.cumsum_rows_bound: gamma of its depth
 times the sum of |x| to the end of the segment) of a float64 cumsum, on
 signed and non-negative rows; B11 (the skeleton composite) within 1e-4 of
@@ -652,30 +653,50 @@ def _v1_case(cuda, seed, ts, cutoff, CH=3, C=2, N=3000, W=200, H=136):
     return rp._pack(flat, al.ids), al.starts, al.ends, cfg, isect, al
 
 
-@pytest.mark.parametrize("CH", [3, 40])
-@pytest.mark.parametrize("cutoff", ["exact", "soft"])
-@pytest.mark.parametrize("ts", [16, 32])
-def test_v1_kernels_match_plain(cuda, ts, cutoff, CH):
+def _v1_kernels_close(packed, starts, ends, cfg, seed):
+    """B7 and B8 against their plain versions (max abs 1e-4; 1e-4 of each
+    gradient row's largest |value|), one launch each, B8 twice for the same
+    bits, both the same bits in the longest-run-first tile order, and no
+    slot that passes the alpha test outside its pair's candidate region.
+    Returns (colors, alphas, B8's rows)."""
     from gscodec_studio_tpu_torch.ops import rasterize_pallas as rp
-    packed, starts, ends, cfg, isect, al = _v1_case(cuda, 11, ts, cutoff,
-                                                    CH=CH)
     tr.reset_launch_counts()
     col, alp = rp.raster_v1_fwd(packed, starts, ends, cfg)
     col_p, alp_p = rp._fwd_plain(packed, starts, ends, cfg)
     assert tr.LAUNCHES["raster_v1_fwd"] == 1
     assert float((col - col_p).abs().max()) <= 1e-4
     assert float((alp - alp_p).abs().max()) <= 1e-4
-    g = torch.Generator(device="cpu").manual_seed(ts)
-    v_col = torch.randn(col.shape, generator=g).to(cuda)
-    v_alp = torch.randn(alp.shape, generator=g).to(cuda)
-    out = rp.raster_v1_bwd(packed, starts, ends, col, alp, v_col, v_alp, cfg)
-    again = rp.raster_v1_bwd(packed, starts, ends, col, alp, v_col, v_alp,
-                             cfg)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    v_col = torch.randn(col.shape, generator=g).to(packed.device)
+    v_alp = torch.randn(alp.shape, generator=g).to(packed.device)
+    bargs = (packed, starts, ends, col, alp, v_col, v_alp, cfg)
+    out = rp.raster_v1_bwd(*bargs)
+    again = rp.raster_v1_bwd(*bargs)
     assert tr.LAUNCHES["raster_v1_bwd"] == 2
     assert torch.equal(out, again)
     q0 = (col * v_col).sum(1, keepdim=True)
     ref = rp._bwd_plain(packed, starts, ends, v_col, v_alp, alp, q0, cfg)
     assert _rows_close(out.T, ref.T, 1e-4)
+    order = rp.run_order(starts, ends)
+    col_o, alp_o = rp.raster_v1_fwd(packed, starts, ends, cfg, order=order)
+    assert torch.equal(col_o, col) and torch.equal(alp_o, alp)
+    assert torch.equal(rp.raster_v1_bwd(*bargs, order=order), out)
+    assert rp._region_counts(packed, starts, ends, cfg)["missed_slots"] == 0
+    return col, alp, out
+
+
+@pytest.mark.parametrize("CH", [3, 40, 64, 128])
+@pytest.mark.parametrize("cutoff", ["exact", "soft"])
+@pytest.mark.parametrize("ts", [16, 32])
+def test_v1_kernels_match_plain(cuda, ts, cutoff, CH):
+    """B7 and B8 (redesigned: 2 pixels a thread up to 32 channels, 1 above;
+    tile 32 at 512 threads, and 1024 at 64 and 128 channels) as
+    _v1_kernels_close holds them, and the per-Gaussian reductions."""
+    from gscodec_studio_tpu_torch.ops import rasterize_pallas as rp
+    packed, starts, ends, cfg, isect, al = _v1_case(cuda, 11, ts, cutoff,
+                                                    CH=CH)
+    _, alp, out = _v1_kernels_close(packed, starts, ends, cfg, ts)
+    assert float(alp.max()) > 0.5
     # the per-Gaussian reductions: within 2 gamma(cap2) of each column's
     # sum of |rows| of a float64 sum (the "sort" and "cumsum" modes take
     # differences of f32 running sums over the whole table)
@@ -689,6 +710,20 @@ def test_v1_kernels_match_plain(cuda, ts, cutoff, CH):
                                 isect.n_isects,
                                 dataclasses.replace(cfg, segred=mode))
         assert bool(((got.double() - exact).abs() <= bound).all()), mode
+
+
+@pytest.mark.parametrize("CH", [3, 64])
+@pytest.mark.parametrize("cutoff", ["exact", "soft"])
+@pytest.mark.parametrize("ts", [16, 32])
+def test_v1_kernels_adversarial_regions(cuda, ts, cutoff, CH):
+    """B7 and B8 as _v1_kernels_close holds them on the scenes of
+    tests/test_torch_raster_v1_counts.py: near-degenerate conics,
+    opacities just above 1/255, box edges on the cells' pixel centres, and
+    opaque Gaussians under them (the exact cutoff, the tile's stop)."""
+    from tests.test_torch_raster_v1_counts import _scene as v1_counts_scene
+    packed, starts, ends, cfg = v1_counts_scene(ts + CH, ts, cutoff, CH)
+    _v1_kernels_close(packed.to(cuda), starts.to(cuda), ends.to(cuda), cfg,
+                      ts + CH)
 
 
 def test_v1_rasterization_on_card_matches_cpu(cuda):
