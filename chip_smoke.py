@@ -1343,7 +1343,9 @@ class V1Stages:
         single-lane ones), each kernel's build and, with ``ptxas``
         (v1_instances of B7 and B8), its registers and spills; with
         ``tail``, each kernel on the longest tile alone."""
-        rp, cfg = self.rp, self.cfg
+        from gscodec_studio_tpu_torch.ops import raster_v2 as rv
+
+        cfg = self.cfg
         c = self.regions()
 
         def dist(x):
@@ -1356,10 +1358,10 @@ class V1Stages:
                       **{k: v for k, v in c.items()
                          if not isinstance(v, torch.Tensor)})
         res = {}
+        # B7's and B8's builds are B1's and B2's (without the dense build)
         for name, build, fwd in (
-                ("b7_work", rp.v1_fwd_build(cfg.channels, cfg.tile_size),
-                 True),
-                ("b8_work", rp.v1_bwd_build(cfg.channels, cfg.tile_size),
+                ("b7_work", rv.fwd_build(cfg.channels, cfg.tile_size), True),
+                ("b8_work", rv.bwd_build(cfg.channels, cfg.tile_size),
                  False)):
             w = dict(build=build)
             if ptxas is not None:

@@ -961,7 +961,8 @@ def _warp_layout(tile_size: int, ppt: int):
 def bwd_build(channels: int, tile_size: int, absgrad: bool = False,
               dense: bool = False) -> dict:
     """The build of B2 that a launch at these shapes takes
-    (csrc/raster_bwd.cu ``launch``; ``dense`` is bwd_dense): the channels'
+    (csrc/raster_bwd.cu ``launch``; ``dense`` is bwd_dense), and at
+    ``absgrad`` and ``dense`` False B8's (csrc/raster_v1_bwd.cu): the channels'
     template bound "chm", pixels a thread "ppt", the launch bounds
     "max_threads" and "min_blocks" and the pairs staged per barrier "sub"
     (the tuned builds at bounds 3 and 8: dense and up to 256 threads at 1
@@ -1000,7 +1001,8 @@ FWD_SMALL_MIN_BLOCKS = 10  # raster_fwd.cu kSmallMinBlocks
 
 def fwd_build(channels: int, tile_size: int, dense: bool = False) -> dict:
     """The build of B1 that a launch at these shapes takes
-    (csrc/raster_fwd.cu ``launch``; ``dense`` is bwd_dense): the channels'
+    (csrc/raster_fwd.cu ``launch``; ``dense`` is bwd_dense), and at
+    ``dense`` False B7's (csrc/raster_v1_fwd.cu): the channels'
     template bound "chm", pixels a thread "ppt" (2 up to 32 channels, else
     1, and 1 in the dense build), the block's "threads" and the launch
     bounds "max_threads" and "min_blocks" (at bounds 3 and 8: dense and up

@@ -16,12 +16,6 @@ Backward (``_RasterizePacked.backward``):
   5. B8 ``raster_v1_bwd`` (csrc/raster_v1_bwd.cu): the forward's walk
      replayed, each aligned row's gradient summed over its tile's pixels
      into [cap2, 6 + CH]; rows no tile computes are 0;
-B7 and B8 skip the pixels outside each pair's candidate region, the box of
-its opacity ellipse and a bound on its float sigma (raster_v2._pair_regions,
-csrc/regions.cuh, as B1 and B2), in B1's and B2's layout of 8-pixel-wide
-warp cells (v1_fwd_build, v1_bwd_build); ``_region_counts`` counts that
-work from the plain walk. Where a backward follows, both take the tiles
-longest run first (``run_order``).
   6. the per-Gaussian reduction, chosen by the module switch
      ``SEGRED_MODE``: "sort" (sort the rows by Gaussian id, f32 cumulative
      sums, differences at the expansion offsets), "scatter" (one
@@ -32,6 +26,13 @@ Steps 1, 2 and 6 are XLA code outside Pallas in the JAX package and stay
 plain PyTorch here. The "sort" reduction takes differences of running f32
 sums over the whole table, as the JAX package does; the cancellation that
 costs is measured by chip_smoke.py and left as it is.
+
+B7 and B8 skip the pixels outside each pair's candidate region, the box of
+its opacity ellipse and a bound on its float sigma (raster_v2._pair_regions,
+csrc/regions.cuh), in the layout and builds of B1 and B2
+(raster_v2.fwd_build and bwd_build, without their dense build);
+``_region_counts`` counts that work from the plain walk. Where a backward
+follows, both take the tiles longest run first (``run_order``).
 
 ``CUTOFF_MODE`` ("soft", the JAX package's default; the JAX tests set
 "exact") and ``SEGRED_MODE`` are read when ``rasterize_to_pixels`` is
@@ -61,7 +62,8 @@ from gscodec_studio_tpu_torch.ops.raster_v2 import (LAUNCHES, MAX_CHANNELS,
                                                     _cell_bounds,
                                                     _check_cuda, _composite,
                                                     _on_cpu, _pair_regions,
-                                                    _stream, _warp_layout)
+                                                    _stream, _warp_layout,
+                                                    bwd_pixels_per_thread)
 
 ALPHA_THRESHOLD = 1.0 / 255.0
 TRANSMITTANCE_EPS = 1e-4
@@ -78,7 +80,6 @@ SEGRED_MODE = "sort"
 CUTOFF_MODE = "soft"
 
 SEGRED_MODES = ("sort", "scatter", "cumsum")
-_SMEM_BYTES = 232448  # raster_v1_bwd.cu kMaxSmem: a block's shared memory
 
 
 @dataclass(frozen=True)
@@ -391,68 +392,15 @@ def raster_v1_bwd(packed, starts, ends, colors, alphas, v_colors, v_alphas,
 
 
 # ---------------------------------------------------------------------------
-# What B7 and B8 do: their builds and the work of their walk
+# What B7 and B8 do: the work of their walk
 # ---------------------------------------------------------------------------
-
-
-def _tile_threads(tile_size: int, ppt: int) -> int:
-    return _warp_layout(tile_size, ppt)[0] * 32
-
-
-def v1_fwd_build(channels: int, tile_size: int) -> dict:
-    """The build of B7 that a launch at these shapes takes
-    (csrc/raster_v1_fwd.cu ``launch``): the channels' template bound
-    "chm", pixels a thread "ppt" (2 up to 32 channels, else 1), the block's
-    "threads" and the launch bounds "max_threads" and "min_blocks" (at
-    bounds 3 and 8 up to 128 threads: 128 for 10 blocks an SM; at 64 and
-    128 up to 256 threads: 256; else the tile-32 bound, 1024 / ppt)."""
-    chm = next(b for b in (3, 8, 16, 32, 64, 128) if channels <= b)
-    ppt = 2 if chm <= 32 else 1
-    threads = _tile_threads(tile_size, ppt)
-    min_blocks = 1
-    if chm <= 8 and threads <= 128:
-        max_threads, min_blocks = 128, 10
-    elif chm >= 64 and threads <= 256:
-        max_threads = 256
-    else:
-        max_threads = 1024 // ppt
-    return dict(chm=chm, ppt=ppt, threads=threads, max_threads=max_threads,
-                min_blocks=min_blocks)
-
-
-def v1_bwd_build(channels: int, tile_size: int) -> dict:
-    """The build of B8 that a launch at these shapes takes
-    (csrc/raster_v1_bwd.cu ``launch``): v1_fwd_build's keys, with B2's
-    launch bounds (at bounds 3 and 8: up to 128 threads for 8 blocks an
-    SM, else the tile-32 bound for 2; at 64 and 128, 256 threads or the
-    tile-32 bound; at 16 and 32 the tile-32 bound) and the pairs staged per
-    barrier "sub" (64 at bounds 3 and 8, else a chunk, halved until the
-    partials fit a block's shared memory)."""
-    b = v1_fwd_build(channels, tile_size)
-    chm, ppt, threads = b["chm"], b["ppt"], b["threads"]
-    if chm <= 8 and threads <= 128:
-        max_threads, min_blocks, sub = 128, 8, 64
-    elif chm <= 8:
-        max_threads, min_blocks, sub = 1024 // ppt, 2, 64
-    elif chm >= 64 and threads <= 256:
-        max_threads, min_blocks, sub = 256, 1, K_CHUNK
-    else:
-        max_threads, min_blocks, sub = 1024 // ppt, 1, K_CHUNK
-    dp = (6 + channels) | 1
-    fixed = (6 + channels + 3) * K_CHUNK * 4
-
-    def part(s):
-        return 2 * (threads // 32) * (s * dp * 4 + -(-s // 32) * 4)
-
-    while sub > 1 and fixed + part(sub) > _SMEM_BYTES:
-        sub //= 2
-    return dict(b, max_threads=max_threads, min_blocks=min_blocks, sub=sub)
 
 
 def _region_counts(packed, starts, ends, cfg: RasterCfg, ppt=None):
     """What B7 and B8 do on these inputs, from the plain walk (the tile's
     stop vote at each chunk), in the layout of ``ppt`` pixels a lane
-    (raster_v2._warp_layout; v1_bwd_build's, which B7 shares, if None),
+    (raster_v2._warp_layout; bwd_pixels_per_thread's, B7's and B8's, if
+    None),
     with the candidate regions B1 and B2 share (raster_v2._pair_regions,
     csrc/regions.cuh) formed from each row's f32 values. Returns a dict of
       "run": int64 [n_tiles], rows of the tile's run that the walk reaches;
@@ -474,7 +422,7 @@ def _region_counts(packed, starts, ends, cfg: RasterCfg, ppt=None):
     dev = packed.device
     nT, P = cfg.n_tiles, cfg.pixels
     if ppt is None:
-        ppt = v1_bwd_build(cfg.channels, cfg.tile_size)["ppt"]
+        ppt = bwd_pixels_per_thread(cfg.channels)
     first, nch, px, py, group = _walk(cfg, starts, ends, dev)
     lane = torch.arange(K_CHUNK, device=dev)
     n_warps, _, lane_of = _warp_layout(cfg.tile_size, ppt)

@@ -29,8 +29,9 @@ The legacy v1 kernels (rasterizer="pallas"): B7 at the tile forward's
 tolerance and B8 at the tile backward's, against their plain versions,
 B8 bit for bit across two runs, both the same bits in the
 longest-run-first tile order, no passing slot outside their regions, and
-rasterization(rasterizer="pallas") on the card against the CPU. B10 (cumsum_rows) within the rounding bound of
-its own order of additions (raster_v2.cumsum_rows_bound: gamma of its depth
+rasterization(rasterizer="pallas") on the card against the CPU. B10
+(cumsum_rows) within the rounding bound of its own order of additions
+(raster_v2.cumsum_rows_bound: gamma of its depth
 times the sum of |x| to the end of the segment) of a float64 cumsum, on
 signed and non-negative rows; B11 (the skeleton composite) within 1e-4 of
 its plain version.
@@ -720,7 +721,7 @@ def test_v1_kernels_adversarial_regions(cuda, ts, cutoff, CH):
     tests/test_torch_raster_v1_counts.py: near-degenerate conics,
     opacities just above 1/255, box edges on the cells' pixel centres, and
     opaque Gaussians under them (the exact cutoff, the tile's stop)."""
-    from tests.test_torch_raster_v1_counts import _scene as v1_counts_scene
+    from test_torch_raster_v1_counts import _scene as v1_counts_scene
     packed, starts, ends, cfg = v1_counts_scene(ts + CH, ts, cutoff, CH)
     _v1_kernels_close(packed.to(cuda), starts.to(cuda), ends.to(cuda), cfg,
                       ts + CH)

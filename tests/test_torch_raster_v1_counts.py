@@ -109,7 +109,7 @@ def _scene(seed, ts, cutoff, CH):
 def _walk(packed, starts, ends, cfg):
     """The counts of _region_counts, pair by pair."""
     ts, P = cfg.tile_size, cfg.pixels
-    ppt = rp.v1_bwd_build(cfg.channels, ts)["ppt"]
+    ppt = rv.bwd_pixels_per_thread(cfg.channels)
     ct, rc = 8 // ppt, 32 // (8 // ppt)
     cells_x = -(-ts // 8)
     n_warps = cells_x * -(-ts // rc)
@@ -229,22 +229,3 @@ def test_region_counts_match_pair_walk(ts, cutoff, CH):
     else:  # a tile stops before its run's end, or walks a second chunk
         assert sum(want["run"]) < int((ends - starts).sum()) \
             or c["longest_run"] > K
-
-
-@pytest.mark.parametrize("channels,tile_size,want", [
-    (3, 16, (3, 2, 128, 128, 10, 8, 64)),  # scene_1m_v1, train_v1
-    (3, 32, (3, 2, 512, 512, 1, 2, 64)),
-    (1, 8, (3, 2, 32, 128, 10, 8, 64)),
-    (8, 16, (8, 2, 128, 128, 10, 8, 64)),
-    (16, 16, (16, 2, 128, 512, 1, 1, 128)),
-    (40, 16, (64, 1, 256, 256, 1, 1, 64)),  # 8 warps: 64 pairs fit
-    (128, 16, (128, 1, 256, 256, 1, 1, 16)),
-    (128, 32, (128, 1, 1024, 1024, 1, 1, 4)),  # shared memory halves them
-])
-def test_v1_builds(channels, tile_size, want):
-    f = rp.v1_fwd_build(channels, tile_size)
-    b = rp.v1_bwd_build(channels, tile_size)
-    assert (f["chm"], f["ppt"], f["threads"], f["max_threads"],
-            f["min_blocks"], b["min_blocks"], b["sub"]) == want
-    assert (b["chm"], b["ppt"], b["threads"]) == (f["chm"], f["ppt"],
-                                                  f["threads"])
