@@ -54,8 +54,11 @@ Phases, one JSON line each with its own ``seconds``:
             as b6_work, in B2's layout, with the (pair, warp) that the
             expansion's disc would leave beside B2's box, the build's
             registers and spills, B2 on the longest tile alone), and
-            b1_work for B1; B1 and B2 at 40 channels (B1 against its plain
-            version there, within FWD_TOL but at the pixels where the two
+            b1_work for B1; B3's (b3_work: raster_v2.expand_counts in its
+            block layout, the rows in range and past n_isects, each block's
+            window of Gaussians, the longest run, the culled pairs, with
+            B3's time and bound); B1 and B2 at 40 channels (B1 against its
+            plain version there, within FWD_TOL but at the pixels where the two
             round to either side of the exact cutoff, cutoff_flips, with
             its bound);
   train_1m_2dgs  the same scene's surfels through
@@ -74,7 +77,8 @@ Phases, one JSON line each with its own ``seconds``:
             rows: launches, the probe's gradient, the rows against their
             plain version and twice for the same bits, time and bound);
             B4 and B9b on the surfels' 19 gradient rows (segsum_rows_2dgs,
-            unpack_rows_2dgs with its row sweep up to 19 rows, b4_work);
+            unpack_rows_2dgs with its row sweep up to 19 rows, b4_work),
+            and b3_work for B3's no-cull branch;
   bench_1m  bench.py's default configuration through the port: the same
             scene, tile 32, soft cutoff, grad_dtype "bf16", attr_dtype
             "bf16", log_composite, capacity 1.2x the probed elliptical rows,
@@ -84,7 +88,8 @@ Phases, one JSON line each with its own ``seconds``:
             of binned centres outside [-4096, 4096) px); each new branch's
             kernel time, launches, bound and plain time beside the f32
             branch's, every kernel held against its plain version on these
-            inputs; b2_work and b1_work on bench.py's configuration;
+            inputs; b2_work, b1_work and b3_work on bench.py's
+            configuration;
   train     training.trainer.Runner with the default Config on the stand-in
             of utils.scenes.checkpoint_stand_in (the checkpoint rendered
             from 8 views at 1297x840, 7 to train, 1 held out), 30 steps with
@@ -94,7 +99,7 @@ Phases, one JSON line each with its own ``seconds``:
             splats, SH degree and capacity, and the slowest view's kernels,
             forward and backward, held against their plain versions, with
             B1's and B2's regions checked there (also in train_ladder and
-            train_packed);
+            train_packed), and b3_work there;
   train_2dgs  training.trainer_2dgs.Runner2DGS with the default Config2DGS
             on the same stand-in, 30 steps with the train phase's refine
             and SH settings and the normal and distortion losses from step
@@ -142,13 +147,18 @@ Phases, one JSON line each with its own ``seconds``:
             walk's beside it) and plain time and their check, b7_work and
             b8_work with each kernel on the longest tile alone, both in
             index order beside the longest-run-first order and its
-            argsort, and the "sort" reduction's cancellation (reported,
-            not checked);
+            argsort; the "sort" reduction's per-Gaussian sums, whose running
+            sums B10 takes (one launch a fwd+bwd), each held within the
+            rounding bound of its two running sums of a float64 sum of its
+            rows (sort_cancellation), and B10 on that [6 + CH, cap2] table
+            against a float64 cumsum, twice for the same bits and timed
+            beside torch.cumsum (cumsum_rows);
   train_v1  the train phase's run with Config(rasterizer="pallas"): loss,
-            held-out PSNR, step ms, launches (one B7 and one B8 a step),
-            a profiled step; then B8 timed on every training view and the
-            slowest view's B7 and B8 against their plain versions, with
-            b7_work, b8_work and the tile orders there;
+            held-out PSNR, step ms, launches (one B7, one B8 and one B10 a
+            step), a profiled step; then B8 timed on every training view
+            and the slowest view's B7 and B8 against their plain versions,
+            with b7_work, b8_work, the tile orders and B10 on the view's
+            reduction table (cumsum_rows) there;
   cumsum_skel  B10 (cumsum_rows) at [9, 2^23], signed and non-negative,
             against a float64 torch.cumsum within the rounding bound of its
             own order of additions, timed beside torch.cumsum; B11 (the
@@ -166,8 +176,8 @@ the same bits. Then a line {"kernels": [...]} with each kernel's numbers
 train_2dgs phase, for B2p and B4p the train_ladder phase, for the precision
 branches of B3, B1 and B2 one fwd+bwd of bench_1m, for B5/B6's log branch
 one fwd+bwd of train_1m_2dgs's log leg, for B6's absgrad rows its probed
-fwd+bwd, for B7 and B8 the train_v1 phase,
-for B10 and B11 the cumsum_skel phase; the tile kernels' bounds, B1's,
+fwd+bwd, for B7, B8 and B10 the train_v1 phase,
+for B11 the cumsum_skel phase; the tile kernels' bounds, B1's,
 B2's, B5's, B6's, B7's and B8's, on their candidate slots, tile_bound,
 with the plain walk's beside them in the phases), the card's name and
 power limit, and
@@ -794,6 +804,21 @@ def b5_work(r2, st, ptxas=None, time_tail=None):
                         ("cbm", "ppt", "max_threads", "min_blocks"), tail)
 
 
+def b3_work(rv, st):
+    """B3's work in its block layout (rv.expand_counts: rows in range and
+    past n_isects, each block's window of Gaussians, the longest run, the
+    culled pairs) with its time and bound at a Stages' (or Stages2DGS')
+    inputs."""
+    b, cfg = st.b, st.cfg
+    w = rv.expand_counts(b.cum, b.n_isects, cfg, tile=b.tile)
+    w.update(bound(dict(
+        ms=cuda_ms(lambda: rv.expand(b.cum, b.base, b.nx, b.table,
+                                     b.n_isects, cfg), 10),
+        ops=0, bytes=(12 + 4 * cfg.n_attr_eff) * b.cum.shape[0]
+        + 4 * cfg.cap + 4 * cfg.d_s * cfg.cap)))
+    return w
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1392,26 +1417,80 @@ class V1Stages:
             bwd_ordered_ms=cuda_ms(lambda: rp.raster_v1_bwd(
                 *self.bwd_args, order=order), 10))
 
+    def sorted_cols(self):
+        """The "sort" reduction's table as segment_reduce makes it: B8's
+        rows sorted by Gaussian id (stable), transposed to [D, cap2]."""
+        ids = torch.where(self.al.ids >= 0, self.al.ids, self.cfg.m).long()
+        rows = self.v_packed[torch.sort(ids, stable=True).indices]
+        return rows.t().contiguous()
+
+    def scan_numbers(self):
+        """B10 on the "sort" reduction's own [D, cap2] table: within
+        rv.cumsum_rows_bound of a float64 cumsum and the same bits twice
+        (raises otherwise); its time beside torch.cumsum's and its bound."""
+        from gscodec_studio_tpu_torch.ops import raster_v2 as rv
+
+        cols = self.sorted_cols()
+        out = rv.cumsum_rows(cols)
+        diff = (out.double() - torch.cumsum(cols.double(), 1)).abs()
+        cbound = rv.cumsum_rows_bound(cols)
+        if not bool((diff <= cbound).all()):
+            raise AssertionError("cumsum_rows differs from the float64 "
+                                 "cumsum by more than its bound on the v1 "
+                                 "reduction's table")
+        if not torch.equal(out, rv.cumsum_rows(cols)):
+            raise AssertionError("cumsum_rows differs between two runs on "
+                                 "the v1 reduction's table")
+        R, L = cols.shape
+        res = bound(dict(
+            shape=[R, L], max_abs_err=float(diff.max()),
+            bound_share=float((diff / cbound.clamp(min=1e-300)).max()),
+            ms=cuda_ms(lambda: rv.cumsum_rows(cols), 10),
+            torch_cumsum_ms=cuda_ms(lambda: torch.cumsum(cols, 1), 10),
+            bytes=8 * R * L, ops=R * L))
+        del cols, out, diff, cbound
+        return res
+
     def sort_cancellation(self):
-        """The "sort" reduction's f32 running-sum differences against a
-        float64 sum of each Gaussian's rows: the largest gap in each
-        gradient column over the column's largest |sum| (reported, not
-        checked)."""
+        """The "sort" reduction's per-Gaussian sums (differences of f32
+        running sums, B10's) against a float64 sum of each Gaussian's rows:
+        each within bound[hi] + bound[lo] (rv.cumsum_rows_bound on the
+        sorted [D, cap2] table, 0 at the leading zero column) plus one
+        rounding of the difference (u / (1 - u) of its value) and the
+        float64 sums' own (cap2 2^-53 times the column's sum of |rows|);
+        raises otherwise. Reports the largest gap over that bound and, in
+        each gradient column, over the column's largest |sum|."""
+        from gscodec_studio_tpu_torch.ops import raster_v2 as rv
+
         rp, cfg = self.rp, self.cfg
         got = rp.segment_reduce(self.v_packed, self.al.ids,
                                 self.isect.exp_offsets, self.al.inv_perm,
                                 self.isect.n_isects,
                                 dataclasses.replace(cfg, segred="sort"))
         ids = torch.where(self.al.ids >= 0, self.al.ids, cfg.m).long()
+        vd = self.v_packed.double()
         exact = torch.zeros((cfg.m + 1, cfg.d), dtype=torch.float64,
-                            device=got.device).index_add_(
-            0, ids, self.v_packed.double())[:-1]
-        gap = ((got.double() - exact).abs().amax(0)
-               / exact.abs().amax(0).clamp(min=1e-300))
+                            device=got.device).index_add_(0, ids, vd)[:-1]
+        cols = self.sorted_cols()
+        cb = rv.cumsum_rows_bound(cols)
+        cb = torch.cat([cb.new_zeros((cfg.d, 1)), cb], 1)
+        del cols
+        off = self.isect.exp_offsets.long()
+        u = 2.0 ** -24
+        allowed = ((cb[:, off[1:]] + cb[:, off[:-1]]).t()
+                   + u / (1 - u) * got.double().abs()
+                   + cfg.cap2 * 2.0 ** -53 * vd.abs().sum(0))
+        del cb
+        gap = (got.double() - exact).abs()
+        if not bool((gap <= allowed).all()):
+            raise AssertionError("a v1 \"sort\" per-Gaussian sum lies "
+                                 "outside its running sums' rounding bound")
+        by_col = gap.amax(0) / exact.abs().amax(0).clamp(min=1e-300)
         names = ["x", "y", "conic_a", "conic_b", "conic_c", "opacity"] + [
             f"color_{j}" for j in range(cfg.channels)]
-        return {"max_gap_over_scale": float(gap.max()),
-                "by_column": dict(zip(names, gap.tolist())),
+        return {"max_gap_over_bound": float((gap / allowed).max()),
+                "max_gap_over_scale": float(by_col.max()),
+                "by_column": dict(zip(names, by_col.tolist())),
                 "rows_summed": cfg.cap2}
 
     def kernel_numbers(self):
@@ -1554,6 +1633,7 @@ def main():
             res.update(st.compare_bwd(errs, seed=100 + view))
             res["b2_regions"] = region_summary(b2_regions(rv, st))
             res["b1_regions"] = region_summary(b1_regions(rv, st))
+            res["b3_work"] = b3_work(rv, st)
         return dict(view=view, sh_degree=sh_degree, raster_bwd_ms=bwd_ms,
                     n_isects=int(st.b.n_isects), isect_capacity=st.cfg.cap,
                     cutoff=st.cfg.cutoff, **res)
@@ -1643,7 +1723,8 @@ def main():
             res = st.compare(errs)
             res.update(st.compare_bwd(errs, seed=300 + view))
             res.update(st.work(v1_ptxas, tail=True),
-                       order=st.order_numbers())
+                       order=st.order_numbers(),
+                       cumsum_rows=st.scan_numbers())
         return dict(view=view, sh_degree=sh_degree, raster_v1_bwd_ms=bwd_ms,
                     n_isects=st.n_isects, isect_capacity=st.cfg.cap,
                     cutoff=st.cfg.cutoff, **res)
@@ -2136,6 +2217,7 @@ def main():
             run["b4_work"] = rv.segsum_counts(st.b.cum, st.b.n_isects, d_g)
             run["b2_work"] = b2_work(rv, st, b2_ptxas, cuda_ms)
             run["b1_work"] = b1_work(rv, st, b1_ptxas, cuda_ms)
+            run["b3_work"] = b3_work(rv, st)
             run["bf16"] = bf16_case(st, leaves, bwd_args)
             perf.update(run["bf16"]["kernels"])
         runs_bwd.append(run)
@@ -2232,6 +2314,7 @@ def main():
     k2 = st.kernel_numbers(cuda_ms)
     work2 = b6_work(r2, st, b6_ptxas, cuda_ms)
     work5 = b5_work(r2, st, b5_ptxas, cuda_ms)
+    work3 = b3_work(rv, st)
     # B5 in the longest-run-first tile order (rv.run_order, which B6 does
     # not take) beside index order, the path's, in turns, with the same
     # bits, and the argsort the order costs
@@ -2367,7 +2450,7 @@ def main():
           "b5_order": b5_order,
           "pack_rows_2dgs": pack2,
           "segsum_rows_2dgs": segsum2, "unpack_rows_2dgs": unpack2,
-          "b4_work": work4,
+          "b4_work": work4, "b3_work": work3,
           "expand_no_cull": expand_no_cull,
           "mean_alpha": float(out2[1].mean()), "profile": profile2,
           "check": check2, "log_composite": log_leg, "absgrad": absgrad_leg,
@@ -2514,6 +2597,7 @@ def main():
         if name == "bench":
             checks_b[name]["b2_work"] = b2_work(rv, st, b2_ptxas, cuda_ms)
             checks_b[name]["b1_work"] = b1_work(rv, st, b1_ptxas, cuda_ms)
+            checks_b[name]["b3_work"] = b3_work(rv, st)
         kern_b[name] = tile_numbers(st)
         del st
     # the kernel table's rows of the new branches: each alone
@@ -2990,7 +3074,8 @@ def main():
             torch.cuda.synchronize()
             launches = dict(rv.LAUNCHES)
             if launches["raster_v1_fwd"] != 1 or \
-                    launches["raster_v1_bwd"] != 1 or any(
+                    launches["raster_v1_bwd"] != 1 or \
+                    launches["cumsum_rows"] != 1 or any(
                         launches[k] for k in KERNELS_3DGS):
                 raise AssertionError(f"scene_1m_v1 fwd+bwd launches "
                                      f"{launches}")
@@ -3023,6 +3108,7 @@ def main():
                 launches_per_fwd_bwd=launches, kernels=k, check=check,
                 **work, order=v1.order_numbers(),
                 sort_cancellation=v1.sort_cancellation(),
+                cumsum_rows=v1.scan_numbers(),
                 mean_alpha=float(alpha.mean()))
             if cutoff == "soft":
                 run["profile"] = device_profile(fwd_bwd_v1)
@@ -3064,10 +3150,10 @@ def main():
     if runner.skipped_steps or len(refines_v) < 2:
         raise AssertionError(f"train_v1 skipped {runner.skipped_steps}, "
                              f"refines {refines_v}")
-    if [v1_launches[k] for k in KERNELS_V1] != [TRAIN_STEPS] * 2 or any(
-            v1_launches[k] for k in KERNELS_3DGS):
-        raise AssertionError(f"train_v1 did not step through B7 and B8 "
-                             f"alone: {v1_launches}")
+    if [v1_launches[k] for k in KERNELS_V1 + ("cumsum_rows",)] != \
+            [TRAIN_STEPS] * 3 or any(v1_launches[k] for k in KERNELS_3DGS):
+        raise AssertionError(f"train_v1 did not step through B7, B8 and "
+                             f"B10 alone: {v1_launches}")
     emit({"phase": "train_v1", "rasterizer": vcfg.rasterizer,
           "cutoff_mode": rp.CUTOFF_MODE, "segred_mode": rp.SEGRED_MODE,
           "steps": TRAIN_STEPS, "capacity": runner.splats["means"].shape[0],
@@ -3089,8 +3175,9 @@ def main():
     shutil.rmtree(stats_dir, ignore_errors=True)
 
 
-    # 18. cumsum_skel: B10 and B11, which lie on no path (as in the JAX
-    # package): B10 at [9, 2^23], B11 on kernel_skel_bench's four inputs
+    # 18. cumsum_skel: B10 at [9, 2^23] (the JAX table's rows), and B11,
+    # which lies on no path (as in the JAX package), on kernel_skel_bench's
+    # four inputs
     t0 = time.perf_counter()
     g = torch.Generator(device="cpu").manual_seed(10)
     xc = torch.randn(CUMSUM_SHAPE, generator=g).to(dev)
@@ -3178,10 +3265,9 @@ def main():
     # B6's absgrad rows: the probed fwd+bwd of train_1m_2dgs
     main_path["raster_bwd_2dgs_absgrad"] = launches2_abs[
         "raster_bwd_2dgs_absgrad"]
-    for name in KERNELS_V1:  # the v1 training run
+    for name in KERNELS_V1 + ("cumsum_rows",):  # the v1 training run
         main_path[name] = v1_launches[name]
-    for name in ("cumsum_rows", "skel_composite"):  # their own phase
-        main_path[name] = cs_launches[name]
+    main_path["skel_composite"] = cs_launches["skel_composite"]
     emit({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"],

@@ -43,8 +43,9 @@ unpacked values, and reach the f32 inputs as they are.
 
 Each kernel wrapper (``pack_rows``, ``expand``, ``raster_fwd``,
 ``raster_bwd``, ``unpack_rows``, ``segsum_rows``, and ``cumsum_rows``, the
-JAX package's streaming row cumsum, which nothing calls) launches its CUDA
-kernel for CUDA tensors and counts the launch in ``LAUNCHES``; for CPU
+JAX package's streaming row cumsum, which the port's v1 reduction calls)
+launches its CUDA kernel for CUDA tensors and counts the launch in
+``LAUNCHES``; for CPU
 tensors it runs the plain PyTorch version beside it (``_pack_rows_plain``,
 ``_expand_plain``, ``_fwd_plain``, ``_bwd_plain``, ``_unpack_rows_plain``,
 ``_segsum_plain``, ``torch.cumsum``), which the tests hold against the JAX
@@ -73,6 +74,9 @@ CAP_BLOCK = 4096
 INT32_MAX = 2**31 - 1
 MAX_CHANNELS = 128  # the tile kernels' largest channel instantiation
 MAX_PACK_ROWS = 144  # pack.cu kMaxRows
+# B3 (expand.cu): a block's threads, 4 output rows each
+EXPAND_THREADS = 128
+EXPAND_ROWS_PER_THREAD = 4  # expand.cu RPT
 
 # Kernel launches since the last reset_launch_counts(), by wrapper and
 # branch (the wrappers of raster_v2_2dgs, rasterize_pallas and
@@ -418,13 +422,49 @@ def expand(cum, base, nx, table, n_isects, cfg: V2Cfg):
         cum.data_ptr(), M, base.data_ptr(), nx.data_ptr(), table.data_ptr(),
         cfg.n_attr_eff, n_isects.data_ptr(), cfg.cap, cfg.tile_width,
         cfg.tile_height, cfg.tile_size, cfg.n_tiles, int(cfg.cull),
-        int(cfg.geom_packed), int(cfg.attr_packed), tile.data_ptr(),
-        rows.data_ptr(), _stream(),
+        int(cfg.geom_packed), int(cfg.attr_packed), EXPAND_THREADS,
+        tile.data_ptr(), rows.data_ptr(), _stream(),
     )
     native.check(err, "gsc_expand")
     _count_launch("expand", [(cfg.geom_packed or cfg.attr_packed,
                               "_packed")])
     return tile, rows
+
+
+def expand_counts(cum, n_isects, cfg: V2Cfg,
+                  rows_per_block: Optional[int] = None, tile=None) -> dict:
+    """B3's work on these inputs, in its layout (csrc/expand.cu): blocks of
+    ``rows_per_block`` output rows (default EXPAND_THREADS *
+    EXPAND_ROWS_PER_THREAD). Counts the rows below n_isects and the tail
+    rows past it, the blocks with a row in range and those wholly past it,
+    each live block's window of Gaussians (its first to its last in-range
+    row's; mean, p99, max) and the windows wider than the block (which the
+    kernel reads from device memory), and the longest run (one Gaussian's
+    rows, its tiles). With ``tile`` (the expansion's keys) also the culled
+    pairs, those keyed to the overflow tile."""
+    rpb = rows_per_block or EXPAND_THREADS * EXPAND_ROWS_PER_THREAD
+    n = int(n_isects.reshape(-1)[0])
+    cap, M = cfg.cap, cum.shape[0]
+    c64 = cum.to(torch.int64)
+    blocks = -(-cap // rpb)
+    first = torch.arange(0, min(n, cap), rpb, device=cum.device)
+    last = torch.clamp(first + rpb, max=n) - 1
+    g0 = torch.clamp(torch.searchsorted(c64, first, right=True), max=M - 1)
+    g1 = torch.clamp(torch.searchsorted(c64, last, right=True), max=M - 1)
+    window = (g1 - g0 + 1).double()
+    runs = torch.diff(c64, prepend=c64.new_zeros(1))
+    out = dict(rows_per_block=rpb, rows=n, tail_rows=cap - n, blocks=blocks,
+               live_blocks=int(first.numel()),
+               tail_blocks=blocks - int(first.numel()),
+               window=dict(mean=float(window.mean()) if n else 0.0,
+                           p99=float(torch.quantile(window, 0.99)) if n
+                           else 0.0,
+                           max=int(window.max()) if n else 0),
+               wide_windows=int((window > rpb).sum()),
+               longest_run=int(runs.max()))
+    if tile is not None:
+        out["culled"] = int((tile[:n] == cfg.n_tiles).sum())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1637,16 +1677,25 @@ def rasterize_to_pixels_v2(
 # B10: row cumsum (csrc/cumsum_rows.cu)
 # ---------------------------------------------------------------------------
 
-CUMSUM_THREADS = 256  # cumsum_rows.cu THREADS: threads of a block
-CUMSUM_PER = 16  # cumsum_rows.cu PER: consecutive elements of a thread
-CUMSUM_SEG = CUMSUM_THREADS * CUMSUM_PER  # elements of a row per block
+CUMSUM_THREADS = 128  # cumsum_rows.cu THREADS: threads of a block
+CUMSUM_CHUNKS = 8  # cumsum_rows.cu CHUNKS: 16-byte vectors a thread
+CUMSUM_SEG = CUMSUM_THREADS * 4 * CUMSUM_CHUNKS  # elements of a row a block
+CUMSUM_GROUP = 128  # cumsum_rows.cu GROUP: segments one scan prefixes
+
+
+def _cumsum_layout(L: int) -> Tuple[int, int]:
+    """(segments, groups) of a row of length L in B10's layout."""
+    n_seg = -(-L // CUMSUM_SEG)
+    return n_seg, -(-n_seg // CUMSUM_GROUP)
 
 
 def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
     """Inclusive cumsum along axis 1 of f32 [R, L] (the JAX package's
-    cumsum_rows, which nothing there calls). The plain version is
-    torch.cumsum(x, 1). The kernel adds in a fixed order of its own: each
-    4096-element segment scanned, the segments' totals carried."""
+    cumsum_rows; here the v1 "sort" reduction's running sums,
+    rasterize_pallas.segment_reduce). The plain version is
+    torch.cumsum(x, 1). The kernel reads x once and adds in a fixed order
+    of its own (csrc/cumsum_rows.cu): 4096-element segments, their totals
+    scanned in groups of 128, the groups' prefixes chained."""
     if x.ndim != 2 or x.dtype != torch.float32:
         raise ValueError("cumsum_rows: x float32 [R, L]")
     if _on_cpu(x, "cumsum_rows"):
@@ -1654,10 +1703,14 @@ def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
     dev = x.device
     _check_cuda("cumsum_rows x", x, torch.float32, dev)
     R, L = x.shape
-    tot = torch.empty((R, -(-L // CUMSUM_SEG)), dtype=torch.float32,
-                      device=dev)
+    n_seg, n_grp = _cumsum_layout(L)
+    if R * n_seg >= 1 << 31:
+        raise ValueError(f"cumsum_rows: [{R}, {L}] is over 2^31 segments")
+    # the segments' totals, the groups' prefixes and the ticket counter
+    status = torch.zeros(R * (n_seg + n_grp) + 1, dtype=torch.int64,
+                         device=dev)
     out = torch.empty_like(x)
-    err = native.lib().gsc_cumsum_rows(x.data_ptr(), R, L, tot.data_ptr(),
+    err = native.lib().gsc_cumsum_rows(x.data_ptr(), R, L, status.data_ptr(),
                                        out.data_ptr(), _stream())
     native.check(err, "gsc_cumsum_rows")
     LAUNCHES["cumsum_rows"] += 1
@@ -1667,18 +1720,13 @@ def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
 def cumsum_rows_bound(x: torch.Tensor) -> torch.Tensor:
     """Elementwise float64 bound on |cumsum_rows(x) - the exact cumsum| for
     the kernel's order of additions: gamma_D times the sum of |x| up to the
-    end of the element's segment (the prefix of a segment is taken from
-    the inclusive scan less the segment's own total, so the whole segment
-    enters it). D counts the roundings on the longest path of a term: PER
-    in its thread, log2(THREADS) + 1 in each of two block scans (its
-    segment's total, then the scan of the totals), one carry for every
-    THREADS segments, and four adds and subtractions that join the
-    prefixes."""
-    L = x.shape[1]
-    n_seg = -(-L // CUMSUM_SEG)
-    depth = (CUMSUM_PER + 2 * (int(math.log2(CUMSUM_THREADS)) + 1)
-             + -(-n_seg // CUMSUM_THREADS) + 4)
-    du = depth * 2.0 ** -24
-    end = torch.clamp((torch.arange(L, device=x.device) // CUMSUM_SEG + 1)
-                      * CUMSUM_SEG, max=L) - 1
-    return du / (1 - du) * torch.cumsum(x.abs().double(), 1)[:, end]
+    element (the kernel's sum for an element takes no term after it),
+    gamma_D = D u / (1 - D u), u = 2^-24. D = 26 + the groups a row is the
+    most roundings a term meets (csrc/cumsum_rows.cu): 3 in its thread, 5
+    in its chunk's warp scan and 5 in its segment's pieces to the
+    segment's total; 3 in its lane and 5 across the lanes to its group's
+    total, or the same and one add to a later segment's prefix in its
+    group; one a group on the chain of the groups' prefixes; and 4 that
+    join the prefixes to the value."""
+    du = (26 + _cumsum_layout(x.shape[1])[1]) * 2.0 ** -24
+    return du / (1 - du) * torch.cumsum(x.abs().double(), 1)

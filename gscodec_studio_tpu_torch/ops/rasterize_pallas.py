@@ -23,9 +23,13 @@ Backward (``_RasterizePacked.backward``):
      through the inverse permutation, then cumulative-sum differences).
 
 Steps 1, 2 and 6 are XLA code outside Pallas in the JAX package and stay
-plain PyTorch here. The "sort" reduction takes differences of running f32
-sums over the whole table, as the JAX package does; the cancellation that
-costs is measured by chip_smoke.py and left as it is.
+plain PyTorch here, but for the running sums of the "sort" and "cumsum"
+reductions, which B10 (``raster_v2.cumsum_rows``, csrc/cumsum_rows.cu, the
+JAX package's row-scan kernel) takes on the transposed [6 + CH, cap2]
+table; on CPU tensors that is torch.cumsum. The "sort" reduction takes
+differences of running f32 sums over the whole table, as the JAX package
+does; chip_smoke.py holds each per-Gaussian sum within the rounding bound
+of those differences (raster_v2.cumsum_rows_bound).
 
 B7 and B8 skip the pixels outside each pair's candidate region, the box of
 its opacity ellipse and a bound on its float sigma (raster_v2._pair_regions,
@@ -63,7 +67,8 @@ from gscodec_studio_tpu_torch.ops.raster_v2 import (LAUNCHES, MAX_CHANNELS,
                                                     _check_cuda, _composite,
                                                     _on_cpu, _pair_regions,
                                                     _stream, _warp_layout,
-                                                    bwd_pixels_per_thread)
+                                                    bwd_pixels_per_thread,
+                                                    cumsum_rows)
 
 ALPHA_THRESHOLD = 1.0 / 255.0
 TRANSMITTANCE_EPS = 1e-4
@@ -522,10 +527,10 @@ def segment_reduce(v_packed, aligned_ids, exp_offsets, inv_perm, n_isects,
         pos = torch.arange(cfg.cap, device=v_packed.device)
         rows = torch.where((pos < n_isects)[:, None], rows,
                            torch.zeros((), device=v_packed.device))
-    # the running sums along the rows of the transposed table: a scan over
-    # the outer dimension of [cap2, D] runs one thread per column on a card
+    # the running sums along the rows of the transposed table (B10): a scan
+    # over the outer dimension of [cap2, D] runs one thread per column
     cols = rows.t().contiguous()
-    csum = torch.cat([cols.new_zeros((D, 1)), torch.cumsum(cols, 1)], 1)
+    csum = torch.cat([cols.new_zeros((D, 1)), cumsum_rows(cols)], 1)
     return (csum[:, hi] - csum[:, lo]).t()
 
 

@@ -32,9 +32,13 @@ longest-run-first tile order, no passing slot outside their regions, and
 rasterization(rasterizer="pallas") on the card against the CPU. B10
 (cumsum_rows) within the rounding bound of its own order of additions
 (raster_v2.cumsum_rows_bound: gamma of its depth
-times the sum of |x| to the end of the segment) of a float64 cumsum, on
-signed and non-negative rows; B11 (the skeleton composite) within 1e-4 of
-its plain version.
+times the sum of |x| up to the element) of a float64 cumsum, on
+signed and non-negative rows, and the same bits twice; B11 (the skeleton
+composite) within 1e-4 of its plain version. The expansion B3 also bit for
+bit on synthetic counts in every branch: runs over many blocks, a Gaussian
+a row (the block's widest staged window), zero counts inside a window,
+n_isects at the capacity and at 0, capacities that are no multiple of 4,
+and one Gaussian.
 """
 
 import dataclasses
@@ -707,10 +711,13 @@ def test_v1_kernels_match_plain(cuda, ts, cutoff, CH):
     ku = cfg.cap2 * 2.0 ** -24
     bound = 2 * ku / (1 - ku) * out.abs().double().sum(0)
     for mode in rp.SEGRED_MODES:
+        before = tr.LAUNCHES["cumsum_rows"]
         got = rp.segment_reduce(out, al.ids, isect.exp_offsets, al.inv_perm,
                                 isect.n_isects,
                                 dataclasses.replace(cfg, segred=mode))
         assert bool(((got.double() - exact).abs() <= bound).all()), mode
+        # the "sort" and "cumsum" running sums go through B10
+        assert tr.LAUNCHES["cumsum_rows"] == before + (mode != "scatter")
 
 
 @pytest.mark.parametrize("CH", [3, 64])
@@ -771,13 +778,20 @@ def test_v1_rasterization_on_card_matches_cpu(cuda):
             assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
 
 
+# B10's lengths: a segment and a group of segments (the chain's unit) +-1,
+# rows whose starts are not 16-byte aligned, up to 134 rows, the v1
+# reduction's [9, cap2] at scene_1m_v1, and four groups a row
+_SEG, _GRP = tr.CUMSUM_SEG, tr.CUMSUM_GROUP * tr.CUMSUM_SEG
+CUMSUM_SHAPES = ((1, 1), (134, 3), (3, _SEG - 1), (2, _SEG + 1),
+                 (9, 3 * 8192), (1, _GRP - 1), (2, _GRP + 1),
+                 (134, _SEG * 5 + 17), (2, 3 * _GRP + _SEG + 3),
+                 (9, 8_557_056))
+
+
 @pytest.mark.parametrize("draw", ["randn", "rand"])
 def test_cumsum_rows_kernel_matches_torch(cuda, draw):
-    # (2, 300 * 4096 + 5) has 301 segments a row: the carry of the segment
-    # prefixes crosses a block of 256 segments
     g = torch.Generator(device="cpu").manual_seed(3)
-    for shape in ((9, 3 * 8192), (3, 4096 * 5 + 17), (2, 100),
-                  (2, 300 * 4096 + 5)):
+    for shape in CUMSUM_SHAPES:
         x = getattr(torch, draw)(shape, generator=g).to(cuda)
         tr.reset_launch_counts()
         out = tr.cumsum_rows(x)
@@ -785,7 +799,83 @@ def test_cumsum_rows_kernel_matches_torch(cuda, draw):
         assert torch.equal(out, tr.cumsum_rows(x))
         ref = torch.cumsum(x.double(), 1)
         bound = tr.cumsum_rows_bound(x)
-        assert bool(((out.double() - ref).abs() <= bound).all())
+        assert bool(((out.double() - ref).abs() <= bound).all()), shape
+
+
+def _expand_case(cuda, counts, cap, knobs, seed, CH=3, TW=12, TH=9, ts=16):
+    """B3's inputs for per-Gaussian intersection ``counts`` (clamped at
+    ``cap``): random first tiles, rect widths and table values (positions
+    over the grid, conics whose ellipse cull keeps some pairs and not
+    others)."""
+    rng = np.random.default_rng(seed)
+    M = len(counts)
+    cfg = tr.V2Cfg(C=1, tile_width=TW, tile_height=TH, tile_size=ts,
+                   channels=CH, cap=cap, n=M, **knobs)
+    total = np.cumsum(np.asarray(counts, np.int64))
+    dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=cuda)  # noqa
+    cum = dev(np.minimum(total, cap), torch.int32)
+    n_isects = dev([min(int(total[-1]), cap)], torch.int32)
+    base = dev(rng.integers(0, TW * TH, M), torch.int32)
+    nx = dev(rng.integers(1, TW + 1, M), torch.int32)
+    table = rng.random((cfg.n_attr_eff, M)).astype(np.float32)
+    table[0] *= TW * ts
+    table[1] *= TH * ts
+    if cfg.cull:
+        table[2] = 10.0 ** rng.uniform(-3, 0, M)
+        table[3] = (rng.random(M) - 0.5) * 0.1 * table[2]
+        table[4] = 10.0 ** rng.uniform(-3, 0, M)
+    return cfg, (cum, base, nx, dev(table, torch.float32), n_isects)
+
+
+def _expand_counts_case(name, rng):
+    """(counts, capacity) of the named case."""
+    if name == "runs":  # short runs and one over many blocks, a tail
+        counts = rng.integers(1, 40, 3000)
+        counts[1500] = 5000
+        return counts, int(counts.sum()) + 1001
+    if name == "one_each":  # every block's window at its widest
+        return np.ones(7000, np.int64), 7500
+    if name == "zeros_inside":  # windows wider than a block
+        return rng.choice([0, 0, 0, 1, 2], 9000), 9001
+    if name == "full":  # n_isects == cap, cum clamped
+        counts = rng.integers(1, 9, 2000)
+        return counts, int(counts.sum()) - 777
+    if name == "empty":
+        return np.zeros(500, np.int64), 2050
+    return np.array([50]), 62  # "one_gaussian"
+
+
+EXPAND_BRANCHES = {
+    "cull": (dict(), 3), "cull_40": (dict(), 40),
+    "u16": (dict(geom_dtype="u16"), 3),
+    "bf16_odd": (dict(attr_dtype="bf16"), 3),
+    "bf16_even": (dict(attr_dtype="bf16"), 4),
+    "u16_bf16": (dict(attr_dtype="bf16", geom_dtype="u16"), 3),
+    "no_cull": (dict(n_attr=15, cull=False), 3),
+    "no_cull_52": (dict(n_attr=52, cull=False), 40),
+}
+
+
+@pytest.mark.parametrize("case", ["runs", "one_each", "zeros_inside",
+                                  "full", "empty", "one_gaussian"])
+@pytest.mark.parametrize("branch", list(EXPAND_BRANCHES))
+def test_expand_kernel_redesign_matches_plain(cuda, branch, case):
+    knobs, CH = EXPAND_BRANCHES[branch]
+    counts, cap = _expand_counts_case(case, np.random.default_rng(7))
+    cfg, args = _expand_case(cuda, counts, cap, knobs, 8, CH=CH)
+    key = tr.launch_keys("expand", [(cfg.geom_packed or cfg.attr_packed,
+                                     "_packed")])[0]
+    before = tr.LAUNCHES[key]
+    tile, rows = tr.expand(*args, cfg)
+    assert tr.LAUNCHES[key] == before + 1
+    tile_p, rows_p = tr._expand_plain(*args, cfg)
+    assert rows.shape == (cfg.d_s, cap)
+    assert torch.equal(tile, tile_p)
+    assert torch.equal(rows.view(torch.int32), rows_p.view(torch.int32))
+    if cfg.cull and case == "runs":  # the cull kept some pairs, not all
+        n = int(args[4][0])
+        culled = int((tile[:n] == cfg.n_tiles).sum())
+        assert 0 < culled < n
 
 
 def test_skel_kernel_matches_plain(cuda):

@@ -14,6 +14,10 @@ Tolerances:
     value);
   * the skeleton: max abs 1e-5 (the transmittance products and colour
     sums in another order).
+
+B10's own order of additions (csrc/cumsum_rows.cu), restated in float32
+(_b10_order): within raster_v2.cumsum_rows_bound of a float64 cumsum, on
+signed and non-negative rows that span several segments and groups.
 """
 
 import numpy as np
@@ -39,6 +43,79 @@ def test_cumsum_rows_matches_jax(rng, draw):
     bound = du / (1 - du) * np.cumsum(np.abs(x).astype(np.float64), 1)
     assert got.shape == ref.shape
     assert (np.abs(got.astype(np.float64) - ref) <= bound).all()
+
+
+def _scan_lanes(v):
+    """Inclusive Hillis-Steele scan over the last axis (32 lanes), in
+    float32: at offset o each lane adds the lane o before it."""
+    for o in (1, 2, 4, 8, 16):
+        v = torch.cat([v[..., :o], v[..., o:] + v[..., :-o]], -1)
+    return v
+
+
+def _left_lane(v):
+    """The exclusive value of a lane scan: the left lane's, 0 at lane 0."""
+    return torch.cat([torch.zeros_like(v[..., :1]), v[..., :-1]], -1)
+
+
+def _scan_in_order(v):
+    """Inclusive scan of the last axis one add at a time, in float32."""
+    out = [v[..., 0]]
+    for j in range(1, v.shape[-1]):
+        out.append(out[-1] + v[..., j])
+    return torch.stack(out, -1)
+
+
+def _b10_order(x):
+    """csrc/cumsum_rows.cu's sums, restated in float32 torch: a segment of
+    SEG elements is [CHUNKS, warps, 32 lanes, 4 values] in position order;
+    each lane's 4 values scanned in order; each chunk's lane totals by a
+    lane scan; the 32 (chunk, warp) pieces by a lane scan, whose last is
+    the segment's total A; a row's segments in groups of GROUP, A four a
+    lane scanned in order, then across the lanes (W: the group's exclusive
+    prefix, T: its total); the groups' prefixes chained, Q_{q+1} = Q_q +
+    T_q; y = ((((Q + W) + piece prefix) + lane prefix) + value's
+    prefix)."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    R, L = x.shape
+    threads, chunks, group = tr.CUMSUM_THREADS, tr.CUMSUM_CHUNKS, \
+        tr.CUMSUM_GROUP
+    n_seg, n_grp = tr._cumsum_layout(L)
+    xp = torch.zeros((R, n_seg * tr.CUMSUM_SEG), dtype=torch.float32)
+    xp[:, :L] = x
+    s = _scan_in_order(xp.reshape(R, n_seg, chunks, threads // 32, 32, 4))
+    om = _scan_lanes(s[..., 3])
+    pieces = _scan_lanes(om[..., 31].reshape(R, n_seg, 32))
+    agg = torch.zeros((R, n_grp * group), dtype=torch.float32)
+    agg[:, :n_seg] = pieces[..., 31]
+    b = _scan_in_order(agg.reshape(R, n_grp, 32, 4))
+    lam = _scan_lanes(b[..., 3])
+    within = torch.cat([torch.zeros_like(b[..., :1]), b[..., :3]], -1)
+    w = (_left_lane(lam)[..., None] + within).reshape(R, n_grp * group)
+    q = [torch.zeros(R, dtype=torch.float32)]
+    for i in range(n_grp - 1):
+        q.append(q[-1] + lam[:, i, 31])
+    q = torch.stack(q, 1)
+    e = q.repeat_interleave(group, 1)[:, :n_seg] + w[:, :n_seg]
+    base = (e[..., None] + _left_lane(pieces)).reshape(
+        R, n_seg, chunks, threads // 32)
+    o = base[..., None] + _left_lane(om)
+    return (o[..., None] + s).reshape(R, -1)[:, :L]
+
+
+@pytest.mark.parametrize("draw", ["standard_normal", "random"])
+def test_cumsum_rows_kernel_order_within_bound(rng, draw):
+    seg, grp = tr.CUMSUM_SEG, tr.CUMSUM_GROUP * tr.CUMSUM_SEG
+    for R, L in ((3, 1), (2, seg - 1), (2, seg + 1), (1, grp - 1),
+                 (2, 3 * grp + 4097)):
+        x = getattr(rng, draw)((R, L)).astype(np.float32)
+        got = _b10_order(x)
+        ref = torch.cumsum(torch.as_tensor(x).double(), 1)
+        bound = tr.cumsum_rows_bound(torch.as_tensor(x))
+        assert bool(((got.double() - ref).abs() <= bound).all()), (R, L)
+    # the restatement is the scan it says: its first segment's first chunk
+    # is a plain in-order cumsum over the first 4 values of a lane
+    assert got[0, 3] == ((x[0, 0] + x[0, 1]) + x[0, 2]) + x[0, 3]
 
 
 def _skel_numpy(rows, starts, ends):
