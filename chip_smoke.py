@@ -804,18 +804,27 @@ def b5_work(r2, st, ptxas=None, time_tail=None):
                         ("cbm", "ppt", "max_threads", "min_blocks"), tail)
 
 
+def expand_bytes(rv, b, cfg):
+    """B3's bytes bound at a binning's inputs: the Gaussians whose rows lie
+    below n_isects (rv.expand_gaussians; the invisible ones are never read)
+    read once, their cum, base and nx and their table columns, and every
+    key and output row written once."""
+    return ((12 + 4 * cfg.n_attr_eff) * rv.expand_gaussians(b.cum,
+                                                            b.n_isects)
+            + 4 * cfg.cap + 4 * cfg.d_s * cfg.cap)
+
+
 def b3_work(rv, st):
     """B3's work in its block layout (rv.expand_counts: rows in range and
-    past n_isects, each block's window of Gaussians, the longest run, the
-    culled pairs) with its time and bound at a Stages' (or Stages2DGS')
-    inputs."""
+    past n_isects, the Gaussians they read, each block's window of
+    Gaussians, the longest run, the culled pairs) with its time and bound
+    at a Stages' (or Stages2DGS') inputs."""
     b, cfg = st.b, st.cfg
     w = rv.expand_counts(b.cum, b.n_isects, cfg, tile=b.tile)
     w.update(bound(dict(
         ms=cuda_ms(lambda: rv.expand(b.cum, b.base, b.nx, b.table,
                                      b.n_isects, cfg), 10),
-        ops=0, bytes=(12 + 4 * cfg.n_attr_eff) * b.cum.shape[0]
-        + 4 * cfg.cap + 4 * cfg.d_s * cfg.cap)))
+        ops=0, bytes=expand_bytes(rv, b, cfg))))
     return w
 
 
@@ -1424,10 +1433,11 @@ class V1Stages:
         rows = self.v_packed[torch.sort(ids, stable=True).indices]
         return rows.t().contiguous()
 
-    def scan_numbers(self):
+    def scan_numbers(self, errs):
         """B10 on the "sort" reduction's own [D, cap2] table: within
         rv.cumsum_rows_bound of a float64 cumsum and the same bits twice
-        (raises otherwise); its time beside torch.cumsum's and its bound."""
+        (raises otherwise; its error goes into errs); its time beside
+        torch.cumsum's and its bound."""
         from gscodec_studio_tpu_torch.ops import raster_v2 as rv
 
         cols = self.sorted_cols()
@@ -1442,6 +1452,7 @@ class V1Stages:
             raise AssertionError("cumsum_rows differs between two runs on "
                                  "the v1 reduction's table")
         R, L = cols.shape
+        note_err(errs, ["cumsum_rows"], float(diff.max()))
         res = bound(dict(
             shape=[R, L], max_abs_err=float(diff.max()),
             bound_share=float((diff / cbound.clamp(min=1e-300)).max()),
@@ -1724,7 +1735,7 @@ def main():
             res.update(st.compare_bwd(errs, seed=300 + view))
             res.update(st.work(v1_ptxas, tail=True),
                        order=st.order_numbers(),
-                       cumsum_rows=st.scan_numbers())
+                       cumsum_rows=st.scan_numbers(errs))
         return dict(view=view, sh_degree=sh_degree, raster_v1_bwd_ms=bwd_ms,
                     n_isects=st.n_isects, isect_capacity=st.cfg.cap,
                     cutoff=st.cfg.cutoff, **res)
@@ -1964,7 +1975,6 @@ def main():
         n_isects = int(st.b.n_isects)
         pc = st.pair_counts
         L, n = cfg.cap, cfg.d_s
-        M = cfg.C * cfg.n
         k = {}
         k["pack_rows"] = dict(
             ms=cuda_ms(lambda: rv.pack_rows(st.row_list, n, st.b.perm), 10),
@@ -1986,10 +1996,7 @@ def main():
             plain_ms=cuda_ms(lambda: rv._expand_plain(
                 st.b.cum, st.b.base, st.b.nx, st.b.table, st.b.n_isects,
                 cfg), 3),
-            library_ms=None,
-            bytes=(3 * 4 + 4 * cfg.n_attr_eff) * M + 4 * L
-            + 4 * (cfg.n_attr_eff + 1) * L,
-            ops=0,
+            library_ms=None, bytes=expand_bytes(rv, st.b, cfg), ops=0,
         )
         bound(k["pack_rows"])
         bound(k["expand"])
@@ -2343,9 +2350,7 @@ def main():
         st.b.cum, st.b.base, st.b.nx, st.b.table, st.b.n_isects, cfg2), 10)
     # the no-cull branch's bound: B3's bytes at these shapes
     expand_no_cull = bound(dict(
-        ms=expand_no_cull_ms, ops=0,
-        bytes=(12 + 4 * cfg2.n_attr_eff) * cfg2.C * cfg2.n + 4 * cfg2.cap
-        + 4 * cfg2.d_s * cfg2.cap))
+        ms=expand_no_cull_ms, ops=0, bytes=expand_bytes(rv, st.b, cfg2)))
     perf.update(k2)
     n_rows2 = int(st.b.starts[cfg2.n_tiles] - st.b.starts[0])
     n_isects2 = int(st.b.n_isects)
@@ -2535,7 +2540,7 @@ def main():
         time and bound at a Stages' inputs, in its cfg's branches (B2 on
         compare_bwd's cotangent; the tile kernels' by tile_bound)."""
         cfg, b = st.cfg, st.b
-        CH, P, L, M = cfg.channels, cfg.pixels, cfg.cap, cfg.C * cfg.n
+        CH, P, L = cfg.channels, cfg.pixels, cfg.cap
         n_rows = int(b.starts[cfg.n_tiles] - b.starts[0])
         pc = st.pair_counts
         tested = tested_ops(cfg) * pc["tested"]
@@ -2552,9 +2557,7 @@ def main():
             expand=bound(dict(
                 ms=cuda_ms(lambda: rv.expand(*exp_args), 10),
                 plain_ms=once_ms(lambda: rv._expand_plain(*exp_args)),
-                library_ms=None, ops=0,
-                bytes=(12 + 4 * cfg.n_attr_eff) * M + 4 * L
-                + 4 * cfg.d_s * L)),
+                library_ms=None, ops=0, bytes=expand_bytes(rv, b, cfg))),
             raster_fwd=tile_bound(dict(
                 ms=cuda_ms(lambda: rv.raster_fwd(b.S, b.starts, st.masks,
                                                  cfg, order=st.runs), 10),
@@ -3108,7 +3111,7 @@ def main():
                 launches_per_fwd_bwd=launches, kernels=k, check=check,
                 **work, order=v1.order_numbers(),
                 sort_cancellation=v1.sort_cancellation(),
-                cumsum_rows=v1.scan_numbers(),
+                cumsum_rows=v1.scan_numbers(errs),
                 mean_alpha=float(alpha.mean()))
             if cutoff == "soft":
                 run["profile"] = device_profile(fwd_bwd_v1)

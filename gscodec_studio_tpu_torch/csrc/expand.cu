@@ -21,13 +21,15 @@
 // (tile_common.cuh). The cull reads the f32 table in both branches, so its
 // decisions do not change; only the written rows are packed.
 //
-// Bound on the H100: bytes: the table's columns and cum, base, nx read
-// once, the key and the d_s output rows written once. Design: a block owns
-// BR = 4 * blockDim.x consecutive output rows, 4 a thread, so that every
-// output row is written by 16-byte vector stores (scalar ones where the
-// capacity is not a multiple of 4). Its first and last in-range rows'
-// Gaussians come from two warps' 32-way searches of `cum` (4 dependent
-// loads at 1M Gaussians, where one thread's binary search took 20).
+// Bound on the H100: bytes: the table's columns and cum, base, nx of the
+// Gaussians with a row below n_isects read once (the invisible ones, count
+// 0, are never read), the key and the d_s output rows written once.
+// Design: a block of 128 threads owns BR = 512 consecutive output rows, 4 a
+// thread, so that every output row is written by 16-byte vector stores
+// (scalar ones where the capacity is not a multiple of 4). Its first and
+// last in-range rows' Gaussians come from two warps' 32-way searches of
+// `cum` (4 dependent loads at 1M Gaussians, where one thread's binary
+// search took 20).
 // Below n_isects every Gaussian has a count >= 1 (the invisible ones sort
 // last with count 0, and cum is clamped at the capacity), so the block's
 // window of Gaussians holds at most BR of them; the block stages the
@@ -36,8 +38,8 @@
 // thread's first row, then steps). The table's values are read from
 // device memory by each row: a warp's 128 rows meet ~30 neighbouring
 // Gaussians at 1M, so the reads are mostly L1 hits; staging them too
-// (in groups of rows, between barriers) ran 1.18-1.27x slower (PERF.md,
-// PR 15). A window wider than BR (zero counts inside it, which the
+// (in groups of rows, between barriers) ran 1.18-1.27x slower on an H100
+// (PERF.md). A window wider than BR (zero counts inside it, which the
 // binning does not make) takes the same code on device memory. Blocks
 // wholly past n_isects write the empty rows (INT32_MAX, zeros) and search
 // nothing. No atomics.
@@ -51,6 +53,8 @@ namespace {
 
 constexpr int kInt32Max = 2147483647;
 constexpr int RPT = 4;  // consecutive output rows a thread (a multiple of 4)
+constexpr int THREADS = 128;     // a block's threads
+constexpr int BR = RPT * THREADS;  // a block's output rows
 constexpr unsigned kFull = 0xffffffffu;
 
 // Whether 0.5*lambda_min(conic)*dist(mean, tile)^2 already exceeds
@@ -248,7 +252,6 @@ __device__ void expand_rows(const Args& A, const Window<kStaged>& win, int W,
 __global__ void expand_kernel(Args A) {
   extern __shared__ int smem[];
   __shared__ int s_g[2];
-  const int BR = RPT * blockDim.x;
   const int64_t p0 = (int64_t)blockIdx.x * BR;
   const int64_t p = p0 + RPT * (int64_t)threadIdx.x;
   const int64_t n = *A.n_isects;
@@ -280,7 +283,7 @@ __global__ void expand_kernel(Args A) {
     int* s_cum = smem;  // [BR + 1]
     int* s_base = s_cum + BR + 1;
     int* s_nx = s_base + BR;
-    for (int i = threadIdx.x; i <= W; i += blockDim.x) {
+    for (int i = threadIdx.x; i <= W; i += THREADS) {
       const int g = g0 - 1 + i;
       s_cum[i] = g >= 0 ? A.cum[g] : 0;
       if (i < W) {
@@ -297,25 +300,21 @@ __global__ void expand_kernel(Args A) {
 
 }  // namespace
 
-// threads: a block's threads (a multiple of 32 in [64, 512]); a block owns
-// 4 * threads rows.
 extern "C" int gsc_expand(const void* cum, int M, const void* base,
                           const void* nx, const void* table, int n_attr,
                           const void* n_isects, long long cap, int tile_width,
                           int tile_height, int tile_size, int n_tiles,
                           int cull, int geom_packed, int attr_packed,
-                          int threads, void* tile_out, void* rows_out,
+                          void* tile_out, void* rows_out,
                           void* stream) {
   if (M < 1 || n_attr < (cull ? 6 : 1) || cap < 0 ||
-      ((geom_packed || attr_packed) && n_attr < 6) || threads < 64 ||
-      threads > 512 || threads % 32) {
+      ((geom_packed || attr_packed) && n_attr < 6)) {
     return (int)cudaErrorInvalidValue;
   }
   const int nval = n_attr - 2;
   const int n_srows = (geom_packed ? 1 : 2) +
                       (attr_packed ? (nval + 1) / 2 : nval);
   if (cap > 0) {
-    const int BR = RPT * threads;
     const size_t smem = sizeof(int) * (3 * (size_t)BR + 1);
     Args A{static_cast<const int*>(cum),
            M,
@@ -338,7 +337,7 @@ extern "C" int gsc_expand(const void* cum, int M, const void* base,
            cap % 4 == 0 && (uintptr_t)tile_out % 16 == 0 &&
                (uintptr_t)rows_out % 16 == 0};
     const int64_t blocks = (cap + BR - 1) / BR;
-    expand_kernel<<<(unsigned)blocks, threads, smem,
+    expand_kernel<<<(unsigned)blocks, THREADS, smem,
                     (cudaStream_t)stream>>>(A);
   }
   return (int)cudaGetLastError();

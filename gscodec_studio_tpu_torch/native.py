@@ -45,7 +45,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "gsc_pack_rows": (_P, _P, _I, _P, _L, _P, _I, _P),
     "gsc_expand": (_P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _I,
-                   _I, _I, _P, _P, _P),
+                   _I, _P, _P, _P),
     "gsc_raster_fwd": (_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _P, _P),
     "gsc_raster_bwd": (_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

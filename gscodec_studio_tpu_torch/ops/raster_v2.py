@@ -74,9 +74,7 @@ CAP_BLOCK = 4096
 INT32_MAX = 2**31 - 1
 MAX_CHANNELS = 128  # the tile kernels' largest channel instantiation
 MAX_PACK_ROWS = 144  # pack.cu kMaxRows
-# B3 (expand.cu): a block's threads, 4 output rows each
-EXPAND_THREADS = 128
-EXPAND_ROWS_PER_THREAD = 4  # expand.cu RPT
+EXPAND_ROWS_PER_BLOCK = 512  # expand.cu BR: B3's output rows a block
 
 # Kernel launches since the last reset_launch_counts(), by wrapper and
 # branch (the wrappers of raster_v2_2dgs, rasterize_pallas and
@@ -422,8 +420,7 @@ def expand(cum, base, nx, table, n_isects, cfg: V2Cfg):
         cum.data_ptr(), M, base.data_ptr(), nx.data_ptr(), table.data_ptr(),
         cfg.n_attr_eff, n_isects.data_ptr(), cfg.cap, cfg.tile_width,
         cfg.tile_height, cfg.tile_size, cfg.n_tiles, int(cfg.cull),
-        int(cfg.geom_packed), int(cfg.attr_packed), EXPAND_THREADS,
-        tile.data_ptr(), rows.data_ptr(), _stream(),
+        int(cfg.geom_packed), int(cfg.attr_packed), tile.data_ptr(), rows.data_ptr(), _stream(),
     )
     native.check(err, "gsc_expand")
     _count_launch("expand", [(cfg.geom_packed or cfg.attr_packed,
@@ -431,18 +428,31 @@ def expand(cum, base, nx, table, n_isects, cfg: V2Cfg):
     return tile, rows
 
 
+def expand_gaussians(cum, n_isects) -> int:
+    """The Gaussians whose rows lie below n_isects, which are all that B3
+    reads: [0, g] for g the Gaussian of row n_isects - 1 (every Gaussian
+    before it has a row; the invisible ones, count 0, sort last, and those
+    past the capacity have none)."""
+    n = int(n_isects.reshape(-1)[0])
+    if n <= 0:
+        return 0
+    last = torch.tensor([n - 1], dtype=torch.int64, device=cum.device)
+    g = torch.searchsorted(cum.to(torch.int64), last, right=True)
+    return min(int(g[0]), cum.shape[0] - 1) + 1
+
+
 def expand_counts(cum, n_isects, cfg: V2Cfg,
                   rows_per_block: Optional[int] = None, tile=None) -> dict:
     """B3's work on these inputs, in its layout (csrc/expand.cu): blocks of
-    ``rows_per_block`` output rows (default EXPAND_THREADS *
-    EXPAND_ROWS_PER_THREAD). Counts the rows below n_isects and the tail
-    rows past it, the blocks with a row in range and those wholly past it,
-    each live block's window of Gaussians (its first to its last in-range
-    row's; mean, p99, max) and the windows wider than the block (which the
-    kernel reads from device memory), and the longest run (one Gaussian's
-    rows, its tiles). With ``tile`` (the expansion's keys) also the culled
-    pairs, those keyed to the overflow tile."""
-    rpb = rows_per_block or EXPAND_THREADS * EXPAND_ROWS_PER_THREAD
+    ``rows_per_block`` output rows (default EXPAND_ROWS_PER_BLOCK). Counts
+    the rows below n_isects and the tail rows past it, the Gaussians those
+    rows read (expand_gaussians), the blocks with a row in range and those
+    wholly past it, each live block's window of Gaussians (its first to its
+    last in-range row's; mean, p99, max) and the windows wider than the
+    block (which the kernel reads from device memory), and the longest run
+    (one Gaussian's rows, its tiles). With ``tile`` (the expansion's keys)
+    also the culled pairs, those keyed to the overflow tile."""
+    rpb = rows_per_block or EXPAND_ROWS_PER_BLOCK
     n = int(n_isects.reshape(-1)[0])
     cap, M = cfg.cap, cum.shape[0]
     c64 = cum.to(torch.int64)
@@ -453,7 +463,8 @@ def expand_counts(cum, n_isects, cfg: V2Cfg,
     g1 = torch.clamp(torch.searchsorted(c64, last, right=True), max=M - 1)
     window = (g1 - g0 + 1).double()
     runs = torch.diff(c64, prepend=c64.new_zeros(1))
-    out = dict(rows_per_block=rpb, rows=n, tail_rows=cap - n, blocks=blocks,
+    out = dict(rows_per_block=rpb, rows=n, tail_rows=cap - n,
+               gaussians=expand_gaussians(cum, n_isects), blocks=blocks,
                live_blocks=int(first.numel()),
                tail_blocks=blocks - int(first.numel()),
                window=dict(mean=float(window.mean()) if n else 0.0,

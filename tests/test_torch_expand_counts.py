@@ -1,6 +1,7 @@
 """raster_v2.expand_counts (B3's work in its block layout, csrc/expand.cu)
 against a row-by-row count written out here, on small seeded 3DGS
-binnings (tiles 16 and 32), one with a Gaussian whose run spans several
+binnings (tiles 16 and 32), one with invisible Gaussians (which the
+expansion never reads), one with a Gaussian whose run spans several
 blocks, one whose counts overflow the capacity (n_isects == cap), one with
 nothing visible (n_isects == 0), and a prefix with zero counts inside a
 block's window. Counts are integers: exact equality.
@@ -13,8 +14,8 @@ import torch
 from gscodec_studio_tpu_torch.ops import raster_v2 as tr
 
 
-def _binning(seed, ts, cap, big=False, visible=True, C=1, N=400, W=160,
-             H=120):
+def _binning(seed, ts, cap, big=False, visible=True, hidden=0, C=1, N=400,
+             W=160, H=120):
     rng = np.random.default_rng(seed)
     m2 = np.stack([rng.random((C, N)) * W, rng.random((C, N)) * H],
                   -1).astype(np.float32)
@@ -24,6 +25,7 @@ def _binning(seed, ts, cap, big=False, visible=True, C=1, N=400, W=160,
         radii[0, 0] = (W // 2, H // 2)
     if not visible:
         radii[:] = 0
+    radii[:, :hidden] = 0
     con = np.tile(np.float32([0.5, 0.0, 0.5]), (C, N, 1))
     col = rng.random((C, N, 3)).astype(np.float32)
     op = rng.random((C, N)).astype(np.float32)
@@ -46,16 +48,17 @@ def _by_rows(cum, n, cap, rpb, n_tiles, tile):
         while g < len(cum) - 1 and cum[g] <= p:
             g += 1
         gs.append(g)
-    windows = []
+    windows, read = [], set()
     for p0 in range(0, n, rpb):
         in_block = gs[p0:min(p0 + rpb, n)]
         windows.append(max(in_block) - min(in_block) + 1)
+        read.update(range(min(in_block), max(in_block) + 1))
     runs, prev = [], 0
     for c in cum:
         runs.append(c - prev)
         prev = c
     blocks = -(-cap // rpb)
-    return dict(rows=n, tail_rows=cap - n, blocks=blocks,
+    return dict(rows=n, tail_rows=cap - n, gaussians=len(read), blocks=blocks,
                 live_blocks=len(windows), tail_blocks=blocks - len(windows),
                 window_max=max(windows, default=0),
                 window_mean=float(np.mean(windows)) if windows else 0.0,
@@ -66,8 +69,8 @@ def _by_rows(cum, n, cap, rpb, n_tiles, tile):
 def _check(cfg, cum, n_isects, tile, rpb):
     got = tr.expand_counts(cum, n_isects, cfg, rpb, tile=tile)
     want = _by_rows(cum, int(n_isects[0]), cfg.cap, rpb, cfg.n_tiles, tile)
-    for key in ("rows", "tail_rows", "blocks", "live_blocks", "tail_blocks",
-                "longest_run", "culled"):
+    for key in ("rows", "tail_rows", "gaussians", "blocks", "live_blocks",
+                "tail_blocks", "longest_run", "culled"):
         assert got[key] == want[key], key
     assert got["window"]["max"] == want["window_max"]
     assert got["window"]["mean"] == pytest.approx(want["window_mean"])
@@ -82,6 +85,15 @@ def test_expand_counts_match_row_walk(ts, rpb):
     cfg, cum, n, tile = _binning(1, ts, 1 << 14)
     got = _check(cfg, cum, n, tile, rpb)
     assert 0 < got["rows"] < cfg.cap and got["culled"] > 0
+
+
+@pytest.mark.parametrize("rpb", [64, 512])
+def test_expand_counts_leave_the_invisible_unread(rpb):
+    # the Gaussians B3 reads (its bytes bound's) are the visible ones only
+    cfg, cum, n, tile = _binning(5, 16, 1 << 14, hidden=150)
+    got = _check(cfg, cum, n, tile, rpb)
+    assert got["gaussians"] == 250 == int((torch.diff(
+        cum, prepend=cum.new_zeros(1)) > 0).sum())
 
 
 def test_expand_counts_run_over_blocks():
@@ -99,6 +111,7 @@ def test_expand_counts_overflow_and_empty():
     cfg, cum, n, tile = _binning(4, 16, 1000, visible=False)
     got = _check(cfg, cum, n, tile, 64)
     assert got["rows"] == 0 and got["live_blocks"] == 0
+    assert got["gaussians"] == 0
     assert got["window"]["max"] == 0 and got["culled"] == 0
 
 
