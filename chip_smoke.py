@@ -163,8 +163,13 @@ Phases, one JSON line each with its own ``seconds``:
             against a float64 torch.cumsum within the rounding bound of its
             own order of additions, timed beside torch.cumsum; B11 (the
             compositing skeleton, profiling/kernel_skel_bench.py) on the
-            JAX script's four inputs (ms, us/tile, ns/isect) and against
-            its plain version on the one with the stop at 24.
+            JAX script's four inputs (ms, us/tile, ns/isect), then against
+            its plain version on those four and on one whose tiles stop
+            mid-run (make_stop), twice for the same bits, with its work in
+            its layout (b11_work: (pair, cell) tests and hits, candidate,
+            composited and walked slots, columns, tiles stopped) and no
+            composited slot outside the cells its test keeps; its bound on
+            its candidate slots at term@24 (tile_bound).
 The kernels and train_1m phases also hold the packed-pair branches (B2p,
 B4p) against their plain versions, and train_1m times the bf16 case beside
 the f32 one. Wherever a backward is checked (check_reduction), the
@@ -178,7 +183,7 @@ branches of B3, B1 and B2 one fwd+bwd of bench_1m, for B5/B6's log branch
 one fwd+bwd of train_1m_2dgs's log leg, for B6's absgrad rows its probed
 fwd+bwd, for B7, B8 and B10 the train_v1 phase,
 for B11 the cumsum_skel phase; the tile kernels' bounds, B1's,
-B2's, B5's, B6's, B7's and B8's, on their candidate slots, tile_bound,
+B2's, B5's, B6's, B7's, B8's and B11's, on their candidate slots, tile_bound,
 with the plain walk's beside them in the phases), the card's name and
 power limit, and
 the result line. Any failed check raises, and the script exits non-zero
@@ -272,11 +277,13 @@ V1_OPS_EVALUATED = 17
 # term (1), CH colour products, and one add per gradient row (6 + CH) for
 # the sum over the tile's pixels.
 V1_BWD_OPS_COMPOSITED = 28  # + 3*CH + 6 + CH
-# skel_composite, from csrc/skel_composite.cu: per evaluated (pair, pixel)
-# dx, dy, sigma's ten operations, its negation, exp, op * exp, min and two
-# tests (18); per composited pair the weight, three multiply-adds and
-# T * (1 - alpha) (9).
-SKEL_OPS_EVALUATED, SKEL_OPS_COMPOSITED = 18, 9
+# skel_composite, from csrc/skel_composite.cu: per candidate (pair, pixel)
+# (tile_bound: the slots of the (pair, cell)s its cell test keeps; the
+# plain walk's bound on each evaluated one) dx, dy, sigma's eight
+# operations (0.5 a and 0.5 c are formed once a pair as the chunk is
+# staged), its negation, exp, op * exp, min and two tests (16); per
+# composited pair the weight, three multiply-adds and T * (1 - alpha) (9).
+SKEL_OPS_EVALUATED, SKEL_OPS_COMPOSITED = 16, 9
 UNPACK_SWEEP_ROWS = (1, 2, 3, 9, 19)  # B9b's rows against the identity
 UNPACK_GROUPS = (1, 2, 3, 4)  # B9b's row groups timed beside all rows
 CUMSUM_SHAPE = (9, 1 << 23)  # B10's input: 9 rows as the JAX table's
@@ -3222,33 +3229,63 @@ def main():
                       max_abs_err=cumsum_checks["randn"]["max_abs_err"],
                       **perf["cumsum_rows"])
     del xc, xu, cs
-    # B11's plain version on the input with the stop (term@24)
+    # B11 against its plain version on the JAX script's four inputs and on
+    # one whose tiles stop mid-run, twice for the same bits, with its work
+    # in its layout (b11_work); no composited slot outside the cells its
+    # test keeps. Its bound at term@24, on its candidate slots.
     T_s, avg_s, term_s, label_s = skel.INPUTS[1]
-    rows_s, starts_s, ends_s, _ = (torch.as_tensor(a, device=dev) for a in
-                                   skel.make(T_s, avg_s, term_s))
-    out_s = skel.skel_composite(rows_s, starts_s, ends_s)
-    ref_s, skel_counts = skel._skel_plain(rows_s, starts_s, ends_s,
-                                          with_counts=True)
-    skel_err = float((out_s - ref_s).abs().max())
-    if not (math.isfinite(skel_err) and skel_err <= FWD_TOL):
-        raise AssertionError(f"skel_composite max abs err {skel_err} > "
-                             f"{FWD_TOL}")
-    note_err(errs, ["skel_composite"], skel_err)
-    perf["skel_composite"] = bound(dict(
-        ms=[r["ms"] for r in skel_runs if r["label"] == label_s][0],
-        plain_ms=once_ms(lambda: skel._skel_plain(rows_s, starts_s,
-                                                  ends_s)),
-        library_ms=None,
-        bytes=4 * 9 * skel_counts["columns"] + 8 * T_s + 4 * T_s * 256 * 3,
-        ops=SKEL_OPS_EVALUATED * skel_counts["evaluated"]
-        + SKEL_OPS_COMPOSITED * skel_counts["composited"],
-        input=label_s, counts=skel_counts))
+    skel_cases = [(label, skel.make, (T_, a_, t_))
+                  for T_, a_, t_, label in skel.INPUTS]
+    stop_label = f"{T_s} tiles x {avg_s} rows, stopping (make_stop)"
+    skel_cases.append((stop_label, skel.make_stop, (T_s, avg_s)))
+    b11_work = {}
+    for label, make_, args in skel_cases:
+        rows_c, starts_c, ends_c = (torch.as_tensor(a, device=dev)
+                                    for a in make_(*args)[:3])
+        out_c = skel.skel_composite(rows_c, starts_c, ends_c)
+        same = torch.equal(out_c, skel.skel_composite(rows_c, starts_c,
+                                                      ends_c))
+        ref_c, counts_c = skel._skel_plain(rows_c, starts_c, ends_c,
+                                           with_counts=True)
+        err_c = float((out_c - ref_c).abs().max())
+        b11_work[label] = dict(counts_c, max_abs_err=err_c,
+                               cell_hit_share=counts_c["cell_hits"]
+                               / max(1, counts_c["cell_tests"]),
+                               composited_share=counts_c["composited"]
+                               / max(1, counts_c["candidate"]))
+        if not (math.isfinite(err_c) and err_c <= FWD_TOL):
+            raise AssertionError(f"skel_composite ({label}) max abs err "
+                                 f"{err_c} > {FWD_TOL}")
+        if not same:
+            raise AssertionError(f"skel_composite ({label}) differs "
+                                 f"between two runs")
+        if counts_c["missed"]:
+            raise AssertionError(f"skel_composite ({label}): "
+                                 f"{counts_c['missed']} composited slots "
+                                 f"outside the cells its test keeps")
+        note_err(errs, ["skel_composite"], err_c)
+        if label == label_s:
+            perf["skel_composite"] = tile_bound(dict(
+                ms=[r["ms"] for r in skel_runs if r["label"] == label_s][0],
+                plain_ms=once_ms(lambda: skel._skel_plain(
+                    rows_c, starts_c, ends_c)),
+                library_ms=None,
+                bytes=4 * 9 * counts_c["columns"] + 8 * T_s
+                + 4 * T_s * 256 * 3, input=label_s, counts=counts_c),
+                counts_c, counts_c["candidate"], SKEL_OPS_EVALUATED,
+                SKEL_OPS_COMPOSITED * counts_c["composited"])
+        elif label == stop_label:
+            b11_work[label]["ms"] = cuda_ms(lambda: skel.skel_composite(
+                rows_c, starts_c, ends_c), 5)
+        del rows_c, starts_c, ends_c, out_c, ref_c
+    if b11_work[stop_label]["tiles_stopped"] == 0:
+        raise AssertionError("skel_composite: make_stop's tiles never stop")
     emit({"phase": "cumsum_skel", "cumsum_rows": cumsum_res,
           "skel_composite_runs": skel_runs,
           "skel_composite_check": dict(perf["skel_composite"],
-                                       max_abs_err=skel_err),
+                                       max_abs_err=errs["skel_composite"]),
+          "b11_work": b11_work,
           "launches": cs_launches, "seconds": time.perf_counter() - t0})
-    del rows_s, starts_s, ends_s, out_s, ref_s
 
     # launches from each kernel's main path: the 3DGS training run, for the
     # 2DGS tile kernels the 2DGS training run, for the packed-pair branches

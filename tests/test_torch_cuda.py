@@ -34,7 +34,8 @@ rasterization(rasterizer="pallas") on the card against the CPU. B10
 (raster_v2.cumsum_rows_bound: gamma of its depth
 times the sum of |x| up to the element) of a float64 cumsum, on
 signed and non-negative rows, and the same bits twice; B11 (the skeleton
-composite) within 1e-4 of its plain version. The expansion B3 also bit for
+composite) within 1e-4 of its plain version, the same bits twice, and no
+composited slot outside the cells its test keeps. The expansion B3 also bit for
 bit on synthetic counts in every branch: runs over many blocks, a Gaussian
 a row (the block's widest staged window), zero counts inside a window,
 n_isects at the capacity and at 0, capacities that are no multiple of 4,
@@ -879,16 +880,29 @@ def test_expand_kernel_redesign_matches_plain(cuda, branch, case):
 
 
 def test_skel_kernel_matches_plain(cuda):
+    """B11 within 1e-4 of its plain version on small draws of the JAX
+    script's four inputs' shapes (and of runs of 200), on an input whose
+    tiles stop mid-run and on the constructed pairs of make_edges; the same
+    bits from two launches, one launch a call, and no composited slot
+    outside the cells its test keeps."""
     from gscodec_studio_tpu_torch.profiling import kernel_skel_bench as sk
-    for term in (None, 24.0):
-        rows, starts, ends, _ = sk.make(300, 200, term, seed=1)
+    cases = [sk.make(300, avg, term, seed=1)
+             for _, avg, term, _ in sk.INPUTS]
+    cases += [sk.make(300, 200, term, seed=1) for term in (None, 24.0)]
+    cases += [sk.make_stop(300, 640, seed=1), sk.make_edges(300, seed=1)]
+    for i, (rows, starts, ends, _) in enumerate(cases):
         rows, starts, ends = (torch.as_tensor(a, device=cuda)
                               for a in (rows, starts, ends))
         tr.reset_launch_counts()
         out = sk.skel_composite(rows, starts, ends)
         assert tr.LAUNCHES["skel_composite"] == 1
-        ref = sk._skel_plain(rows, starts, ends)
-        assert float((out - ref).abs().max()) <= 1e-4
+        assert torch.equal(out, sk.skel_composite(rows, starts, ends))
+        assert tr.LAUNCHES["skel_composite"] == 2
+        ref, c = sk._skel_plain(rows, starts, ends, with_counts=True)
+        assert float((out - ref).abs().max()) <= 1e-4, i
+        assert c["missed"] == 0 and c["composited"] > 0, i
+        if i == len(cases) - 2:  # make_stop's
+            assert c["tiles_stopped"] > 0
 
 
 @pytest.mark.parametrize("ts", [8, 16, 32])
