@@ -125,73 +125,62 @@ def _cell_ranges(x, y, a, b, c):
     csrc/skel_composite.cu's cell_bits forms it (float32, the same
     operations in the same order), on float32 pairs of any shape: (lo, hi,
     m), each [..., CELLS_Y * CELLS_X] (cells row-major). sigma(dx, dy) =
-    A dx^2 + B dx dy + C dy^2 (A = 0.5 a, C = 0.5 c) over the cell's box of
+    A dx^2 + b dx dy + C dy^2 (A = 0.5 a, C = 0.5 c) over the cell's box of
     dx = x - px, dy = y - py, from the corners, the edges' critical points
-    and the origin; m = RANGE_REL (|A| mu^2 + |B| mu mv + |C| mv^2) +
+    and the origin; m = RANGE_REL (|A| mu^2 + |b| mu mv + |C| mv^2) +
     RANGE_ABS with mu, mv the box's largest |dx|, |dy|."""
-    X, Y, B = x, y, b
     A, C = 0.5 * a, 0.5 * c
-    zero = torch.zeros((), dtype=x.dtype)
 
     def quad(u, v):
-        return (A * (u * u) + B * (u * v)) + C * (v * v)
+        return (A * (u * u) + b * (u * v)) + C * (v * v)
 
-    def crit(den):  # -B / (2 den) where den != 0, else 0
+    def crit(den):  # -b / (2 den) where den != 0, else 0
         nz = den != 0.0
-        return nz, torch.where(nz, -B / (2.0 * torch.where(nz, den, 1.0)),
-                               zero)
+        return nz, torch.where(nz, -b / (2.0 * torch.where(nz, den, 1.0)),
+                               torch.zeros((), dtype=x.dtype))
 
     nz_a, kx = crit(A)
     nz_c, ky = crit(C)
     ranges = []
     for cy in range(CELLS_Y):
-        v0 = Y - float(cy * CELL_H + CELL_H - 1)
-        v1 = Y - float(cy * CELL_H)
+        v0 = y - float(cy * CELL_H + CELL_H - 1)
+        v1 = y - float(cy * CELL_H)
         for cx in range(CELLS_X):
-            u0 = X - float(cx * CELL_W + CELL_W - 1)
-            u1 = X - float(cx * CELL_W)
-            lo = hi = quad(u0, v0)
-            every = torch.ones_like(nz_a)
-            cands = [(every, quad(u0, v1)), (every, quad(u1, v0)),
-                     (every, quad(u1, v1))]
-            for v in (v0, v1):
-                s_ = kx * v
-                cands.append((nz_a & (s_ >= u0) & (s_ <= u1), quad(s_, v)))
-            for u in (u0, u1):
-                s_ = ky * u
-                cands.append((nz_c & (s_ >= v0) & (s_ <= v1), quad(u, s_)))
-            cands.append(((u0 <= 0) & (u1 >= 0) & (v0 <= 0) & (v1 >= 0),
-                          torch.zeros_like(X)))
-            for take, q in cands:
+            u0 = x - float(cx * CELL_W + CELL_W - 1)
+            u1 = x - float(cx * CELL_W)
+            corners = [quad(u, v) for u in (u0, u1) for v in (v0, v1)]
+            lo = hi = corners[0]
+            for q in corners[1:]:
+                lo, hi = torch.minimum(lo, q), torch.maximum(hi, q)
+            inside = [(nz_a & (kx * v >= u0) & (kx * v <= u1), quad(kx * v, v))
+                      for v in (v0, v1)]
+            inside += [(nz_c & (ky * u >= v0) & (ky * u <= v1),
+                        quad(u, ky * u)) for u in (u0, u1)]
+            inside.append(((u0 <= 0) & (u1 >= 0) & (v0 <= 0) & (v1 >= 0),
+                           torch.zeros_like(x)))
+            for take, q in inside:
                 lo = torch.where(take, torch.minimum(lo, q), lo)
                 hi = torch.where(take, torch.maximum(hi, q), hi)
             mu = torch.maximum(u0.abs(), u1.abs())
             mv = torch.maximum(v0.abs(), v1.abs())
-            m = RANGE_REL * ((A.abs() * (mu * mu) + B.abs() * (mu * mv))
+            m = RANGE_REL * ((A.abs() * (mu * mu) + b.abs() * (mu * mv))
                              + C.abs() * (mv * mv)) + RANGE_ABS
             ranges.append((lo, hi, m))
     return tuple(torch.stack(r, -1) for r in zip(*ranges))
-
-
-def _sigma_bound(op):
-    """L, the cell test's bound on sigma: ln(255 op) + LOG_MARGIN in
-    float32, as the kernel forms it; -1 where op < 1/255."""
-    return torch.where(op >= np.float32(ALPHA_THRESHOLD),
-                       torch.log(255.0 * op) + LOG_MARGIN,
-                       torch.full((), -1.0, dtype=op.dtype))
 
 
 def _cell_bits(x, y, a, b, c, op):
     """csrc/skel_composite.cu's cell test (cell_bits): bool [...,
     CELLS_Y * CELLS_X], whether a pixel of each cell can pass the alpha
     test. A cell is out when its range of sigma (_cell_ranges) lies below
-    -m or above L + m (_sigma_bound); every cell is out where op < 1/255.
-    The margins lie far above the float32 rounding of the range and of a
-    pixel's sigma (~4e-7 of the terms' magnitude) and of its alpha test
-    (~3e-7 of sigma)."""
+    -m or above L + m, L = ln(255 op) + LOG_MARGIN in float32; every cell
+    is out where op < 1/255. The margins lie far above the float32
+    rounding of the range and of a pixel's sigma (~4e-7 of the terms'
+    magnitude) and of its alpha test (~3e-7 of sigma)."""
     lo, hi, m = _cell_ranges(x, y, a, b, c)
-    L = _sigma_bound(op)[..., None]
-    return (L >= 0.0) & ~(hi < -m) & ~(lo > L + m)
+    L = (torch.log(255.0 * op) + LOG_MARGIN)[..., None]
+    ok = (op >= np.float32(ALPHA_THRESHOLD))[..., None]
+    return ok & ~(hi < -m) & ~(lo > L + m)
 
 
 def _pixel_cells(dev):
