@@ -169,7 +169,27 @@ Phases, one JSON line each with its own ``seconds``:
             its layout (b11_work: (pair, cell) tests and hits, candidate,
             composited and walked slots, columns, tiles stopped) and no
             composited slot outside the cells its test keeps; its bound on
-            its candidate slots at term@24 (tile_bound).
+            its candidate slots at term@24 (tile_bound);
+  garden_recipe  the rest of examples/garden_benchmark.py's recipe on the
+            train phase's stand-in: MCMC at 120,000 slots, SelectiveAdam
+            (visible_adam) and the hash-grid entropy model
+            (entropy_model_type="gaussian_model"), the gates at step 5,
+            RECIPE_STEPS steps with a checkpoint at the middle (loss,
+            PSNR, step ms, launches: six SelectiveAdam launches a step,
+            device busy share of two profiled steps, the hash-grid
+            model's time alone and its share of the step); one more step
+            with each group's SelectiveAdam launch held bit for bit
+            against its plain version on the recipe's visibility, and
+            both timed (the kernel's numbers are the step's six launches
+            summed; its bound the bytes of p, g, mu, nu read, p, mu, nu
+            written and the visibility); the middle checkpoint reloaded
+            into a fresh Runner bit for bit, and the committed JAX
+            checkpoint results/garden_ab_f32/ckpts/ckpt_750.npz loaded;
+            run_compression("png") of the trained scene (its stages'
+            seconds, the grid side, size_bytes, PSNR before and after the
+            codec); the committed bitstream
+            results/garden_ab_f32/compression_1500/ decoded and rendered
+            on the held-out view.
 The kernels and train_1m phases also hold the packed-pair branches (B2p,
 B4p) against their plain versions, and train_1m times the bf16 case beside
 the f32 one. Wherever a backward is checked (check_reduction), the
@@ -182,7 +202,8 @@ train_2dgs phase, for B2p and B4p the train_ladder phase, for the precision
 branches of B3, B1 and B2 one fwd+bwd of bench_1m, for B5/B6's log branch
 one fwd+bwd of train_1m_2dgs's log leg, for B6's absgrad rows its probed
 fwd+bwd, for B7, B8 and B10 the train_v1 phase,
-for B11 the cumsum_skel phase; the tile kernels' bounds, B1's,
+for B11 the cumsum_skel phase, for SelectiveAdam the garden_recipe
+phase; the tile kernels' bounds, B1's,
 B2's, B5's, B6's, B7's, B8's and B11's, on their candidate slots, tile_bound,
 with the plain walk's beside them in the phases), the card's name and
 power limit, and
@@ -212,6 +233,9 @@ N_SMALL = 20_000
 TRAIN_STEPS = 30
 LADDER_CAP = 120_000  # the checkpoint's slot count
 LADDER_GATE = 5  # the entropy and mask gates' step in the ladder phase
+RECIPE_STEPS = 20  # garden_recipe's training steps; it saves at the middle
+COMMITTED_CKPT = ROOT / "results" / "garden_ab_f32" / "ckpts" / "ckpt_750.npz"
+BITSTREAM = ROOT / "results" / "garden_ab_f32" / "compression_1500"
 MCMC_2DGS_STEPS = 20
 FWD_TOL = 1e-4  # kernel vs plain forward, max abs on colors and alpha
 BWD_TOL = 1e-4  # kernel vs plain backward, relative to each row's max |.|
@@ -349,6 +373,11 @@ KERNELS = {
     "skel_composite": dict(
         source="gscodec_studio_tpu_torch/csrc/skel_composite.cu",
         replaces="profiling/kernel_skel_bench.py:65"),
+    # no Pallas counterpart: the JAX package's SelectiveAdam step is plain
+    # jnp, which XLA fuses into one pass
+    "selective_adam": dict(
+        source="gscodec_studio_tpu_torch/csrc/selective_adam.cu",
+        replaces="gscodec_studio_tpu/optimizers/selective_adam.py:59"),
 }
 KERNELS_V1 = ("raster_v1_fwd", "raster_v1_bwd")  # rasterizer="pallas"
 KERNELS_3DGS = ("pack_rows", "expand", "raster_fwd", "raster_bwd",
@@ -397,6 +426,24 @@ def cuda_ms(fn, reps):
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def queued_ms(fn, reps):
+    """Device time of one ``fn`` call: CUDA events around ``reps`` calls
+    queued behind a sleeping kernel, so that the host has enqueued them all
+    before the first one runs and they run back to back (for launches
+    shorter than their wrapper's host time, which cuda_ms would read)."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25-30 ms of cycles
     e0.record()
     for _ in range(reps):
         fn()
@@ -833,6 +880,277 @@ def b3_work(rv, st):
                                      b.n_isects, cfg), 10),
         ops=0, bytes=expand_bytes(rv, b, cfg))))
     return w
+
+
+def garden_recipe(dev, errs, perf):
+    """The rest of the garden recipe (examples/garden_benchmark.py) on the
+    train phase's checkpoint stand-in: MCMC at 120,000 slots under
+    SelectiveAdam and the hash-grid entropy model, the gates at
+    LADDER_GATE, RECIPE_STEPS steps with a checkpoint at the middle;
+    run_compression("png") of the trained scene and the decode of the
+    committed bitstream; the middle checkpoint reloaded into a fresh
+    Runner and the committed JAX checkpoint loaded; then, on steps taken
+    after all that (outside train(), so with no refine or capacity
+    growth), SelectiveAdam's kernel against its plain version on every
+    group (the recipe's own visibility), the step's device profile and the
+    hash-grid model timed alone. Fills perf and errs under
+    "selective_adam"; returns (phase dict, launches of the run)."""
+    from gscodec_studio_tpu_torch.compression import PngCompression
+    from gscodec_studio_tpu_torch.ops import raster_v2 as rv
+    from gscodec_studio_tpu_torch.optimizers import builders
+    from gscodec_studio_tpu_torch.optimizers.selective_adam import (
+        selective_adam_bytes, selective_adam_plain, selective_adam_step)
+    from gscodec_studio_tpu_torch.training.trainer import Config, Runner
+    from gscodec_studio_tpu_torch.utils.scenes import checkpoint_stand_in
+
+    t0 = time.perf_counter()
+    parser, trainset, valset = checkpoint_stand_in(
+        CHECKPOINT, n_views=8, width=WIDTH, height=HEIGHT, device=dev)
+    stats_dir = tempfile.mkdtemp(prefix="gsc_smoke_recipe_")
+    mid = RECIPE_STEPS // 2
+    gcfg = Config(result_dir=stats_dir, strategy="mcmc",
+                  mcmc_cap_max=LADDER_CAP, compression_sim=True,
+                  entropy_model_opt=True, entropy_model_type="gaussian_model",
+                  shN_ada_mask_opt=True, visible_adam=True, opacity_reg=0.01,
+                  scale_reg=0.01, refine_start_iter=5, refine_every=10,
+                  sh_degree_interval=5, save_steps=(mid,), tb_every=0,
+                  skip_probe=False)
+    runner = Runner(gcfg, parser=parser, trainset=trainset, valset=valset,
+                    device=dev)
+    runner.compression_sim.entropy_steps = {
+        k: LADDER_GATE for k in runner.compression_sim.entropy_steps}
+    runner.compression_sim.ada_mask_start = LADDER_GATE
+    n_sim = sum(v.numel() for v in runner.sim_params.values())
+    saved = {}
+    save = runner.save_checkpoint
+
+    def save_and_keep(step):  # the state the middle checkpoint holds
+        saved["path"] = save(step)
+        saved["splats"] = {k: v.clone() for k, v in runner.splats.items()}
+        saved["sim"] = {k: v.clone() for k, v in runner.sim_params.items()}
+        return saved["path"]
+
+    runner.save_checkpoint = save_and_keep
+    steps = []
+    train_step = runner.train_step
+
+    def timed_step(idx, sh_degree, step=0):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = train_step(idx, sh_degree, step)  # ends in a host sync
+        e1.record()
+        e1.synchronize()
+        steps.append(dict(out, ms=e0.elapsed_time(e1)))
+        return out
+
+    runner.train_step = timed_step
+    before = runner.eval("before")
+    t1 = time.perf_counter()
+    rv.reset_launch_counts()
+    losses = runner.train(max_steps=RECIPE_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    launches = dict(rv.LAUNCHES)
+    train_s = time.perf_counter() - t1
+    runner.train_step = train_step
+    after = runner.eval("after")
+    gated = losses[LADDER_GATE + 1:]
+    bits = [s_["bits"] for s_ in steps]
+    if not np.mean(gated[-5:]) < np.mean(gated[:5]):
+        raise AssertionError(f"garden_recipe loss did not fall: {losses}")
+    if not after["psnr"] > before["psnr"]:
+        raise AssertionError(f"garden_recipe held-out PSNR did not rise: "
+                             f"{before} -> {after}")
+    if runner.skipped_steps or not all(math.isfinite(b_) for b_ in bits) \
+            or min(bits[LADDER_GATE + 1:]) <= 0:
+        raise AssertionError(f"garden_recipe skipped {runner.skipped_steps}"
+                             f" steps, bits {bits}")
+    if launches["selective_adam"] != 6 * RECIPE_STEPS or min(
+            launches[k] for k in KERNELS_3DGS) < 1:
+        raise AssertionError(f"garden_recipe launches: {launches}")
+    with torch.no_grad():
+        extremes = {k: [float(runner.splats[k].min()),
+                        float(runner.splats[k].max())]
+                    for k in ("means", "scales")}
+
+    # the PNG codec on the trained scene, then the committed bitstream
+    metrics = runner.run_compression(RECIPE_STEPS, method="png")
+    out_dir = Path(stats_dir) / f"compression_{RECIPE_STEPS}"
+    meta = json.loads((out_dir / "meta.json").read_text())
+    if not (math.isfinite(metrics["psnr"]) and metrics["size_bytes"] > 0
+            and metrics["psnr"] > after["psnr"] - 3.0):
+        raise AssertionError(f"run_compression: {metrics} after {after}")
+    t1 = time.perf_counter()
+    decoded = PngCompression(device=dev).decompress(str(BITSTREAM))
+    decode_s = time.perf_counter() - t1
+    backup = runner.splats
+    runner.splats = {k: torch.as_tensor(v, device=dev)
+                     for k, v in decoded.items()}
+    try:
+        committed_eval = runner.eval("committed_bitstream")
+    finally:
+        runner.splats = backup
+    if not committed_eval["psnr"] > 15:
+        raise AssertionError(f"committed bitstream decodes to "
+                             f"{committed_eval}")
+
+    # the middle checkpoint into a fresh Runner; the committed one
+    fresh = Runner(gcfg, parser=parser, trainset=trainset, valset=valset,
+                   device=dev)
+    if fresh.load_checkpoint(saved["path"]) != mid or not all(
+            torch.equal(fresh.splats[k], v)
+            for k, v in saved["splats"].items()) or not all(
+            torch.equal(fresh.sim_params[k], v)
+            for k, v in saved["sim"].items()):
+        raise AssertionError("garden_recipe: the middle checkpoint did not "
+                             "reload with the same bits")
+    del fresh, saved["splats"], saved["sim"]
+    ccfg = dataclasses.replace(gcfg, entropy_model_type="factorized_model",
+                               visible_adam=False, save_steps=())
+    committed = Runner(ccfg, parser=parser, trainset=trainset,
+                       valset=valset, device=dev)
+    with np.load(COMMITTED_CKPT) as z:
+        step_c = committed.load_checkpoint(str(COMMITTED_CKPT))
+        if step_c != int(z["step"]) or not all(
+                np.array_equal(v.cpu().numpy(), z[f"splats/{k}"])
+                for k, v in committed.splats.items()) or not np.array_equal(
+                committed.sim_params["ada_mask"].cpu().numpy(), z["sim/0"]):
+            raise AssertionError("garden_recipe: ckpt_750.npz did not load "
+                                 "bit for bit")
+        n_leaves = sum(1 for k in z.files if k.startswith("sim/"))
+    del committed
+
+    # one more step: each group's kernel launch against its plain version
+    # on copies of the same inputs (the recipe's visibility); both timed
+    # on the device with the host's launches queued ahead (queued_ms: a
+    # wrapper call is host-bound at this size), and the wrapper's calls
+    # back to back (cuda_ms)
+    groups = []  # in the order apply_updates takes the splat groups
+
+    def checked_step(p, g, mu, nu, vis, lr, b1, b2, eps):
+        ref = [t.clone() for t in (p, g, mu, nu)]
+        work = [t.clone() for t in (p, g, mu, nu)]
+        selective_adam_plain(*ref, vis, lr, b1, b2, eps)
+        selective_adam_step(p, g, mu, nu, vis, lr, b1, b2, eps)
+        torch.cuda.synchronize()
+        pairs = list(zip((p, mu, nu), (ref[0], ref[2], ref[3])))
+        diff = max(float((a - b).abs().max()) if a.numel() else 0.0
+                   for a, b in pairs)
+        groups.append(dict(
+            shape=list(p.shape), same_bits=all(torch.equal(a, b)
+                                               for a, b in pairs),
+            max_abs_err=diff, visible_share=float(vis.float().mean()),
+            ms=queued_ms(lambda: selective_adam_step(
+                *work, vis, lr, b1, b2, eps), 20),
+            plain_ms=queued_ms(lambda: selective_adam_plain(
+                *work, vis, lr, b1, b2, eps), 20),
+            wrapper_ms=cuda_ms(lambda: selective_adam_step(
+                *work, vis, lr, b1, b2, eps), 20),
+            bytes=selective_adam_bytes(p, vis)))
+        del ref, work
+
+    builders.selective_adam_step = checked_step
+    try:
+        runner.train_step([0], 3, RECIPE_STEPS)
+    finally:
+        builders.selective_adam_step = selective_adam_step
+    if len(groups) != 6 or not all(v["same_bits"] for v in groups):
+        raise AssertionError(f"selective_adam differs from its plain version "
+                             f"on the recipe's groups: {groups}")
+    # the kernel's numbers are one step's: its six launches, summed
+    total = bound(dict(ms=sum(v["ms"] for v in groups),
+                       plain_ms=sum(v["plain_ms"] for v in groups),
+                       wrapper_ms=sum(v["wrapper_ms"] for v in groups),
+                       library_ms=None, bytes=sum(v["bytes"] for v in groups),
+                       ops=0))
+    perf["selective_adam"] = total
+    note_err(errs, ["selective_adam"],
+             max(v["max_abs_err"] for v in groups))
+
+    # where a step's time goes: the device's busy share, and the hash-grid
+    # model (its three attributes' bits forward and backward, and the sim
+    # parameters' Adam) timed alone
+    profiles = {}
+    for view in (0, 1):
+        prof = device_profile(lambda: train_step([view], 3, RECIPE_STEPS),
+                              reps=1)
+        profiles[view] = dict(prof, top=prof.get("top", [])[:8])
+    sim = runner.compression_sim
+    sp = {k: v.detach() for k, v in runner.splats.items()}
+
+    def hash_grid_fwd_bwd():
+        prm = {k: v.detach().requires_grad_(True)
+               for k, v in runner.sim_params.items()}
+        _, b_, _ = sim.simulate(sp, prm, RECIPE_STEPS, runner.generator)
+        torch.autograd.grad(b_, [v for k, v in prm.items()
+                                 if k.startswith("entropy.")])
+
+    hash_ms = median_ms(hash_grid_fwd_bwd, 5)[0]
+    # the grid's gather and its backward, as hash_grid_encode takes it (one
+    # index_select over the levels) beside a gather by advanced indexing
+    # level by level, on one attribute's 3D grid and a step's indices
+    table = runner.sim_params["entropy.quats.grid3d"].detach()
+    L, T, F = table.shape
+    g_idx = torch.randint(0, T, (L, 8 * sim.gaussian_sample),
+                          generator=runner.generator, device=dev)
+    flat_idx = (g_idx + T * torch.arange(L, device=dev)[:, None]).reshape(-1)
+
+    def gather_bwd(advanced):
+        t = table.clone().requires_grad_(True)
+        emb = torch.cat([t[lvl][g_idx[lvl]] for lvl in range(L)]) \
+            if advanced else torch.index_select(t.reshape(-1, F), 0, flat_idx)
+        torch.autograd.grad(emb.sum(), t)
+
+    gather_ms = {"index_select": median_ms(lambda: gather_bwd(False), 5)[0],
+                 "advanced_indexing": median_ms(lambda: gather_bwd(True),
+                                                3)[0]}
+    grads = {k: torch.zeros_like(v) for k, v in runner.sim_params.items()}
+    sim_adam_ms = median_ms(lambda: builders.apply_updates(
+        runner.sim_groups, runner.sim_states, runner.sim_params, grads), 5)[0]
+    step_ms = float(np.median([s_["ms"] for s_ in steps]))
+    phase = {
+        "phase": "garden_recipe", "steps": RECIPE_STEPS,
+        "capacity": LADDER_CAP, "entropy_model_type": "gaussian_model",
+        "visible_adam": True, "entropy_and_mask_gate": LADDER_GATE,
+        "sim_parameters": n_sim,
+        "loss_first5": losses[:5], "loss_last5": losses[-5:], "bits": bits,
+        "psnr_before": before["psnr"], "psnr_after": after["psnr"],
+        "step_ms_median": step_ms, "step_ms": [s_["ms"] for s_ in steps],
+        "n_isects": [s_["n_isects"] for s_ in steps],
+        "isect_capacity": runner.isect_capacity(), "events": runner.events,
+        "splat_extremes": extremes,
+        "step_profiles": profiles,
+        "device_busy_share": [p_.get("device_busy_share")
+                              for p_ in profiles.values()],
+        "launches": launches,
+        "launches_per_step": {k: v / RECIPE_STEPS
+                              for k, v in launches.items() if v},
+        "selective_adam": dict(total, launches_per_step=6, groups=groups),
+        "visible_share": groups[0]["visible_share"],
+        "hash_grid_fwd_bwd_ms": hash_ms, "sim_adam_ms": sim_adam_ms,
+        "hash_grid_share_of_step": (hash_ms + sim_adam_ms) / step_ms,
+        "hash_grid_gather_fwd_bwd_ms": gather_ms,
+        "checkpoint": {"middle_step": mid, "reloaded_same_bits": True,
+                       "committed": str(COMMITTED_CKPT.relative_to(ROOT)),
+                       "committed_step": step_c,
+                       "committed_sim_leaves": n_leaves},
+        "compression": {"psnr_trained": after["psnr"],
+                        "psnr_after_codec": metrics["psnr"],
+                        "ssim_after_codec": metrics["ssim"],
+                        "size_bytes": metrics["size_bytes"],
+                        "side": meta["side"],
+                        "shN_k": meta["attrs"]["shN"].get("k"),
+                        "seconds": runner.compression_seconds},
+        "committed_bitstream": {"dir": str(BITSTREAM.relative_to(ROOT)),
+                                "psnr": committed_eval["psnr"],
+                                "ssim": committed_eval["ssim"],
+                                "gaussians": int(decoded["means"].shape[0]),
+                                "decode_seconds": decode_s},
+        "train_seconds": train_s, "seconds": time.perf_counter() - t0,
+    }
+    del runner
+    shutil.rmtree(stats_dir, ignore_errors=True)
+    return phase, launches
 
 
 def nvidia_smi():
@@ -3287,6 +3605,11 @@ def main():
           "b11_work": b11_work,
           "launches": cs_launches, "seconds": time.perf_counter() - t0})
 
+    # 19. garden_recipe: SelectiveAdam, the hash-grid entropy model,
+    # checkpoints and the PNG codec (examples/garden_benchmark.py's path)
+    recipe, recipe_launches = garden_recipe(dev, errs, perf)
+    emit(recipe)
+
     # launches from each kernel's main path: the 3DGS training run, for the
     # 2DGS tile kernels the 2DGS training run, for the packed-pair branches
     # the ladder run, for the sorted table's precision branches one fwd+bwd
@@ -3308,6 +3631,7 @@ def main():
     for name in KERNELS_V1 + ("cumsum_rows",):  # the v1 training run
         main_path[name] = v1_launches[name]
     main_path["skel_composite"] = cs_launches["skel_composite"]
+    main_path["selective_adam"] = recipe_launches["selective_adam"]
     emit({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"],

@@ -7,9 +7,9 @@ Each channel has a monotone chain of softplus matrices, biases and
 tanh-gated factors, its logit CDF c(x); the likelihood of a quantized value
 is sigmoid(c(x + Q/2)) - sigmoid(c(x - Q/2)) and its bits are -log2 of it.
 A model's parameters are {"matrices": [...], "biases": [...], "factors":
-[...]}, each entry a [C, f_out, f_in] or [C, f_out, 1] tensor. The
-hash-grid conditioned Gaussian model (``gaussian_bits``) waits for a later
-slice (ROADMAP).
+[...]}, each entry a [C, f_out, f_in] or [C, f_out, 1] tensor.
+``gaussian_bits`` is the likelihood under a per-element Normal, which the
+hash-grid conditioned model (hash_grid.py) regresses.
 """
 
 from __future__ import annotations
@@ -109,3 +109,31 @@ def factorized_likelihood_table(params: Dict, symbols: torch.Tensor,
     xt = x[None, None, :].expand(C, 1, x.shape[0])
     likelihood = _likelihood(params, xt, q_step)
     return torch.clamp(likelihood[:, 0, :], min=LIKELIHOOD_BOUND)
+
+
+def _ndtr(x: torch.Tensor) -> torch.Tensor:
+    """The standard normal CDF as jax.scipy.special.ndtr forms it: erf near
+    0, erfc in the tails."""
+    half_sqrt_2 = 0.5 * math.sqrt(2.0)
+    w = x * half_sqrt_2
+    z = torch.abs(w)
+    y = torch.where(z < half_sqrt_2, 1.0 + torch.erf(w),
+                    torch.where(w > 0, 2.0 - torch.erfc(z), torch.erfc(z)))
+    return 0.5 * y
+
+
+def gaussian_bits(x: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
+                  q_step: float) -> torch.Tensor:
+    """Bits under a per-element Normal(mean, scale): -log2 of
+    Phi((x + Q/2 - mu) / s) - Phi((x - Q/2 - mu) / s), the scale clipped at
+    1e-5 and the likelihood held above LIKELIHOOD_BOUND by lower_bound."""
+    scale = torch.clamp(scale, min=1e-5)
+    upper = _ndtr((x + 0.5 * q_step - mean) / scale)
+    lower = _ndtr((x - 0.5 * q_step - mean) / scale)
+    # |upper - lower| with jnp.abs's derivative, +1 at 0 (torch.abs's is
+    # 0): in a tail both CDFs round to 0 or 1, and the bound's pass-through
+    # gradient still pulls the value towards the mean there
+    diff = upper - lower
+    likelihood = lower_bound(torch.where(diff >= 0, diff, -diff),
+                             LIKELIHOOD_BOUND)
+    return -torch.log2(likelihood)

@@ -1,14 +1,22 @@
 """Training-time compression simulation (port of
 gscodec_studio_tpu/compression_sim/simulation.py): per-attribute fake
 quantization with the reference's bitwidth and bound tables, optional
-learned factorized entropy models whose estimated bits enter the loss as
+learned entropy models whose estimated bits enter the loss as
 rd_lambda * mean bits, and the learnable shN annealing mask.
 
-The learnable state is an explicit ``sim_params`` dict of tensors, flat:
-"entropy.<attr>.<matrices|biases|factors>.<i>" for each entropy model and
-"ada_mask" for the mask logits. The trainer optimizes it with
-``build_optimizer``'s Adam(1e-4) beside the splats; ``simulate`` is a pure
-function of the splats, the sim parameters and the step.
+The entropy model of each attribute is factorized (entropy_model.py) or,
+with entropy_model_type="gaussian_model", a Gaussian whose mean and scale a
+hash grid and an MLP regress from the position (hash_grid.py); the latter
+scores a subsample of rows a step, drawn by ``sample_subset``.
+
+The learnable state is an explicit ``sim_params`` dict of tensors, flat,
+named by models.splats.flatten_tree: "entropy.<attr>.<matrices|biases|
+factors>.<i>" for a factorized model, "entropy.<attr>.grid3d",
+"entropy.<attr>.planes.<i>" and "entropy.<attr>.mlp.<i>.<w|b>" for a
+hash-grid one, and "ada_mask" for the mask logits. The trainer optimizes
+it with ``build_optimizer``'s Adam(1e-4) beside the splats; ``simulate``
+is a function of the splats, the sim parameters, the step and the
+generator that the draws come from.
 """
 
 from __future__ import annotations
@@ -22,7 +30,12 @@ from gscodec_studio_tpu_torch.compression_sim.ada_mask import (
     annealing_mask_apply, annealing_mask_sparsity_loss)
 from gscodec_studio_tpu_torch.compression_sim.entropy_model import (
     factorized_bits, init_factorized)
+from gscodec_studio_tpu_torch.compression_sim.hash_grid import (
+    gaussian_conditional_bits, gaussian_conditional_cfgs,
+    gaussian_conditional_init)
 from gscodec_studio_tpu_torch.compression_sim.ops import fake_quantize_ste
+from gscodec_studio_tpu_torch.models.splats import (flatten_tree,
+                                                    unflatten_tree)
 from gscodec_studio_tpu_torch.optimizers.builders import AdamGroup
 
 # Per-attribute quantization tables, as the JAX package's.
@@ -41,25 +54,28 @@ ENTROPY_OPTION = {"scales": True, "quats": True, "opacities": False,
                   "sh0": True}
 # Steps after which each attribute's entropy term joins the loss.
 ENTROPY_STEPS = {"quats": 10_000, "scales": 10_000, "sh0": 20_000}
-ENTROPY_PARTS = ("matrices", "biases", "factors")
+# the hash-grid model's levels (the JAX package's simulation sets these)
+GAUSSIAN_LEVELS_3D, GAUSSIAN_LEVELS_2D = 8, 2
+POSITION_QUANTILES = (0.01, 0.99)  # the positions' normalization bounds
 
 
 def entropy_model_params(sim_params: Dict[str, torch.Tensor],
                          name: str) -> Dict:
-    """The factorized model of attribute ``name`` as entropy_model takes
-    it, from the flat sim_params."""
-    out = {}
-    for part in ENTROPY_PARTS:
-        prefix = f"entropy.{name}.{part}."
-        keys = sorted((k for k in sim_params if k.startswith(prefix)),
-                      key=lambda k: int(k[len(prefix):]))
-        out[part] = [sim_params[k] for k in keys]
-    return out
+    """The entropy model of attribute ``name`` as a tree, as entropy_model
+    and hash_grid take it, from the flat sim_params ({} if it has none)."""
+    return unflatten_tree(sim_params, f"entropy.{name}.")
 
 
 def flatten_entropy_model(name: str, model: Dict) -> Dict[str, torch.Tensor]:
-    return {f"entropy.{name}.{part}.{i}": t for part in ENTROPY_PARTS
-            for i, t in enumerate(model[part])}
+    return flatten_tree(model, f"entropy.{name}.")
+
+
+def sample_subset(k: int, n: int, generator: Optional[torch.Generator],
+                  device) -> torch.Tensor:
+    """The gaussian_model's k row indices, uniform in [0, n) with
+    replacement (the JAX package draws them with jax.random.randint);
+    tests replace this draw with JAX's."""
+    return torch.randint(0, n, (k,), generator=generator, device=device)
 
 
 @dataclasses.dataclass
@@ -70,9 +86,9 @@ class CompressionSimulation:
     max_steps: int = 30_000
     ada_mask_start: int = 10_000
     q_type: str = "round"
-    # "factorized_model", or "gaussian_model" (hash-grid conditioned; not
-    # ported yet)
+    # "factorized_model" | "gaussian_model" (hash-grid conditioned)
     entropy_model_type: str = "factorized_model"
+    # gaussian_model scores this many rows a step (drawn by sample_subset)
     gaussian_sample: int = 16_384
     sim_option: Dict = dataclasses.field(
         default_factory=lambda: dict(SIM_OPTION))
@@ -87,11 +103,6 @@ class CompressionSimulation:
         default_factory=lambda: {"scales": 3, "quats": 4, "sh0": 3})
 
     def __post_init__(self):
-        if self.entropy_model_opt and \
-                self.entropy_model_type == "gaussian_model":
-            raise NotImplementedError(
-                "entropy_model_type='gaussian_model' (hash_grid.py, "
-                "gaussian_bits) is not ported yet: ROADMAP A7")
         if self.entropy_model_type not in ("factorized_model",
                                            "gaussian_model"):
             raise ValueError(
@@ -99,15 +110,23 @@ class CompressionSimulation:
 
     def init_params(self, generator: Optional[torch.Generator] = None,
                     device=None) -> Dict[str, torch.Tensor]:
-        """The learnable simulation parameters: one factorized model per
-        entropy channel group (biases drawn from ``generator``) and the mask
-        logits at 1."""
+        """The learnable simulation parameters, drawn from ``generator``:
+        one entropy model per entropy channel group (factorized, or the
+        hash-grid Gaussian model) and the mask logits at 1."""
         out = {}
         if self.entropy_model_opt:
             for name, c in self.entropy_channels.items():
-                filters = (3, 3) if name in ("scales", "sh0") else (3, 3, 3)
-                out.update(flatten_entropy_model(name, init_factorized(
-                    c, filters, generator=generator, device=device)))
+                if self.entropy_model_type == "gaussian_model":
+                    model, _ = gaussian_conditional_init(
+                        c, n_levels_3d=GAUSSIAN_LEVELS_3D,
+                        n_levels_2d=GAUSSIAN_LEVELS_2D, generator=generator,
+                        device=device)
+                else:
+                    filters = (3, 3) if name in ("scales", "sh0") \
+                        else (3, 3, 3)
+                    model = init_factorized(c, filters, generator=generator,
+                                            device=device)
+                out.update(flatten_entropy_model(name, model))
         if self.shN_ada_mask_opt:
             out["ada_mask"] = torch.ones(self.cap, dtype=torch.float32,
                                          device=device)
@@ -150,8 +169,12 @@ class CompressionSimulation:
             new[name] = xq.reshape(x.shape)
             model = entropy_model_params(sim_params, name)
             if self.entropy_model_opt and self.entropy_option.get(name) \
-                    and model["matrices"]:
-                bits = factorized_bits(model, xq, q_step)
+                    and model:
+                if self.entropy_model_type == "gaussian_model":
+                    bits = self._gaussian_bits(model, splats["means"], xq,
+                                               q_step, generator)
+                else:
+                    bits = factorized_bits(model, xq, q_step)
                 gate = float(step > self.entropy_steps[name])
                 total_bits = total_bits + gate * bits.mean()
         if self.shN_ada_mask_opt and "ada_mask" in sim_params:
@@ -163,3 +186,23 @@ class CompressionSimulation:
                 aux = aux + annealing_mask_sparsity_loss(
                     sim_params["ada_mask"], step, **kw)
         return new, total_bits, aux
+
+    def _gaussian_bits(self, model: Dict, means: torch.Tensor,
+                       xq: torch.Tensor, q_step: float,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The hash-grid model's bits on a subsample of rows, conditioned on
+        their positions normalized by the 1%/99% quantiles of all
+        positions (torch.quantile's linear rule, jnp.percentile's default)
+        and clipped to [0, 1]. The grid is read through the STE sign
+        (binarize=True), the 1-bit grid the entropy coder would ship."""
+        n = xq.shape[0]
+        idx = sample_subset(min(self.gaussian_sample, n), n, generator,
+                            xq.device)
+        q = torch.tensor(POSITION_QUANTILES, dtype=means.dtype,
+                         device=means.device)
+        lo_p, hi_p = torch.quantile(means, q, dim=0)
+        pos = torch.clamp((means[idx] - lo_p)
+                          / torch.clamp(hi_p - lo_p, min=1e-6), 0.0, 1.0)
+        return gaussian_conditional_bits(model,
+                                         gaussian_conditional_cfgs(model),
+                                         xq[idx], pos, q_step, binarize=True)

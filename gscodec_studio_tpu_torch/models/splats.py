@@ -156,24 +156,66 @@ def from_jax_splats(d: Dict[str, np.ndarray],
     })
 
 
+def flatten_tree(tree, prefix: str = "") -> Dict:
+    """A nested tree of dicts and lists -> {dotted name: leaf}; a list's
+    entries are named by their index ("entropy.quats.mlp.0.w")."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}{k}."))
+    return out
+
+
+def unflatten_tree(flat: Dict, prefix: str = ""):
+    """flatten_tree's inverse over the names that start with ``prefix``:
+    a level whose names are all digits becomes a list."""
+    root: Dict = {}
+    for k, v in flat.items():
+        if not k.startswith(prefix):
+            continue
+        parts = k[len(prefix):].split(".")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def jax_leaf_order(names) -> list:
+    """Flat names in the order in which jax.tree_util flattens the tree
+    they come from: a dict's keys sorted, a list's entries by index. The
+    checkpoints' ``sim/<i>`` leaves are numbered in this order: the mask,
+    then each attribute's model (a factorized one's biases, factors and
+    matrices; a hash-grid one's grid3d, mlp.0.b, mlp.0.w, mlp.1.b,
+    mlp.1.w and planes.0-2)."""
+    return sorted(names, key=lambda k: tuple(
+        (0, int(p), "") if p.isdigit() else (1, 0, p) for p in k.split(".")))
+
+
 def from_jax_sim_params(tree: Dict, device: DeviceLike = None
                         ) -> Dict[str, torch.Tensor]:
     """The port's flat sim_params (compression_sim/simulation.py) from the
     JAX package's sim_params pytree as numpy arrays: {"entropy": {attr:
-    {"matrices": [...], "biases": [...], "factors": [...]}}, "ada_mask":
-    [cap]}. Also takes the pytrees of its optax Adam moments (mu, nu),
-    which have the same structure."""
+    model}, "ada_mask": [cap]}, a model being factorized ({"matrices",
+    "biases", "factors"}: lists) or a hash-grid one ({"grid3d", "planes":
+    [3], "mlp": [{"w", "b"} x 2]}). Also takes the pytrees of its optax
+    Adam moments (mu, nu), which have the same structure."""
     dev = resolve_device(device)
-    out = {}
-    for attr, model in tree.get("entropy", {}).items():
-        for part in ("matrices", "biases", "factors"):
-            for i, a in enumerate(model[part]):
-                out[f"entropy.{attr}.{part}.{i}"] = torch.as_tensor(
-                    np.array(a), dtype=torch.float32, device=dev)
-    if "ada_mask" in tree:
-        out["ada_mask"] = torch.as_tensor(np.array(tree["ada_mask"]),
-                                          dtype=torch.float32, device=dev)
-    return out
+    return {k: torch.as_tensor(np.array(a), dtype=torch.float32, device=dev)
+            for k, a in flatten_tree(tree).items()}
 
 
 def from_jax_adam_state(count, mu: Dict, nu: Dict,
@@ -185,6 +227,20 @@ def from_jax_adam_state(count, mu: Dict, nu: Dict,
     nu_t = from_jax_sim_params(nu, device)
     return {k: {"count": int(np.array(count)), "exp_avg": mu_t[k],
                 "exp_avg_sq": nu_t[k]} for k in mu_t}
+
+
+def from_jax_selective_adam_states(states: Dict, device: DeviceLike = None
+                                   ) -> Dict[str, dict]:
+    """The port's per-group optimizer states from the JAX package's
+    {name: SelectiveAdamState(count, mu, nu)} (numpy or JAX arrays): the
+    same layout as plain Adam's, {"count", "exp_avg", "exp_avg_sq"}."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=torch.float32, device=dev)
+
+    return {name: {"count": int(np.array(st.count)), "exp_avg": t(st.mu),
+                   "exp_avg_sq": t(st.nu)} for name, st in states.items()}
 
 
 def from_jax_mcmc_state(state: Dict, device: DeviceLike = None

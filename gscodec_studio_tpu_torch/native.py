@@ -26,7 +26,7 @@ SOURCES = ("pack.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
            "unpack.cu", "segsum.cu", "raster_fwd_2dgs.cu",
            "raster_bwd_2dgs.cu", "raster_bwd_2dgs_absgrad.cu",
            "raster_v1_fwd.cu", "raster_v1_bwd.cu", "cumsum_rows.cu",
-           "skel_composite.cu")
+           "skel_composite.cu", "selective_adam.cu")
 # included by the sources; in the hash
 HEADERS = ("tile_common.cuh", "regions.cuh", "raster_bwd_2dgs.cuh",
            "raster_v1.cuh")
@@ -42,6 +42,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "gsc_pack_rows": (_P, _P, _I, _P, _L, _P, _I, _P),
     "gsc_expand": (_P, _I, _P, _P, _P, _I, _P, _L, _I, _I, _I, _I, _I, _I,
@@ -62,6 +63,8 @@ _SIGNATURES = {
                           _I, _P, _P),
     "gsc_cumsum_rows": (_P, _I, _L, _P, _P, _P),
     "gsc_skel_composite": (_P, _L, _P, _P, _I, _P, _P),
+    "gsc_selective_adam": (_P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F,
+                           _F, _P),
 }
 
 _lib = None

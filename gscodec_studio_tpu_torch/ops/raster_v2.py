@@ -78,7 +78,8 @@ EXPAND_ROWS_PER_BLOCK = 512  # expand.cu BR: B3's output rows a block
 
 # Kernel launches since the last reset_launch_counts(), by wrapper and
 # branch (the wrappers of raster_v2_2dgs, rasterize_pallas and
-# profiling/kernel_skel_bench count here too).
+# profiling/kernel_skel_bench count here too, and so does
+# optimizers/selective_adam, whose kernel is no raster kernel).
 # A launch counts once under each branch key it takes: "_packed" for the
 # packed-pair gradient rows of raster_bwd and segsum_rows and for the packed
 # rows that expand writes, "_unpack" for tile kernels reading packed rows,
@@ -92,7 +93,8 @@ LAUNCHES = {"pack_rows": 0, "expand": 0, "raster_fwd": 0, "raster_bwd": 0,
             "raster_bwd_unpack": 0, "raster_bwd_log": 0,
             "raster_fwd_2dgs_log": 0, "raster_bwd_2dgs_log": 0,
             "raster_bwd_2dgs_absgrad": 0, "raster_v1_fwd": 0,
-            "raster_v1_bwd": 0, "cumsum_rows": 0, "skel_composite": 0}
+            "raster_v1_bwd": 0, "cumsum_rows": 0, "skel_composite": 0,
+            "selective_adam": 0}
 
 
 def reset_launch_counts() -> None:

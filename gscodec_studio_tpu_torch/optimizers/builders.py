@@ -7,6 +7,9 @@ The Adam is functional over explicit moments, optax's arithmetic step for
 step, so that the densification ops can edit the moments row by row: each
 group's state is {"count": updates so far, "exp_avg": first moment,
 "exp_avg_sq": second moment}, the tensors with the parameter's shape.
+With ``visible_adam`` the groups are SelectiveAdam
+(optimizers/selective_adam.py), in the same state layout: its step takes
+the rows' visibility and updates the parameter and the moments in place.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from gscodec_studio_tpu_torch.models.splats import PARAM_LRS
+from gscodec_studio_tpu_torch.optimizers.selective_adam import (
+    selective_adam_step)
 
 
 @dataclass(frozen=True)
@@ -27,6 +32,7 @@ class AdamGroup:
     b2: float
     eps: float
     decay_steps: Optional[int] = None  # lr * 0.01 ** (count / decay_steps)
+    selective: bool = False  # SelectiveAdam: raw moments, rows masked
 
     def lr_at(self, count: int) -> float:
         if self.decay_steps is None:
@@ -41,10 +47,8 @@ def build_splat_optimizers(
     max_steps: int = 30_000,
     visible_adam: bool = False,
 ) -> Tuple[Dict[str, AdamGroup], Dict[str, dict]]:
-    """Returns ({name: AdamGroup}, {name: state})."""
-    if visible_adam:
-        raise NotImplementedError(
-            "SelectiveAdam (visible_adam) is not ported yet: ROADMAP A6")
+    """Returns ({name: AdamGroup}, {name: state}); with ``visible_adam``
+    the groups are SelectiveAdam."""
     bs = batch_size
     sqrt_bs = math.sqrt(bs)
     b1 = 1 - bs * (1 - 0.9)
@@ -57,7 +61,7 @@ def build_splat_optimizers(
         if name == "means":
             lr = lr * scene_scale
             decay = max_steps
-        groups[name] = AdamGroup(lr, b1, b2, eps, decay)
+        groups[name] = AdamGroup(lr, b1, b2, eps, decay, visible_adam)
         states[name] = {"count": 0, "exp_avg": torch.zeros_like(p),
                         "exp_avg_sq": torch.zeros_like(p)}
     return groups, states
@@ -77,13 +81,27 @@ def adam_update(group: AdamGroup, state: dict, p: torch.Tensor,
     return new_p, {"count": c, "exp_avg": mu, "exp_avg_sq": nu}
 
 
-def apply_updates(groups, states, params, grads, visible_adam: bool = False):
-    """One optimizer step over the per-name groups -> (params, states)."""
-    if visible_adam:
-        raise NotImplementedError(
-            "SelectiveAdam (visible_adam) is not ported yet: ROADMAP A6")
+def apply_updates(groups, states, params, grads,
+                  visibility: Optional[torch.Tensor] = None,
+                  visible_adam: bool = False):
+    """One optimizer step over the per-name groups -> (params, states).
+    ``visibility`` [cap] is consumed only with ``visible_adam``, by the
+    SelectiveAdam groups, which update their tensors in place and read
+    their rate at count + 1."""
+    if visible_adam and visibility is None:
+        raise ValueError("visible_adam needs the rows' visibility")
     new_params, new_states = {}, {}
     for name, p in params.items():
-        new_params[name], new_states[name] = adam_update(
-            groups[name], states[name], p, grads[name])
+        group, state = groups[name], states[name]
+        if visible_adam and group.selective:
+            c = state["count"] + 1
+            selective_adam_step(p, grads[name], state["exp_avg"],
+                                state["exp_avg_sq"], visibility,
+                                group.lr_at(c), group.b1, group.b2,
+                                group.eps)
+            new_params[name] = p
+            new_states[name] = dict(state, count=c)
+        else:
+            new_params[name], new_states[name] = adam_update(
+                group, state, p, grads[name])
     return new_params, new_states

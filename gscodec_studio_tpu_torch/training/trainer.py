@@ -11,11 +11,15 @@ backend, its gradient rows in f32 or packed bf16 pairs, or by
 SSIM loss (these two in ``Runner.render_loss``, which the 2DGS runner
 overrides), the regularisers and rd_lambda * bits -> autograd -> the
 densification statistics from the means2d probe's gradient -> per-group
-Adam, the sim parameters' Adam, and with MCMC the position noise. A
-finite-step gate skips a step whose loss or any gradient is not finite
-and counts it. Between steps the loop runs the strategy's refine (and the
-default strategy's opacity reset), the SH-degree schedule and the
-adaptive intersection capacity.
+Adam (SelectiveAdam over the rows the batch's cameras saw, with
+``visible_adam``), the sim parameters' Adam, and with MCMC the position
+noise. A finite-step gate skips a step whose loss or any gradient is not
+finite and counts it. Between steps the loop runs the strategy's refine
+(and the default strategy's opacity reset), the SH-degree schedule, the
+adaptive intersection capacity and, at ``save_steps``, the checkpoint.
+After training, ``save_checkpoint``/``load_checkpoint`` (npz files both
+packages read), ``save_ply`` and ``run_compression("png")`` store and
+compress the scene.
 
 The port loops in Python, one step per iteration; the JAX package's
 ``lax.scan`` chunks (``steps_per_dispatch``) were a TPU dispatch device.
@@ -34,9 +38,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from gscodec_studio_tpu_torch.compression import (PngCompression,
+                                                 compressed_size)
 from gscodec_studio_tpu_torch.compression_sim import CompressionSimulation
 from gscodec_studio_tpu_torch.device import DeviceLike, resolve_device
-from gscodec_studio_tpu_torch.models.splats import (create_splats, num_live,
+from gscodec_studio_tpu_torch.models.splats import (DEAD_OPACITY_LOGIT,
+                                                    create_splats,
+                                                    jax_leaf_order, num_live,
                                                     splat_activations)
 from gscodec_studio_tpu_torch.optimizers import (apply_updates,
                                                  build_splat_optimizers)
@@ -44,14 +52,15 @@ from gscodec_studio_tpu_torch.rendering import rasterization
 from gscodec_studio_tpu_torch.strategy import DefaultStrategy, MCMCStrategy
 from gscodec_studio_tpu_torch.training.losses import (combined_loss, psnr,
                                                       ssim)
+from gscodec_studio_tpu_torch.utils.ply import save_ply
 
 
 @dataclass
 class Config:
     """The JAX package's Config, field for field and default for default.
     Fields of options that are not ported yet are accepted at their
-    defaults; ``Runner`` raises for any other value, except save_steps,
-    tb_every and skip_probe, which it names once as ignored."""
+    defaults; ``Runner`` raises for any other value, except tb_every and
+    skip_probe, which it names once as ignored."""
 
     data_dir: str = "data/garden"
     data_factor: int = 4
@@ -131,7 +140,7 @@ class Config:
     mesh_devices: int = 0
     exchange_cap: Optional[int] = None
 
-    # Compression simulation ("gaussian_model" is not ported yet)
+    # Compression simulation ("factorized_model" or "gaussian_model")
     compression_sim: bool = False
     rd_lambda: float = 0.01
     entropy_model_opt: bool = False
@@ -142,11 +151,7 @@ class Config:
 def check_ported(cfg: Config, rasterizers=("fused",)) -> None:
     """Raise NotImplementedError for an option of a later slice."""
     later = [
-        (cfg.visible_adam, "visible_adam (SelectiveAdam)", "A6"),
         (cfg.init_type != "sfm", f"init_type={cfg.init_type!r}", "A9"),
-        (cfg.compression_sim and cfg.entropy_model_opt
-         and cfg.entropy_model_type == "gaussian_model",
-         "entropy_model_type='gaussian_model' (hash_grid.py)", "A7"),
         (cfg.pose_opt, "pose_opt", "A8"),
         (cfg.app_opt, "app_opt", "A8"),
         (cfg.use_bilateral_grid, "use_bilateral_grid", "A8"),
@@ -169,8 +174,6 @@ def check_ported(cfg: Config, rasterizers=("fused",)) -> None:
     if cfg.attr_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown attr_dtype {cfg.attr_dtype!r}")
     unhonoured = [what for on, what in (
-        (bool(cfg.save_steps), f"save_steps={tuple(cfg.save_steps)} "
-                               "(checkpoints)"),
         (cfg.tb_every != 0, f"tb_every={cfg.tb_every} (TensorBoard scalars)"),
         (cfg.skip_probe, "skip_probe=True (skipped-step fingerprints)"),
     ) if on]
@@ -227,7 +230,8 @@ class Runner:
             generator=self.generator, device=dev)
         self.groups, self.opt_states = build_splat_optimizers(
             self.splats, scene_scale=self.scene_scale,
-            batch_size=cfg.batch_size, max_steps=cfg.max_steps)
+            batch_size=cfg.batch_size, max_steps=cfg.max_steps,
+            visible_adam=cfg.visible_adam)
         if cfg.strategy == "mcmc":
             self.strategy_state = self.strategy.initialize_state(
                 cap, self.scene_scale, n_init=n_init, device=dev)
@@ -325,6 +329,11 @@ class Runner:
             loss = loss + cfg.scale_reg * scales.abs().mean()
         return loss, meta, probe if ag_probe is None else ag_probe
 
+    def _visibility(self, meta) -> torch.Tensor:
+        """SelectiveAdam's rows: those that a camera of the batch gave a
+        radius ([cap] bool)."""
+        return (meta["radii"] > 0).sum(0) > 0
+
     def _position_noise(self, shape) -> torch.Tensor:
         """MCMC's standard-normal draw for one step's position noise."""
         return torch.randn(shape, generator=self.generator,
@@ -375,8 +384,11 @@ class Runner:
         else:
             self.strategy_state = self.strategy.update_state(
                 self.strategy_state, meta, grads[-1])
+            visibility = self._visibility(meta) if cfg.visible_adam \
+                else None
             self.splats, self.opt_states = apply_updates(
-                self.groups, self.opt_states, self.splats, param_grads)
+                self.groups, self.opt_states, self.splats, param_grads,
+                visibility=visibility, visible_adam=cfg.visible_adam)
             if sim is not None:
                 self.sim_params, self.sim_states = apply_updates(
                     self.sim_groups, self.sim_states, self.sim_params,
@@ -429,6 +441,8 @@ class Runner:
                 if es == step < max_steps:
                     m = self.eval(stage=f"val_step{es}")
                     print(f"step {step}: eval " + json.dumps(m), flush=True)
+            if step < max_steps and step in cfg.save_steps:
+                self.save_checkpoint(step)
             if log_every and step % log_every == 0:
                 print(f"step {step}: loss {out['loss']:.4f} isects "
                       f"{out['n_isects']} ({time.time() - t0:.1f}s)",
@@ -508,3 +522,107 @@ class Runner:
         with open(os.path.join(stats_dir, f"{stage}.json"), "w") as f:
             json.dump(out, f)
         return out
+
+    # -- checkpoint / export -----------------------------------------------
+
+    def live_splats(self) -> Dict[str, np.ndarray]:
+        """Host copies of the live splats: the slots whose opacity is above
+        0.005."""
+        splats = {k: v.detach().cpu().numpy() for k, v in self.splats.items()}
+        keep = 1.0 / (1.0 + np.exp(-splats["opacities"])) > 0.005
+        return {k: v[keep] for k, v in splats.items()}
+
+    def _sim_leaves(self) -> List[str]:
+        return jax_leaf_order(self.sim_params) \
+            if self.compression_sim is not None else []
+
+    def save_checkpoint(self, step: int) -> str:
+        """result_dir/ckpts/ckpt_<step>.npz with the JAX package's keys:
+        ``step``, ``splats/<name>`` and ``sim/<i>``, the sim parameters
+        numbered in the JAX pytree's flatten order
+        (models.splats.jax_leaf_order). The model only, no optimizer
+        state, as the JAX package saves it. Returns the path."""
+        ckpt_dir = os.path.join(self.cfg.result_dir, "ckpts")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        arrs = {f"splats/{k}": v.detach().cpu().numpy()
+                for k, v in self.splats.items()}
+        for i, name in enumerate(self._sim_leaves()):
+            arrs[f"sim/{i}"] = self.sim_params[name].detach().cpu().numpy()
+        path = os.path.join(ckpt_dir, f"ckpt_{step}.npz")
+        np.savez(path, step=step, **arrs)
+        return path
+
+    def load_checkpoint(self, path: str) -> int:
+        """Loads the splats and the sim parameters of a checkpoint of either
+        package onto the runner's device; returns its step. Each leaf must
+        have the shape of the runner's own (the same capacity and sim
+        configuration)."""
+        dev = self.device
+        with np.load(path) as z:
+            names = [(k, f"splats/{k}") for k in self.splats]
+            names += [(k, f"sim/{i}") for i, k in
+                      enumerate(self._sim_leaves())]
+            loaded = {}
+            for name, key in names:
+                cur = self.splats[name] if key.startswith("splats/") \
+                    else self.sim_params[name]
+                got = z[key].shape if key in z.files else "missing"
+                if got != tuple(cur.shape):
+                    raise ValueError(f"{path}: {key} is {got}, the "
+                                     f"runner's {name} {tuple(cur.shape)}")
+                loaded[key] = torch.as_tensor(z[key], dtype=torch.float32,
+                                              device=dev)
+            step = int(z["step"])
+        for name, key in names:
+            target = self.splats if key.startswith("splats/") \
+                else self.sim_params
+            target[name] = loaded[key]
+        return step
+
+    def save_ply(self, path: str) -> None:
+        """The live splats as an Inria-layout binary PLY."""
+        save_ply(path, self.live_splats())
+
+    # -- test-time compression ---------------------------------------------
+
+    def run_compression(self, step: int = 0,
+                        method: str = "png") -> Dict[str, float]:
+        """Compress the live splats into result_dir/compression_<step>,
+        decode them, pad them back to capacity (dead slots at opacity
+        -15), evaluate them as stage ``compress_<method>`` and restore the
+        trained splats. Returns the metrics with ``size_bytes``, the
+        bitstream's bytes on disk; the stages' seconds are left in
+        ``self.compression_seconds``."""
+        if method == "entropy_coding":
+            raise NotImplementedError(
+                "run_compression(method='entropy_coding') (rANS) is not "
+                "ported yet: ROADMAP A9")
+        if method != "png":
+            raise ValueError(method)
+        compress_dir = os.path.join(self.cfg.result_dir,
+                                    f"compression_{step}")
+        codec = PngCompression(device=self.device)
+        codec.compress(compress_dir, self.live_splats())
+        t0 = time.perf_counter()
+        decoded = codec.decompress(compress_dir)
+        restored = {}
+        for k, v in self.splats.items():
+            arr = np.zeros(tuple(v.shape), np.float32)
+            if arr.size and k in decoded:
+                dec = decoded[k].reshape((-1,) + tuple(v.shape[1:]))
+                arr[:len(dec)] = dec
+                if k == "opacities":
+                    arr[len(dec):] = DEAD_OPACITY_LOGIT
+            restored[k] = torch.as_tensor(arr, device=self.device)
+        seconds = dict(codec.seconds, decode=time.perf_counter() - t0)
+        backup = self.splats
+        self.splats = restored
+        t0 = time.perf_counter()
+        try:
+            metrics = self.eval(stage=f"compress_{method}")
+        finally:
+            self.splats = backup
+        seconds["eval"] = time.perf_counter() - t0
+        self.compression_seconds = seconds
+        metrics["size_bytes"] = compressed_size(compress_dir)
+        return metrics

@@ -8,13 +8,14 @@ render and the loss
     * mean(1 - <normalize(render_normals), surf_normals>)
   + dist_lambda * (step > dist_start_iter) * mean(render_distort).
 Densification (the default or the MCMC strategy), Adam, the finite gate,
-the capacity and evaluation are the 3DGS ``Runner``'s. Four behaviours of
+the capacity and evaluation are the 3DGS ``Runner``'s. Five behaviours of
 the JAX Runner2DGS are reproduced, not repaired: its strategy reads a zero
 means2d gradient (so the default strategy's refines only prune and
 reset), its loss drops ``opacity_reg``, ``scale_reg`` and ``random_bkgd``,
-the median depth carries no gradient, and under MCMC it relocates and
-grows but adds no position noise. It refuses ``compression_sim``, which the
-JAX Runner2DGS carries without applying. The JAX Runner2DGS passes none of
+the median depth carries no gradient, under MCMC it relocates and grows
+but adds no position noise, and with ``visible_adam`` its SelectiveAdam
+gets no visibility and so updates every row. It refuses
+``compression_sim``, which the JAX Runner2DGS carries without applying. The JAX Runner2DGS passes none of
 ``grad_dtype``, ``attr_dtype`` and ``log_composite`` to its render; this one
 ignores them too, and names those set off their defaults once.
 """
@@ -53,12 +54,20 @@ class Runner2DGS(Runner):
     # repaired.
     injects_noise = False
 
+    def _visibility(self, meta) -> torch.Tensor:
+        """Every row: the JAX Runner2DGS builds SelectiveAdam groups under
+        visible_adam but applies them with no visibility
+        (gscodec_studio_tpu/training/trainer_2dgs.py:90-92), which the
+        optimizer reads as all rows seen. Reproduced, not repaired."""
+        return torch.ones(meta["radii"].shape[1], dtype=torch.bool,
+                          device=self.device)
+
     def __init__(self, cfg, *args, **kwargs):
         if cfg.compression_sim:
             raise NotImplementedError(
                 "compression_sim in Runner2DGS (the JAX Runner2DGS carries "
                 "the simulation's state but its step never applies it) is "
-                "not ported: ROADMAP A7")
+                "not ported: ROADMAP watch-list")
         super().__init__(cfg, *args, **kwargs)
 
     def _name_ignored(self) -> None:

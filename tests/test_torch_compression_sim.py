@@ -273,9 +273,3 @@ def test_simulation_adam_matches_optax(rng):
         assert close(tparams[k], ref[k].numpy(), tol), k
         assert close(tstates[k]["exp_avg"], mu[k].numpy(), 1e-6), k
         assert tstates[k]["count"] == 2
-
-
-def test_gaussian_model_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CompressionSimulation(entropy_model_opt=True,
-                              entropy_model_type="gaussian_model")

@@ -39,7 +39,12 @@ composited slot outside the cells its test keeps. The expansion B3 also bit for
 bit on synthetic counts in every branch: runs over many blocks, a Gaussian
 a row (the block's widest staged window), zero counts inside a window,
 n_isects at the capacity and at 0, capacities that are no multiple of 4,
-and one Gaussian.
+and one Gaussian. SelectiveAdam's step (csrc/selective_adam.cu) bit for
+bit against its plain version on every splat group's shape, with no row,
+every row and some rows visible, on sizes that are no multiple of 4 and on
+a misaligned group (its one-element path). The shN k-means on the card
+against its CPU run: at least 99% of labels equal and the distortion
+within 1% (the assignment's matmul sums in another order).
 """
 
 import dataclasses
@@ -1160,3 +1165,96 @@ def test_unpack_kernel_row_groups_match_plain(cuda, n, words):
     out = tr.unpack_rows(sums, n, perm[perm < 1_000_000])
     assert torch.equal(out, tr._unpack_rows_plain(
         sums, n, perm[perm < 1_000_000]))
+
+
+SPLAT_GROUPS = {"means": (3,), "quats": (4,), "scales": (3,),
+                "opacities": (), "sh0": (1, 3), "shN": (15, 3)}
+
+
+@pytest.mark.parametrize("rows", [4096, 1001])
+@pytest.mark.parametrize("vis", ["none", "all", "mixed"])
+@pytest.mark.parametrize("group", sorted(SPLAT_GROUPS))
+def test_selective_adam_kernel_matches_plain(cuda, group, vis, rows):
+    from gscodec_studio_tpu_torch.optimizers.selective_adam import (
+        selective_adam_plain, selective_adam_step)
+
+    g = torch.Generator(device="cpu").manual_seed(rows + len(group))
+    shape = (rows,) + SPLAT_GROUPS[group]
+    p, grad, mu = (torch.randn(shape, generator=g) for _ in range(3))
+    nu = torch.rand(shape, generator=g) * 1e-3
+    visible = {"none": torch.zeros(rows, dtype=torch.bool),
+               "all": torch.ones(rows, dtype=torch.bool),
+               "mixed": torch.rand(rows, generator=g) < 0.4}[vis]
+    args = [t.to(cuda) for t in (p, grad, mu, nu)]
+    ref = [t.clone() for t in args]
+    vis_c = visible.to(cuda)
+    coef = (1.6e-4 * 0.01 ** 0.3, 0.9, 0.999, 1e-15)
+    selective_adam_plain(*ref, vis_c, *coef)
+    before = tr.LAUNCHES["selective_adam"]
+    selective_adam_step(*args, vis_c, *coef)
+    torch.cuda.synchronize()
+    assert tr.LAUNCHES["selective_adam"] == before + 1
+    for a, b in zip(args, ref):
+        assert torch.equal(a, b)
+    rows_off = ~visible.to(cuda)
+    assert torch.equal(args[0][rows_off], p.to(cuda)[rows_off])
+
+
+def test_selective_adam_kernel_strided_gradient(cuda):
+    """sh0's gradient is a slice of the colours' gradient, a strided view:
+    the step takes it as it comes, with the plain version's bits."""
+    from gscodec_studio_tpu_torch.optimizers.selective_adam import (
+        selective_adam_plain, selective_adam_step)
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    colors_grad = torch.randn(3000, 16, 3, generator=g).to(cuda)
+    grad = colors_grad[:, :1]
+    assert not grad.is_contiguous()
+    args = [torch.randn(3000, 1, 3, generator=g).to(cuda) for _ in range(3)]
+    args[2].abs_()
+    ref = [t.clone() for t in args]
+    vis = (torch.rand(3000, generator=g) < 0.5).to(cuda)
+    selective_adam_plain(ref[0], grad, ref[1], ref[2], vis, 1e-3, 0.9,
+                         0.999, 1e-15)
+    selective_adam_step(args[0], grad, args[1], args[2], vis, 1e-3, 0.9,
+                        0.999, 1e-15)
+    torch.cuda.synchronize()
+    for a, b in zip(args, ref):
+        assert torch.equal(a, b)
+
+
+def test_selective_adam_kernel_misaligned_group(cuda):
+    """A group that starts 4 bytes past a 16-byte boundary takes the
+    one-element path; the bits are the plain version's."""
+    from gscodec_studio_tpu_torch.optimizers.selective_adam import (
+        selective_adam_plain, selective_adam_step)
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    flat = [torch.randn(1 + 2000 * 3, generator=g).to(cuda)
+            for _ in range(4)]
+    args = [t[1:].view(2000, 3) for t in flat]
+    args[3].abs_()
+    ref = [t.clone() for t in args]
+    vis = (torch.rand(2000, generator=g) < 0.5).to(cuda)
+    selective_adam_plain(*ref, vis, 1e-3, 0.9, 0.999, 1e-15)
+    selective_adam_step(*args, vis, 1e-3, 0.9, 0.999, 1e-15)
+    torch.cuda.synchronize()
+    for a, b in zip(args, ref):
+        assert torch.equal(a, b)
+
+
+def test_kmeans_on_the_card_matches_cpu(cuda):
+    from gscodec_studio_tpu_torch.compression.kmeans import kmeans
+
+    rng = np.random.default_rng(3)
+    centers = rng.standard_normal((300, 45)).astype(np.float32)
+    x = (centers[rng.integers(0, 300, 20_000)]
+         + 0.3 * rng.standard_normal((20_000, 45))).astype(np.float32)
+    cc, cl = kmeans(x, 512, iters=5, device="cpu")
+    gc, gl = kmeans(x, 512, iters=5, device=cuda)
+    assert float(np.mean(gl == cl)) >= 0.99
+
+    def distortion(c, lab):
+        return float(((x - c[lab]) ** 2).sum())
+
+    assert distortion(gc, gl) == pytest.approx(distortion(cc, cl), rel=0.01)

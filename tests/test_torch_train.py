@@ -394,18 +394,14 @@ def test_finite_gate_skips_a_poisoned_step(fake_scene, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("entropy_model_type", "gaussian_model"),
-    ("visible_adam", True), ("pose_opt", True), ("app_opt", True),
+    ("pose_opt", True), ("app_opt", True),
     ("use_bilateral_grid", True), ("depth_loss", True), ("mesh_devices", 2),
     ("mesh_devices", 4), ("init_type", "random"),
     ("eval_save_images", True), ("tb_histograms_every", 10),
 ])
 def test_unported_options_raise(field, value, tmp_path):
-    # the hash-grid entropy model is reached only with its models on
-    sim = (dict(compression_sim=True, entropy_model_opt=True)
-           if field == "entropy_model_type" else {})
     cfg = dataclasses.replace(Config(result_dir=str(tmp_path)),
-                              **{field: value}, **sim)
+                              **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Runner(cfg, parser=object(), device="cpu")
 
@@ -445,8 +441,9 @@ def test_unhonoured_defaults_are_named(fake_scene, tmp_path, capsys):
            trainset=trainset, valset=valset, device="cpu")
     line, = [ln for ln in capsys.readouterr().out.splitlines()
              if "ignored" in ln]
-    for name in ("save_steps", "tb_every", "skip_probe"):
+    for name in ("tb_every", "skip_probe"):
         assert name in line
+    assert "save_steps" not in line  # checkpoints are written
     Runner(Config(result_dir=str(tmp_path), capacity=256, save_steps=(),
                   tb_every=0, skip_probe=False), parser=parser,
            trainset=trainset, valset=valset, device="cpu")
