@@ -214,8 +214,10 @@ without the result line.
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -234,6 +236,7 @@ TRAIN_STEPS = 30
 LADDER_CAP = 120_000  # the checkpoint's slot count
 LADDER_GATE = 5  # the entropy and mask gates' step in the ladder phase
 RECIPE_STEPS = 20  # garden_recipe's training steps; it saves at the middle
+COLMAP_STEPS = 30  # colmap_trainer's steps; it saves at the middle
 COMMITTED_CKPT = ROOT / "results" / "garden_ab_f32" / "ckpts" / "ckpt_750.npz"
 BITSTREAM = ROOT / "results" / "garden_ab_f32" / "compression_1500"
 MCMC_2DGS_STEPS = 20
@@ -1153,6 +1156,366 @@ def garden_recipe(dev, errs, perf):
     return phase, launches
 
 
+def rotmat_to_qvec(R):
+    """Rotation matrix -> COLMAP's unit quaternion (w, x, y, z), w >= 0."""
+    w = math.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2
+    x = math.sqrt(max(0.0, 1.0 + R[0, 0] - R[1, 1] - R[2, 2])) / 2
+    y = math.sqrt(max(0.0, 1.0 - R[0, 0] + R[1, 1] - R[2, 2])) / 2
+    z = math.sqrt(max(0.0, 1.0 - R[0, 0] - R[1, 1] + R[2, 2])) / 2
+    return np.array([w, math.copysign(x, R[2, 1] - R[1, 2]),
+                     math.copysign(y, R[0, 2] - R[2, 0]),
+                     math.copysign(z, R[1, 0] - R[0, 1])])
+
+
+def write_colmap_scene(root, parser):
+    """The checkpoint stand-in as a COLMAP directory: sparse/0 in binary
+    (a PINHOLE camera per view; each view's pose and its 2D tracks, the
+    live means that project into it in front of the camera; the means as
+    points3D with their colours and tracks) and images/ (the targets as
+    8-bit PNGs, by the port's writer). Returns the tracks per view."""
+    from gscodec_studio_tpu_torch.compression.png_io import write_png
+
+    sparse = Path(root) / "sparse" / "0"
+    images = Path(root) / "images"
+    sparse.mkdir(parents=True)
+    images.mkdir()
+    xyz = np.asarray(parser.points, np.float64)
+    rgb = np.clip(np.rint(np.asarray(parser.points_rgb)), 0, 255).astype(
+        np.uint8)
+    n_views = len(parser.camtoworlds)
+    cams, views, tracks = [], [], [[] for _ in range(len(xyz))]
+    for i in range(n_views):
+        img = parser.images[i].detach().cpu().numpy()
+        H, W = img.shape[:2]
+        K = np.asarray(parser.Ks[i], np.float64)
+        cams.append(struct.pack("<iiQQ4d", i + 1, 1, W, H, K[0, 0], K[1, 1],
+                                K[0, 2], K[1, 2]))
+        w2c = np.linalg.inv(np.asarray(parser.camtoworlds[i], np.float64))
+        pc = xyz @ w2c[:3, :3].T + w2c[:3, 3]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            uv = (pc @ K.T)[:, :2] / pc[:, 2:3]
+        seen = np.nonzero((pc[:, 2] > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < W)
+                          & (uv[:, 1] >= 0) & (uv[:, 1] < H))[0]
+        rec = np.zeros(len(seen), [("x", "<f8"), ("y", "<f8"),
+                                   ("id", "<i8")])
+        rec["x"], rec["y"], rec["id"] = uv[seen, 0], uv[seen, 1], seen + 1
+        for k, j in enumerate(seen):
+            tracks[j].append((i + 1, k))
+        name = f"view_{i:02d}.png"
+        views.append(struct.pack("<i4d3di", i + 1,
+                                 *rotmat_to_qvec(w2c[:3, :3]), *w2c[:3, 3],
+                                 i + 1) + name.encode() + b"\x00"
+                     + struct.pack("<Q", len(seen)) + rec.tobytes())
+        write_png(str(images / name),
+                  np.rint(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8))
+    (sparse / "cameras.bin").write_bytes(struct.pack("<Q", n_views)
+                                         + b"".join(cams))
+    (sparse / "images.bin").write_bytes(struct.pack("<Q", n_views)
+                                        + b"".join(views))
+    pts = [struct.pack("<Q", len(xyz))]
+    for j in range(len(xyz)):
+        pts.append(struct.pack("<Q3d3BdQ", j + 1, *xyz[j], *rgb[j], 0.5,
+                               len(tracks[j]))
+                   + np.asarray(tracks[j], "<i4").tobytes())
+    (sparse / "points3D.bin").write_bytes(b"".join(pts))
+    return [sum(1 for t in tracks if any(v == i + 1 for v, _ in t))
+            for i in range(n_views)]
+
+
+def colmap_trainer(dev, stages_for):
+    """The static trainer from a COLMAP scene through its command line: the
+    train phase's stand-in (8 views at 1297x840) written as a COLMAP
+    directory, trained COLMAP_STEPS steps by simple_trainer.main with the
+    pose deltas, appearance, the bilateral grid, the depth loss, scalars
+    and histograms every 10 steps, render dumps and a checkpoint inside
+    the run; then an 8-frame trajectory, the final checkpoint reloaded
+    into a fresh Runner bit for bit, a step poisoned through one pose row
+    (skips.jsonl and its probe), and 5 steps from init_type="random" at
+    100,000 points. The first step's B9a, B3, B1, B2, B9b and B4 are held
+    against their plain versions at its 4 channels (RGB+ED) and per-camera
+    colours, with errors of their own. Returns (phase dict, launches of the
+    run, the six kernels' largest absolute errors there)."""
+    from gscodec_studio_tpu_torch import simple_trainer
+    from gscodec_studio_tpu_torch.datasets.colmap import Parser
+    from gscodec_studio_tpu_torch.models.splats import splat_activations
+    from gscodec_studio_tpu_torch.ops import raster_v2 as rv
+    from gscodec_studio_tpu_torch.rendering import project_and_shade
+    from gscodec_studio_tpu_torch.training import trainer as tt
+    from gscodec_studio_tpu_torch.utils.bilagrid import (bilagrid_slice,
+                                                         bilagrid_tv_loss)
+    from gscodec_studio_tpu_torch.utils.camera_opt import (
+        appearance_opt_apply, camera_opt_apply)
+    from gscodec_studio_tpu_torch.utils.scenes import checkpoint_stand_in
+
+    t0 = time.perf_counter()
+    stand_in, _, _ = checkpoint_stand_in(CHECKPOINT, n_views=8, width=WIDTH,
+                                         height=HEIGHT, device=dev)
+    work = Path(tempfile.mkdtemp(prefix="gsc_smoke_colmap_"))
+    scene, out = work / "scene", work / "run"
+    t1 = time.perf_counter()
+    view_tracks = write_colmap_scene(scene, stand_in)
+    write_s = time.perf_counter() - t1
+    del stand_in
+    t1 = time.perf_counter()
+    parsed = Parser(str(scene), factor=1, load_points2d=True)
+    parse_s = time.perf_counter() - t1
+    n_points = len(parsed.points)
+    del parsed
+
+    steps, first, load = [], {}, {}
+    train_step, device_trainset = tt.Runner.train_step, \
+        tt.Runner._device_trainset
+
+    def timed_step(self, idx, sh_degree, step=0):
+        if not first:  # the first step's inputs, for the kernel check
+            first.update(
+                idx=list(idx), sh_degree=sh_degree,
+                splats={k: v.detach().clone() for k, v in self.splats.items()},
+                aux={k: v.detach().clone() for k, v in
+                     self.aux_params.items()})
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = train_step(self, idx, sh_degree, step)  # ends in a host sync
+        e1.record()
+        e1.synchronize()
+        steps.append(dict(res, ms=e0.elapsed_time(e1)))
+        return res
+
+    def timed_trainset(self):
+        if self._data is None:
+            t_ = time.perf_counter()
+            data = device_trainset(self)
+            torch.cuda.synchronize()
+            load["seconds"] = time.perf_counter() - t_
+            return data
+        return device_trainset(self)
+
+    argv = ["default", "--data-dir", str(scene), "--data-factor", "1",
+            "--result-dir", str(out), "--max-steps", str(COLMAP_STEPS),
+            "--pose-opt", "--app-opt", "--use-bilateral-grid",
+            "--depth-loss", "--tb-every", "10", "--tb-histograms-every",
+            "10", "--eval-save-images", "--eval-steps", "1",
+            "--save-steps", str(COLMAP_STEPS // 2), "--refine-start-iter",
+            "5", "--refine-every", "10", "--sh-degree-interval", "5"]
+    tt.Runner.train_step, tt.Runner._device_trainset = timed_step, \
+        timed_trainset
+    try:
+        rv.reset_launch_counts()
+        t1 = time.perf_counter()
+        runner = simple_trainer.main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t1
+        launches = dict(rv.LAUNCHES)
+    finally:
+        tt.Runner.train_step, tt.Runner._device_trainset = train_step, \
+            device_trainset
+    cfg = runner.cfg
+    losses = [s_["loss"] for s_ in steps]
+    stats = {p_.stem: json.loads(p_.read_text())
+             for p_ in (out / "stats").glob("*.json")}
+    if len(steps) != COLMAP_STEPS or runner.skipped_steps or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"colmap_trainer: {len(steps)} steps, skipped "
+                             f"{runner.skipped_steps}, losses {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"colmap_trainer loss did not fall: {losses}")
+    if not stats["val"]["psnr"] > stats["val_step1"]["psnr"]:
+        raise AssertionError(f"colmap_trainer held-out PSNR did not rise: "
+                             f"{stats}")
+    if min(launches[k] for k in KERNELS_3DGS) < 1:
+        raise AssertionError(f"colmap_trainer: a kernel did not launch: "
+                             f"{launches}")
+    init = first["aux"]
+    moved = {k: not torch.equal(v, init[k])
+             for k, v in runner.aux_params.items()}
+    if not all(moved.values()) or sorted(moved) != [
+            "app_embeds", "app_mlp.0.b", "app_mlp.0.w", "app_mlp.1.b",
+            "app_mlp.1.w", "bilagrid", "pose"]:
+        raise AssertionError(f"colmap_trainer: per-image modules {moved}")
+
+    # the final checkpoint into a fresh Runner, before any more steps
+    ckpt = out / "ckpts" / f"ckpt_{COLMAP_STEPS}.npz"
+    fresh = tt.Runner(cfg, parser=runner.parser, trainset=runner.trainset,
+                      valset=runner.valset, device=dev)
+    if fresh.load_checkpoint(str(ckpt)) != COLMAP_STEPS:
+        raise AssertionError("colmap_trainer: the checkpoint's step")
+    with np.load(ckpt) as z:
+        n_aux = sum(1 for k in z.files if k.startswith("aux/"))
+    if n_aux != 7 or not all(torch.equal(fresh.aux_params[k], v)
+                             for k, v in runner.aux_params.items()) \
+            or not all(torch.equal(fresh.splats[k], v)
+                       for k, v in runner.splats.items()):
+        raise AssertionError("colmap_trainer: the checkpoint's aux leaves "
+                             "did not reload with the same bits")
+    del fresh
+
+    # B9a, B3, B1, B2, B9b and B4 on the first step's own inputs: the
+    # posed camera, the appearance colours and the depth channel
+    data = runner._device_trainset()
+    H, W = data["image"].shape[1:3]
+    sel = torch.as_tensor(first["idx"], device=dev)
+    sp, aux = first["splats"], first["aux"]
+    with torch.no_grad():
+        c2w = camera_opt_apply(aux["pose"], data["camtoworld"][sel], sel)
+        means, quats, scales, opac = splat_activations(sp)
+        colors = torch.sigmoid(appearance_opt_apply(
+            aux["app_embeds"], runner.app_mlp(aux), sp["features"], sel,
+            means[None] - c2w[:, None, :3, 3], first["sh_degree"],
+            sh_degree_max=cfg.sh_degree) + sp["colors"][None])
+        prep = list(project_and_shade(
+            means, quats, scales, opac, colors, torch.linalg.inv(c2w),
+            data["K"][sel], W, H, near_plane=cfg.near_plane,
+            far_plane=cfg.far_plane, sh_degree=None))
+        prep[4] = torch.cat([prep[4], prep[2][..., None]], -1)  # + depth
+        st = stages_for(prep, W, H, cfg.tile_size, cfg.cutoff_mode,
+                        cap=runner.isect_capacity())
+        if st.cfg.channels != 4:
+            raise AssertionError(f"RGB+ED renders {st.cfg.channels} channels")
+        # their own errors: the depth channel's seeded cotangent makes
+        # gradients of ~1e7, whose absolute errors (relative ones within
+        # BWD_TOL and the sums' bound) would mask the other phases'
+        own = {}
+        check = st.compare(own)
+        check.update(st.compare_bwd(own, seed=500, absgrads=(False,)))
+        check["n_isects"] = int(st.b.n_isects)
+        del st
+    rgb_ed_errs = {k: own[k] for k in KERNELS_3DGS}
+
+    # where a step's time goes: the device's busy share, and each module's
+    # forward and backward at the step's shapes, each under the profiler
+    view = first["idx"]
+    step_prof = device_profile(lambda: runner.train_step(
+        view, cfg.sh_degree, COLMAP_STEPS), reps=2)
+    sel = torch.as_tensor(view, device=dev)
+    prm = {k: v.detach() for k, v in runner.splats.items()}
+    ax = {k: v.detach().requires_grad_(True)
+          for k, v in runner.aux_params.items()}
+    c2w0 = data["camtoworld"][sel]
+    feats = prm["features"].requires_grad_(True)
+    img = data["image"][sel].clone().requires_grad_(True)
+    dmap = torch.rand((1, H, W, 1), device=dev) * 3 + 0.5
+    dmap.requires_grad_(True)
+    pts, deps = data["points"][sel], data["depths"][sel]
+
+    def pose_fb():
+        torch.autograd.grad(camera_opt_apply(ax["pose"], c2w0, sel).sum(),
+                            ax["pose"])
+
+    def app_fb():
+        dirs = prm["means"][None] - c2w0[:, None, :3, 3]
+        col = torch.sigmoid(appearance_opt_apply(
+            ax["app_embeds"], runner.app_mlp(ax), feats, sel, dirs,
+            cfg.sh_degree, sh_degree_max=cfg.sh_degree)
+            + prm["colors"][None])
+        torch.autograd.grad(col.sum(), [feats, ax["app_embeds"]]
+                            + [v for k, v in ax.items()
+                               if k.startswith("app_mlp")])
+
+    def grid_fb():
+        loss = bilagrid_slice(ax["bilagrid"], sel, img).sum() \
+            + 10.0 * bilagrid_tv_loss(ax["bilagrid"])
+        torch.autograd.grad(loss, [ax["bilagrid"], img])
+
+    def depth_fb():
+        torch.autograd.grad(tt._depth_l1(dmap, pts, deps), dmap)
+
+    modules = {}
+    for name, fn in (("pose", pose_fb), ("appearance_mlp", app_fb),
+                     ("bilateral_grid", grid_fb), ("depth_sampling",
+                                                   depth_fb)):
+        prof = device_profile(fn, reps=5)
+        modules[name] = dict(device_ms=prof.get("device_ms_per_call"),
+                             event_ms=median_ms(fn, 5)[0],
+                             top=prof.get("top", [])[:3])
+    step_dev_ms = step_prof.get("device_ms_per_call")
+    for v in modules.values():
+        v["share_of_step_device_time"] = (
+            v["device_ms"] / step_dev_ms if step_dev_ms and v["device_ms"]
+            else None)
+
+    # an 8-frame trajectory
+    t1 = time.perf_counter()
+    traj = runner.render_traj(COLMAP_STEPS, "interp", n_frames=8)
+    traj_s = time.perf_counter() - t1
+    frames = sorted(os.listdir(traj)) if os.path.isdir(traj) else [traj]
+    if os.path.isdir(traj) and len(frames) != 8:
+        raise AssertionError(f"render_traj wrote {frames}")
+    # a step poisoned through the pose row of the first view of the order
+    row = runner.view_order[0]
+    saved = runner.aux_params["pose"].clone()
+    runner.aux_params["pose"][row] = float("nan")
+    runner.train(max_steps=1, log_every=0)
+    runner.aux_params["pose"] = saved
+    skips = [json.loads(line) for line in
+             (out / "skips.jsonl").read_text().splitlines()]
+    if len(skips) != 1 or "[2]['pose']" not in skips[0]["bad_leaves"] \
+            or skips[0].get("probe") != tt.PROBE_VERDICTS[0]:
+        raise AssertionError(f"colmap_trainer: skips.jsonl {skips}")
+    rows = [json.loads(line) for line in
+            (out / "tb" / "scalars.jsonl").read_text().splitlines()]
+    n_hist = sum(1 for r in rows if "hist" in r)
+    if n_hist != 9 or len(rows) - n_hist < 6:
+        raise AssertionError(f"colmap_trainer: scalars.jsonl rows {rows}")
+
+    # 5 steps from init_type="random" at 100,000 points (on the loaded
+    # views: the same files)
+    rcfg = dataclasses.replace(cfg, init_type="random",
+                               init_num_pts=100_000,
+                               result_dir=str(work / "random"))
+    rr = tt.Runner(rcfg, parser=runner.parser, trainset=runner.trainset,
+                   valset=runner.valset, device=dev)
+    rr._data = data
+    t1 = time.perf_counter()
+    r_losses = rr.train(max_steps=5, log_every=0)
+    torch.cuda.synchronize()
+    random_s = time.perf_counter() - t1
+    if rr.skipped_steps or not all(math.isfinite(v) for v in r_losses) \
+            or rr.splats["means"].shape[0] != 400_000:
+        raise AssertionError(f"init_type=random: losses {r_losses}, "
+                             f"skipped {rr.skipped_steps}")
+    del rr
+
+    files = sorted(str(p_.relative_to(out)) for p_ in out.rglob("*")
+                   if p_.is_file())
+    step_ms = float(np.median([s_["ms"] for s_ in steps]))
+    phase = {
+        "phase": "colmap_trainer", "views": 8, "train_views":
+        len(runner.trainset), "width": WIDTH, "height": HEIGHT,
+        "points3D": n_points, "tracks_per_view": view_tracks,
+        "depth_points_cap": cfg.depth_points_cap,
+        "capacity": runner.splats["means"].shape[0],
+        "isect_capacity": runner.isect_capacity(), "argv": argv,
+        "write_colmap_seconds": write_s, "parse_seconds": parse_s,
+        "image_load_seconds": load.get("seconds"),
+        "loss_first5": losses[:5], "loss_last5": losses[-5:],
+        "psnr_step1": stats["val_step1"]["psnr"],
+        "psnr_after": stats["val"]["psnr"], "ssim_after": stats["val"]["ssim"],
+        "step_ms_median": step_ms, "step_ms": [s_["ms"] for s_ in steps],
+        "n_isects": [s_["n_isects"] for s_ in steps],
+        "events": runner.events, "launches": launches,
+        "launches_per_step": {k: v / COLMAP_STEPS
+                              for k, v in launches.items() if v},
+        "rgb_ed_check": check, "step_profile": dict(
+            step_prof, top=step_prof.get("top", [])[:8]),
+        "device_busy_share": step_prof.get("device_busy_share"),
+        "aux_modules": modules,
+        "scalar_rows": len(rows) - n_hist, "histogram_rows": n_hist,
+        "skip_rows": len(skips), "skip_row": skips[0],
+        "tensorboard_events": any("tfevents" in f_ for f_ in files),
+        "trajectory": {"path": os.path.relpath(traj, out),
+                       "frames": len(frames), "seconds": traj_s},
+        "checkpoint_aux_leaves": n_aux,
+        "random_init": {"points": 100_000, "losses": r_losses,
+                        "seconds": random_s},
+        "files": files, "main_seconds": main_s,
+        "seconds": time.perf_counter() - t0,
+    }
+    del runner
+    shutil.rmtree(work, ignore_errors=True)
+    return phase, launches, rgb_ed_errs
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1234,6 +1597,11 @@ class Stages:
         note_err(errs, rv.launch_keys("raster_fwd", rv._input_branches(cfg)),
                  err)
         res["fwd_max_abs_err"] = err
+        # each output channel's largest error over its largest |value|
+        # (depth and transmittance differ in scale from the colours)
+        res["fwd_rel_err"] = float(
+            ((ref - self.out).abs().amax(dim=(0, 1))
+             / ref.abs().amax(dim=(0, 1)).clamp(min=1e-30)).max())
         return res
 
     def cotangent(self, seed):
@@ -3610,6 +3978,16 @@ def main():
     recipe, recipe_launches = garden_recipe(dev, errs, perf)
     emit(recipe)
 
+    # 20. colmap_trainer: the static trainer from a COLMAP scene through
+    # simple_trainer's command line, with the per-image modules
+    colmap, colmap_launches, rgb_ed_errs = colmap_trainer(dev, stages_for)
+    emit(colmap)
+    chk = colmap["rgb_ed_check"]
+    rgb_ed_rel = dict(pack_rows=0.0, expand=0.0, unpack_rows=0.0,
+                      raster_fwd=chk["fwd_rel_err"],
+                      raster_bwd=chk["bwd_rel_err_absgrad_0"],
+                      segsum_rows=chk["segsum_rel_err"])
+
     # launches from each kernel's main path: the 3DGS training run, for the
     # 2DGS tile kernels the 2DGS training run, for the packed-pair branches
     # the ladder run, for the sorted table's precision branches one fwd+bwd
@@ -3639,7 +4017,11 @@ def main():
              ms=perf[name]["ms"], plain_ms=perf[name]["plain_ms"],
              bound_ms=perf[name]["bound_ms"],
              bound_by=perf[name]["bound_by"],
-             library_ms=perf[name]["library_ms"])
+             library_ms=perf[name]["library_ms"],
+             **({"rgb_ed_max_abs_err": rgb_ed_errs[name],
+                 "rgb_ed_rel_err": rgb_ed_rel[name],
+                 "colmap_trainer_launches": colmap_launches[name]}
+                if name in rgb_ed_errs else {}))
         for name in KERNELS
     ], "total_seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

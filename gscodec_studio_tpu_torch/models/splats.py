@@ -61,6 +61,7 @@ def create_splats(
     sh_degree: int = 3,
     init_opacity: float = 0.1,
     init_scale: float = 1.0,
+    feature_dim: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = None,
 ) -> Dict[str, torch.Tensor]:
@@ -68,12 +69,17 @@ def create_splats(
     the slots past N dead. Scales are the log of the k-NN distance times
     ``init_scale``, opacities the logit of ``init_opacity``, sh0 from the
     colours and shN zero; quaternions (every slot) and, when ``rgbs`` is
-    None, the colours are uniform draws from ``generator``."""
+    None, the colours are uniform draws from ``generator``. With
+    ``feature_dim`` (the appearance path) the colour groups are instead
+    ``features`` [cap, feature_dim], uniform draws, and ``colors`` [cap, 3],
+    the logit of the colours clipped to [1e-4, 1 - 1e-4] (zero past N)."""
     dev = resolve_device(device)
     N = points.shape[0]
     cap = N if cap is None else cap
     if cap < N:
         raise ValueError(f"capacity {cap} below {N} points")
+    rgb_in = None if rgbs is None or isinstance(rgbs, torch.Tensor) \
+        else np.asarray(rgbs)
     if rgbs is None:
         rgbs = torch.rand((N, 3), generator=generator, device=dev)
     rgbs = torch.as_tensor(rgbs, dtype=torch.float32, device=dev)
@@ -87,19 +93,29 @@ def create_splats(
         return out
 
     logit = math.log(init_opacity / (1 - init_opacity))
-    K = (sh_degree + 1) ** 2
-    sh0 = torch.zeros((cap, 1, 3), dtype=torch.float32, device=dev)
-    sh0[:N, 0] = rgb_to_sh(rgbs)
-    return {
+    splats = {
         "means": padded(points),
         "scales": padded(scales, fill=-10.0),
         "quats": torch.rand((cap, 4), generator=generator, device=dev),
         "opacities": padded(np.full(N, logit, np.float32),
                             fill=DEAD_OPACITY_LOGIT),
-        "sh0": sh0,
-        "shN": torch.zeros((cap, K - 1, 3), dtype=torch.float32,
-                           device=dev),
     }
+    if feature_dim is None:
+        K = (sh_degree + 1) ** 2
+        sh0 = torch.zeros((cap, 1, 3), dtype=torch.float32, device=dev)
+        sh0[:N, 0] = rgb_to_sh(rgbs)
+        splats["sh0"] = sh0
+        splats["shN"] = torch.zeros((cap, K - 1, 3), dtype=torch.float32,
+                                    device=dev)
+    else:
+        splats["features"] = torch.rand((cap, feature_dim),
+                                        generator=generator, device=dev)
+        # the logit in the colours' own precision, as the JAX package
+        # takes it (float64 for an SfM cloud's 0..255 / 255.0)
+        c = np.clip(rgb_in if rgb_in is not None
+                    else rgbs.cpu().numpy(), 1e-4, 1 - 1e-4)
+        splats["colors"] = padded(np.log(c / (1 - c)))
+    return splats
 
 
 def num_live(splats: Dict[str, torch.Tensor], eps: float = 0.005) -> int:
@@ -212,7 +228,13 @@ def from_jax_sim_params(tree: Dict, device: DeviceLike = None
     model}, "ada_mask": [cap]}, a model being factorized ({"matrices",
     "biases", "factors"}: lists) or a hash-grid one ({"grid3d", "planes":
     [3], "mlp": [{"w", "b"} x 2]}). Also takes the pytrees of its optax
-    Adam moments (mu, nu), which have the same structure."""
+    Adam moments (mu, nu), which have the same structure, and the JAX
+    Runner's other parameter trees: its aux_params ({"pose": [n, 9],
+    "app_embeds": [n, e], "app_mlp": [{"w", "b"} x 2], "bilagrid":
+    [n, D, H, W, 12]}, any of them absent) become the Runner's flat
+    aux_params (pose, app_embeds, app_mlp.<i>.w/b, bilagrid), and its
+    splats dict (with "features" and "colors" under app_opt) the
+    Runner's splats."""
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.array(a), dtype=torch.float32, device=dev)
             for k, a in flatten_tree(tree).items()}

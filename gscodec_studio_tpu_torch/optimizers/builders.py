@@ -33,6 +33,7 @@ class AdamGroup:
     eps: float
     decay_steps: Optional[int] = None  # lr * 0.01 ** (count / decay_steps)
     selective: bool = False  # SelectiveAdam: raw moments, rows masked
+    weight_decay: float = 0.0  # optax.adamw's: added to the update
 
     def lr_at(self, count: int) -> float:
         if self.decay_steps is None:
@@ -62,14 +63,21 @@ def build_splat_optimizers(
             lr = lr * scene_scale
             decay = max_steps
         groups[name] = AdamGroup(lr, b1, b2, eps, decay, visible_adam)
-        states[name] = {"count": 0, "exp_avg": torch.zeros_like(p),
-                        "exp_avg_sq": torch.zeros_like(p)}
+        states[name] = adam_state(p)
     return groups, states
+
+
+def adam_state(p: torch.Tensor) -> dict:
+    """A group's state before its first step: count 0, zero moments."""
+    return {"count": 0, "exp_avg": torch.zeros_like(p),
+            "exp_avg_sq": torch.zeros_like(p)}
 
 
 def adam_update(group: AdamGroup, state: dict, p: torch.Tensor,
                 g: torch.Tensor) -> Tuple[torch.Tensor, dict]:
-    """One Adam step of one group, in optax's order of operations."""
+    """One Adam step of one group, in optax's order of operations (with
+    ``weight_decay``, optax.adamw's: the decay times the parameter added to
+    the update before the rate scales it)."""
     count = state["count"]
     mu = (1 - group.b1) * g + group.b1 * state["exp_avg"]
     nu = (1 - group.b2) * (g * g) + group.b2 * state["exp_avg_sq"]
@@ -77,6 +85,8 @@ def adam_update(group: AdamGroup, state: dict, p: torch.Tensor,
     mu_hat = mu / (1 - group.b1 ** c)
     nu_hat = nu / (1 - group.b2 ** c)
     upd = mu_hat / (torch.sqrt(nu_hat) + group.eps)
+    if group.weight_decay:
+        upd = upd + group.weight_decay * p
     new_p = p + (-group.lr_at(count)) * upd
     return new_p, {"count": c, "exp_avg": mu, "exp_avg_sq": nu}
 

@@ -1,25 +1,34 @@
 """Static 3DGS trainer (port of gscodec_studio_tpu/training/trainer.py):
 ``Config`` with every field of the JAX package's, and a ``Runner`` that
 trains on one CUDA card with the default or the MCMC strategy, optionally
-under the compression simulation (the garden ladder's recipe).
+under the compression simulation (the garden ladder's recipe) and with the
+per-image modules: pose deltas, appearance, the bilateral grid and the
+SfM depth loss. Given no parser it loads ``cfg.data_dir``, a COLMAP scene
+(datasets/colmap.py); ``simple_trainer.py`` is its command line.
 
 A step: the compression simulation (fake quantization, entropy bits, the
-shN mask) -> activations -> ``rendering.rasterization`` (projection, SH,
-binning and the rasterizer's forward and backward kernels: the fused
-backend, its gradient rows in f32 or packed bf16 pairs, or by
-``cfg.rasterizer`` the legacy v1 kernels or the dense oracle) -> L1 +
-SSIM loss (these two in ``Runner.render_loss``, which the 2DGS runner
-overrides), the regularisers and rd_lambda * bits -> autograd -> the
-densification statistics from the means2d probe's gradient -> per-group
-Adam (SelectiveAdam over the rows the batch's cameras saw, with
-``visible_adam``), the sim parameters' Adam, and with MCMC the position
-noise. A finite-step gate skips a step whose loss or any gradient is not
-finite and counts it. Between steps the loop runs the strategy's refine
-(and the default strategy's opacity reset), the SH-degree schedule, the
-adaptive intersection capacity and, at ``save_steps``, the checkpoint.
-After training, ``save_checkpoint``/``load_checkpoint`` (npz files both
-packages read), ``save_ply`` and ``run_compression("png")`` store and
-compress the scene.
+shN mask) -> the pose deltas on the batch's c2w -> activations (with
+appearance, per-camera colours from its MLP) -> ``rendering.rasterization``
+(projection, SH, binning and the rasterizer's forward and backward
+kernels: the fused backend, its gradient rows in f32 or packed bf16 pairs,
+or by ``cfg.rasterizer`` the legacy v1 kernels or the dense oracle; with
+the depth loss RGB+ED) -> the bilateral grid -> L1 + SSIM loss, the
+disparity L1 at the SfM tracks, the grid's TV, the regularisers and
+rd_lambda * bits (all in ``Runner.render_loss``, which the 2DGS runner
+overrides, but the bits) -> autograd -> the densification statistics from
+the means2d probe's gradient -> per-group Adam (SelectiveAdam over the
+rows the batch's cameras saw, with ``visible_adam``), the sim parameters'
+Adam, the per-image modules' AdamW/Adam, and with MCMC the position noise.
+A finite-step gate skips a step whose loss or any gradient is not finite,
+counts it, writes which leaves were not finite to ``skips.jsonl`` and
+replays it once (``skip_probe``). Between steps the loop runs the
+strategy's refine (and the default strategy's opacity reset), the
+SH-degree schedule, the adaptive intersection capacity, the scalars and
+histograms (``utils/logger.py``, result_dir/tb), and at ``eval_steps`` and
+``save_steps`` the evaluation and the checkpoint. After training,
+``save_checkpoint``/``load_checkpoint`` (npz files both packages read),
+``save_ply``, ``render_traj`` and ``run_compression("png")`` store, show
+and compress the scene.
 
 The port loops in Python, one step per iteration; the JAX package's
 ``lax.scan`` chunks (``steps_per_dispatch``) were a TPU dispatch device.
@@ -30,6 +39,7 @@ ROADMAP item.
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 from dataclasses import dataclass, replace
@@ -40,6 +50,7 @@ import torch
 
 from gscodec_studio_tpu_torch.compression import (PngCompression,
                                                  compressed_size)
+from gscodec_studio_tpu_torch.compression.png_io import write_png
 from gscodec_studio_tpu_torch.compression_sim import CompressionSimulation
 from gscodec_studio_tpu_torch.device import DeviceLike, resolve_device
 from gscodec_studio_tpu_torch.models.splats import (DEAD_OPACITY_LOGIT,
@@ -48,10 +59,20 @@ from gscodec_studio_tpu_torch.models.splats import (DEAD_OPACITY_LOGIT,
                                                     splat_activations)
 from gscodec_studio_tpu_torch.optimizers import (apply_updates,
                                                  build_splat_optimizers)
+from gscodec_studio_tpu_torch.optimizers.builders import AdamGroup, adam_state
 from gscodec_studio_tpu_torch.rendering import rasterization
 from gscodec_studio_tpu_torch.strategy import DefaultStrategy, MCMCStrategy
 from gscodec_studio_tpu_torch.training.losses import (combined_loss, psnr,
                                                       ssim)
+from gscodec_studio_tpu_torch.utils.bilagrid import (bilagrid_init,
+                                                     bilagrid_slice,
+                                                     bilagrid_tv_loss,
+                                                     jnp_clip)
+from gscodec_studio_tpu_torch.utils.camera_opt import (AppearanceOptModule,
+                                                       appearance_opt_apply,
+                                                       camera_opt_apply,
+                                                       camera_opt_init)
+from gscodec_studio_tpu_torch.utils.logger import TrainLogger
 from gscodec_studio_tpu_torch.utils.ply import save_ply
 
 
@@ -59,8 +80,7 @@ from gscodec_studio_tpu_torch.utils.ply import save_ply
 class Config:
     """The JAX package's Config, field for field and default for default.
     Fields of options that are not ported yet are accepted at their
-    defaults; ``Runner`` raises for any other value, except tb_every and
-    skip_probe, which it names once as ignored."""
+    defaults; ``Runner`` raises for any other value."""
 
     data_dir: str = "data/garden"
     data_factor: int = 4
@@ -97,7 +117,7 @@ class Config:
     refine_stop_iter: Optional[int] = None
     refine_every: Optional[int] = None
 
-    # Camera pose, appearance, bilateral grid, depth loss (not ported yet)
+    # Camera pose, appearance, bilateral grid, SfM depth loss
     pose_opt: bool = False
     pose_opt_lr: float = 1e-5
     pose_opt_reg: float = 1e-6
@@ -112,7 +132,7 @@ class Config:
     depth_lambda: float = 1e-2
     depth_points_cap: int = 512
 
-    # Observability (TensorBoard logging is not ported)
+    # Observability: scalars and histograms (result_dir/tb), render dumps
     tb_every: int = 100
     tb_histograms_every: int = 0
     eval_save_images: bool = False
@@ -151,17 +171,9 @@ class Config:
 def check_ported(cfg: Config, rasterizers=("fused",)) -> None:
     """Raise NotImplementedError for an option of a later slice."""
     later = [
-        (cfg.init_type != "sfm", f"init_type={cfg.init_type!r}", "A9"),
-        (cfg.pose_opt, "pose_opt", "A8"),
-        (cfg.app_opt, "app_opt", "A8"),
-        (cfg.use_bilateral_grid, "use_bilateral_grid", "A8"),
-        (cfg.depth_loss, "depth_loss", "A8"),
         (cfg.mesh_devices > 1, f"mesh_devices={cfg.mesh_devices}", "A12"),
         (cfg.rasterizer not in rasterizers, f"rasterizer={cfg.rasterizer!r}",
          "A13"),
-        (cfg.eval_save_images, "eval_save_images", "A8"),
-        (cfg.tb_histograms_every != 0,
-         f"tb_histograms_every={cfg.tb_histograms_every}", "A8"),
     ]
     for bad, what, item in later:
         if bad:
@@ -173,13 +185,6 @@ def check_ported(cfg: Config, rasterizers=("fused",)) -> None:
         raise ValueError(f"unknown grad_dtype {cfg.grad_dtype!r}")
     if cfg.attr_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown attr_dtype {cfg.attr_dtype!r}")
-    unhonoured = [what for on, what in (
-        (cfg.tb_every != 0, f"tb_every={cfg.tb_every} (TensorBoard scalars)"),
-        (cfg.skip_probe, "skip_probe=True (skipped-step fingerprints)"),
-    ) if on]
-    if unhonoured:
-        print("Runner: not ported yet, ignored (ROADMAP A8): "
-              + ", ".join(unhonoured), flush=True)
 
 
 def _tensor(x, dev) -> torch.Tensor:
@@ -188,10 +193,63 @@ def _tensor(x, dev) -> torch.Tensor:
                            dtype=torch.float32, device=dev)
 
 
+def _sample_bilinear(img: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples [B, M] of ``img`` [B, H, W, 1] at pixel coordinates
+    ``pts`` [B, M, 2] (x, y): grid_sample(align_corners=True) after
+    x / (W - 1) * 2 - 1, the corners clipped into the image."""
+    B, H, W, _ = img.shape
+    im = img[..., 0]
+    x = jnp_clip(pts[..., 0], 0.0, W - 1.0)
+    y = jnp_clip(pts[..., 1], 0.0, H - 1.0)
+    x0 = torch.clamp(torch.floor(x).long(), 0, W - 2)
+    y0 = torch.clamp(torch.floor(y).long(), 0, H - 2)
+    fx = x - x0
+    fy = y - y0
+    flat = im.reshape(B, H * W)  # gathers whose backward scatters
+    at = y0 * W + x0
+    v00 = flat.gather(1, at)
+    v01 = flat.gather(1, at + 1)
+    v10 = flat.gather(1, at + W)
+    v11 = flat.gather(1, at + W + 1)
+    return (v00 * (1 - fy) * (1 - fx) + v01 * (1 - fy) * fx
+            + v10 * fy * (1 - fx) + v11 * fy * fx)
+
+
+def _depth_l1(depth_map: torch.Tensor, points: torch.Tensor,
+              depths: torch.Tensor) -> torch.Tensor:
+    """The disparity L1 between the rendered depth ``depth_map``
+    [B, H, W, 1], sampled at the tracks' pixels ``points`` [B, M, 2], and
+    the tracks' ``depths`` [B, M], over the tracks with a depth (> 0). The
+    double where keeps the masked branch's gradient finite where the
+    rendered depth is 0."""
+    d_at = _sample_bilinear(depth_map, points)
+    valid = depths > 0.0
+    pos = d_at > 0.0
+    disp = torch.where(pos, 1.0 / torch.where(pos, d_at, 1.0), 0.0)
+    disp_gt = torch.where(valid, 1.0 / torch.clamp(depths, min=1e-8), 0.0)
+    return (torch.abs(disp - disp_gt) * valid).sum() / torch.clamp(
+        valid.sum(), min=1.0)
+
+
+def keystr(tree_index: int, name: str) -> str:
+    """jax.tree_util.keystr of a leaf of the JAX Runner's (splats,
+    sim_params, aux_params) tuple, from its tree's index and its flat
+    dotted name: (0, "means") -> "[0]['means']", (2, "app_mlp.0.w") ->
+    "[2]['app_mlp'][0]['w']"."""
+    return f"[{tree_index}]" + "".join(
+        f"[{p}]" if p.isdigit() else f"['{p}']" for p in name.split("."))
+
+
+PROBE_VERDICTS = ("REPRODUCED (deterministic bug candidate)",
+                  "clean on replay (transient signature)")
+
+
 class Runner:
     """Trains a 3DGS scene. ``parser`` gives ``points`` [N, 3],
     ``points_rgb`` [N, 3] in 0..255 and ``scene_scale``; the datasets give
-    dicts with "camtoworld", "K" and "image" [H, W, 3] in [0, 1]."""
+    dicts with "camtoworld", "K" and "image" [H, W, 3] in [0, 1] (and with
+    the depth loss "points" [M, 2] and "depths" [M]). Given no parser it
+    loads ``cfg.data_dir`` with datasets.colmap."""
 
     # the cfg.rasterizer values this runner takes
     rasterizers = ("fused", "pallas", "reference")
@@ -200,18 +258,31 @@ class Runner:
     def __init__(self, cfg: Config, parser=None, trainset=None, valset=None,
                  device: DeviceLike = None):
         check_ported(cfg, self.rasterizers)
-        if parser is None:
-            raise NotImplementedError(
-                "the COLMAP dataset loader is not ported yet: ROADMAP A9; "
-                "pass parser, trainset and valset")
         self.cfg = cfg
         self.device = dev = resolve_device(device)
+        if parser is None:
+            from gscodec_studio_tpu_torch.datasets.colmap import (Dataset,
+                                                                  Parser)
+
+            parser = Parser(cfg.data_dir, factor=cfg.data_factor,
+                            test_every=cfg.test_every,
+                            load_points2d=cfg.depth_loss)
+            trainset = Dataset(parser, split="train",
+                               load_depths=cfg.depth_loss)
+            valset = Dataset(parser, split="val")
         self.parser, self.trainset, self.valset = parser, trainset, valset
         self.scene_scale = float(getattr(parser, "scene_scale", 1.0))
         self.generator = torch.Generator(device=dev).manual_seed(cfg.seed)
 
         points = np.asarray(parser.points, np.float32)
-        rgbs = np.asarray(parser.points_rgb, np.float32) / 255.0
+        rgbs = np.asarray(parser.points_rgb) / 255.0
+        if cfg.init_type == "random":
+            # the JAX Runner's draws, so that both packages start from the
+            # same points
+            rng = np.random.default_rng(cfg.seed)
+            points = ((rng.random((cfg.init_num_pts, 3)) * 2 - 1) * 3.0
+                      * self.scene_scale).astype(np.float32)
+            rgbs = rng.random((cfg.init_num_pts, 3)).astype(np.float32)
         n_init = points.shape[0]
         if cfg.strategy == "mcmc":
             cap = cfg.mcmc_cap_max
@@ -227,6 +298,7 @@ class Runner:
         self.splats = create_splats(
             points, rgbs, cap=cap, sh_degree=cfg.sh_degree,
             init_opacity=cfg.init_opa, init_scale=cfg.init_scale,
+            feature_dim=cfg.app_feature_dim if cfg.app_opt else None,
             generator=self.generator, device=dev)
         self.groups, self.opt_states = build_splat_optimizers(
             self.splats, scene_scale=self.scene_scale,
@@ -252,6 +324,7 @@ class Runner:
             self.sim_groups, self.sim_states = \
                 self.compression_sim.build_optimizer(self.sim_params)
         n_train = len(trainset) if trainset is not None else 0
+        self._init_aux(n_train)
         # host-side ordering, the JAX Runner's own draw (not a device draw)
         self.view_order = np.random.default_rng(cfg.seed).permutation(
             n_train).tolist()
@@ -260,7 +333,59 @@ class Runner:
         self.events: List[dict] = []  # refines, resets, capacity changes
         self._data = None
         os.makedirs(cfg.result_dir, exist_ok=True)
+        self.logger = TrainLogger(os.path.join(cfg.result_dir, "tb"))
         self._name_ignored()
+
+    def _init_aux(self, n_train: int) -> None:
+        """The per-image modules' parameters (``aux_params``, flat names:
+        pose, app_embeds, app_mlp.<i>.w/b, bilagrid) and their optimizers:
+        optax.adamw(lr * sqrt(B), weight_decay, eps=1e-15) for the pose and
+        the appearance (its embeddings at 10x the MLP's rate) and
+        optax.adam(2e-3, eps=1e-15) for the grids, as the JAX Runner
+        builds them. The appearance MLP's head starts at zero, so that
+        appearance starts as the identity."""
+        cfg, dev = self.cfg, self.device
+        bs_scale = math.sqrt(cfg.batch_size)
+        aux: Dict[str, torch.Tensor] = {}
+        groups: Dict[str, AdamGroup] = {}
+
+        def adamw(lr, wd):
+            return AdamGroup(lr, 0.9, 0.999, 1e-15, weight_decay=wd)
+
+        if cfg.pose_opt:
+            aux["pose"] = camera_opt_init(n_train, device=dev)
+            groups["pose"] = adamw(cfg.pose_opt_lr * bs_scale,
+                                   cfg.pose_opt_reg)
+        if cfg.app_opt:
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed + 2)
+            app = AppearanceOptModule(
+                n_train, feature_dim=cfg.app_feature_dim,
+                embed_dim=cfg.app_embed_dim, sh_degree=cfg.sh_degree,
+                generator=gen, device=dev)
+            layers = app.layers()
+            aux["app_embeds"] = app.embeds.detach()
+            groups["app_embeds"] = adamw(cfg.app_opt_lr * bs_scale * 10.0,
+                                         cfg.app_opt_reg)
+            for i, layer in enumerate(layers):
+                for k, v in layer.items():
+                    head = i == len(layers) - 1
+                    name = f"app_mlp.{i}.{k}"
+                    aux[name] = torch.zeros_like(v) if head else v.detach()
+                    groups[name] = adamw(cfg.app_opt_lr * bs_scale,
+                                         cfg.app_opt_reg)
+        if cfg.use_bilateral_grid:
+            D, Hg, Wg = cfg.bilagrid_shape
+            aux["bilagrid"] = bilagrid_init(n_train, D, Hg, Wg, device=dev)
+            groups["bilagrid"] = AdamGroup(2e-3, 0.9, 0.999, 1e-15)
+        self.aux_params = aux
+        self.aux_groups = groups
+        self.aux_states = {k: adam_state(v) for k, v in aux.items()}
+
+    def app_mlp(self, aux: Dict[str, torch.Tensor]) -> List[dict]:
+        """The appearance MLP's layers, [{"w", "b"}], of flat ``aux``."""
+        n = len([k for k in aux if k.startswith("app_mlp.")]) // 2
+        return [{"w": aux[f"app_mlp.{i}.w"], "b": aux[f"app_mlp.{i}.b"]}
+                for i in range(n)]
 
     def _name_ignored(self) -> None:
         """Names once the fused backend's options that cfg sets off their
@@ -280,11 +405,26 @@ class Runner:
     # -- one step ----------------------------------------------------------
 
     def _device_trainset(self) -> Dict[str, torch.Tensor]:
+        """The train set on the device, once: camtoworld, K and image, and
+        with the depth loss each view's tracks padded to depth_points_cap
+        (points [n, cap, 2]; depths [n, cap], zero past a view's tracks,
+        which the loss masks out)."""
         if self._data is None:
             items = [self.trainset[i] for i in range(len(self.trainset))]
             self._data = {k: torch.stack([_tensor(d[k], self.device)
                                           for d in items])
                           for k in ("camtoworld", "K", "image")}
+            if self.cfg.depth_loss:
+                capd = self.cfg.depth_points_cap
+                pts = np.zeros((len(items), capd, 2), np.float32)
+                dps = np.zeros((len(items), capd), np.float32)
+                for i, d in enumerate(items):
+                    m = min(len(d.get("depths", ())), capd)
+                    if m:
+                        pts[i, :m] = d["points"][:m]
+                        dps[i, :m] = d["depths"][:m]
+                self._data["points"] = _tensor(pts, self.device)
+                self._data["depths"] = _tensor(dps, self.device)
         return self._data
 
     def isect_capacity(self) -> int:
@@ -293,17 +433,35 @@ class Runner:
         return base * self.isect_cap_scale
 
     def render_loss(self, params: Dict[str, torch.Tensor], c2w, Ks, target,
-                    sh_degree: int, step: int):
+                    sh_degree: int, step: int,
+                    aux: Optional[Dict[str, torch.Tensor]] = None,
+                    view: Optional[Dict[str, torch.Tensor]] = None):
         """The step's forward: render the views and score them against
-        ``target`` [B, H, W, 3]. Returns (loss, meta, probe): ``probe`` is
-        the tensor whose gradient the strategy reads (dL/d means2d, or with
-        absgrad the per-Gaussian sums of |per-pixel dL/d means2d|)."""
+        ``target`` [B, H, W, 3]. ``aux`` are the per-image modules'
+        parameters, ``view`` holds the views' train-set positions ("idx")
+        and, with the depth loss, their tracks ("points", "depths").
+        Returns (loss, meta, probe): ``probe`` is the tensor whose gradient
+        the strategy reads (dL/d means2d, or with absgrad the per-Gaussian
+        sums of |per-pixel dL/d means2d|)."""
         del step  # the 3DGS loss has no schedule
         cfg = self.cfg
         dev = self.device
+        aux = aux or {}
+        idx = None if view is None else view["idx"]
         B, H, W = target.shape[:3]
+        if cfg.pose_opt:
+            c2w = camera_opt_apply(aux["pose"], c2w, idx)
         means, quats, scales, opac = splat_activations(params)
-        colors = torch.cat([params["sh0"], params["shN"]], 1)
+        if cfg.app_opt:
+            dirs = means[None, :, :] - c2w[:, None, :3, 3]
+            colors = torch.sigmoid(appearance_opt_apply(
+                aux["app_embeds"], self.app_mlp(aux), params["features"],
+                idx, dirs, sh_degree, sh_degree_max=cfg.sh_degree)
+                + params["colors"][None])  # [B, N, 3]
+            sh_for_raster = None
+        else:
+            colors = torch.cat([params["sh0"], params["shN"]], 1)
+            sh_for_raster = sh_degree
         bkgd = (torch.rand((B, 3), generator=self.generator, device=dev)
                 if cfg.random_bkgd else None)
         cap = means.shape[0]
@@ -313,16 +471,30 @@ class Runner:
         ag_probe = (torch.zeros((B, cap, 2), device=dev, requires_grad=True)
                     if getattr(self.strategy, "absgrad", False)
                     and cfg.rasterizer == "fused" else None)
+        # inv_ex: a non-finite pose gives a non-finite view for the finite
+        # gate to skip, where linalg.inv raises on the card (as jnp's
+        # inverse does not)
         img, _, meta = rasterization(
-            means, quats, scales, opac, colors, torch.linalg.inv(c2w), Ks,
-            W, H, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
-            sh_degree=sh_degree, tile_size=cfg.tile_size, backgrounds=bkgd,
+            means, quats, scales, opac, colors, torch.linalg.inv_ex(c2w)[0],
+            Ks, W, H, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
+            sh_degree=sh_for_raster, tile_size=cfg.tile_size,
+            backgrounds=bkgd,
+            render_mode="RGB+ED" if cfg.depth_loss else "RGB",
             rasterize_mode="antialiased" if cfg.antialiased else "classic",
             isect_capacity=self.isect_capacity(), rasterizer=cfg.rasterizer,
             cutoff_mode=cfg.cutoff_mode, grad_dtype=cfg.grad_dtype,
             log_composite=cfg.log_composite, attr_dtype=cfg.attr_dtype,
             means2d_probe=probe, absgrad_probe=ag_probe, device=dev)
+        if cfg.depth_loss:
+            img, depth_map = img[..., :3], img[..., 3:4]
+        if cfg.use_bilateral_grid:
+            img = bilagrid_slice(aux["bilagrid"], idx, img)
         loss = combined_loss(img, target, cfg.ssim_lambda)
+        if cfg.depth_loss:
+            l1 = _depth_l1(depth_map, view["points"], view["depths"])
+            loss = loss + cfg.depth_lambda * l1 * self.scene_scale
+        if cfg.use_bilateral_grid:
+            loss = loss + 10.0 * bilagrid_tv_loss(aux["bilagrid"])
         if cfg.opacity_reg > 0:
             loss = loss + cfg.opacity_reg * opac.abs().mean()
         if cfg.scale_reg > 0:
@@ -339,51 +511,78 @@ class Runner:
         return torch.randn(shape, generator=self.generator,
                            device=self.device)
 
-    def train_step(self, idx: List[int], sh_degree: int,
-                   step: int = 0) -> dict:
-        """Step ``step`` (0-based) on the training views ``idx``. Returns
-        the loss, the intersection count and whether the finite gate
-        skipped the step; a skipped step leaves every parameter, moment and
-        statistic as it was."""
+    def leaf_names(self) -> List[str]:
+        """The finite gate's leaves as the JAX Runner names them: "loss",
+        then jax.tree_util.keystr of each leaf of (splats, sim_params,
+        aux_params) in its flatten order."""
+        return ["loss"] + [keystr(t, k) for t, tree in enumerate(
+            (self.splats, self.sim_params, self.aux_params))
+            for k in jax_leaf_order(tree)]
+
+    def _forward_backward(self, idx: List[int], sh_degree: int, step: int):
+        """Loss and gradients of the step on the training views ``idx``:
+        (loss, meta, {tree: {name: gradient}}, probe gradient, [the
+        gradient leaves' finite flags in leaf_names' order after the
+        loss], the simulation's (bits, aux) or ())."""
         cfg = self.cfg
         dev = self.device
         data = self._device_trainset()
         sel = torch.as_tensor(idx, device=dev)
         c2w, Ks, target = (data[k][sel] for k in ("camtoworld", "K", "image"))
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in self.splats.items()}
-        sim_params = {k: v.detach().requires_grad_(True)
-                      for k, v in self.sim_params.items()}
+        view = {"idx": sel}
+        if cfg.depth_loss:
+            view.update(points=data["points"][sel], depths=data["depths"][sel])
+        trees = [{k: v.detach().requires_grad_(True) for k, v in t.items()}
+                 for t in (self.splats, self.sim_params, self.aux_params)]
+        params, sim_params, aux = trees
         sim = self.compression_sim
         rparams = params
         if sim is not None:
-            rparams, bits, aux = sim.simulate(params, sim_params, step,
-                                              self.generator)
+            rparams, bits, sim_aux = sim.simulate(params, sim_params, step,
+                                                  self.generator)
         loss, meta, probe = self.render_loss(rparams, c2w, Ks, target,
-                                             sh_degree, step)
+                                             sh_degree, step, aux=aux,
+                                             view=view)
         if sim is not None:
-            loss = loss + (cfg.rd_lambda * bits + aux)
-        names, snames = list(params), list(sim_params)
-        leaves = ([params[k] for k in names] + [sim_params[k] for k in snames]
-                  + [probe])
+            loss = loss + (cfg.rd_lambda * bits + sim_aux)
+        names = [(t, k) for t, tree in enumerate(trees)
+                 for k in jax_leaf_order(tree)]
+        leaves = [trees[t][k] for t, k in names] + [probe]
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
             leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
-        param_grads = dict(zip(names, grads[:len(names)]))
-        sim_grads = dict(zip(snames, grads[len(names):-1]))
-        ok = torch.isfinite(loss)
-        for g in grads[:-1]:
-            ok = ok & torch.isfinite(g).all()
-        # the step's one host sync: loss, gate, intersection count and the
-        # simulation's bits and auxiliary loss
-        extra = [] if sim is None else [bits, aux]
+        out = [{}, {}, {}]
+        for (t, k), g in zip(names, grads):
+            out[t][k] = g
+        leaf_ok = [torch.isfinite(g).all() for g in grads[:-1]]
+        return (loss, meta, out, grads[-1], leaf_ok,
+                () if sim is None else (bits, sim_aux))
+
+    def train_step(self, idx: List[int], sh_degree: int,
+                   step: int = 0) -> dict:
+        """Step ``step`` (0-based) on the training views ``idx`` (train-set
+        positions). Returns the loss, the intersection count and whether
+        the finite gate skipped the step; a skipped step leaves every
+        parameter, moment and statistic as it was, and with ``skip_probe``
+        is replayed once from the generator's state before it
+        (``out["probe"]``)."""
+        cfg = self.cfg
+        sim = self.compression_sim
+        pre = self.generator.get_state() if cfg.skip_probe else None
+        loss, meta, grads, probe_grad, leaf_ok, extra = \
+            self._forward_backward(idx, sh_degree, step)
+        # the step's one host sync: loss, intersection count, the
+        # simulation's bits and auxiliary loss and the leaves' flags
         stats = torch.cat([x.detach().double().reshape(1) for x in (
-            loss, ok, meta["n_isects"], *extra)]).tolist()
-        skipped = not stats[1]
+            loss, meta["n_isects"], *extra, *leaf_ok)]).tolist()
+        flags = stats[2 + len(extra):]
+        finite = [math.isfinite(stats[0])] + [bool(f) for f in flags]
+        skipped = not all(finite)
+        param_grads, sim_grads, aux_grads = grads
         if skipped:
             self.skipped_steps += 1
         else:
             self.strategy_state = self.strategy.update_state(
-                self.strategy_state, meta, grads[-1])
+                self.strategy_state, meta, probe_grad)
             visibility = self._visibility(meta) if cfg.visible_adam \
                 else None
             self.splats, self.opt_states = apply_updates(
@@ -393,17 +592,67 @@ class Runner:
                 self.sim_params, self.sim_states = apply_updates(
                     self.sim_groups, self.sim_states, self.sim_params,
                     sim_grads)
+            if self.aux_params:
+                self.aux_params, self.aux_states = apply_updates(
+                    self.aux_groups, self.aux_states, self.aux_params,
+                    aux_grads)
             if isinstance(self.strategy, MCMCStrategy) and \
                     self.injects_noise:
                 self.splats = self.strategy.inject_noise(
                     self.splats,
                     self._position_noise(self.splats["means"].shape),
                     self.groups["means"].lr_at(step))
-        out = {"loss": stats[0], "n_isects": int(stats[2]),
+        out = {"loss": stats[0], "n_isects": int(stats[1]),
                "skipped": skipped}
         if sim is not None:
-            out["bits"], out["sim_aux"] = stats[3], stats[4]
+            out["bits"], out["sim_aux"] = stats[2], stats[3]
+        if skipped:
+            out["bad_leaves"] = [n for n, ok in zip(self.leaf_names(), finite)
+                                 if not ok]
+            if cfg.skip_probe:
+                out["probe"] = self._probe(idx, sh_degree, step, pre)
         return out
+
+    def _probe(self, idx, sh_degree: int, step: int, pre) -> str:
+        """The one-retry probe of a skipped step: the same views, step and
+        generator state (``pre``, taken before the step) on the state the
+        step left, which a skipped step leaves as it was before it. Unlike
+        the JAX Runner, which replays on the state after its chunk, this
+        replays the pre-step state. The generator goes on from where the
+        step left it."""
+        post = self.generator.get_state()
+        self.generator.set_state(pre)
+        try:
+            loss, _, _, _, leaf_ok, _ = self._forward_backward(
+                idx, sh_degree, step)
+            clean = bool(torch.isfinite(loss)) and all(
+                bool(f) for f in leaf_ok)
+            return PROBE_VERDICTS[1] if clean else PROBE_VERDICTS[0]
+        except Exception as e:  # the probe is a diagnostic, never fatal
+            return f"probe failed: {e!r}"
+        finally:
+            self.generator.set_state(post)
+
+    def _fingerprint_skip(self, step0: int, out: dict) -> None:
+        """A skipped step's record in result_dir/skips.jsonl, with the JAX
+        Runner's fields: its 0-based global_step, in_chunk (0: the port
+        runs one step at a time), the loss (a string where not finite) and
+        the leaves that were not finite; with skip_probe the probe's
+        verdict and which state it replayed."""
+        lv = out["loss"]
+        row = {"global_step": int(step0), "in_chunk": 0,
+               "loss": lv if math.isfinite(lv) else repr(lv),
+               "bad_leaves": out["bad_leaves"]}
+        if "probe" in out:
+            row["probe"] = out["probe"]
+            row["probe_replayed"] = "the pre-step state"
+        print(f"  skip fingerprint: {json.dumps(row)}", flush=True)
+        try:
+            with open(os.path.join(self.cfg.result_dir, "skips.jsonl"),
+                      "a") as f:
+                f.write(json.dumps(row) + "\n")
+        except OSError:
+            pass
 
     # -- loop ----------------------------------------------------------------
 
@@ -426,6 +675,7 @@ class Runner:
                 print(f"step {step}: step REJECTED (non-finite loss or "
                       f"gradients), state carried unchanged "
                       f"({self.skipped_steps} total)", flush=True)
+                self._fingerprint_skip(step0, out)
             losses.append(out["loss"])
             if (strat.refine_start_iter < step < strat.refine_stop_iter
                     and step % strat.refine_every == 0):
@@ -447,7 +697,23 @@ class Runner:
                 print(f"step {step}: loss {out['loss']:.4f} isects "
                       f"{out['n_isects']} ({time.time() - t0:.1f}s)",
                       flush=True)
+            self._log(step, out)
         return losses
+
+    def _log(self, step: int, out: dict) -> None:
+        """The train/* scalars at tb_every and the parameters' histograms
+        at tb_histograms_every (after ``step`` steps)."""
+        cfg = self.cfg
+        if cfg.tb_every and step % cfg.tb_every == 0:
+            self.logger.scalars(
+                {"train/loss": out["loss"], "train/n_isects": out["n_isects"],
+                 "train/num_GS": num_live(self.splats),
+                 "train/skipped_steps": self.skipped_steps}, step)
+        if cfg.tb_histograms_every and step % cfg.tb_histograms_every == 0:
+            for name in ("means", "scales", "opacities"):
+                self.logger.histogram(
+                    f"params/{name}", self.splats[name].detach().cpu()
+                    .numpy(), step)
 
     def _refine(self, step: int) -> None:
         new = self.strategy.refine(self.splats, self.opt_states,
@@ -461,6 +727,9 @@ class Runner:
             if "allocated" in self.strategy_state:
                 event["allocated"] = int(self.strategy_state["allocated"].sum())
             self.events.append(event)
+            self.logger.scalars({"refine/allocated": event.get(
+                "allocated", event["live"]), "refine/live": event["live"]},
+                step)
         else:
             print(f"step {step}: refine REJECTED (non-finite parameters)",
                   flush=True)
@@ -489,24 +758,39 @@ class Runner:
 
     def render_view(self, camtoworld, K, width: int, height: int,
                     sh_degree: Optional[int] = None) -> torch.Tensor:
-        """[H, W, 3] render of the current splats, clipped to [0, 1]."""
-        sh = self.cfg.sh_degree if sh_degree is None else sh_degree
+        """[H, W, 3] render of the current splats, clipped to [0, 1]; with
+        appearance, through its MLP with the zero (average) embedding."""
+        cfg = self.cfg
+        sh = cfg.sh_degree if sh_degree is None else sh_degree
         dev = self.device
         with torch.no_grad():
             means, quats, scales, opac = splat_activations(self.splats)
-            colors = torch.cat([self.splats["sh0"], self.splats["shN"]], 1)
-            viewmat = torch.linalg.inv(_tensor(camtoworld, dev))
+            c2w = _tensor(camtoworld, dev)
+            if cfg.app_opt:
+                dirs = means[None, :, :] - c2w[None, None, :3, 3]
+                colors = torch.sigmoid(appearance_opt_apply(
+                    torch.zeros((1, cfg.app_embed_dim), device=dev),
+                    self.app_mlp(self.aux_params), self.splats["features"],
+                    torch.zeros(1, dtype=torch.long, device=dev), dirs, sh,
+                    sh_degree_max=cfg.sh_degree)
+                    + self.splats["colors"][None])
+                sh = None
+            else:
+                colors = torch.cat([self.splats["sh0"], self.splats["shN"]],
+                                   1)
             img, _, _ = rasterization(
-                means, quats, scales, opac, colors, viewmat[None],
-                _tensor(K, dev)[None], width, height, sh_degree=sh,
-                isect_capacity=self.isect_capacity(),
-                rasterizer=self.cfg.rasterizer,
-                tile_size=self.cfg.tile_size, device=dev)
+                means, quats, scales, opac, colors,
+                torch.linalg.inv(c2w)[None], _tensor(K, dev)[None], width,
+                height, sh_degree=sh, isect_capacity=self.isect_capacity(),
+                rasterizer=cfg.rasterizer, tile_size=cfg.tile_size,
+                device=dev)
         return torch.clamp(img[0], 0.0, 1.0)
 
     def eval(self, stage: str = "val") -> Dict[str, float]:
         """Mean PSNR and SSIM over the validation views; also written to
-        result_dir/stats/<stage>.json."""
+        result_dir/stats/<stage>.json. With eval_save_images each view's
+        render beside its target goes to result_dir/renders/
+        <stage>_<i>.png."""
         metrics = {"psnr": [], "ssim": []}
         for i in range(len(self.valset)):
             data = self.valset[i]
@@ -516,11 +800,57 @@ class Runner:
             with torch.no_grad():
                 metrics["psnr"].append(float(psnr(img, tgt)))
                 metrics["ssim"].append(float(ssim(img[None], tgt[None])))
+            if self.cfg.eval_save_images:
+                rdir = os.path.join(self.cfg.result_dir, "renders")
+                os.makedirs(rdir, exist_ok=True)
+                pair = np.concatenate([img.cpu().numpy(),
+                                       np.asarray(data["image"])], axis=1)
+                write_png(os.path.join(rdir, f"{stage}_{i:04d}.png"),
+                          (np.clip(pair, 0, 1) * 255).astype(np.uint8))
         out = {k: float(np.mean(v)) for k, v in metrics.items()}
         stats_dir = os.path.join(self.cfg.result_dir, "stats")
         os.makedirs(stats_dir, exist_ok=True)
         with open(os.path.join(stats_dir, f"{stage}.json"), "w") as f:
             json.dump(out, f)
+        return out
+
+    def render_traj(self, step: int = 0, traj: str = "interp",
+                    n_frames: int = 120) -> str:
+        """Renders a camera path made from the parser's poses ("interp"
+        through them, "ellipse" or "spiral" around them) at the first
+        validation view's intrinsics and size (the first training view's
+        where there is none), into result_dir/videos: traj_<traj>_<step>.mp4
+        at 30 fps where imageio writes mp4, else the folder
+        traj_<traj>_<step> of PNG frames. Returns the path."""
+        from gscodec_studio_tpu_torch.datasets.traj import (
+            generate_ellipse_path, generate_interpolated_path,
+            generate_spiral_path)
+
+        c2ws = np.asarray(self.parser.camtoworlds)
+        if traj == "interp":
+            n_interp = max(n_frames // max(len(c2ws) - 1, 1), 1)
+            path = generate_interpolated_path(c2ws, n_interp)
+        elif traj == "ellipse":
+            path = generate_ellipse_path(c2ws, n_frames)
+        else:
+            path = generate_spiral_path(c2ws, n_frames)
+        d0 = self.valset[0] if len(self.valset) else self.trainset[0]
+        K = np.asarray(d0["K"])
+        h, w = np.asarray(d0["image"]).shape[:2]
+        frames = [(np.clip(self.render_view(c2w, K, w, h).cpu().numpy(), 0, 1)
+                   * 255).astype(np.uint8) for c2w in path]
+        out_dir = os.path.join(self.cfg.result_dir, "videos")
+        os.makedirs(out_dir, exist_ok=True)
+        out = os.path.join(out_dir, f"traj_{traj}_{step}.mp4")
+        try:
+            import imageio.v2 as imageio
+
+            imageio.mimwrite(out, frames, fps=30)
+        except Exception:  # no imageio, or no mp4 writer: PNG frames
+            out = os.path.join(out_dir, f"traj_{traj}_{step}")
+            os.makedirs(out, exist_ok=True)
+            for i, f in enumerate(frames):
+                write_png(os.path.join(out, f"{i:04d}.png"), f)
         return out
 
     # -- checkpoint / export -----------------------------------------------
@@ -532,55 +862,64 @@ class Runner:
         keep = 1.0 / (1.0 + np.exp(-splats["opacities"])) > 0.005
         return {k: v[keep] for k, v in splats.items()}
 
-    def _sim_leaves(self) -> List[str]:
-        return jax_leaf_order(self.sim_params) \
-            if self.compression_sim is not None else []
+    def _ckpt_leaves(self):
+        """(key, tree, name) of each checkpoint leaf: ``splats/<name>``,
+        then the sim and the per-image modules' parameters as ``sim/<i>``
+        and ``aux/<i>``, numbered in the JAX pytree's flatten order
+        (models.splats.jax_leaf_order; aux: app_embeds, app_mlp.0.b,
+        app_mlp.0.w, app_mlp.1.b, app_mlp.1.w, bilagrid, pose)."""
+        out = [(f"splats/{k}", self.splats, k) for k in self.splats]
+        for prefix, tree in (("sim", self.sim_params),
+                             ("aux", self.aux_params)):
+            out += [(f"{prefix}/{i}", tree, k)
+                    for i, k in enumerate(jax_leaf_order(tree))]
+        return out
 
     def save_checkpoint(self, step: int) -> str:
         """result_dir/ckpts/ckpt_<step>.npz with the JAX package's keys:
-        ``step``, ``splats/<name>`` and ``sim/<i>``, the sim parameters
-        numbered in the JAX pytree's flatten order
-        (models.splats.jax_leaf_order). The model only, no optimizer
-        state, as the JAX package saves it. Returns the path."""
+        ``step``, ``splats/<name>``, ``sim/<i>`` and ``aux/<i>``
+        (_ckpt_leaves). The model only, no optimizer state, as the JAX
+        package saves it. Returns the path."""
         ckpt_dir = os.path.join(self.cfg.result_dir, "ckpts")
         os.makedirs(ckpt_dir, exist_ok=True)
-        arrs = {f"splats/{k}": v.detach().cpu().numpy()
-                for k, v in self.splats.items()}
-        for i, name in enumerate(self._sim_leaves()):
-            arrs[f"sim/{i}"] = self.sim_params[name].detach().cpu().numpy()
+        arrs = {key: tree[name].detach().cpu().numpy()
+                for key, tree, name in self._ckpt_leaves()}
         path = os.path.join(ckpt_dir, f"ckpt_{step}.npz")
         np.savez(path, step=step, **arrs)
         return path
 
     def load_checkpoint(self, path: str) -> int:
-        """Loads the splats and the sim parameters of a checkpoint of either
-        package onto the runner's device; returns its step. Each leaf must
-        have the shape of the runner's own (the same capacity and sim
-        configuration)."""
+        """Loads the splats, the sim parameters and the per-image modules
+        of a checkpoint of either package onto the runner's device; returns
+        its step. Each leaf must have the shape of the runner's own (the
+        same capacity and configuration); a checkpoint without ``aux/``
+        leaves leaves the modules as they are, as the JAX Runner does."""
         dev = self.device
         with np.load(path) as z:
-            names = [(k, f"splats/{k}") for k in self.splats]
-            names += [(k, f"sim/{i}") for i, k in
-                      enumerate(self._sim_leaves())]
+            leaves = [(key, tree, name)
+                      for key, tree, name in self._ckpt_leaves()
+                      if not key.startswith("aux/") or "aux/0" in z.files]
             loaded = {}
-            for name, key in names:
-                cur = self.splats[name] if key.startswith("splats/") \
-                    else self.sim_params[name]
+            for key, tree, name in leaves:
                 got = z[key].shape if key in z.files else "missing"
-                if got != tuple(cur.shape):
+                if got != tuple(tree[name].shape):
                     raise ValueError(f"{path}: {key} is {got}, the "
-                                     f"runner's {name} {tuple(cur.shape)}")
+                                     f"runner's {name} "
+                                     f"{tuple(tree[name].shape)}")
                 loaded[key] = torch.as_tensor(z[key], dtype=torch.float32,
                                               device=dev)
             step = int(z["step"])
-        for name, key in names:
-            target = self.splats if key.startswith("splats/") \
-                else self.sim_params
-            target[name] = loaded[key]
+        for key, tree, name in leaves:
+            tree[name] = loaded[key]
         return step
 
     def save_ply(self, path: str) -> None:
-        """The live splats as an Inria-layout binary PLY."""
+        """The live splats as an Inria-layout binary PLY. It holds SH
+        colours, which the appearance path (app_opt: features and colors
+        through an MLP) does not have: there it raises."""
+        if "sh0" not in self.splats:
+            raise ValueError("save_ply writes SH colours; under app_opt the "
+                             "splats carry features and colors instead")
         save_ply(path, self.live_splats())
 
     # -- test-time compression ---------------------------------------------

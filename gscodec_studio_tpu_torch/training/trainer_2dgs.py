@@ -15,7 +15,9 @@ reset), its loss drops ``opacity_reg``, ``scale_reg`` and ``random_bkgd``,
 the median depth carries no gradient, under MCMC it relocates and grows
 but adds no position noise, and with ``visible_adam`` its SelectiveAdam
 gets no visibility and so updates every row. It refuses
-``compression_sim``, which the JAX Runner2DGS carries without applying. The JAX Runner2DGS passes none of
+``compression_sim``, which the JAX Runner2DGS carries without applying,
+and the per-image modules (``pose_opt``, ``app_opt``,
+``use_bilateral_grid``, ``depth_loss``), which its step never applies. The JAX Runner2DGS passes none of
 ``grad_dtype``, ``attr_dtype`` and ``log_composite`` to its render; this one
 ignores them too, and names those set off their defaults once.
 """
@@ -68,6 +70,15 @@ class Runner2DGS(Runner):
                 "compression_sim in Runner2DGS (the JAX Runner2DGS carries "
                 "the simulation's state but its step never applies it) is "
                 "not ported: ROADMAP watch-list")
+        # the JAX Runner2DGS builds these modules but its step
+        # (gscodec_studio_tpu/training/trainer_2dgs.py:114) never applies
+        # them
+        for name in ("pose_opt", "app_opt", "use_bilateral_grid",
+                     "depth_loss"):
+            if getattr(cfg, name):
+                raise NotImplementedError(
+                    f"{name} in Runner2DGS (the JAX Runner2DGS's step never "
+                    f"applies it) is not ported: ROADMAP watch-list")
         super().__init__(cfg, *args, **kwargs)
 
     def _name_ignored(self) -> None:
@@ -85,7 +96,8 @@ class Runner2DGS(Runner):
         return "fused" if self.cfg.rasterizer == "fused" else "reference"
 
     def render_loss(self, params, c2w, Ks, target, sh_degree: int,
-                    step: int):
+                    step: int, aux=None, view=None):
+        del aux, view  # no per-image modules (refused above)
         cfg = self.cfg
         dev = self.device
         B, H, W = target.shape[:3]

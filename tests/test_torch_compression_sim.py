@@ -50,7 +50,7 @@ from gscodec_studio_tpu_torch.models.splats import (from_jax_adam_state,
                                                     from_jax_sim_params)
 from gscodec_studio_tpu_torch.optimizers import apply_updates
 
-from tests.test_torch_train import _params, close
+from tests.test_torch_train import _params, close, one_torch_thread  # noqa
 
 
 def _np_tree(t):

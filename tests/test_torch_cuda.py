@@ -327,6 +327,53 @@ def test_rasterization_gradients_on_card_match_cpu(cuda):
         assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale
 
 
+def test_per_camera_rgb_ed_on_card_matches_cpu(cuda):
+    """B1 and B2 at 4 channels with per-camera colours, as the trainer
+    renders under app_opt and depth_loss: [C, N, 3] colours with no SH,
+    render_mode "RGB+ED", two cameras; the colours and alphas within 1e-4,
+    the expected depth times the alpha (the kernel's depth channel, before
+    the division that would amplify its rounding where the alpha is small)
+    within 1e-4 of the largest depth, and every gradient within 1e-3 of its
+    largest |.| of the CPU's plain versions; one launch of each kernel a
+    pass."""
+    rng = np.random.default_rng(11)
+    C, N, W, H = 2, 3000, 160, 120
+    means = (rng.standard_normal((N, 3)) * [1.5, 1.0, 1.5]).astype(np.float32)
+    quats = rng.standard_normal((N, 4)).astype(np.float32)
+    scales = np.exp(rng.normal(-3.5, 0.5, (N, 3))).astype(np.float32)
+    opac = rng.random(N).astype(np.float32)
+    colors = rng.random((C, N, 3)).astype(np.float32)
+    vm = np.tile(np.eye(4, dtype=np.float32), (C, 1, 1))
+    vm[:, 2, 3] = 5.0
+    vm[1, 0, 3] = 0.3
+    K = np.tile(np.array([[150, 0, W / 2], [0, 150, H / 2], [0, 0, 1]],
+                         np.float32), (C, 1, 1))
+    ct = rng.standard_normal((C, H, W, 4)).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [torch.tensor(x, device=dev, requires_grad=True)
+                  for x in (means, quats, scales, opac, colors)]
+        before = dict(tr.LAUNCHES)
+        img, alpha, _ = rasterization(*leaves, vm, K, W, H, sh_degree=None,
+                                      render_mode="RGB+ED", device=dev)
+        assert img.shape == (C, H, W, 4)
+        (img * torch.as_tensor(ct, device=dev)).sum().backward()
+        if dev.type == "cuda":
+            for name in ("raster_fwd", "raster_bwd"):
+                assert tr.LAUNCHES[name] == before[name] + 1, name
+        img, alpha = img.detach().cpu(), alpha.detach().cpu()
+        out[dev.type] = (torch.cat([img[..., :3], alpha,
+                                    img[..., 3:] * alpha], -1),
+                         [t.grad.cpu() for t in leaves])
+    diff = (out["cuda"][0] - out["cpu"][0]).abs()
+    assert float(diff[..., :4].max()) <= 1e-4
+    assert float(diff[..., 4].max()) <= 1e-4 * float(
+        out["cpu"][0][..., 4].max())
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        scale = float(b.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale
+
+
 def test_bf16_rasterization_gradients_on_card_match_cpu(cuda):
     """grad_dtype="bf16" through the packed branches on the card against
     the plain versions on the CPU: within 1e-2 of each gradient's scale, as

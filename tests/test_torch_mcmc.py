@@ -28,7 +28,7 @@ from gscodec_studio_tpu_torch.strategy import MCMCStrategy
 from gscodec_studio_tpu_torch.strategy import ops as tops
 
 from tests.test_torch_train import (_params, _state_with_moments, _to_torch,
-                                    close)
+                                    close, one_torch_thread)  # noqa: F401
 
 
 def _assert_close_state(tp, tst, jp, jst, tol=1e-6):

@@ -71,7 +71,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "strategy.default", "training.losses", "training.trainer",
         "utils.scenes", "ops.projection_2dgs", "ops.rasterize_ref_2dgs",
         "ops.raster_v2_2dgs", "training.trainer_2dgs", "ops.isect",
-        "ops.rasterize_pallas", "profiling.kernel_skel_bench")} <= walked
+        "ops.rasterize_pallas", "profiling.kernel_skel_bench",
+        "datasets.colmap_io", "datasets.normalize", "datasets.colmap",
+        "datasets.traj", "utils.camera_opt", "utils.bilagrid",
+        "utils.logger", "utils.cli", "simple_trainer")} <= walked
 
 
 def test_entry_points_default_to_cuda(rng, monkeypatch, tmp_path):

@@ -41,7 +41,7 @@ from gscodec_studio_tpu_torch.training.trainer_2dgs import (Config2DGS,
                                                             Runner2DGS)
 
 from tests.test_torch_train import (NAMES, _to_torch, fake_scene,  # noqa
-                                    spy_jax_view_orders)
+                                    one_torch_thread, spy_jax_view_orders)
 
 STEPS = 24
 KW = dict(capacity=256, isect_capacity=8192, sh_degree=0,

@@ -48,7 +48,7 @@ from gscodec_studio_tpu_torch.training.trainer_2dgs import (Config2DGS,
                                                             Runner2DGS)
 
 from tests.test_torch_train import (NAMES, _to_torch, fake_scene,  # noqa
-                                    spy_jax_view_orders)
+                                    one_torch_thread, spy_jax_view_orders)
 
 RECIPE = dict(strategy="mcmc", mcmc_cap_max=256, isect_capacity=8192,
               opacity_reg=0.01, scale_reg=0.01, compression_sim=True,

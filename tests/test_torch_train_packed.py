@@ -24,7 +24,8 @@ from gscodec_studio_tpu.training.trainer import Runner as JRunner
 from gscodec_studio_tpu_torch.training.trainer import Config, Runner
 
 from tests.test_torch_train import (NAMES, _to_torch, close,  # noqa: F401
-                                    fake_scene, spy_jax_view_orders)
+                                    fake_scene, one_torch_thread,
+                                    spy_jax_view_orders)
 
 
 def test_packed_runner_step_matches_jax(fake_scene,  # noqa: F811

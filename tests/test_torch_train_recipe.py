@@ -40,7 +40,7 @@ from gscodec_studio_tpu_torch.models.splats import (from_jax_mcmc_state,
 from gscodec_studio_tpu_torch.training.trainer import Config, Runner
 
 from tests.test_torch_train import (NAMES, _to_torch, fake_scene,  # noqa
-                                    spy_jax_view_orders)
+                                    one_torch_thread, spy_jax_view_orders)
 from tests.test_torch_train_ladder import (hand_over_draws,
                                            spy_jax_mcmc_draws)
 

@@ -26,7 +26,8 @@ from gscodec_studio_tpu_torch.training import trainer as ttrainer
 from gscodec_studio_tpu_torch.training.trainer import Config, Runner
 
 from tests.test_torch_train import (NAMES, _to_torch, close,  # noqa: F401
-                                    fake_scene, spy_jax_view_orders)
+                                    fake_scene, one_torch_thread,
+                                    spy_jax_view_orders)
 
 
 @pytest.fixture(autouse=True)
