@@ -189,7 +189,36 @@ Phases, one JSON line each with its own ``seconds``:
             seconds, the grid side, size_bytes, PSNR before and after the
             codec); the committed bitstream
             results/garden_ab_f32/compression_1500/ decoded and rendered
-            on the held-out view.
+            on the held-out view;
+  colmap_trainer  the stand-in written as a COLMAP directory and trained
+            through simple_trainer's command line with the per-image
+            modules;
+  cameras   the serve checkpoint from 4 orbit views at 1297x840, tile 16,
+            through each camera model: pinhole (the orbit's K), ortho (fx
+            = fy = the width over the scene's extent across the view) and
+            fisheye (the orbit's K): each model's intersections a view
+            against the capacity and the default one, one fwd+bwd of
+            rasterization(rasterizer="fused") of the four views (launches,
+            ms, device profile), B9a, B3, B1, B2, B9b and B4 on the batch's
+            own inputs against their plain versions with B1's and B2's
+            regions, each kernel's ms beside pinhole's; one v1 forward,
+            B7 and B8 against their plain versions with their regions; the
+            projection and its gradients on the card against the CPU, and
+            explicit covariances against quats and scales;
+  entropy_codec  run_compression("entropy_coding") of the train phase's
+            runner (histogram tables), the train_ladder's (factorized
+            tables) and garden_recipe's after its PNG codec (Gaussian
+            context tables, the same scene): the stages' seconds, the grid
+            side, size_bytes and each attribute's bytes, PSNR before and
+            after, gsc_metrics of the held-out view's render before and
+            after, sequence_metrics of the trained and decoded splats as a
+            pair of frames on the stand-in's first 4 orbit views, the
+            evaluation's forward launches, the stream decoded again on the
+            CPU to the card's decode bit for bit, the decoded scene's
+            held-out render timed by utils/profiling.honest_timer; for the
+            model tables the same splats' bytes against histograms; the
+            Gaussians whose raw log scale the codec's bound clips, and the
+            trained PSNR with only that clip.
 The kernels and train_1m phases also hold the packed-pair branches (B2p,
 B4p) against their plain versions, and train_1m times the bf16 case beside
 the f32 one. Wherever a backward is checked (check_reduction), the
@@ -885,7 +914,7 @@ def b3_work(rv, st):
     return w
 
 
-def garden_recipe(dev, errs, perf):
+def garden_recipe(dev, errs, perf, codec_runs):
     """The rest of the garden recipe (examples/garden_benchmark.py) on the
     train phase's checkpoint stand-in: MCMC at 120,000 slots under
     SelectiveAdam and the hash-grid entropy model, the gates at
@@ -897,7 +926,9 @@ def garden_recipe(dev, errs, perf):
     growth), SelectiveAdam's kernel against its plain version on every
     group (the recipe's own visibility), the step's device profile and the
     hash-grid model timed alone. Fills perf and errs under
-    "selective_adam"; returns (phase dict, launches of the run)."""
+    "selective_adam"; appends to codec_runs the entropy_codec phase's
+    Gaussian-context run on the trained scene (after the PNG codec's);
+    returns (phase dict, launches of the run)."""
     from gscodec_studio_tpu_torch.compression import PngCompression
     from gscodec_studio_tpu_torch.ops import raster_v2 as rv
     from gscodec_studio_tpu_torch.optimizers import builders
@@ -983,6 +1014,10 @@ def garden_recipe(dev, errs, perf):
     if not (math.isfinite(metrics["psnr"]) and metrics["size_bytes"] > 0
             and metrics["psnr"] > after["psnr"] - 3.0):
         raise AssertionError(f"run_compression: {metrics} after {after}")
+    png_seconds = runner.compression_seconds
+    codec_runs.append(entropy_codec_run(runner, dev, "gaussian",
+                                        RECIPE_STEPS + 1))
+    codec_runs[-1]["png_size_bytes"] = metrics["size_bytes"]
     t1 = time.perf_counter()
     decoded = PngCompression(device=dev).decompress(str(BITSTREAM))
     decode_s = time.perf_counter() - t1
@@ -1143,7 +1178,7 @@ def garden_recipe(dev, errs, perf):
                         "size_bytes": metrics["size_bytes"],
                         "side": meta["side"],
                         "shN_k": meta["attrs"]["shN"].get("k"),
-                        "seconds": runner.compression_seconds},
+                        "seconds": png_seconds},
         "committed_bitstream": {"dir": str(BITSTREAM.relative_to(ROOT)),
                                 "psnr": committed_eval["psnr"],
                                 "ssim": committed_eval["ssim"],
@@ -1514,6 +1549,449 @@ def colmap_trainer(dev, stages_for):
     del runner
     shutil.rmtree(work, ignore_errors=True)
     return phase, launches, rgb_ed_errs
+
+
+CAMERA_VIEWS = 4  # the cameras phase's orbit views, rendered as one batch
+CAMERA_MODELS = ("pinhole", "ortho", "fisheye")
+PROJ_TOL = 1e-4  # card vs CPU projection: each output's largest |error|
+# over its largest |value|, on the rows both devices keep
+PROJ_GRAD_TOL = 1e-3  # the same for the gradients (as the training tests)
+PROJ_FLIP_SHARE = 1e-3  # rows whose radii round to another integer
+# pinhole's general branch against its fast path (two formulas):
+# the compensation sqrt(det / det_blurred) takes the rounding of det =
+# ac - b^2, which cancels for elongated splats (1.04e-4 on the card)
+COVARS_COMP_TOL = 1e-3
+
+
+def _masked_rel_err(a, b, keep):
+    """Largest |a - b| over the rows of ``keep`` ([..] of the leading
+    dims), over the largest |b| there."""
+    a, b = a.float(), b.float()
+    while keep.dim() < a.dim():
+        keep = keep[..., None]
+    d = torch.where(keep, (a - b).abs(), torch.zeros_like(a))
+    s = torch.where(keep, b.abs(), torch.zeros_like(b))
+    return float(d.max()) / max(float(s.max()), 1e-30)
+
+
+def projection_check(dev, means, quats, scales, opac, vm, K, model):
+    """fully_fused_projection (elliptical radii, compensations, opacities)
+    on the card against the CPU: the radii's share of rows that differ,
+    each output's relative error and the gradients' of a seeded weighting
+    of the outputs with respect to the means, quats and scales, on the
+    rows both devices keep (a Gaussian whose radii differ in a view is
+    left out of the gradients)."""
+    from gscodec_studio_tpu_torch.ops.projection import fully_fused_projection
+
+    g = torch.Generator(device="cpu").manual_seed(31)
+    C, N = vm.shape[0], means.shape[0]
+    w = [torch.randn((C, N) + s, generator=g) for s in ((2,), (), (3,), ())]
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        leaves = [t.detach().to(d).requires_grad_(True)
+                  for t in (means, quats, scales)]
+        out = fully_fused_projection(
+            leaves[0], None, leaves[1], leaves[2], vm.to(d), K.to(d), WIDTH,
+            HEIGHT, calc_compensations=True, camera_model=model,
+            opacities=opac.to(d), elliptical=True)
+        loss = sum((o * x.to(d)).sum() for o, x in zip(out[1:], w))
+        loss.backward()
+        outs[d.type] = ([o.detach().cpu() for o in out],
+                        [t.grad.cpu() for t in leaves])
+    (card, card_g), (cpu, cpu_g) = outs[dev.type], outs["cpu"]
+    same = (card[0] == cpu[0]).all(-1)  # [C, N]
+    keep = same & (cpu[0] > 0).any(-1)
+    res = {"radii_differ_share": 1.0 - float(same.float().mean()),
+           "visible": int(keep.sum())}
+    for name, a, b in zip(("means2d", "depths", "conics", "compensations"),
+                          card[1:], cpu[1:]):
+        res[f"{name}_rel_err"] = _masked_rel_err(a, b, keep)
+    rows = same.all(0)
+    for name, a, b in zip(("means", "quats", "scales"), card_g, cpu_g):
+        res[f"grad_{name}_rel_err"] = _masked_rel_err(a, b, rows)
+    if not (res["radii_differ_share"] <= PROJ_FLIP_SHARE and keep.any()
+            and max(v for k, v in res.items() if k.endswith("rel_err")
+                    and not k.startswith("grad")) <= PROJ_TOL
+            and max(v for k, v in res.items() if k.startswith("grad"))
+            <= PROJ_GRAD_TOL):
+        raise AssertionError(f"{model} projection on the card differs from "
+                             f"the CPU: {res}")
+    return res
+
+
+def covars_check(means, quats, scales, opac, vm, K, model):
+    """fully_fused_projection from explicit covariances
+    (quat_scale_to_covar) against quats and scales: the same bits where
+    both take the general branch (ortho, fisheye); for pinhole, the
+    general branch against the fast path within PROJ_TOL on the rows
+    whose radii agree (the compensations within COVARS_COMP_TOL)."""
+    from gscodec_studio_tpu_torch.ops.projection import fully_fused_projection
+    from gscodec_studio_tpu_torch.ops.quat import quat_scale_to_covar
+
+    kw = dict(calc_compensations=True, camera_model=model, opacities=opac,
+              elliptical=True)
+    with torch.no_grad():
+        a = fully_fused_projection(means, quat_scale_to_covar(quats, scales),
+                                   None, None, vm, K, WIDTH, HEIGHT, **kw)
+        b = fully_fused_projection(means, None, quats, scales, vm, K, WIDTH,
+                                   HEIGHT, **kw)
+    if model != "pinhole":
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{model}: explicit covars differ from "
+                                 f"quats and scales in the general branch")
+        return {"same_bits": True}
+    same = (a[0] == b[0]).all(-1)
+    keep = same & (b[0] > 0).any(-1)
+    res = {"radii_differ_share": 1.0 - float(same.float().mean()),
+           **{f"{n}_rel_err": _masked_rel_err(x, y, keep) for n, x, y in zip(
+               ("means2d", "depths", "conics", "compensations"), a[1:],
+               b[1:])}}
+    if not (res["radii_differ_share"] <= PROJ_FLIP_SHARE and max(
+            v for k, v in res.items() if k.endswith("rel_err")
+            and not k.startswith("compensations")) <= PROJ_TOL
+            and res["compensations_rel_err"] <= COVARS_COMP_TOL):
+        raise AssertionError(f"pinhole covars: the general branch differs "
+                             f"from the fast path: {res}")
+    return res
+
+
+def cameras(dev, errs, stages_for):
+    """The serve checkpoint at 1297x840, tile 16, from CAMERA_VIEWS orbit
+    views through each camera model: pinhole (the orbit's K), ortho (fx =
+    fy = the width over the scene's extent across the view, the 1st to
+    the 99th percentile of the camera-frame x) and fisheye (the orbit's
+    K). For each: the intersections a view (binning's rows, against the
+    capacity used, 1.2x the probe, and the default 8 a Gaussian, which
+    must not truncate silently); one fwd+bwd of rasterization(rasterizer=
+    "fused") of the four views with a seeded cotangent (launches of every
+    kernel, median ms, device profile); B9a, B3, B1, B2, B9b and B4 on the
+    batch's own inputs against their plain versions (compare,
+    compare_bwd, B1's and B2's regions), each kernel's ms; one v1
+    ("pallas") forward, B7 and B8 against their plain versions with their
+    regions; the projection on the card against the CPU
+    (projection_check) and explicit covariances against quats and scales
+    (covars_check). Returns the phase dict."""
+    from gscodec_studio_tpu_torch.models.splats import from_jax_splats
+    from gscodec_studio_tpu_torch.ops import isect as ti
+    from gscodec_studio_tpu_torch.ops import raster_v2 as rv
+    from gscodec_studio_tpu_torch.ops import rasterize_pallas as rp
+    from gscodec_studio_tpu_torch.rendering import (_default_isect_capacity,
+                                                    project_and_shade,
+                                                    rasterization)
+    from gscodec_studio_tpu_torch.utils.ply_render import orbit_cameras
+
+    t0 = time.perf_counter()
+    with np.load(CHECKPOINT) as z:
+        splats = {k: z[k] for k in z.files}
+    model = from_jax_splats(splats, device=dev)
+    N = model.num_splats
+    cams = orbit_cameras(splats["means"], n_views=CAMERA_VIEWS, width=WIDTH,
+                         height=HEIGHT)
+    C = len(cams)
+    vm = torch.as_tensor(np.stack([np.linalg.inv(c["camtoworld"])
+                                   for c in cams]), device=dev)
+    K_pin = torch.as_tensor(np.stack([c["K"] for c in cams]), device=dev)
+    with torch.no_grad():
+        means, quats = model.means.detach(), model.quats.detach()
+        scales = torch.exp(model.scales.detach())
+        opac = torch.sigmoid(model.opacities.detach())
+        colors = model.sh_coeffs().detach()
+        xc = means @ vm[:, 0, :3].T + vm[:, 0, 3]  # [N, C]
+        q = torch.tensor([0.01, 0.99], device=dev)
+        lo, hi = torch.quantile(xc, q, dim=0)
+        K_ortho = K_pin.clone()
+        K_ortho[:, 0, 0] = K_ortho[:, 1, 1] = WIDTH / (hi - lo)
+    Ks = {"pinhole": K_pin, "ortho": K_ortho, "fisheye": K_pin}
+    TW, TH = -(-WIDTH // 16), -(-HEIGHT // 16)
+    cot = torch.randn((C, HEIGHT, WIDTH, 3), generator=torch.Generator(
+        device="cpu").manual_seed(17)).to(dev)
+    default_cap = _default_isect_capacity(C, N)
+    out = {}
+    for cm in CAMERA_MODELS:
+        K = Ks[cm]
+        res = {"K": K[:, :3, :3].tolist()}
+        with torch.no_grad():
+            prep = project_and_shade(means, quats, scales, opac, colors, vm,
+                                     K, WIDTH, HEIGHT, sh_degree=3,
+                                     camera_model=cm)
+        per_view = rv.tile_counts(prep[1], prep[0], 16, TW, TH)[3].sum(1)
+        total = int(per_view.sum())
+        cap = -(-int(1.2 * total + 1) // rv.CAP_BLOCK) * rv.CAP_BLOCK
+        res.update(n_isects_per_view=per_view.tolist(), n_isects=total,
+                   isect_capacity=cap, default_capacity=default_cap,
+                   default_capacity_truncates=total >= default_cap,
+                   visible_per_view=(prep[0] > 0).any(-1).sum(1).tolist())
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (means, quats, scales, opac, colors)]
+
+        def fwd_bwd():
+            for t in leaves:
+                t.grad = None
+            img, alpha, meta = rasterization(
+                *leaves, vm, K, WIDTH, HEIGHT, sh_degree=3, camera_model=cm,
+                isect_capacity=cap, device=dev)
+            (img * cot).sum().backward()
+            return img.detach(), alpha.detach(), meta
+
+        rv.reset_launch_counts()
+        img, alpha, meta = fwd_bwd()
+        torch.cuda.synchronize()
+        launches = dict(rv.LAUNCHES)
+        if min(launches[k] for k in KERNELS_3DGS) < 1:
+            raise AssertionError(f"{cm}: a kernel did not launch: "
+                                 f"{launches}")
+        if int(meta["n_isects"]) != total or total >= cap:
+            raise AssertionError(f"{cm}: n_isects {int(meta['n_isects'])} "
+                                 f"against the probe {total}, capacity {cap}")
+        if not (bool(torch.isfinite(img).all()) and all(
+                bool(torch.isfinite(t.grad).all()) for t in leaves)):
+            raise AssertionError(f"{cm}: non-finite pixels or gradients")
+        mean_alpha = alpha.mean(dim=(1, 2, 3))
+        if not float(mean_alpha.min()) > 0.05:
+            raise AssertionError(f"{cm}: mean alpha {mean_alpha.tolist()}")
+        res.update(launches=launches, mean_alpha=mean_alpha.tolist(),
+                   fwd_bwd_ms=median_ms(fwd_bwd, 3)[0],
+                   device=device_profile(fwd_bwd, reps=1))
+        res["device"]["top"] = res["device"].get("top", [])[:8]
+
+        # the kernels on the batch's own inputs
+        st = stages_for(prep, WIDTH, HEIGHT, 16, "exact", cap=cap)
+        check = st.compare(errs)
+        check.update(st.compare_bwd(errs, seed=23, absgrads=(False,)))
+        check["b2_regions"] = region_summary(b2_regions(rv, st))
+        check["b1_regions"] = region_summary(b1_regions(rv, st))
+        b, cfg = st.b, st.cfg
+        res["check"] = check
+        res["kernel_ms"] = dict(
+            pack_rows=cuda_ms(lambda: rv.pack_rows(st.row_list, cfg.d_s,
+                                                   b.perm), 5),
+            expand=cuda_ms(lambda: rv.expand(b.cum, b.base, b.nx, b.table,
+                                             b.n_isects, cfg), 5),
+            raster_fwd=cuda_ms(lambda: rv.raster_fwd(
+                b.S, b.starts, st.masks, cfg, order=st.runs), 5),
+            raster_bwd=cuda_ms(lambda: rv.raster_bwd(
+                b.S, b.starts, st.masks, st.out, st.v_tiles, cfg, False), 5),
+            segsum_rows=cuda_ms(lambda: rv.segsum_rows(st.rows, b.cum,
+                                                       b.n_isects), 5),
+            unpack_rows=cuda_ms(lambda: rv.unpack_rows(
+                st.gbuf, st.gbuf.shape[0], b.perm), 5))
+        del st
+
+        # the v1 backend: one forward, and B7 and B8 on its inputs
+        with torch.no_grad():
+            prep_s = project_and_shade(means, quats, scales, opac, colors, vm,
+                                       K, WIDTH, HEIGHT, sh_degree=3,
+                                       camera_model=cm, elliptical=False)
+            rows_v1 = int(rv.tile_counts(prep_s[1], prep_s[0], 16, TW,
+                                         TH)[3].sum())
+            cap_v1 = int(1.2 * rows_v1) + 1
+            rv.reset_launch_counts()
+            img_v1, _, meta_v1 = rasterization(
+                means, quats, scales, opac, colors, vm, K, WIDTH, HEIGHT,
+                sh_degree=3, camera_model=cm, rasterizer="pallas",
+                isect_capacity=cap_v1, device=dev)
+            torch.cuda.synchronize()
+        v1_launches = dict(rv.LAUNCHES)
+        if v1_launches["raster_v1_fwd"] != 1 or int(
+                meta_v1["n_isects"]) != rows_v1 or not bool(
+                torch.isfinite(img_v1).all()):
+            raise AssertionError(f"{cm} v1: launches {v1_launches}, n_isects "
+                                 f"{int(meta_v1['n_isects'])} of {rows_v1}")
+        v1 = V1Stages(rp, ti, prep_s, WIDTH, HEIGHT, 16, rp.CUTOFF_MODE,
+                      cap_v1)
+        v1_check = v1.compare(errs)
+        v1_check.update(v1.compare_bwd(errs, seed=29))
+        c = v1.regions()
+        res["v1"] = dict(
+            n_isects=rows_v1, isect_capacity=cap_v1,
+            cutoff_mode=rp.CUTOFF_MODE, raster_v1_fwd_launches=1,
+            mean_abs_diff_vs_fused=float((img_v1 - img).abs().mean()),
+            check=v1_check, missed_slots=c["missed_slots"],
+            raster_v1_fwd_ms=cuda_ms(lambda: rp.raster_v1_fwd(*v1.args,
+                                                             v1.cfg), 5))
+        del v1, prep_s, img_v1
+
+        res["projection_card_vs_cpu"] = projection_check(
+            dev, means, quats, scales, opac, vm, K, cm)
+        res["explicit_covars"] = covars_check(means, quats, scales, opac,
+                                              vm, K, cm)
+        out[cm] = res
+        del prep, leaves, img, alpha
+    pin = out["pinhole"]
+    return {
+        "phase": "cameras", "checkpoint": str(CHECKPOINT.relative_to(ROOT)),
+        "gaussians": N, "views": C, "width": WIDTH, "height": HEIGHT,
+        "tile_size": 16, "models": out,
+        "n_isects_over_pinhole": {cm: out[cm]["n_isects"] / pin["n_isects"]
+                                  for cm in CAMERA_MODELS},
+        "kernel_ms_over_pinhole": {cm: {
+            k: v / pin["kernel_ms"][k] for k, v in out[cm][
+                "kernel_ms"].items()} for cm in CAMERA_MODELS},
+        "proj_tol": PROJ_TOL, "proj_grad_tol": PROJ_GRAD_TOL,
+        "covars_compensation_tol": COVARS_COMP_TOL,
+        "fwd_tol": FWD_TOL, "bwd_tol": BWD_TOL,
+        "seconds": time.perf_counter() - t0}
+
+
+def attribute_bytes(compress_dir, meta):
+    """The bytes on disk of each attribute's files (its name, then "." or
+    "_"), and of meta.json."""
+    files = os.listdir(compress_dir)
+    out = {name: sum(os.path.getsize(os.path.join(compress_dir, f))
+                     for f in files if f.startswith((name + ".", name + "_")))
+           for name in meta["attrs"]}
+    out["meta.json"] = os.path.getsize(os.path.join(compress_dir,
+                                                    "meta.json"))
+    return out
+
+
+def entropy_codec_run(runner, dev, kind, step):
+    """run_compression(step, "entropy_coding") of a trained Runner (its
+    table kind: "histogram", "factorized" or "gaussian"), with the
+    forward kernels' launches of its evaluation; the stream decoded again
+    on the CPU, bit for bit the card's decode; the stages' seconds, the
+    grid side, size_bytes and each attribute's bytes; PSNR before and
+    after; gsc_metrics of the held-out view's render (trained and decoded)
+    against its target; sequence_metrics of the trained and the decoded
+    splats as a pair of frames on the stand-in's first CAMERA_VIEWS orbit
+    views; the same splats' bytes against histograms (for the model
+    kinds); the Gaussians whose raw log scale the codec's bound clips and
+    the trained PSNR with only that clip; and the
+    decoded scene's held-out render timed by honest_timer."""
+    from gscodec_studio_tpu_torch.compression import entropy_coding as ec
+    from gscodec_studio_tpu_torch.compression_sim.simulation import BOUNDS
+    from gscodec_studio_tpu_torch.ops import raster_v2 as rv
+    from gscodec_studio_tpu_torch.utils.gsc_metrics import gsc_metrics
+    from gscodec_studio_tpu_torch.utils.ply_render import (render_splats,
+                                                           sequence_metrics)
+    from gscodec_studio_tpu_torch.utils.profiling import honest_timer
+    from gscodec_studio_tpu_torch.models.splats import from_jax_splats
+
+    t0 = time.perf_counter()
+    models = runner.entropy_models()
+    got_kind = "histogram" if models is None else (
+        "gaussian" if isinstance(next(iter(models.values())), tuple)
+        else "factorized")
+    if got_kind != kind:
+        raise AssertionError(f"entropy_codec: the runner's tables are "
+                             f"{got_kind}, not {kind}")
+    before = runner.eval(f"before_entropy_coding_{step}")
+    trained = runner.live_splats()
+    # the codec clips each coded attribute to the simulation's bounds: the
+    # trained scene's PSNR with only its raw log scales clipped so
+    lo_s, hi_s = BOUNDS["scales"]
+    backup = runner.splats
+    runner.splats = dict(backup, scales=torch.clamp(backup["scales"], lo_s,
+                                                    hi_s))
+    try:
+        scales_clipped = runner.eval(f"scales_clipped_{step}")
+    finally:
+        runner.splats = backup
+    card = {}
+    decompress = ec.EntropyCodingCompression.decompress
+
+    def keep_decode(self, compress_dir):
+        card["decoded"] = decompress(self, compress_dir)
+        return card["decoded"]
+
+    ec.EntropyCodingCompression.decompress = keep_decode
+    try:
+        rv.reset_launch_counts()
+        metrics = runner.run_compression(step, method="entropy_coding")
+        torch.cuda.synchronize()
+        launches = dict(rv.LAUNCHES)
+    finally:
+        ec.EntropyCodingCompression.decompress = decompress
+    if min(launches[k] for k in FWD_KERNELS) < 1:
+        raise AssertionError(f"entropy_codec {kind}: the evaluation did not "
+                             f"launch the forward kernels: {launches}")
+    out_dir = os.path.join(runner.cfg.result_dir, f"compression_{step}")
+    meta = json.loads(Path(out_dir, "meta.json").read_text())
+    t1 = time.perf_counter()
+    cpu = ec.EntropyCodingCompression(device="cpu").decompress(out_dir)
+    cpu_decode_s = time.perf_counter() - t1
+    decoded = card["decoded"]
+    if sorted(cpu) != sorted(decoded) or not all(
+            np.array_equal(cpu[k], decoded[k]) for k in cpu):
+        raise AssertionError(f"entropy_codec {kind}: the CPU decode differs "
+                             f"from the card's")
+    # the same splats against histograms, for the model tables' rate
+    hist_dir = out_dir + "_histogram"
+    if kind != "histogram":
+        ec.EntropyCodingCompression(device=dev).compress(hist_dir, trained)
+    kinds = {m["kind"] for m in meta["attrs"].values()}
+    want_kind = {"histogram": "ans", "factorized": "ans",
+                 "gaussian": "ans_gauss"}[kind]
+    if want_kind not in kinds or (kind == "factorized") != any(
+            m.get("model") for m in meta["attrs"].values()):
+        raise AssertionError(f"entropy_codec {kind}: stream kinds {kinds}")
+    if not (math.isfinite(metrics["psnr"]) and metrics["size_bytes"] > 0
+            and metrics["psnr"] > before["psnr"] - 3.0):
+        raise AssertionError(f"entropy_codec {kind}: {metrics} after "
+                             f"{before}")
+
+    # the held-out view: the trained and the decoded renders' GSC metrics
+    data = runner.valset[0]
+    tgt = torch.as_tensor(data["image"]).float().cpu().numpy()
+    h, w = tgt.shape[:2]
+    backup = runner.splats
+    gsc = {"trained": gsc_metrics(tgt, runner.render_view(
+        data["camtoworld"], data["K"], w, h).cpu().numpy(), device=dev)}
+    runner.splats = {k: torch.as_tensor(v, device=dev)
+                     for k, v in decoded.items()}
+    try:
+        gsc["decoded"] = gsc_metrics(tgt, runner.render_view(
+            data["camtoworld"], data["K"], w, h).cpu().numpy(), device=dev)
+        render_s = honest_timer(lambda c: c + runner.render_view(
+            data["camtoworld"], data["K"], w, h)[0, 0, 0] * 0, K=8,
+            repeats=2, device=dev)
+    finally:
+        runner.splats = backup
+    if not gsc["decoded"]["msssim_y"] > 0.5:
+        raise AssertionError(f"entropy_codec {kind}: {gsc}")
+
+    # the trained and the decoded splats as a pair of frames, from the
+    # stand-in's first orbit views: orbit_cameras around the trained means
+    # frames the far Gaussians of the MCMC runs (the position noise moves
+    # near-transparent ones far out, ROADMAP watch-list), whose radius
+    # left ~0.13M intersections a view there against ~1.6M
+    def host(x):
+        return torch.as_tensor(x).float().cpu().numpy()
+
+    cams = [{"camtoworld": host(d["camtoworld"]), "K": host(d["K"]),
+             "width": w, "height": h}
+            for d in (runner.trainset[i] for i in range(
+                min(CAMERA_VIEWS, len(runner.trainset))))]
+    cap = 1 << 23
+    probe = render_splats(from_jax_splats(trained, device=dev), cams,
+                          isect_capacity=cap)
+    n_isects = [int(m["n_isects"]) for _, _, m in probe]
+    if max(n_isects) >= cap:
+        raise AssertionError(f"entropy_codec {kind}: {n_isects} >= {cap}")
+    seq = sequence_metrics([trained], [decoded], cams, device=dev,
+                           isect_capacity=cap)
+    return {
+        "kind": kind, "step": step, "side": meta["side"],
+        "gaussians": int(meta["side"]) ** 2,
+        "stream_kinds": {k: m["kind"] for k, m in meta["attrs"].items()},
+        "size_bytes": metrics["size_bytes"],
+        "attribute_bytes": attribute_bytes(out_dir, meta),
+        "histogram_attribute_bytes": None if kind == "histogram" else
+        attribute_bytes(hist_dir, json.loads(Path(
+            hist_dir, "meta.json").read_text())),
+        "scales_above_bound": int((torch.as_tensor(trained["scales"])
+                                   > hi_s).any(-1).sum()),
+        "psnr_scales_clipped": scales_clipped["psnr"],
+        "seconds": runner.compression_seconds,
+        "cpu_decode_seconds": cpu_decode_s,
+        "cpu_decode_same_bits": True,
+        "psnr_before": before["psnr"], "psnr_after": metrics["psnr"],
+        "ssim_before": before["ssim"], "ssim_after": metrics["ssim"],
+        "gsc_metrics_held_out": gsc, "sequence_metrics": seq,
+        "sequence_n_isects": n_isects,
+        "decoded_render_ms_honest_timer": render_s * 1e3,
+        "launches": {k: v for k, v in launches.items() if v},
+        "phase_seconds": time.perf_counter() - t0}
 
 
 def nvidia_smi():
@@ -3384,6 +3862,8 @@ def main():
           "step_profiles": step_profiles,
           "stand_in_seconds": data_s, "train_seconds": train_s,
           "seconds": time.perf_counter() - t0})
+    # the entropy_codec phase's histogram tables, on this run's splats
+    codec_runs = [entropy_codec_run(runner, dev, "histogram", TRAIN_STEPS)]
     del runner
     shutil.rmtree(stats_dir, ignore_errors=True)
 
@@ -3542,6 +4022,9 @@ def main():
                                 for k, v in ladder_launches.items()},
           "view_check": ladder_check, "step_profiles": step_profiles_l,
           "train_seconds": ladder_s, "seconds": time.perf_counter() - t0})
+    # the entropy_codec phase's factorized tables, on this run's models
+    codec_runs.append(entropy_codec_run(runner, dev, "factorized",
+                                        TRAIN_STEPS))
     del runner
     shutil.rmtree(stats_dir, ignore_errors=True)
 
@@ -3975,13 +4458,23 @@ def main():
 
     # 19. garden_recipe: SelectiveAdam, the hash-grid entropy model,
     # checkpoints and the PNG codec (examples/garden_benchmark.py's path)
-    recipe, recipe_launches = garden_recipe(dev, errs, perf)
+    recipe, recipe_launches = garden_recipe(dev, errs, perf, codec_runs)
     emit(recipe)
 
     # 20. colmap_trainer: the static trainer from a COLMAP scene through
     # simple_trainer's command line, with the per-image modules
     colmap, colmap_launches, rgb_ed_errs = colmap_trainer(dev, stages_for)
     emit(colmap)
+
+    # 21. cameras: the ortho and fisheye cameras (and pinhole beside them)
+    # through the fused path and the v1 forward on the serve checkpoint
+    emit(cameras(dev, errs, stages_for))
+
+    # 22. entropy_codec: run_compression("entropy_coding") of the train
+    # (histograms), train_ladder (factorized) and garden_recipe (Gaussian
+    # contexts) runners, made in those phases
+    emit({"phase": "entropy_codec", "runs": codec_runs,
+          "seconds": sum(r["phase_seconds"] for r in codec_runs)})
     chk = colmap["rgb_ed_check"]
     rgb_ed_rel = dict(pack_rows=0.0, expand=0.0, unpack_rows=0.0,
                       raster_fwd=chk["fwd_rel_err"],

@@ -2,6 +2,9 @@ from gscodec_studio_tpu_torch.compression.png_compression import (  # noqa: F401
     PngCompression,
     compressed_size,
 )
+from gscodec_studio_tpu_torch.compression.entropy_coding import (  # noqa: F401,E501
+    EntropyCodingCompression,
+)
 from gscodec_studio_tpu_torch.compression.outlier_filter import (  # noqa: F401,E501
     filter_splats,
 )

@@ -1,10 +1,13 @@
-"""The float32 log1p and expm1 of the JAX package's codec, bit for bit, in
-numpy: the means codec stores sign(x) log1p(|x|) and decodes with
-sign(y) expm1(|y|), and the JAX package computes both with XLA's float32
-approximations on the host, whose results differ from correctly rounded
-ones in the last bit for about a quarter of all inputs. Reproducing them
-op by op keeps the port's bitstreams and decodes equal to the JAX
-package's (tests/test_torch_codec.py holds them against jnp).
+"""The float32 math of the JAX package's codecs, bit for bit, in numpy:
+the means codec stores sign(x) log1p(|x|) and decodes with sign(y)
+expm1(|y|), and the rANS codec's factorized tables are the entropy
+model's PMF on the symbol grid (``factorized_likelihood_table``); the JAX
+package computes them with XLA's float32 approximations on the host,
+whose results differ from correctly rounded ones in the last bit for
+about a quarter of all inputs. Reproducing them op by op keeps the port's
+bitstreams and decodes equal to the JAX package's
+(tests/test_torch_codec.py and tests/test_torch_entropy_coding.py hold
+them against jnp).
 
 The approximations (XLA's CPU code generation of them):
   * exp: Cephes expf, n = floor(x log2(e) + 1/2), the reduced argument
@@ -15,7 +18,11 @@ The approximations (XLA's CPU code generation of them):
   * log: Cephes logf on the mantissa in [sqrt(1/2), sqrt(2)), a degree-8
     polynomial in three parts;
   * log1p: log(1 + x) from |x| = sqrt(2) - 1 up, else Cephes' rational
-    approximation.
+    approximation;
+  * softplus: max(x, 0) + log1p(exp(-|x|)) (jnp.logaddexp(x, 0));
+  * logistic: 1 / (1 + exp(-x));
+  * the batched matrix product of the factorized chain: each output a
+    chain of fused multiply-adds over the contracted index, in order.
 Where XLA fuses a multiply and an add into one rounding, so does this
 code (``_fma``, exact in long double before the one rounding to float32).
 """
@@ -144,3 +151,46 @@ def inverse_log_transform(y) -> np.ndarray:
     """sign(y) expm1(|y|), log_transform's inverse."""
     y = np.asarray(y, _F)
     return _mul(np.sign(y), expm1(np.abs(y)))
+
+
+def _softplus(x: np.ndarray) -> np.ndarray:
+    x = np.asarray(x, _F)
+    return _add(np.maximum(x, _F(0)), log1p(_exp(-np.abs(x))))
+
+
+def _logistic(x: np.ndarray) -> np.ndarray:
+    return (_F(1) / _add(_F(1), _exp(-x))).astype(_F)
+
+
+def _logits_cumulative(params, x: np.ndarray) -> np.ndarray:
+    """x [C, 1, L] through the factorized model's monotone chain."""
+    for i, mat in enumerate(params["matrices"]):
+        m = _softplus(mat)  # [C, f_out, f_in]
+        acc = _mul(m[:, :, 0, None], x[:, None, 0])
+        for j in range(1, m.shape[2]):
+            acc = _fma(m[:, :, j, None], x[:, None, j], acc)
+        x = _add(acc, np.asarray(params["biases"][i], _F))
+        if i < len(params["factors"]):
+            f = _tanh(np.asarray(params["factors"][i], _F))
+            x = _add(x, _mul(f, _tanh(x)))
+    return x
+
+
+def factorized_likelihood_table(params, nsym: int, q_step: float,
+                                lower_bd: float) -> np.ndarray:
+    """The factorized entropy model's PMF [C, nsym] at the symbol levels
+    lower_bd + s q_step, held above 1e-6, as the JAX package's
+    compression_sim.entropy_model.factorized_likelihood_table computes
+    it. ``params`` holds numpy arrays: {"matrices", "biases",
+    "factors"}."""
+    x = _add(_mul(np.arange(nsym).astype(_F), _F(q_step)), _F(lower_bd))
+    C = np.shape(params["matrices"][0])[0]
+    xt = np.broadcast_to(x[None, None, :], (C, 1, nsym))
+    half = _F(0.5 * q_step)
+    lower = _logits_cumulative(params, _add(xt, -half))
+    upper = _logits_cumulative(params, _add(xt, half))
+    sign = -np.sign(_add(lower, upper))
+    with np.errstate(over="ignore"):
+        p = np.abs(_add(_logistic(_mul(sign, upper)),
+                        -_logistic(_mul(sign, lower))))
+    return np.maximum(p[:, 0, :], _F(1e-6))

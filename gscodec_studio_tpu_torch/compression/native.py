@@ -1,11 +1,15 @@
 """The host-side C++ helpers of the compression pipeline: PLAS, the 2D
-grid sort (``csrc/host/plas.cpp``).
+grid sort (``csrc/host/plas.cpp``), and the rANS entropy coder
+(``csrc/host/rans.cpp``: ``quantize_freqs``, ``rans_encode`` /
+``rans_decode`` on one table, ``rans_encode_ctx`` / ``rans_decode_ctx``
+on per-symbol context tables).
 
 Built apart from the CUDA kernels (``gscodec_studio_tpu_torch/native.py``),
 so that it runs where there is no CUDA toolkit: at first use ``g++``
 compiles it into ``_build/`` (git-ignored), named by a hash of the source
 and the flags, and it is loaded with ``ctypes``. The flags are the JAX
-package's, so that both libraries sort alike on one machine.
+package's, so that both libraries sort alike on one machine and write
+the same rANS bytes for the same symbols and tables.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 
 HOST_CSRC = Path(__file__).resolve().parents[1] / "csrc" / "host"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("plas.cpp",)
+SOURCES = ("plas.cpp", "rans.cpp")
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _LOCK = threading.Lock()
@@ -62,11 +66,28 @@ def get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             f32p = ctypes.POINTER(ctypes.c_float)
             i32p = ctypes.POINTER(ctypes.c_int32)
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            u16p = ctypes.POINTER(ctypes.c_uint16)
+            u32p = ctypes.POINTER(ctypes.c_uint32)
+            u64p = ctypes.POINTER(ctypes.c_uint64)
+            i64, cint = ctypes.c_int64, ctypes.c_int
             lib.plas_sort.restype = ctypes.c_int
             lib.plas_sort.argtypes = [
                 f32p, i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_double, ctypes.c_uint64, ctypes.c_int,
             ]
+            lib.rans_quantize_freqs.restype = None
+            lib.rans_quantize_freqs.argtypes = [u64p, cint, u32p]
+            lib.rans_encode_u8.restype = i64
+            lib.rans_encode_u8.argtypes = [u8p, i64, u32p, cint, u8p, i64]
+            lib.rans_decode_u8.restype = cint
+            lib.rans_decode_u8.argtypes = [u8p, i64, u32p, cint, u8p, i64]
+            lib.rans_encode_u8_ctx.restype = i64
+            lib.rans_encode_u8_ctx.argtypes = [u8p, u16p, i64, u32p, cint,
+                                               cint, u8p, i64]
+            lib.rans_decode_u8_ctx.restype = cint
+            lib.rans_decode_u8_ctx.argtypes = [u8p, i64, u16p, u32p, cint,
+                                               cint, u8p, i64]
             _LIB = lib
         return _LIB
 
@@ -93,3 +114,84 @@ def plas_sort(data: np.ndarray, grid: int, sweeps_per_level: int = 2,
         raise RuntimeError(f"plas_sort failed: {rc}")
     return perm
 
+
+def quantize_freqs(counts: np.ndarray) -> np.ndarray:
+    """Raw counts [nsym] -> a frequency table summing to 2^14, every
+    nonzero count at least 1."""
+    counts = np.ascontiguousarray(counts, np.uint64)
+    out = np.zeros(len(counts), np.uint32)
+    get_lib().rans_quantize_freqs(_as_ptr(counts, ctypes.c_uint64),
+                                  len(counts), _as_ptr(out, ctypes.c_uint32))
+    return out
+
+
+def _encode_capacity(n: int) -> int:
+    # up to ~30 bits a symbol when one lands in a 2^-30 tail of a context
+    # table (an untrained conditional model), and the 8-byte state
+    return n * 5 + 64
+
+
+def rans_encode(symbols: np.ndarray, freqs: np.ndarray) -> bytes:
+    """u8 symbols against one table (``quantize_freqs``'s) -> the stream."""
+    symbols = np.ascontiguousarray(symbols, np.uint8)
+    freqs = np.ascontiguousarray(freqs, np.uint32)
+    cap = _encode_capacity(symbols.size)
+    out = np.zeros(cap, np.uint8)
+    n = get_lib().rans_encode_u8(
+        _as_ptr(symbols, ctypes.c_uint8), symbols.size,
+        _as_ptr(freqs, ctypes.c_uint32), len(freqs),
+        _as_ptr(out, ctypes.c_uint8), cap)
+    if n < 0:
+        raise RuntimeError(f"rans_encode failed: {n}")
+    return out[:n].tobytes()
+
+
+def rans_decode(buf: bytes, freqs: np.ndarray, n: int) -> np.ndarray:
+    """The n u8 symbols of a rans_encode stream."""
+    arr = np.frombuffer(buf, np.uint8)
+    freqs = np.ascontiguousarray(freqs, np.uint32)
+    out = np.zeros(n, np.uint8)
+    rc = get_lib().rans_decode_u8(
+        _as_ptr(arr, ctypes.c_uint8), arr.size,
+        _as_ptr(freqs, ctypes.c_uint32), len(freqs),
+        _as_ptr(out, ctypes.c_uint8), n)
+    if rc != 0:
+        raise RuntimeError(f"rans_decode failed: {rc}")
+    return out
+
+
+def rans_encode_ctx(symbols: np.ndarray, ctx: np.ndarray,
+                    freqs_2d: np.ndarray) -> bytes:
+    """u8 symbols, each against the table of its context id: ctx [n]
+    uint16 rows of freqs_2d [nctx, nsym]."""
+    symbols = np.ascontiguousarray(symbols, np.uint8)
+    ctx = np.ascontiguousarray(ctx, np.uint16)
+    freqs_2d = np.ascontiguousarray(freqs_2d, np.uint32)
+    nctx, nsym = freqs_2d.shape
+    cap = _encode_capacity(symbols.size)
+    out = np.zeros(cap, np.uint8)
+    n = get_lib().rans_encode_u8_ctx(
+        _as_ptr(symbols, ctypes.c_uint8), _as_ptr(ctx, ctypes.c_uint16),
+        symbols.size, _as_ptr(freqs_2d, ctypes.c_uint32), nctx, nsym,
+        _as_ptr(out, ctypes.c_uint8), cap)
+    if n < 0:
+        raise RuntimeError(f"rans_encode_ctx failed: {n}")
+    return out[:n].tobytes()
+
+
+def rans_decode_ctx(buf: bytes, ctx: np.ndarray, freqs_2d: np.ndarray,
+                    n: int) -> np.ndarray:
+    """The n u8 symbols of a rans_encode_ctx stream, given the same
+    context ids and tables."""
+    arr = np.frombuffer(buf, np.uint8)
+    ctx = np.ascontiguousarray(ctx, np.uint16)
+    freqs_2d = np.ascontiguousarray(freqs_2d, np.uint32)
+    nctx, nsym = freqs_2d.shape
+    out = np.zeros(n, np.uint8)
+    rc = get_lib().rans_decode_u8_ctx(
+        _as_ptr(arr, ctypes.c_uint8), arr.size, _as_ptr(ctx, ctypes.c_uint16),
+        _as_ptr(freqs_2d, ctypes.c_uint32), nctx, nsym,
+        _as_ptr(out, ctypes.c_uint8), n)
+    if rc != 0:
+        raise RuntimeError(f"rans_decode_ctx failed: {rc}")
+    return out

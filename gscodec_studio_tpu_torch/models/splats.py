@@ -240,6 +240,31 @@ def from_jax_sim_params(tree: Dict, device: DeviceLike = None
             for k, a in flatten_tree(tree).items()}
 
 
+def codec_models_from_jax(models: Optional[Dict],
+                          device: DeviceLike = None) -> Optional[Dict]:
+    """The rANS codec's entropy models (compression/entropy_coding.py)
+    from the JAX package's, as numpy or JAX arrays: {attr: factorized
+    model} -> {attr: the same tree of float32 tensors}, and {attr:
+    ("gaussian", (hash-grid params, (cfg3d, cfg2d, channel)))} -> the
+    same with the port's HashGridCfg."""
+    if models is None:
+        return None
+    from gscodec_studio_tpu_torch.compression_sim.hash_grid import (
+        HashGridCfg)
+
+    dev = resolve_device(device)
+    out = {}
+    for name, m in models.items():
+        if isinstance(m, tuple) and m[0] == "gaussian":
+            params, (cfg3d, cfg2d, channel) = m[1]
+            out[name] = ("gaussian", (
+                unflatten_tree(from_jax_sim_params(params, dev)),
+                (HashGridCfg(*cfg3d), HashGridCfg(*cfg2d), int(channel))))
+        else:
+            out[name] = unflatten_tree(from_jax_sim_params(m, dev))
+    return out
+
+
 def from_jax_adam_state(count, mu: Dict, nu: Dict,
                         device: DeviceLike = None) -> Dict[str, dict]:
     """The port's Adam states of the sim parameters ({name: {"count",

@@ -19,3 +19,11 @@ def covar_world_to_cam(viewmats: torch.Tensor,
     """R Sigma R^T. viewmats [C, 4, 4]; covars [N, 3, 3] -> [C, N, 3, 3]."""
     R = viewmats[:, :3, :3]
     return torch.einsum("cij,njk,clk->cnil", R, covars, R)
+
+
+def world_to_cam(means: torch.Tensor, covars: torch.Tensor,
+                 viewmats: torch.Tensor):
+    """means [N,3], covars [N,3,3], viewmats [C,4,4] -> (means_c [C,N,3],
+    covars_c [C,N,3,3])."""
+    return pos_world_to_cam(viewmats, means), covar_world_to_cam(viewmats,
+                                                                 covars)

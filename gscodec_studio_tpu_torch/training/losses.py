@@ -1,4 +1,4 @@
-"""Training losses: L1 + SSIM, and PSNR (port of
+"""Training losses: L1 + SSIM, and PSNR and multi-scale SSIM (port of
 gscodec_studio_tpu/training/losses.py).
 
 SSIM uses the separable 11x11 Gaussian window with SAME zero padding, in
@@ -72,6 +72,39 @@ def ssim(img0: torch.Tensor, img1: torch.Tensor, max_val: float = 1.0,
     """Mean SSIM over the batch of [B, H, W, C] images in [0, 1]."""
     sm, _ = _ssim_cs(img0, img1, max_val, win_size, sigma)
     return sm.mean()
+
+
+# Wang et al. 2003 per-scale weights
+_MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+
+
+def ms_ssim(img0: torch.Tensor, img1: torch.Tensor, max_val: float = 1.0,
+            win_size: int = 11, sigma: float = 1.5,
+            weights=_MSSSIM_WEIGHTS) -> torch.Tensor:
+    """Multi-scale SSIM of [B, H, W, C] images in [0, 1], with as many of
+    the scales as the image size holds (the smaller side at the coarsest
+    scale at least ``win_size``). Between scales a 2x2 mean halves the
+    images, dropping an odd last row and column."""
+    n = len(weights)
+    h, w = img0.shape[1:3]
+    while n > 1 and min(h, w) // (2 ** (n - 1)) < win_size:
+        n -= 1
+    ws = torch.tensor(weights[:n], dtype=torch.float32,
+                      device=img0.device) / sum(weights[:n])
+
+    def pool(x):
+        return F.avg_pool2d(x.permute(0, 3, 1, 2), kernel_size=2,
+                            stride=2).permute(0, 2, 3, 1)
+
+    vals = []
+    a, b = img0, img1
+    for i in range(n):
+        sm, cs = _ssim_cs(a, b, max_val, win_size, sigma)
+        vals.append((sm if i == n - 1 else cs).mean())
+        if i + 1 < n:
+            a, b = pool(a), pool(b)
+    v = torch.stack(vals)
+    return torch.prod(torch.sign(v) * torch.abs(v) ** ws)
 
 
 def l1(img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:

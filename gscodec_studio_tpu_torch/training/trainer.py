@@ -27,8 +27,8 @@ SH-degree schedule, the adaptive intersection capacity, the scalars and
 histograms (``utils/logger.py``, result_dir/tb), and at ``eval_steps`` and
 ``save_steps`` the evaluation and the checkpoint. After training,
 ``save_checkpoint``/``load_checkpoint`` (npz files both packages read),
-``save_ply``, ``render_traj`` and ``run_compression("png")`` store, show
-and compress the scene.
+``save_ply``, ``render_traj`` and ``run_compression`` ("png" or
+"entropy_coding") store, show and compress the scene.
 
 The port loops in Python, one step per iteration; the JAX package's
 ``lax.scan`` chunks (``steps_per_dispatch``) were a TPU dispatch device.
@@ -48,10 +48,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from gscodec_studio_tpu_torch.compression import (PngCompression,
+from gscodec_studio_tpu_torch.compression import (EntropyCodingCompression,
+                                                 PngCompression,
                                                  compressed_size)
 from gscodec_studio_tpu_torch.compression.png_io import write_png
 from gscodec_studio_tpu_torch.compression_sim import CompressionSimulation
+from gscodec_studio_tpu_torch.compression_sim.hash_grid import (
+    gaussian_conditional_cfgs)
+from gscodec_studio_tpu_torch.compression_sim.simulation import (
+    entropy_model_params)
 from gscodec_studio_tpu_torch.device import DeviceLike, resolve_device
 from gscodec_studio_tpu_torch.models.splats import (DEAD_OPACITY_LOGIT,
                                                     create_splats,
@@ -926,22 +931,27 @@ class Runner:
 
     def run_compression(self, step: int = 0,
                         method: str = "png") -> Dict[str, float]:
-        """Compress the live splats into result_dir/compression_<step>,
-        decode them, pad them back to capacity (dead slots at opacity
-        -15), evaluate them as stage ``compress_<method>`` and restore the
-        trained splats. Returns the metrics with ``size_bytes``, the
-        bitstream's bytes on disk; the stages' seconds are left in
-        ``self.compression_seconds``."""
-        if method == "entropy_coding":
-            raise NotImplementedError(
-                "run_compression(method='entropy_coding') (rANS) is not "
-                "ported yet: ROADMAP A9")
-        if method != "png":
-            raise ValueError(method)
+        """Compress the live splats into result_dir/compression_<step>
+        with the PNG codec (``method="png"``) or the rANS codec
+        (``"entropy_coding"``: histogram tables without the compression
+        simulation's entropy models, else the factorized models' tables,
+        or under ``entropy_model_type="gaussian_model"`` the hash-grid
+        models' context tables), decode them, pad them back to capacity
+        (dead slots at opacity -15), evaluate them as stage
+        ``compress_<method>`` and restore the trained splats. Returns the
+        metrics with ``size_bytes``, the bitstream's bytes on disk; the
+        stages' seconds are left in ``self.compression_seconds``."""
         compress_dir = os.path.join(self.cfg.result_dir,
                                     f"compression_{step}")
-        codec = PngCompression(device=self.device)
-        codec.compress(compress_dir, self.live_splats())
+        if method == "png":
+            codec = PngCompression(device=self.device)
+            codec.compress(compress_dir, self.live_splats())
+        elif method == "entropy_coding":
+            codec = EntropyCodingCompression(device=self.device)
+            codec.compress(compress_dir, self.live_splats(),
+                           entropy_models=self.entropy_models())
+        else:
+            raise ValueError(method)
         t0 = time.perf_counter()
         decoded = codec.decompress(compress_dir)
         restored = {}
@@ -965,3 +975,20 @@ class Runner:
         self.compression_seconds = seconds
         metrics["size_bytes"] = compressed_size(compress_dir)
         return metrics
+
+    def entropy_models(self) -> Optional[Dict]:
+        """The rANS codec's models of the compression simulation: {attr:
+        factorized model} or, under the hash-grid model, {attr:
+        ("gaussian", (model, cfgs))}; None without entropy models."""
+        sim = self.compression_sim
+        if sim is None or not sim.entropy_model_opt:
+            return None
+        out = {}
+        for name in sim.entropy_channels:
+            model = entropy_model_params(self.sim_params, name)
+            if not model:
+                continue
+            if sim.entropy_model_type == "gaussian_model":
+                model = ("gaussian", (model, gaussian_conditional_cfgs(model)))
+            out[name] = model
+        return out or None

@@ -1,5 +1,6 @@
-"""Render splat models from a camera rig (port of
-gscodec_studio_tpu/utils/ply_render.py: orbit_cameras, render_splats)."""
+"""Render splat models from a camera rig and score decoded frames (port of
+gscodec_studio_tpu/utils/ply_render.py: orbit_cameras, render_splats,
+sequence_metrics)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gscodec_studio_tpu_torch.models.splats import SplatModel
+from gscodec_studio_tpu_torch.device import DeviceLike
+from gscodec_studio_tpu_torch.models.splats import SplatModel, from_jax_splats
 from gscodec_studio_tpu_torch.rendering import rasterization
+from gscodec_studio_tpu_torch.utils.gsc_metrics import gsc_metrics
 
 
 def orbit_cameras(
@@ -82,3 +85,28 @@ def render_splats(
             )
             out.append((torch.clamp(img[0], 0.0, 1.0), alpha[0], meta))
     return out
+
+
+def sequence_metrics(
+    ref_frames: Sequence[Dict[str, np.ndarray]],
+    dec_frames: Sequence[Dict[str, np.ndarray]],
+    cameras: Sequence[Dict],
+    device: DeviceLike = None,
+    **render_kw,
+) -> Dict[str, float]:
+    """Render each frame's source and decoded splat dicts (log scales,
+    logit opacities, sh0/shN) from ``cameras`` on ``device`` (None means
+    the CUDA card) and average gsc_metrics over (frame, view): the
+    decoded-against-source distortion the MPEG anchor scripts report.
+    ``render_kw`` goes to render_splats."""
+    acc: Dict[str, list] = {}
+    for ref, dec in zip(ref_frames, dec_frames):
+        r_imgs = render_splats(from_jax_splats(ref, device), cameras,
+                               **render_kw)
+        d_imgs = render_splats(from_jax_splats(dec, device), cameras,
+                               **render_kw)
+        for (r, _, _), (d, _, _) in zip(r_imgs, d_imgs):
+            m = gsc_metrics(r.cpu().numpy(), d.cpu().numpy(), device=r.device)
+            for k, v in m.items():
+                acc.setdefault(k, []).append(v)
+    return {k: float(np.mean(v)) for k, v in acc.items()}

@@ -90,12 +90,22 @@ def test_projection_matches_jax(rng, antialiased, elliptical, with_opacity):
 
 @pytest.mark.parametrize("model", ["ortho", "fisheye"])
 def test_projection_other_cameras_not_ported(rng, model):
+    """The ortho and fisheye cameras, refused before the port had them,
+    project as in the JAX package (tests/test_torch_cameras.py holds
+    their gradients and every option)."""
     sc = make_test_scene(rng, C=1, N=10)
-    args = [torch.as_tensor(sc[k]) for k in
-            ("means", "quats", "scales", "viewmats", "Ks")]
-    with pytest.raises(NotImplementedError):
-        tproj.fully_fused_projection(args[0], None, *args[1:], 64, 48,
-                                     camera_model=model)
+    names = ("means", "quats", "scales", "viewmats", "Ks")
+    t = tproj.fully_fused_projection(
+        torch.as_tensor(sc["means"]), None,
+        *[torch.as_tensor(sc[k]) for k in names[1:]], 64, 48,
+        camera_model=model)
+    j = jproj.fully_fused_projection(
+        jnp.asarray(sc["means"]), None,
+        *[jnp.asarray(sc[k]) for k in names[1:]], 64, 48,
+        camera_model=model)
+    np.testing.assert_array_equal(t[0].numpy(), np.asarray(j[0]))
+    for a, b in zip(t[1:4], j[1:4]):
+        _close(a, b)
 
 
 @pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])

@@ -17,7 +17,9 @@ Tolerances:
   * checkpoints, the committed one and the port's in the JAX runner, bit
     for bit;
   * run_compression: PSNR within 0.1 dB of JAX's (the shN k-means
-    differs in a few labels; test_torch_codec), size_bytes within 10%.
+    differs in a few labels; test_torch_codec), size_bytes within 10%;
+    with "entropy_coding" (the hash-grid models' context tables) the
+    rANS streams byte for byte.
 """
 
 import functools
@@ -212,8 +214,10 @@ def test_hash_grid_checkpoint_round_trip(fake_scene, tmp_path):  # noqa
 
 def test_run_compression_matches_jax(fake_scene, jax_recipe, tmp_path,  # noqa
                                      monkeypatch):
-    """run_compression("png") of the JAX run's trained splats in both
-    packages (PLAS on one thread in both)."""
+    """run_compression("png") and run_compression("entropy_coding") (the
+    recipe's hash-grid models: context tables) of the JAX run's trained
+    splats and sim parameters in both packages (PLAS on one thread in
+    both)."""
     for mod in (jnative, tnative):
         monkeypatch.setattr(mod, "plas_sort", functools.partial(
             mod.plas_sort, n_threads=1))
@@ -230,7 +234,19 @@ def test_run_compression_matches_jax(fake_scene, jax_recipe, tmp_path,  # noqa
         "filter", "plas", "kmeans", "png_write", "decode", "eval"}
     for k in NAMES:  # the trained splats are back
         np.testing.assert_array_equal(tr.splats[k].numpy(), splats[k])
-    with pytest.raises(NotImplementedError, match="A9"):
-        tr.run_compression(STEPS, method="entropy_coding")
+    want = jr.run_compression(STEPS + 1, method="entropy_coding")
+    tr.sim_params = from_jax_sim_params(
+        jax.tree_util.tree_map(np.array, jr.sim_params), device="cpu")
+    got = tr.run_compression(STEPS + 1, method="entropy_coding")
+    assert abs(got["psnr"] - want["psnr"]) <= 0.1
+    assert got["size_bytes"] == pytest.approx(want["size_bytes"], rel=0.10)
+    jd = Path(jr.cfg.result_dir) / f"compression_{STEPS + 1}"
+    td = tmp_path / "port" / f"compression_{STEPS + 1}"
+    assert sorted(p.name for p in td.glob("*_gmodel.pkl")) == [
+        "quats_gmodel.pkl", "scales_gmodel.pkl", "sh0_gmodel.pkl"]
+    for f in sorted(jd.glob("*.ans")):
+        assert f.read_bytes() == (td / f.name).read_bytes(), f.name
+    for k in NAMES:
+        np.testing.assert_array_equal(tr.splats[k].numpy(), splats[k])
     tr.save_ply(str(tmp_path / "scene.ply"))
     assert (tmp_path / "scene.ply").stat().st_size > 0
