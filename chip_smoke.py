@@ -218,7 +218,29 @@ Phases, one JSON line each with its own ``seconds``:
             held-out render timed by utils/profiling.honest_timer; for the
             model tables the same splats' bytes against histograms; the
             Gaussians whose raw log scale the codec's bound clips, and the
-            trained PSNR with only that clip.
+            trained PSNR with only that clip;
+  dynamic   the dynamic/STG path (examples/dyn_benchmark.py's recipe) on a
+            stand-in from the serve checkpoint: 30% of its Gaussians
+            moving, 10 views on an arc x 20 timestamps at 648x420 rendered
+            by the fused forward, views 0 and 5 held out; DynRunner under
+            ModifiedSTG at 120,000 slots with the Sandwich decoder (9
+            feature channels: B1 and B2 in their chm-16 builds) and the
+            STG compression simulation, 200 steps (cut from 4,000; every
+            cut printed under "cuts"): step ms by CUDA events, launches a
+            step, the device's busy share, held-out PSNR/SSIM before and
+            after with each view's intersections against the eval
+            capacity, the live count after each refine; B9a, B3, B1, B2,
+            B9b and B4 on the slowest trained view against their plain
+            versions with B1's and B2's regions (missed_slots 0), B1 and
+            B2 timed there beside the view's first 3 channels; the stg
+            leg (the omega freeze at step 20: kept and frozen omegas), the
+            mcmc leg through dyn_trainer_cli.main on an INVR directory,
+            the v1 leg (B7, B8, B10 at 9 channels, against their plain
+            versions); the trained model's 20 frames through
+            compress_ply_sequence at rp0, rp2, rp3 (bytes, backend, bits,
+            sequence_metrics), STGPngCompression of the trained splats,
+            and the committed sequence results/dyn_stand_in/frames at qp
+            30 against its committed meta.json, field by field.
 The kernels and train_1m phases also hold the packed-pair branches (B2p,
 B4p) against their plain versions, and train_1m times the bf16 case beside
 the f32 one. Wherever a backward is checked (check_reduction), the
@@ -232,7 +254,8 @@ branches of B3, B1 and B2 one fwd+bwd of bench_1m, for B5/B6's log branch
 one fwd+bwd of train_1m_2dgs's log leg, for B6's absgrad rows its probed
 fwd+bwd, for B7, B8 and B10 the train_v1 phase,
 for B11 the cumsum_skel phase, for SelectiveAdam the garden_recipe
-phase; the tile kernels' bounds, B1's,
+phase; the dynamic phase's launches a step, absolute and relative errors
+beside them on its kernels; the tile kernels' bounds, B1's,
 B2's, B5's, B6's, B7's, B8's and B11's, on their candidate slots, tile_bound,
 with the plain walk's beside them in the phases), the card's name and
 power limit, and
@@ -1549,6 +1572,528 @@ def colmap_trainer(dev, stages_for):
     del runner
     shutil.rmtree(work, ignore_errors=True)
     return phase, launches, rgb_ed_errs
+
+
+# the dynamic phase: examples/dyn_benchmark.py's recipe on a stand-in made
+# from the serve checkpoint (its inputs, the garden SfM points and views,
+# are not in the repository)
+DYN_WIDTH, DYN_HEIGHT = 648, 420
+DYN_VIEWS, DYN_FRAMES = 10, 20
+DYN_SEED = 0  # the stand-in's motion and the initialisation's draws
+DYN_CAP = 120_000
+DYN_STEPS = 200  # the recipe's 4,000, cut
+DYN_REFINE = (50, 50, 167)  # start, every, stop: 25/30 of the run
+DYN_ENTROPY_AT = 100  # the STG entropy terms' step (7,000 in the recipe)
+DYN_STG_STEPS, DYN_STG_FREEZE = 40, 20
+DYN_CLI_STEPS, DYN_V1_STEPS = 20, 5
+DYN_RATE_POINTS = ("rp0", "rp2", "rp3")
+DYN_COMMITTED = ROOT / "results" / "dyn_stand_in"
+# the kernels of the dynamic path: the fused step's, and the v1 leg's
+DYN_KERNELS = ("pack_rows", "expand", "raster_fwd", "raster_bwd",
+               "segsum_rows", "unpack_rows", "raster_v1_fwd",
+               "raster_v1_bwd", "cumsum_rows")
+
+
+def dyn_stand_in(dev):
+    """The dynamic stand-in: the serve checkpoint's 120,000 Gaussians (SH
+    3) as the ground truth, 30% of them moving 0.15 U(0,1) sin(2 pi t)
+    along a random axis; DYN_VIEWS cameras on dyn_benchmark.py's arc (phi
+    in [-0.5, 0.5] around the live points' median, at orbit_cameras'
+    radius and elevation) x DYN_FRAMES timestamps, rendered by the port's
+    fused forward with orbit_cameras' K at DYN_WIDTH x DYN_HEIGHT. Returns
+    (samples, the live points, their colours in [0, 1])."""
+    from gscodec_studio_tpu_torch.models.splats import (from_jax_splats,
+                                                        sh_to_rgb,
+                                                        splat_activations)
+    from gscodec_studio_tpu_torch.rendering import rasterization
+    from gscodec_studio_tpu_torch.utils.ply_render import orbit_cameras
+
+    with np.load(CHECKPOINT) as z:
+        ck = {k: z[k] for k in z.files}
+    model = from_jax_splats(ck, device=dev)
+    N = len(ck["means"])
+    rng = np.random.default_rng(DYN_SEED)
+    moving = rng.random(N) < 0.3
+    axis = rng.standard_normal((N, 3)).astype(np.float32)
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    amp = (0.15 * rng.random(N) * moving).astype(np.float32)
+    live = 1.0 / (1.0 + np.exp(-ck["opacities"].astype(np.float64))) > 0.005
+    pts = ck["means"][live].astype(np.float32)
+    rgb = np.clip(sh_to_rgb(ck["sh0"].reshape(-1, 3)[live]), 0, 1).astype(
+        np.float32)
+    cam0 = orbit_cameras(pts, n_views=1, width=DYN_WIDTH,
+                         height=DYN_HEIGHT)[0]
+    K = cam0["K"]
+    target = np.median(pts, axis=0)
+    radius = float(np.linalg.norm(cam0["camtoworld"][:3, 3] - target)) \
+        / float(np.linalg.norm([1.0, 0.15]))
+    means0, quats, scales, opac = splat_activations(model)
+    colors = model.sh_coeffs()
+    axis_d, amp_d = (torch.as_tensor(a, device=dev) for a in (axis, amp))
+    samples = []
+    with torch.no_grad():
+        for vi in range(DYN_VIEWS):
+            phi = -0.5 + 1.0 * vi / max(DYN_VIEWS - 1, 1)
+            eye = target + radius * np.array([np.cos(phi), 0.15,
+                                              np.sin(phi)], np.float32)
+            fwd = target - eye
+            fwd /= np.linalg.norm(fwd)
+            right = np.cross(fwd, np.array([0, -1, 0], np.float32))
+            right /= np.linalg.norm(right)
+            up = np.cross(fwd, right)
+            c2w = np.eye(4, dtype=np.float32)
+            c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = (right, up,
+                                                              fwd, eye)
+            vm = torch.as_tensor(np.linalg.inv(c2w), device=dev)[None]
+            for fi in range(DYN_FRAMES):
+                t = fi / max(DYN_FRAMES - 1, 1)
+                disp = (amp_d * math.sin(2 * math.pi * t))[:, None] * axis_d
+                img, _, meta = rasterization(
+                    means0 + disp, quats, scales, opac, colors, vm,
+                    torch.as_tensor(K, device=dev)[None], DYN_WIDTH,
+                    DYN_HEIGHT, sh_degree=3, isect_capacity=1 << 20,
+                    device=dev)
+                if int(meta["n_isects"][0]) >= (1 << 20):
+                    raise AssertionError("a dynamic target filled its "
+                                         "intersection capacity")
+                samples.append({
+                    "camtoworld": c2w, "K": K, "timestamp": np.float32(t),
+                    "image": torch.clamp(img[0], 0, 1).cpu().numpy(),
+                    "image_id": len(samples), "view": vi})
+    return samples, pts, rgb
+
+
+def dyn_view_prep(runner, sp, i, sim_step=None):
+    """project_and_shade's outputs of train sample ``i`` at splats ``sp``
+    as DynRunner renders them (the simulation's fake quantization at
+    ``sim_step`` first, where given)."""
+    from gscodec_studio_tpu_torch.rendering import project_and_shade
+
+    cfg = runner.cfg
+    data = runner._device_trainset()
+    c2w, K, t = (data[k][i] for k in ("camtoworld", "K", "timestamp"))
+    H, W = data["image"].shape[1:3]
+    if sim_step is not None and runner.compression_sim is not None:
+        sp, _, _ = runner.compression_sim.simulate(sp, runner.sim_params,
+                                                   sim_step)
+    means, quats, scales, opac, colors, _ = runner.render_inputs(sp, c2w, t)
+    return project_and_shade(
+        means, quats, scales, opac, colors, torch.linalg.inv(c2w)[None],
+        K[None], W, H, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
+        sh_degree=None, elliptical=cfg.rasterizer == "fused")
+
+
+def dyn_eval(runner):
+    """eval() with its intersection counts against the eval capacity."""
+    from gscodec_studio_tpu_torch.training import dyn_trainer as dt
+
+    m = runner.eval()
+    cap = runner.cfg.isect_capacity or dt.EVAL_ISECT_CAPACITY
+    return dict(m, n_isects=runner.eval_isects, isect_capacity=cap,
+                truncated_views=sum(n >= cap for n in runner.eval_isects))
+
+
+def write_invr_scene(root, samples, train_views, val_views, frames, pts):
+    """An INVR directory of the stand-in's samples: transforms_train.json
+    and transforms_val.json (Blender axes, fl_x/fl_y), PNG frames and the
+    initial points (points3d.npy)."""
+    from gscodec_studio_tpu_torch.compression.png_io import write_png
+
+    root.mkdir(parents=True)
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    for split, views in (("train", train_views), ("val", val_views)):
+        meta = {"fl_x": float(samples[0]["K"][0, 0]),
+                "fl_y": float(samples[0]["K"][1, 1]), "frames": []}
+        for s in samples:
+            if s["view"] in views and (s["image_id"] % DYN_FRAMES) in frames:
+                name = f"frames/{s['image_id']:04d}"
+                (root / "frames").mkdir(exist_ok=True)
+                write_png(str(root / (name + ".png")),
+                          (s["image"] * 255).astype(np.uint8))
+                meta["frames"].append({
+                    "file_path": name, "time": float(s["timestamp"]),
+                    "transform_matrix": (s["camtoworld"].astype(np.float64)
+                                         @ flip).tolist()})
+        (root / f"transforms_{split}.json").write_text(json.dumps(meta))
+    np.save(root / "points3d.npy", pts)
+
+
+def seq_meta_diff(got, want, path=""):
+    """The fields of two meta.json trees that differ (file lists apart),
+    floats compared at their float32 bits."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        out = []
+        for k in sorted(set(got) | set(want)):
+            if k != "files":
+                out += seq_meta_diff(got.get(k), want.get(k), f"{path}.{k}")
+        return out
+    if isinstance(want, list) and isinstance(got, list) \
+            and len(got) == len(want):
+        return [d for i, (a, b) in enumerate(zip(got, want))
+                for d in seq_meta_diff(a, b, f"{path}[{i}]")]
+    if isinstance(want, float) or isinstance(got, float):
+        same = got is not None and want is not None and \
+            np.float32(got) == np.float32(want)
+    else:
+        same = got == want
+    return [] if same else [dict(field=path, got=got, want=want)]
+
+
+def dynamic(dev, stages_for):
+    """The dynamic/STG path (examples/dyn_benchmark.py's recipe) on the
+    stand-in of dyn_stand_in. The main leg: DynRunner under ModifiedSTG at
+    DYN_CAP slots, the Sandwich decoder (9 feature channels: B1 and B2 in
+    their chm-16 builds), the STG compression simulation with its entropy
+    models (their gates moved to DYN_ENTROPY_AT), DYN_STEPS steps with the
+    refine window cut in proportion, scene_scale 3: step times by CUDA
+    events, launches a step, the device's busy share, held-out PSNR/SSIM
+    before and after with each view's intersections against the eval
+    capacity, the live count after each refine; the kernels B9a, B3, B1,
+    B2, B9b and B4 on the slowest trained view (B2 timed on every training
+    sample) against their plain versions, B1's and B2's regions there
+    (missed_slots must be 0) and their times beside the same view's first
+    3 channels. The stg leg (the linear head, the omega freeze at
+    DYN_STG_FREEZE), the mcmc leg through dyn_trainer_cli.main on an INVR
+    directory written from the stand-in, the v1 leg (rasterizer="pallas",
+    B7, B8 and B10 at 9 channels, B7 and B8 against their plain versions).
+    The codecs: the trained model's 20 frames through compress_ply_sequence
+    at DYN_RATE_POINTS, STGPngCompression of the trained splats, and the
+    committed sequence results/dyn_stand_in/frames at qp 30 against the
+    committed meta.json. Returns (phase dict, launches a step of the main
+    leg and of the v1 leg, the kernels' largest absolute and relative
+    errors at 9 channels, kept apart from the other phases': the seeded
+    cotangent makes gradients of ~1e7 here)."""
+    from gscodec_studio_tpu_torch import compress_ply_sequence
+    from gscodec_studio_tpu_torch import dyn_trainer_cli
+    from gscodec_studio_tpu_torch.compression import compressed_size
+    from gscodec_studio_tpu_torch.compression.seq_codec import (SeqCodec,
+                                                                have_ffmpeg)
+    from gscodec_studio_tpu_torch.compression.stg_compression import (
+        STGPngCompression)
+    from gscodec_studio_tpu_torch.models.splats import DEAD_OPACITY_LOGIT
+    from gscodec_studio_tpu_torch.ops import isect as ti
+    from gscodec_studio_tpu_torch.ops import raster_v2 as rv
+    from gscodec_studio_tpu_torch.ops import rasterize_pallas as rp
+    from gscodec_studio_tpu_torch.training import dyn_trainer as dt
+    from gscodec_studio_tpu_torch.utils.ply import load_ply, save_ply
+
+    t0 = time.perf_counter()
+    samples, pts, rgb = dyn_stand_in(dev)
+    scene_s = time.perf_counter() - t0
+    held = set(range(0, DYN_VIEWS, 5))
+    train_v = [s for s in samples if s["view"] not in held]
+    val_v = [s for s in samples if s["view"] in held][::4]
+    rng = np.random.default_rng(DYN_SEED)
+    sel = rng.choice(len(pts), min(60_000, len(pts)), replace=False)
+    init_pts = pts[sel] + 0.02 * rng.standard_normal(
+        (len(sel), 3)).astype(np.float32)
+    start, every, stop = DYN_REFINE
+    cuts = {
+        "ground_truth": "the serve checkpoint results/garden_ab_f32/"
+        "splats_final.npz (120,000 slots, SH 3) for dyn_benchmark's 40,000 "
+        "garden SfM points at SH 1 (test_garden.npz is not in the repo)",
+        "cameras": "dyn_benchmark's arc at orbit_cameras' radius and "
+        "elevation around the live points, orbit_cameras' K at "
+        f"{DYN_WIDTH}x{DYN_HEIGHT}",
+        "init": f"{len(sel)} live means (the checkpoint holds "
+        f"{len(pts)} live Gaussians; the recipe takes 60,000) + 0.02 noise",
+        "steps": f"{DYN_STEPS} of 4,000", "refine": dict(
+            start=start, every=every, stop=stop),
+        "entropy_steps": f"{DYN_ENTROPY_AT} (7,000 in the STG tables)",
+        "seed": DYN_SEED}
+    base = dict(strategy="modified_stg", capacity=DYN_CAP,
+                mcmc_cap_max=DYN_CAP, color_mode="sandwich",
+                compression_sim=True, entropy_model_opt=True, rd_lambda=0.01,
+                max_steps=DYN_STEPS, refine_start_iter=start,
+                refine_every=every, refine_stop_iter=stop,
+                steps_per_dispatch=10)
+    work = Path(tempfile.mkdtemp(prefix="gsc_smoke_dyn_"))
+
+    def runner_for(name, **kw):
+        cfg = dt.DynConfig(result_dir=str(work / name), **dict(base, **kw))
+        r = dt.DynRunner(cfg, init_pts, rgb[sel], train_v, val_v,
+                         scene_scale=3.0, device=dev)
+        if r.compression_sim is not None:
+            sim = r.compression_sim
+            sim.entropy_steps = {k: DYN_ENTROPY_AT for k in sim.entropy_steps}
+        return r
+
+    def timed(runner, n):
+        """n steps of runner.train with each step between CUDA events;
+        returns (losses, step ms, seconds, launches)."""
+        events = []
+        step_fn = runner.train_step
+
+        def step(idx, s):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step_fn(idx, s)
+            e1.record()
+            events.append((e0, e1))
+            return out
+
+        runner.train_step = step
+        rv.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            losses = runner.train(n, log_every=0)
+            torch.cuda.synchronize()
+        finally:
+            del runner.train_step
+        secs = time.perf_counter() - t1
+        launches = dict(rv.LAUNCHES)
+        return (losses, [a.elapsed_time(b) for a, b in events], secs,
+                launches)
+
+    # the main leg
+    runner = runner_for("main")
+    before = dyn_eval(runner)
+    losses, step_ms, train_s, launches = timed(runner, DYN_STEPS)
+    per_step = {k: v / DYN_STEPS for k, v in launches.items() if v}
+    # the losses are not compared: each step renders another view and
+    # time, and from DYN_ENTROPY_AT on they carry rd_lambda * bits; the
+    # held-out PSNR below must rise
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"dynamic: losses {losses}")
+    if min(launches.get(k, 0) for k in KERNELS_3DGS) < DYN_STEPS:
+        raise AssertionError(f"dynamic: a kernel missed steps: {launches}")
+    after = dyn_eval(runner)
+    if not after["psnr"] > before["psnr"]:
+        raise AssertionError(f"dynamic: held-out PSNR {before} -> {after}")
+    sim_bits = None
+    with torch.no_grad():
+        _, bits, _ = runner.compression_sim.simulate(
+            runner.splats, runner.sim_params, DYN_STEPS)
+        sim_bits = float(bits)
+
+    # the kernels on the slowest trained view, at 9 channels
+    cfg = runner.cfg
+    data = runner._device_trainset()
+    H, W = data["image"].shape[1:3]
+    sp = {k: v.detach() for k, v in runner.splats.items()}
+    n_train = data["image"].shape[0]
+    bwd_ms = []
+    dyn_errs = {}
+    with torch.no_grad():
+        for i in range(n_train):
+            st = stages_for(dyn_view_prep(runner, sp, i, DYN_STEPS - 1), W,
+                            H, 16, "exact", cap=runner.isect_capacity())
+            st.cotangent(seed=700 + i)
+            bwd_ms.append(cuda_ms(lambda: rv.raster_bwd(
+                st.b.S, st.b.starts, st.masks, st.out, st.v_tiles, st.cfg,
+                False), 2))
+            del st
+        view = int(np.argmax(bwd_ms))
+        prep = dyn_view_prep(runner, sp, view, DYN_STEPS - 1)
+        st = stages_for(prep, W, H, 16, "exact", cap=runner.isect_capacity())
+        if st.cfg.channels != 9 or rv.fwd_build(9, 16)["chm"] != 16:
+            raise AssertionError("the dynamic render is not B1's 9-channel "
+                                 "chm-16 build")
+        check = st.compare(dyn_errs)
+        check.update(st.compare_bwd(dyn_errs, seed=700 + view))
+        check["b1_regions"] = region_summary(b1_regions(rv, st))
+        check["b2_regions"] = region_summary(b2_regions(rv, st))
+        check["b3_work"] = b3_work(rv, st)
+        times = {}
+        for ch in (9, 3):
+            s_ = st if ch == 9 else stages_for(
+                prep[:4] + (prep[4][..., :3],) + prep[5:], W, H, 16, "exact",
+                cap=runner.isect_capacity())
+            s_.cotangent(seed=800)
+            times[f"{ch}ch"] = dict(
+                channels=ch, build_fwd=rv.fwd_build(ch, 16),
+                build_bwd=rv.bwd_build(ch, 16),
+                raster_fwd_ms=cuda_ms(lambda: rv.raster_fwd(
+                    s_.b.S, s_.b.starts, s_.masks, s_.cfg, order=s_.runs),
+                    10),
+                raster_bwd_ms=cuda_ms(lambda: rv.raster_bwd(
+                    s_.b.S, s_.b.starts, s_.masks, s_.out, s_.v_tiles,
+                    s_.cfg, False), 10))
+        check.update(view=view, timestamp=float(data["timestamp"][view]),
+                     n_isects=int(st.b.n_isects),
+                     isect_capacity=st.cfg.cap,
+                     out_channels=int(st.out.shape[-1]),
+                     b1_b2_by_channels=times)
+        del st
+    # where a step's time goes
+    step_prof = device_profile(lambda: runner.train_step(
+        runner.order[0], DYN_STEPS), reps=2)
+    main = dict(
+        steps=DYN_STEPS, train_seconds=train_s,
+        step_ms_median=float(np.median(step_ms)), step_ms_p90=float(
+            np.percentile(step_ms, 90)), host_ms_per_step=1e3 * train_s
+        / DYN_STEPS, loss_first5=losses[:5], loss_last5=losses[-5:],
+        eval_before=before, eval_after=after, events=runner.events,
+        launches_per_step=per_step, sim_bits=sim_bits,
+        device_busy_share=step_prof.get("device_busy_share"),
+        step_profile=dict(step_prof, top=step_prof.get("top", [])[:10]),
+        train_isect_capacity=runner.isect_capacity(),
+        raster_bwd_ms_by_sample=dict(min=min(bwd_ms), max=max(bwd_ms),
+                                     median=float(np.median(bwd_ms))),
+        slowest_view_check=check)
+
+    # the codecs on the trained model
+    ply_dir = work / "frames"
+    ply_dir.mkdir()
+    t1 = time.perf_counter()
+    frames = runner.export_frames(np.linspace(0.0, 1.0, DYN_FRAMES))
+    for i, fr in enumerate(frames):
+        save_ply(str(ply_dir / f"frame_{i:04d}.ply"), fr)
+    export_s = time.perf_counter() - t1
+    # the frames keep the Gaussians visible at their time, so they are no
+    # tracked sequence: the codec codes each frame's first side^2 rows
+    frame_counts = [len(fr["means"]) for fr in frames]
+    t1 = time.perf_counter()
+    ladder = compress_ply_sequence.main([
+        "--ply_dir", str(ply_dir), "--output_dir", str(work / "seq"),
+        "--rate_points", *DYN_RATE_POINTS, "--eval_views", "3",
+        "--eval_width", str(DYN_WIDTH // 2), "--eval_height",
+        str(DYN_HEIGHT // 2), "--eval_frame_stride", "4", "--device",
+        str(dev)])
+    ladder_s = time.perf_counter() - t1
+    live = {k: v.detach().cpu().numpy() for k, v in runner.splats.items()}
+    t1 = time.perf_counter()
+    stg_dir = work / "stg_png"
+    STGPngCompression(device=dev).compress(str(stg_dir), live)
+    decoded = STGPngCompression(device=dev).decompress(str(stg_dir))
+    restored = {}
+    for k, v in runner.splats.items():
+        arr = np.zeros(tuple(v.shape), np.float32)
+        dec = decoded[k].reshape((-1,) + tuple(v.shape[1:]))
+        arr[:len(dec)] = dec
+        if k == "opacities":
+            arr[len(dec):] = DEAD_OPACITY_LOGIT
+        restored[k] = torch.as_tensor(arr, device=dev)
+    trained = runner.splats
+    runner.splats = restored
+    try:
+        stg_eval = dyn_eval(runner)
+    finally:
+        runner.splats = trained
+    stg_png = dict(bytes=compressed_size(str(stg_dir)),
+                   gaussians=len(decoded["means"]), eval_decoded=stg_eval,
+                   eval_trained=after, seconds=time.perf_counter() - t1)
+    del runner, restored, trained
+
+    # the committed sequence (written by the JAX package) at qp 30
+    t1 = time.perf_counter()
+    cframes = [load_ply(str(p_)) for p_ in
+               sorted((DYN_COMMITTED / "frames").glob("*.ply"))]
+    SeqCodec(backend="pngseq", qp=30).compress(str(work / "committed"),
+                                               cframes)
+    got = json.loads((work / "committed" / "meta.json").read_text())
+    want = json.loads((DYN_COMMITTED / "seq_codec" / "rp0" / "meta.json")
+                      .read_text())
+    diff = seq_meta_diff(got, want)
+    committed = dict(frames=len(cframes), gaussians=len(cframes[0]["means"]),
+                     side=got["side"], backend=got["backend"],
+                     differing_fields=diff,
+                     seconds=time.perf_counter() - t1)
+    if diff:
+        raise AssertionError(f"the committed sequence's meta.json differs: "
+                             f"{diff}")
+
+    # the stg leg: the linear head, the omega freeze moved early
+    stg = runner_for("stg", strategy="stg", color_mode="linear",
+                     compression_sim=False, entropy_model_opt=False,
+                     max_steps=DYN_STG_STEPS, refine_start_iter=5,
+                     refine_every=10, refine_stop_iter=DYN_STG_STEPS + 1)
+    stg.strategy = dataclasses.replace(stg.strategy,
+                                       freeze_start_iter=DYN_STG_FREEZE)
+    s_losses, s_ms, s_secs, s_launches = timed(stg, DYN_STG_STEPS)
+    # read at the run's last step, a refine: a frozen omega is zeroed
+    # there, and Adam's first moment moves it again on the next steps
+    # (its gradient is masked, not its moments), as in the JAX package
+    keep = stg.strategy_state["omega_keep"]
+    frozen_nonzero = int((stg.splats["omega"][~keep] != 0).any(-1).sum())
+    stg_leg = dict(steps=DYN_STG_STEPS, freeze_start_iter=DYN_STG_FREEZE,
+                   loss_first5=s_losses[:5], loss_last5=s_losses[-5:],
+                   step_ms_median=float(np.median(s_ms)), seconds=s_secs,
+                   omega_kept=int(keep.sum()), omega_frozen=int(
+                       (~keep).sum()), frozen_omegas_nonzero=frozen_nonzero,
+                   densify_count_max=int(stg.strategy_state[
+                       "densify_count"].max()), events=stg.events,
+                   launches_per_step={k: v / DYN_STG_STEPS for k, v in
+                                      s_launches.items() if v})
+    if frozen_nonzero or not all(math.isfinite(v) for v in s_losses):
+        raise AssertionError(f"dynamic stg leg: {stg_leg}")
+    del stg
+
+    # the mcmc leg through the command line, on an INVR directory
+    t1 = time.perf_counter()
+    invr = work / "invr"
+    write_invr_scene(invr, samples, {1, 2, 3}, {0},
+                     set(range(0, DYN_FRAMES, 4)), init_pts)
+    write_s = time.perf_counter() - t1
+    out = work / "cli"
+    argv = ["--data-dir", str(invr), "--result-dir", str(out), "--factor",
+            "1", "--max-steps", str(DYN_CLI_STEPS), "--cap-max",
+            str(DYN_CAP), "--strategy", "mcmc", "--export-frames", "4",
+            "--eval-video", "--eval-video-frames", "4", "--device",
+            str(dev)]
+    rv.reset_launch_counts()
+    t1 = time.perf_counter()
+    cli_runner = dyn_trainer_cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t1
+    cli_launches = dict(rv.LAUNCHES)
+    stats = json.loads((out / "stats.json").read_text())
+    video = [p_.name for p_ in out.iterdir() if p_.name.startswith(
+        "eval_view0")]
+    cli = dict(argv=argv, stats=stats, seconds=cli_s,
+               write_invr_seconds=write_s,
+               train_samples=len(cli_runner.trainset),
+               val_samples=len(cli_runner.valset),
+               ply_seq=sorted(p_.name for p_ in (out / "ply_seq").iterdir()),
+               eval_video=video, launches=cli_launches)
+    if len(cli["ply_seq"]) != 4 or not video or not math.isfinite(
+            stats["psnr"]) or min(cli_launches.get(k, 0)
+                                  for k in KERNELS_3DGS) < 1:
+        raise AssertionError(f"dynamic mcmc leg: {cli}")
+    del cli_runner
+
+    # the v1 leg: B7, B8 and B10 at 9 channels
+    v1 = runner_for("v1", rasterizer="pallas", max_steps=DYN_V1_STEPS)
+    v_losses, v_ms, v_secs, v_launches = timed(v1, DYN_V1_STEPS)
+    v1_per_step = {k: v / DYN_V1_STEPS for k, v in v_launches.items() if v}
+    if min(v_launches.get(k, 0) for k in KERNELS_V1 + ("cumsum_rows",)) \
+            < DYN_V1_STEPS or not all(math.isfinite(v) for v in v_losses):
+        raise AssertionError(f"dynamic v1 leg: {v_launches}, {v_losses}")
+    with torch.no_grad():
+        sp1 = {k: v.detach() for k, v in v1.splats.items()}
+        v1_view = v1.order[0]
+        vst = V1Stages(rp, ti, dyn_view_prep(v1, sp1, v1_view), W, H, 16,
+                       rp.CUTOFF_MODE, v1.isect_capacity())
+        v1_check = vst.compare(dyn_errs)
+        v1_check.update(vst.compare_bwd(dyn_errs, seed=900))
+        v1_check.update(channels=vst.cfg.channels, n_isects=vst.n_isects,
+                        cumsum_rows=vst.scan_numbers(dyn_errs))
+        del vst
+    v1_leg = dict(steps=DYN_V1_STEPS, losses=v_losses,
+                  step_ms_median=float(np.median(v_ms)),
+                  launches_per_step=v1_per_step, view_check=v1_check)
+    del v1
+    shutil.rmtree(work, ignore_errors=True)
+    phase = {
+        "phase": "dynamic", "width": DYN_WIDTH, "height": DYN_HEIGHT,
+        "views": DYN_VIEWS, "frames": DYN_FRAMES, "train_samples":
+        len(train_v), "val_samples": len(val_v), "capacity": DYN_CAP,
+        "channels": 9, "cuts": cuts, "scene_seconds": scene_s,
+        "main": main, "stg": stg_leg, "mcmc_cli": cli, "v1": v1_leg,
+        "seq_codec": dict(rows=ladder, seconds=ladder_s,
+                          export_seconds=export_s, ffmpeg=have_ffmpeg(),
+                          frame_gaussians=frame_counts,
+                          coded_per_frame=int(math.isqrt(
+                              min(frame_counts))) ** 2),
+        "stg_png": stg_png, "committed_sequence": committed,
+        "errors": dyn_errs, "seconds": time.perf_counter() - t0}
+    rel = dict(pack_rows=0.0, expand=0.0, unpack_rows=0.0,
+               raster_fwd=check["fwd_rel_err"],
+               raster_bwd=check["bwd_rel_err_absgrad_0"],
+               segsum_rows=check["segsum_rel_err"],
+               raster_v1_bwd=v1_check["v1_bwd_rel_err"])
+    return phase, per_step, v1_per_step, dyn_errs, rel
 
 
 CAMERA_VIEWS = 4  # the cameras phase's orbit views, rendered as one batch
@@ -4475,6 +5020,13 @@ def main():
     # contexts) runners, made in those phases
     emit({"phase": "entropy_codec", "runs": codec_runs,
           "seconds": sum(r["phase_seconds"] for r in codec_runs)})
+    # 23. dynamic: the dynamic/STG path (examples/dyn_benchmark.py's
+    # recipe) at 120,000 slots and 9 feature channels, its legs and codecs
+    dyn, dyn_launches, dyn_v1_launches, dyn_errs, dyn_rel = dynamic(
+        dev, stages_for)
+    emit(dyn)
+    dyn_launches.update({k: dyn_v1_launches.get(k, 0.0)
+                         for k in KERNELS_V1 + ("cumsum_rows",)})
     chk = colmap["rgb_ed_check"]
     rgb_ed_rel = dict(pack_rows=0.0, expand=0.0, unpack_rows=0.0,
                       raster_fwd=chk["fwd_rel_err"],
@@ -4514,7 +5066,12 @@ def main():
              **({"rgb_ed_max_abs_err": rgb_ed_errs[name],
                  "rgb_ed_rel_err": rgb_ed_rel[name],
                  "colmap_trainer_launches": colmap_launches[name]}
-                if name in rgb_ed_errs else {}))
+                if name in rgb_ed_errs else {}),
+             **({"dynamic_launches": dyn_launches.get(name, 0.0),
+                 "dynamic_max_abs_err": dyn_errs.get(name, 0.0),
+                 **({"dynamic_rel_err": dyn_rel[name]}
+                    if name in dyn_rel else {})}
+                if name in DYN_KERNELS else {}))
         for name in KERNELS
     ], "total_seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

@@ -14,4 +14,5 @@ from gscodec_studio_tpu_torch.compression_sim.ada_mask import (  # noqa: F401
 )
 from gscodec_studio_tpu_torch.compression_sim.simulation import (  # noqa: F401,E501
     CompressionSimulation,
+    STGCompressionSimulation,
 )

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -36,7 +37,12 @@ def fake_quantize_ste(
     q_step = (upper_bd - lower_bd) / (2 ** bitwidth - 1)
     xc = torch.clamp(x, lower_bd, upper_bd)
     if q_type == "round":
-        level = torch.round((xc - lower_bd) / q_step)
+        # times the float32 reciprocal of the step, as XLA compiles the
+        # JAX package's division by a constant inside its jitted training
+        # step: a value on a half level (0 in a symmetric range) rounds as
+        # it does there
+        recip = float(np.float32(1.0) / np.float32(q_step))
+        level = torch.round((xc - lower_bd) * recip)
         fq = level * q_step + lower_bd
         return x + (fq - x).detach(), q_step
     if q_type == "noise":

@@ -16,7 +16,8 @@ factors>.<i>" for a factorized model, "entropy.<attr>.grid3d",
 hash-grid one, and "ada_mask" for the mask logits. The trainer optimizes
 it with ``build_optimizer``'s Adam(1e-4) beside the splats; ``simulate``
 is a function of the splats, the sim parameters, the step and the
-generator that the draws come from.
+generator that the draws come from. ``STGCompressionSimulation`` is the
+same simulation with the tables of the dynamic (STG) splats.
 """
 
 from __future__ import annotations
@@ -206,3 +207,50 @@ class CompressionSimulation:
         return gaussian_conditional_bits(model,
                                          gaussian_conditional_cfgs(model),
                                          xq[idx], pos, q_step, binarize=True)
+
+
+# The STG (dynamic splat) tables: scales, quats, opacities and the colour,
+# direction and time features are quantized; the temporal parameters
+# (trbf_center, trbf_scale, motion, omega) and the means are not. The
+# entropy terms join the loss after step 7,000.
+STG_SIM_OPTION = {
+    "means": False, "scales": True, "quats": True, "opacities": True,
+    "trbf_center": False, "trbf_scale": False, "motion": False,
+    "omega": False, "colors": True, "features_dir": True,
+    "features_time": True,
+}
+STG_Q_BITWIDTH = {
+    "scales": 8, "quats": 8, "opacities": 8, "colors": 8,
+    "features_dir": 8, "features_time": 8,
+}
+STG_BOUNDS = {
+    "scales": (-10.0, 2.0),
+    "quats": (-1.0, 1.0),
+    "opacities": (-7.0, 7.0),
+    "colors": (-7.5, 7.5),
+    "features_dir": (-10.0, 10.0),
+    "features_time": (-10.0, 10.0),
+}
+STG_ENTROPY_OPTION = {
+    "scales": True, "quats": True, "opacities": False, "colors": True,
+    "features_dir": True, "features_time": True,
+}
+STG_ENTROPY_STEPS = {
+    "scales": 7_000, "quats": 7_000, "colors": 7_000,
+    "features_dir": 7_000, "features_time": 7_000,
+}
+STG_ENTROPY_CHANNELS = {
+    "scales": 3, "quats": 4, "colors": 3, "features_dir": 3,
+    "features_time": 3,
+}
+
+
+def STGCompressionSimulation(**kw) -> CompressionSimulation:
+    """The simulation with the STG tables (any of them may be given)."""
+    kw.setdefault("sim_option", dict(STG_SIM_OPTION))
+    kw.setdefault("q_bitwidth", dict(STG_Q_BITWIDTH))
+    kw.setdefault("bounds", dict(STG_BOUNDS))
+    kw.setdefault("entropy_option", dict(STG_ENTROPY_OPTION))
+    kw.setdefault("entropy_steps", dict(STG_ENTROPY_STEPS))
+    kw.setdefault("entropy_channels", dict(STG_ENTROPY_CHANNELS))
+    return CompressionSimulation(**kw)

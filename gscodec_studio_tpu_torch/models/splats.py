@@ -301,6 +301,33 @@ def from_jax_mcmc_state(state: Dict, device: DeviceLike = None
                                            dtype=torch.float32, device=dev)}
 
 
+def from_jax_decoder(params: Dict, opt_state=None,
+                     device: DeviceLike = None):
+    """The Sandwich decoder of the JAX package's DynRunner ({"w1", "w2"},
+    numpy or JAX arrays) as tensors, and with ``opt_state`` (its optax
+    Adam state, whose first entry is the ScaleByAdamState) the port's
+    per-name Adam states: (params, states or None)."""
+    dev = resolve_device(device)
+    out = {k: torch.as_tensor(np.array(v), dtype=torch.float32, device=dev)
+           for k, v in params.items()}
+    if opt_state is None:
+        return out, None
+    adam = opt_state[0]
+    return out, from_jax_adam_state(adam.count, adam.mu, adam.nu, dev)
+
+
+def from_jax_stg_state(state: Dict, device: DeviceLike = None
+                       ) -> Dict[str, torch.Tensor]:
+    """The port's STG strategy state from the JAX package's: the default
+    strategy's float32 accumulators (grad2d, count, radii, scene_scale),
+    densify_count (int32) and omega_keep (bool)."""
+    dev = resolve_device(device)
+    dtypes = {"densify_count": torch.int32, "omega_keep": torch.bool}
+    return {k: torch.as_tensor(np.array(v), device=dev,
+                               dtype=dtypes.get(k, torch.float32))
+            for k, v in state.items()}
+
+
 def splat_activations(
     splats,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:

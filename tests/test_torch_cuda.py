@@ -1415,3 +1415,137 @@ def test_honest_timer_on_cuda_events(cuda):
                             device=cuda)
     # one 2048^3 product: at least 0.01 ms on any card, under 50 ms
     assert 1e-5 < per_iter < 5e-2
+
+
+@pytest.mark.parametrize("ts", [8, 16, 32])
+def test_nine_channel_kernels_match_plain(cuda, ts):
+    """B1 and B2 at the dynamic path's 9 feature channels (their chm-16
+    builds): within 1e-4 of their plain versions (B2 of each row's largest
+    |value|), the same bits twice, both cutoffs, and no passing slot
+    outside a pair's candidate region in either layout."""
+    assert tr.fwd_build(9, ts)["chm"] == tr.bwd_build(9, ts)["chm"] == 16
+    for cutoff in ("exact", "soft"):
+        m2, con, col, op, dep, radii = _scene(20, N=20000, CH=9)
+        C, N = dep.shape
+        cfg = _cfg(C, N, 200, 136, ts, 9, cutoff, cap=1 << 20)
+        b = tr._build_sorted(cfg, *[torch.as_tensor(x, device=cuda)
+                                    for x in (m2, con, col, op, dep,
+                                              radii)])
+        masks = torch.ones(cfg.n_tiles, dtype=torch.int32, device=cuda)
+        out = tr.raster_fwd(b.S, b.starts, masks, cfg)
+        assert out.shape[-1] == 10
+        assert _forward_close(out, tr._fwd_plain(b.S, b.starts, masks, cfg))
+        assert torch.equal(out, tr.raster_fwd(b.S, b.starts, masks, cfg))
+        g = torch.Generator(device="cpu").manual_seed(ts)
+        v = torch.randn(out.shape, generator=g).to(cuda)
+        args = (b.S, b.starts, masks, out, v, cfg, False)
+        grad = tr.raster_bwd(*args)
+        assert _rows_close(grad, tr._bwd_plain(*args), 1e-4), cutoff
+        assert torch.equal(grad, tr.raster_bwd(*args))
+        assert tr._fwd_counts(b.S, b.starts, masks, cfg)["missed_slots"] \
+            == 0
+        assert tr._bwd_counts(b.S, b.starts, masks, cfg)["missed_slots"] \
+            == 0
+
+
+def _dyn_samples(seed=21, n_views=3, n_frames=3, W=64, H=48):
+    rng = np.random.default_rng(seed)
+    f = 0.9 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    out = []
+    for vi in range(n_views):
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 3] = [0.3 * vi, 0.0, -4.0]
+        for fi in range(n_frames):
+            out.append({"camtoworld": c2w, "K": K,
+                        "timestamp": fi / max(n_frames - 1, 1),
+                        "image": rng.random((H, W, 3)).astype(np.float32)})
+    pts = (rng.random((400, 3)) - 0.5).astype(np.float32) * 2
+    return out, pts, rng.random((400, 3)).astype(np.float32)
+
+
+def test_dyn_runner_on_card_matches_cpu(cuda, tmp_path):
+    """Four DynRunner steps (ModifiedSTG, the Sandwich decoder's 9 feature
+    channels, the STG simulation with its entropy gates open, a refine at
+    step 2) on the card and on the CPU from the same state and draws: each
+    loss within 1e-4 relative, every leaf within 1e-4 of its largest
+    |value| or 5e-5 absolute, and one launch a step of each fused
+    kernel."""
+    from gscodec_studio_tpu_torch.training.dyn_trainer import (DynConfig,
+                                                               DynRunner)
+
+    samples, pts, rgbs = _dyn_samples()
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg = DynConfig(result_dir=str(tmp_path / dev.type), max_steps=4,
+                        capacity=800, strategy="modified_stg",
+                        color_mode="sandwich", compression_sim=True,
+                        entropy_model_opt=True, refine_start_iter=1,
+                        refine_every=2, steps_per_dispatch=2)
+        r = DynRunner(cfg, pts, rgbs, samples, samples, device=dev)
+        r.compression_sim.entropy_steps = {
+            k: -1 for k in r.compression_sim.entropy_steps}
+        r.splats["scales"] = r.splats["scales"] + torch.as_tensor(
+            np.random.default_rng(1).normal(0, 0.3, (800, 3)).astype(
+                np.float32), device=dev)
+        if dev.type == "cpu":  # the card run's draws and initial models
+            card = runs["cuda"]
+            r.decoder_params = {k: v.cpu() for k, v in card["dec0"].items()}
+            r.sim_params = {k: v.cpu() for k, v in card["sim0"].items()}
+            it = iter(card["splits"])
+            r._split_samples = lambda cap: next(it)
+        else:
+            dec0 = {k: v.clone() for k, v in r.decoder_params.items()}
+            sim0 = {k: v.clone() for k, v in r.sim_params.items()}
+            splits = []
+            draw = r._split_samples
+            r._split_samples = lambda cap: splits.append(
+                draw(cap).cpu()) or splits[-1].to(cuda)
+        before = dict(tr.LAUNCHES)
+        losses = r.train(log_every=0)
+        launches = {k: tr.LAUNCHES[k] - before[k] for k in before}
+        runs[dev.type] = dict(losses=losses, splats={
+            k: v.cpu() for k, v in r.splats.items()}, launches=launches)
+        if dev.type == "cuda":
+            runs["cuda"].update(dec0=dec0, sim0=sim0, splits=splits)
+    card, cpu = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=1e-4)
+    for k, v in card["splats"].items():
+        w = cpu["splats"][k]
+        tol = max(1e-4 * float(w.abs().max()), 5e-5)
+        assert float((v - w).abs().max()) <= tol, k
+    for name in ("pack_rows", "expand", "raster_fwd", "raster_bwd",
+                 "segsum_rows"):
+        assert card["launches"][name] >= 4, name
+    assert card["launches"]["unpack_rows"] >= 8
+
+
+def test_seq_codec_on_card_frames_decodes_on_cpu(cuda, tmp_path):
+    """The card runner's exported frames through the sequence codec
+    (pngseq): the CPU decode within each attribute's quantization step of
+    the exported values."""
+    from gscodec_studio_tpu_torch.compression.seq_codec import SeqCodec
+    from gscodec_studio_tpu_torch.training.dyn_trainer import (DynConfig,
+                                                               DynRunner)
+
+    samples, pts, rgbs = _dyn_samples()
+    r = DynRunner(DynConfig(result_dir=str(tmp_path / "run"), max_steps=3,
+                            strategy="mcmc", mcmc_cap_max=800),
+                  pts, rgbs, samples, samples, device=cuda)
+    r.train(log_every=0)
+    frames = r.export_frames([0.0, 0.5, 1.0])
+    n = min(len(f["means"]) for f in frames)
+    assert n > 100
+    tracked = [{k: v[:n] for k, v in f.items()} for f in frames]
+    codec = SeqCodec(backend="pngseq", qp=15)
+    codec.compress(str(tmp_path / "seq"), tracked)
+    dec = SeqCodec().decompress(str(tmp_path / "seq"))
+    side = int(np.floor(np.sqrt(n)))
+    assert len(dec) == 3 and dec[0]["means"].shape == (side * side, 3)
+    for name in ("opacities", "scales"):
+        lo = min(float(f[name].min()) for f in tracked)
+        hi = max(float(f[name].max()) for f in tracked)
+        step = (hi - lo) / 255
+        got = np.sort(dec[1][name].reshape(-1))
+        assert float(got.min()) >= lo - step and float(got.max()) <= \
+            hi + step

@@ -74,7 +74,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "ops.rasterize_pallas", "profiling.kernel_skel_bench",
         "datasets.colmap_io", "datasets.normalize", "datasets.colmap",
         "datasets.traj", "utils.camera_opt", "utils.bilagrid",
-        "utils.logger", "utils.cli", "simple_trainer")} <= walked
+        "utils.logger", "utils.cli", "simple_trainer", "models.temporal",
+        "strategy.stg", "training.dyn_trainer", "datasets.invr",
+        "datasets.stg_readers", "compression.seq_codec",
+        "compression.stg_compression", "compression.hevc_compression",
+        "compression.ges_tm", "utils.mv_preprocess", "dyn_trainer_cli",
+        "compress_ply_sequence")} <= walked
 
 
 def test_entry_points_default_to_cuda(rng, monkeypatch, tmp_path):
