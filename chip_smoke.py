@@ -240,7 +240,23 @@ Phases, one JSON line each with its own ``seconds``:
             compress_ply_sequence at rp0, rp2, rp3 (bytes, backend, bits,
             sequence_metrics), STGPngCompression of the trained splats,
             and the committed sequence results/dyn_stand_in/frames at qp
-            30 against its committed meta.json, field by field.
+            30 against its committed meta.json, field by field;
+  multigpu  the Gaussian-sharded mesh path (parallel/, the Runner's mesh
+            mode): distributed_render of the serve checkpoint's 8 orbit
+            views at world size 1 on NCCL in this process, against the
+            single-device render; then 2 ranks spawned on gloo, both on
+            the one card (all their times are "gloo, 2 ranks on one card",
+            no multi-GPU time): the dense exchange's render against the
+            single-device one, the bucketed one at a covering cap against
+            the dense and at a cap of 4,096 that overflows, the exchange's
+            diagnostics, bytes and all_to_all times, rank 0's B9a, B3, B1,
+            B2, B9b and B4 against their plain versions on its exchanged
+            rows; the dryrun (one mesh trainer step at 100,000 Gaussians,
+            256x256, MCMC with the simulation, exchange_cap 4,096); the
+            mesh Runner on the checkpoint stand-in, batch 2, 10 steps with
+            refines after steps 5 and 10, its first loss against the
+            single-device Runner's, held-out PSNR before and after, the
+            ranks' models equal bit for bit at the end.
 The kernels and train_1m phases also hold the packed-pair branches (B2p,
 B4p) against their plain versions, and train_1m times the bf16 case beside
 the f32 one. Wherever a backward is checked (check_reduction), the
@@ -255,7 +271,9 @@ one fwd+bwd of train_1m_2dgs's log leg, for B6's absgrad rows its probed
 fwd+bwd, for B7, B8 and B10 the train_v1 phase,
 for B11 the cumsum_skel phase, for SelectiveAdam the garden_recipe
 phase; the dynamic phase's launches a step, absolute and relative errors
-beside them on its kernels; the tile kernels' bounds, B1's,
+beside them on its kernels; the multigpu phase's rank-0 launches over the
+mesh Runner's steps and its errors on the exchanged rows beside them, as
+mesh_launches, mesh_max_abs_err and mesh_rel_err; the tile kernels' bounds, B1's,
 B2's, B5's, B6's, B7's, B8's and B11's, on their candidate slots, tile_bound,
 with the plain walk's beside them in the phases), the card's name and
 power limit, and
@@ -2539,6 +2557,462 @@ def entropy_codec_run(runner, dev, kind, step):
         "phase_seconds": time.perf_counter() - t0}
 
 
+# -- multigpu: the Gaussian-sharded mesh path (parallel/, the mesh Runner)
+
+MESH_RANKS = 2  # gloo ranks, every one on the one card
+MESH_VIEWS = 8  # the serve checkpoint's orbit views
+MESH_ISECT = 8 << 20  # the 8 views' intersection capacity
+MESH_SMALL_CAP = 4096  # a bucketed cap that the visible rows overflow
+MESH_STEPS = 10  # the mesh Runner's steps; refines after steps 5 and 10
+DRYRUN_GAUSS, DRYRUN_SIZE = 100_000, 256  # __graft_entry__'s dryrun shape
+MESH_RTOL, MESH_ATOL = 1e-3, 2e-3  # tests/test_distributed.py:63-65
+MESH_BUCKET_TOL = 1e-4  # the covering bucketed render against the dense
+MESH_LOSS_RTOL = 1e-4  # the first mesh step against the single-device one
+MESH_TIMEOUT = 600  # seconds for the spawned ranks, collectives included
+MESH_LABEL = "gloo, 2 ranks on one card"
+
+
+def mesh_scene():
+    """The serve checkpoint's splat dict and its MESH_VIEWS orbit views'
+    viewmats and Ks at WIDTH x HEIGHT."""
+    from gscodec_studio_tpu_torch.utils.ply_render import orbit_cameras
+
+    with np.load(CHECKPOINT) as z:
+        splats = {k: np.asarray(z[k], np.float32) for k in z.files}
+    cams = orbit_cameras(splats["means"], n_views=MESH_VIEWS, width=WIDTH,
+                         height=HEIGHT)
+    vm = np.stack([np.linalg.inv(c["camtoworld"]) for c in cams]).astype(
+        np.float32)
+    return splats, vm, np.stack([c["K"] for c in cams]).astype(np.float32)
+
+
+def single_render(sp, vm, Ks, dev, groups=1):
+    """The whole model's render on one device: (the render path's own
+    pipeline, the projection with the scalar radius binned by the fused
+    kernels, as distributed_render bins, its cameras in ``groups`` batches
+    as the ranks split them; rendering.rasterization of all of them, which
+    bins each splat's per-axis box of its opacity's reach). A camera's
+    render depends on its batch under the exact cutoff: a tile's run
+    starts where the batch's table puts it on the 128-row chunk grid, and
+    a pixel that stops inside a chunk resumes in the next (ROADMAP
+    watch-list), so the mesh is held against the same batches."""
+    from gscodec_studio_tpu_torch.models.splats import splat_activations
+    from gscodec_studio_tpu_torch.ops.raster_v2 import rasterize_to_pixels_v2
+    from gscodec_studio_tpu_torch.rendering import (project_and_shade,
+                                                    rasterization)
+
+    with torch.no_grad():
+        m, q, s, o = splat_activations(sp)
+        colors = torch.cat([sp["sh0"], sp["shN"]], 1)
+        vm, Ks = (torch.as_tensor(x, device=dev) for x in (vm, Ks))
+        prep = project_and_shade(m, q, s, o, colors, vm, Ks, WIDTH, HEIGHT,
+                                 sh_degree=3, elliptical=False)
+        radii, means2d, depths, conics, cols, opac, _ = prep
+        n = len(vm) // groups
+        parts = [rasterize_to_pixels_v2(
+            means2d[g:g + n], conics[g:g + n], cols[g:g + n], opac[g:g + n],
+            depths[g:g + n], radii[g:g + n], WIDTH, HEIGHT,
+            isect_capacity=MESH_ISECT, device=dev)
+            for g in range(0, len(vm), n)]
+        img = torch.cat([p_[0] for p_ in parts])
+        img2, _, meta2 = rasterization(
+            m, q, s, o, colors, vm, Ks, WIDTH, HEIGHT, sh_degree=3,
+            isect_capacity=MESH_ISECT, device=dev)
+    if max([int(p_[2]["n_isects"]) for p_ in parts]
+           + [int(meta2["n_isects"])]) >= MESH_ISECT:
+        raise AssertionError("multigpu: a reference render filled its "
+                             "intersection capacity")
+    return img, img2
+
+
+def within(got, ref, rtol, atol):
+    diff = (got - ref).abs()
+    return bool((diff <= atol + rtol * ref.abs()).all()), float(diff.max())
+
+
+def exchange_ms(mesh, x, reps=3):
+    """The all_to_all of ``x``: CUDA-event ms and host ms, each the mean of
+    ``reps`` calls after one (every rank calls it alike)."""
+    mesh.all_to_all(x)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(reps):
+        mesh.all_to_all(x)
+    e1.record()
+    e1.synchronize()
+    return dict(event_ms=e0.elapsed_time(e1) / reps,
+                host_ms=(time.perf_counter() - t0) * 1e3 / reps,
+                bytes=x.numel() * x.element_size(), shape=list(x.shape))
+
+
+def stages_of(rv, prep, width, height, ts, cutoff, cap=None, **knobs):
+    """Stages of project_and_shade's outputs (or of the same tensors after
+    an exchange); the capacity, unless given, 1.2x the binned rows of a
+    first count; ``knobs`` are V2Cfg's precision fields."""
+    radii, means2d, depths, conics, colors_cn, opac_cn, _ = prep
+    C, N = depths.shape
+    TW, TH = -(-width // ts), -(-height // ts)
+    if cap is None:
+        _, _, _, cnt = rv.tile_counts(means2d, radii, ts, TW, TH)
+        cap = int(1.2 * int(cnt.sum())) + 1
+    cap = -(-cap // rv.CAP_BLOCK) * rv.CAP_BLOCK
+    cfg = rv.V2Cfg(C=C, tile_width=TW, tile_height=TH, tile_size=ts,
+                   channels=colors_cn.shape[-1], cap=cap, n=N,
+                   cutoff=cutoff, **knobs)
+    masks = torch.ones(cfg.n_tiles, dtype=torch.int32, device=depths.device)
+    f = [x.contiguous() for x in (means2d, conics, colors_cn, opac_cn,
+                                  depths)]
+    return Stages(rv, cfg, *f, radii.contiguous(), masks)
+
+
+def mesh_nccl(dev):
+    """(a) NCCL at world size 1, in this process with a file-store group:
+    distributed_render of the serve checkpoint's 8 views against the
+    single-device render, and the exchange's all_to_all on NCCL."""
+    import torch.distributed as dist
+
+    from gscodec_studio_tpu_torch.parallel.distributed import (
+        distributed_render, make_mesh)
+
+    t0 = time.perf_counter()
+    splats, vm, Ks = mesh_scene()
+    sp = {k: torch.as_tensor(v, device=dev) for k, v in splats.items()}
+    store = tempfile.mkdtemp(prefix="gsc_smoke_nccl_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = distributed_render(mesh, sp, vm, Ks, WIDTH, HEIGHT,
+                                 sh_degree=3, isect_capacity=MESH_ISECT)
+        torch.cuda.synchronize()
+        render_ms = (time.perf_counter() - t1) * 1e3
+        ref, ref_ell = single_render(sp, vm, Ks, dev)
+        ok, err = within(img, ref, MESH_RTOL, MESH_ATOL)
+        err_ell = float((img - ref_ell).abs().max())
+        if not ok:
+            raise AssertionError(f"multigpu (a): the NCCL world-size-1 "
+                                 f"render differs from the single-device "
+                                 f"render by {err}")
+        # the dense exchange's rows: means2d, depth, conic, 3 colours,
+        # opacity and the radius, for every view and Gaussian
+        x = torch.randn((MESH_VIEWS, len(splats["means"]), 11), device=dev)
+        a2a = exchange_ms(mesh, x)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return dict(backend=backend, world_size=1, views=MESH_VIEWS,
+                gaussians=len(splats["means"]), max_abs_err=err,
+                max_abs_err_vs_rasterization=err_ell,
+                render_ms=render_ms, all_to_all=a2a,
+                note="NCCL at world size 1: the exchange is a copy",
+                seconds=time.perf_counter() - t0)
+
+
+def mesh_rank(rank, world, tmp, device="cuda:0"):
+    """One spawned rank of the multigpu phase, on cuda:0 with the other
+    ranks: (b) the sharded renders and rank 0's kernel checks on its
+    exchanged rows, (c) the dryrun, (d) the mesh Runner."""
+    import hashlib
+
+    from gscodec_studio_tpu_torch.models.splats import splat_activations
+    from gscodec_studio_tpu_torch.ops import raster_v2 as rv
+    from gscodec_studio_tpu_torch.parallel.distributed import (
+        Mesh, _exchanged, distributed_render, make_mesh, rasterize_sharded,
+        shard_rows)
+    from gscodec_studio_tpu_torch.parallel.dryrun import dryrun_multichip
+    from gscodec_studio_tpu_torch.rendering import project_and_shade
+    from gscodec_studio_tpu_torch.training.trainer import Config, Runner
+    from gscodec_studio_tpu_torch.utils.scenes import checkpoint_stand_in
+
+    sys.modules["torch.utils.tensorboard"] = None  # JSON scalars only
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank}
+    mesh = make_mesh(world, device=dev)  # gloo on the card's tensors
+
+    # (b) distributed_render: dense, bucketed at a covering cap and at one
+    # the visible rows overflow
+    t0 = time.perf_counter()
+    splats, vm, Ks = mesh_scene()
+    loc = {k: shard_rows(mesh, torch.as_tensor(v, device=dev))
+           for k, v in splats.items()}
+    Nl = loc["means"].shape[0]
+    if rank == 0:
+        full = {k: torch.as_tensor(v, device=dev) for k, v in splats.items()}
+        ref, _ = single_render(full, vm, Ks, dev, groups=world)
+        ref_one, ref_ell = single_render(full, vm, Ks, dev)
+        del full
+    renders, b = {}, {}
+    for label, cap in (("dense", None), ("covering", Nl),
+                       ("small", MESH_SMALL_CAP)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = distributed_render(mesh, loc, vm, Ks, WIDTH, HEIGHT,
+                                 sh_degree=3, isect_capacity=MESH_ISECT,
+                                 exchange_cap=cap)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        with torch.no_grad():
+            m, q, s, o = splat_activations(loc)
+            _, _, diag = rasterize_sharded(
+                mesh, m, q, s, o, torch.cat([loc["sh0"], loc["shN"]], 1),
+                torch.as_tensor(vm, device=dev),
+                torch.as_tensor(Ks, device=dev), WIDTH, HEIGHT, 3,
+                MESH_ISECT, exchange_cap=cap)
+        b[label] = dict(exchange_cap=cap, render_ms=ms, finite=bool(
+            torch.isfinite(img).all()), **{k: int(mesh.all_reduce(
+                v, "max")) for k, v in diag.items()})
+        renders[label] = img
+    if rank == 0:
+        ok, b["dense"]["max_abs_err_vs_single"] = within(
+            renders["dense"], ref, MESH_RTOL, MESH_ATOL)
+        # beside it (not checks): against the 8 cameras in one batch, and
+        # against the per-axis boxes' binning
+        b["dense"]["max_abs_err_vs_one_batch"] = float(
+            (renders["dense"] - ref_one).abs().max())
+        b["dense"]["max_abs_err_vs_rasterization"] = float(
+            (renders["dense"] - ref_ell).abs().max())
+        if not ok:
+            raise AssertionError(f"multigpu (b): the dense render differs "
+                                 f"from the single-device render: {b}")
+        ok, b["covering"]["max_abs_err_vs_dense"] = within(
+            renders["covering"], renders["dense"], 0.0, MESH_BUCKET_TOL)
+        if not ok:
+            raise AssertionError(f"multigpu (b): the covering bucketed "
+                                 f"render differs from the dense: {b}")
+        b["small"]["max_abs_err_vs_dense"] = float(
+            (renders["small"] - renders["dense"]).abs().max())
+    if not (b["small"]["overflow"] > 0 and b["small"]["finite"]
+            and b["covering"]["overflow"] == 0):
+        raise AssertionError(f"multigpu (b): bucketed diagnostics {b}")
+    if rank == 0:
+        del ref, ref_one, ref_ell
+    del renders
+    # the training path's exchange (per-axis radii, the soft cutoff) and
+    # its all_to_all, timed; rank 0 holds the kernels on its first
+    # camera's exchanged rows
+    with torch.no_grad():
+        m, q, s, o = splat_activations(loc)
+        prep = project_and_shade(
+            m, q, s, o, torch.cat([loc["sh0"], loc["shN"]], 1),
+            torch.as_tensor(vm, device=dev), torch.as_tensor(Ks, device=dev),
+            WIDTH, HEIGHT, sh_degree=3, elliptical=True)
+        radii2, means2d, depths, conics, cols, opac_cn, _ = prep
+        tree = [("means2d", means2d), ("depths", depths), ("conics", conics),
+                ("colors", cols), ("opacities", opac_cn),
+                ("radii2", radii2)]
+        ex, radii_ex, _ = _exchanged(mesh, tree, radii2.amax(-1), None)
+        x = torch.cat([t.reshape(MESH_VIEWS, Nl, -1).float()
+                       for _, t in tree] + [radii2.amax(-1)[..., None]
+                                            .float()], -1)
+        b["all_to_all_dense"] = exchange_ms(mesh, x)
+        xs = x[:, :min(MESH_SMALL_CAP, Nl)]
+        b["all_to_all_small"] = exchange_ms(mesh, xs.contiguous())
+    errs = {}
+    if rank == 0:
+        st = stages_of(rv, tuple(t[:1] for t in (
+            ex["radii2"], ex["means2d"], ex["depths"], ex["conics"],
+            ex["colors"], ex["opacities"])) + (None,), WIDTH, HEIGHT, 16,
+            "soft")
+        check = st.compare(errs)
+        check.update(st.compare_bwd(errs, seed=21))
+        b["kernel_check"] = dict(check, n_isects=int(st.b.n_isects),
+                                 rows=int(ex["means2d"].shape[1]))
+        del st
+    del ex, radii_ex, prep, x, xs
+    b["seconds"] = time.perf_counter() - t0
+    out["render"] = b
+
+    # (c) the dryrun: one full mesh trainer step at 100,000 Gaussians,
+    # 256x256, MCMC with the simulation, exchange_cap 4096
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(world, DRYRUN_GAUSS, (DRYRUN_SIZE, DRYRUN_SIZE),
+                           device=dev, result_dir=os.path.join(tmp, "dryrun"))
+    dry["seconds"] = time.perf_counter() - t0
+    if not (math.isfinite(dry["loss"]) and dry["exchange"]["overflow"] > 0):
+        raise AssertionError(f"multigpu (c): dryrun {dry}")
+    out["dryrun"] = dry
+
+    # (d) the mesh Runner on the checkpoint stand-in, against the
+    # single-device Runner's first step on the same batch
+    t0 = time.perf_counter()
+    parser, trainset, valset = checkpoint_stand_in(
+        CHECKPOINT, n_views=MESH_VIEWS, width=WIDTH, height=HEIGHT,
+        device=dev)
+    # a capacity that holds the single-device step's 2 views: the default
+    # (1 << 20 here) truncates the stand-in's first step (ROADMAP
+    # watch-list), a rank's 1 view less, and the losses would differ by that
+    cfg = Config(result_dir=os.path.join(tmp, "runner"), batch_size=world,
+                 max_steps=MESH_STEPS, refine_start_iter=0, refine_every=5,
+                 isect_capacity=MESH_ISECT, eval_steps=(), save_steps=(),
+                 tb_every=0)
+    d = {}
+    if rank == 0:
+        single = Runner(dataclasses.replace(cfg, result_dir=os.path.join(
+            tmp, "single")), parser=parser, trainset=trainset,
+            valset=valset, device=dev)
+        first = [single.view_order[j] for j in range(world)]
+        one = single.train_step(first, 0, 0)
+        if one["n_isects"] >= single.isect_capacity():
+            raise AssertionError(f"multigpu (d): the single-device step "
+                                 f"filled its capacity: {one}")
+        d["single_first_loss"] = one["loss"]
+        d["single_first_n_isects"] = one["n_isects"]
+        del single
+    runner = Runner(dataclasses.replace(cfg, mesh_devices=world),
+                    parser=parser, trainset=trainset, valset=valset,
+                    device=dev)
+    before = runner.eval("before")
+    steps = []
+    inner = runner.train_step
+    # every collective inside a step, timed by CUDA events around the call
+    # on the current stream (no synchronisation added): the all_to_alls of
+    # the exchange and its reverse apart from the all_reduces and gathers
+    calls = []
+    plain = {k: getattr(Mesh, k) for k in ("all_to_all", "all_reduce",
+                                           "all_gather")}
+
+    def evented(kind):
+        def call(self, *a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = plain[kind](self, *a, **k)
+            e1.record()
+            calls.append((kind, e0, e1))
+            return res
+        return call
+
+    def timed(*a, **k):
+        calls.clear()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = inner(*a, **k)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        comm = {}
+        for kind, e0, e1 in calls:
+            n, t = comm.get(kind, (0, 0.0))
+            comm[kind] = (n + 1, t + e0.elapsed_time(e1))
+        steps.append(dict(ms=ms, n_isects=res["n_isects"],
+                          exchange=res["exchange"], collectives={
+                              k: dict(calls=n, event_ms=t)
+                              for k, (n, t) in comm.items()}))
+        return res
+
+    runner.train_step = timed
+    for kind in plain:
+        setattr(Mesh, kind, evented(kind))
+    try:
+        rv.reset_launch_counts()
+        losses = runner.train(max_steps=MESH_STEPS, log_every=0)
+        torch.cuda.synchronize()
+        launches = dict(rv.LAUNCHES)
+    finally:
+        for kind, fn in plain.items():
+            setattr(Mesh, kind, fn)
+    after = runner.eval("after")
+    full = runner._gather(runner.splats)
+    digest = hashlib.sha256()
+    for k in sorted(full):
+        digest.update(full[k].detach().cpu().numpy().tobytes())
+    d.update(losses=losses, psnr_before=before["psnr"],
+             psnr_after=after["psnr"], ssim_before=before["ssim"],
+             ssim_after=after["ssim"], steps=steps,
+             step_ms_median=float(np.median([s_["ms"] for s_ in steps])),
+             all_to_all_ms_median=float(np.median([s_["collectives"].get(
+                 "all_to_all", {}).get("event_ms", 0.0) for s_ in steps])),
+             events=runner.events, skipped_steps=runner.skipped_steps,
+             capacity=runner.cap, isect_capacity=runner.isect_capacity(),
+             splats_sha256=digest.hexdigest(), launches=launches,
+             seconds=time.perf_counter() - t0)
+    if rank == 0:
+        d["first_loss_rel_err"] = abs(losses[0] - d["single_first_loss"]) \
+            / abs(d["single_first_loss"])
+        if not d["first_loss_rel_err"] <= MESH_LOSS_RTOL:
+            raise AssertionError(f"multigpu (d): the first mesh step's loss "
+                                 f"{losses[0]} against the single-device "
+                                 f"{d['single_first_loss']}")
+    out["runner"] = d
+    out["errs"] = errs
+    return out
+
+
+def multigpu(dev):
+    """The multigpu phase: (a) distributed_render at world size 1 on NCCL
+    in this process; then MESH_RANKS ranks spawned on gloo, every one on
+    the one card (the kernels built here first): (b) distributed_render of
+    the serve checkpoint's 8 views, dense against the single-device render
+    (MESH_RTOL, MESH_ATOL), bucketed at a covering cap against the dense
+    (MESH_BUCKET_TOL) and at MESH_SMALL_CAP, where the overflow must fire,
+    with the exchange's diagnostics, bytes and all_to_all times, and rank
+    0's B9a, B3, B1, B2, B9b and B4 against their plain versions on its
+    exchanged rows (FWD_TOL, BWD_TOL; the raw checkpoint's gradients under
+    a seeded cotangent reach ~1e5, so the relative errors are kept beside
+    the absolute ones); (c) the dryrun at 100,000
+    Gaussians, 256x256 (finite loss, overflow > 0); (d) the mesh Runner on
+    the checkpoint stand-in, batch 2, MESH_STEPS steps with refines, its
+    first loss against the single-device Runner's on the same batch
+    (MESH_LOSS_RTOL), held-out PSNR before and after, every rank ending
+    with the same bits of the whole model. No time here is a multi-GPU
+    time: the ranks share one card. Returns (phase dict, rank 0's launches
+    over the mesh Runner's steps, the kernels' largest absolute and
+    relative errors on the exchanged rows)."""
+    from gscodec_studio_tpu_torch.parallel import launcher
+
+    t0 = time.perf_counter()
+    nccl = mesh_nccl(dev)
+    tmp = tempfile.mkdtemp(prefix="gsc_smoke_mesh_")
+    try:
+        t1 = time.perf_counter()
+        ranks = launcher.spawn(mesh_rank, MESH_RANKS, tmp, backend="gloo",
+                               timeout=MESH_TIMEOUT)
+        spawn_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    digests = {r["runner"]["splats_sha256"] for r in ranks}
+    if len(digests) != 1:
+        raise AssertionError(f"multigpu (d): the ranks' models differ after "
+                             f"the refines: {digests}")
+    if len({tuple(r["runner"]["losses"]) for r in ranks}) != 1:
+        raise AssertionError("multigpu (d): the ranks' losses differ")
+    d = r0["runner"]
+    if not (all(math.isfinite(x) for x in d["losses"])
+            and d["psnr_after"] > d["psnr_before"]
+            and d["skipped_steps"] == 0):
+        raise AssertionError(f"multigpu (d): {d['losses']}, PSNR "
+                             f"{d['psnr_before']} -> {d['psnr_after']}")
+    if min(d["launches"].get(k, 0) for k in KERNELS_3DGS) < MESH_STEPS:
+        raise AssertionError(f"multigpu (d): the mesh steps did not launch "
+                             f"every kernel of the path: {d['launches']}")
+    phase = {"phase": "multigpu", "label": MESH_LABEL,
+             "transport": "gloo-direct", "nccl_world_1": nccl,
+             "render": r0["render"], "render_rank1": {
+                 k: v for k, v in ranks[1]["render"].items()
+                 if k.startswith("all_to_all")},
+             "dryrun": r0["dryrun"], "runner": d,
+             "runner_rank1_step_ms": [s_["ms"] for s_ in
+                                      ranks[1]["runner"]["steps"]],
+             "spawn_seconds": spawn_s,
+             "seconds": time.perf_counter() - t0}
+    kc = r0["render"]["kernel_check"]
+    rel = dict(pack_rows=0.0, expand=0.0, unpack_rows=0.0,
+               raster_fwd=kc["fwd_rel_err"],
+               raster_bwd=kc["bwd_rel_err_absgrad_0"],
+               segsum_rows=kc["segsum_rel_err"])
+    return phase, d["launches"], r0["errs"], rel
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3484,20 +3958,7 @@ def main():
     def stages_for(prep, width, height, ts, cutoff, cap=None, **knobs):
         """Stages of project_and_shade's outputs; ``knobs`` are V2Cfg's
         precision fields."""
-        radii, means2d, depths, conics, colors_cn, opac_cn, _ = prep
-        C, N = depths.shape
-        TW, TH = -(-width // ts), -(-height // ts)
-        if cap is None:
-            _, _, _, cnt = rv.tile_counts(means2d, radii, ts, TW, TH)
-            cap = int(1.2 * int(cnt.sum())) + 1
-        cap = -(-cap // rv.CAP_BLOCK) * rv.CAP_BLOCK
-        cfg = rv.V2Cfg(C=C, tile_width=TW, tile_height=TH, tile_size=ts,
-                       channels=colors_cn.shape[-1], cap=cap, n=N,
-                       cutoff=cutoff, **knobs)
-        masks = torch.ones(cfg.n_tiles, dtype=torch.int32, device=dev)
-        f = [x.contiguous() for x in (means2d, conics, colors_cn, opac_cn,
-                                      depths)]
-        return Stages(rv, cfg, *f, radii.contiguous(), masks)
+        return stages_of(rv, prep, width, height, ts, cutoff, cap, **knobs)
 
     errs = {}
 
@@ -5027,6 +5488,10 @@ def main():
     emit(dyn)
     dyn_launches.update({k: dyn_v1_launches.get(k, 0.0)
                          for k in KERNELS_V1 + ("cumsum_rows",)})
+    # 24. multigpu: the Gaussian-sharded mesh path, NCCL at world size 1
+    # and gloo ranks on the one card
+    mesh, mesh_launches, mesh_errs, mesh_rel = multigpu(dev)
+    emit(mesh)
     chk = colmap["rgb_ed_check"]
     rgb_ed_rel = dict(pack_rows=0.0, expand=0.0, unpack_rows=0.0,
                       raster_fwd=chk["fwd_rel_err"],
@@ -5071,7 +5536,11 @@ def main():
                  "dynamic_max_abs_err": dyn_errs.get(name, 0.0),
                  **({"dynamic_rel_err": dyn_rel[name]}
                     if name in dyn_rel else {})}
-                if name in DYN_KERNELS else {}))
+                if name in DYN_KERNELS else {}),
+             **({"mesh_launches": mesh_launches[name],
+                 "mesh_max_abs_err": mesh_errs[name],
+                 "mesh_rel_err": mesh_rel[name]}
+                if name in KERNELS_3DGS else {}))
         for name in KERNELS
     ], "total_seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

@@ -58,20 +58,25 @@ def _filter_rows(img: np.ndarray, bpp: int) -> bytes:
 
 def write_png(path: str, img: np.ndarray) -> None:
     """Writes uint8 [H, W] (gray), [H, W, 3] (RGB) or [H, W, 4] (RGBA)."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """The PNG file of uint8 [H, W], [H, W, 3] or [H, W, 4], as bytes."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
-        raise ValueError(f"write_png: dtype {img.dtype}, expected uint8")
+        raise ValueError(f"encode_png: dtype {img.dtype}, expected uint8")
     if img.ndim == 2:
         img = img[..., None]
     h, w, ch = img.shape
     if ch not in _COLOR_TYPES:
-        raise ValueError(f"write_png: {ch} channels (1, 3 or 4)")
+        raise ValueError(f"encode_png: {ch} channels (1, 3 or 4)")
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[ch], 0, 0, 0)
     data = zlib.compress(_filter_rows(np.ascontiguousarray(img), ch),
                          ZLIB_LEVEL)
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", data)
-                + _chunk(b"IEND", b""))
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", data)
+            + _chunk(b"IEND", b""))
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:

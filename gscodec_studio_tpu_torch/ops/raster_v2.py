@@ -1463,17 +1463,19 @@ def segsum_rows_bound(rows: torch.Tensor, cum: torch.Tensor,
     exact zero rounds nothing) puts at most n - 1 roundings on a term, so
     each is within gamma(n + 1) * sum|x| of the exact sum,
     gamma(k) = k u / (1 - k u) (Higham, Accuracy and Stability of
-    Numerical Algorithms, ch. 4), and the two within twice that. Zero for
-    an empty segment."""
+    Numerical Algorithms, ch. 4), plus n times the smallest normal float,
+    2^-126: index_add_ on the card flushes a subnormal sum to zero, an
+    error below it at each addition (the kernel keeps subnormals). The two
+    lie within twice that. Zero for an empty segment."""
     if rows.dtype == torch.int32:
         rows = torch.cat(unpack_pairs(rows))
     ids = segment_ids(cum, n_isects)
     asum = torch.zeros((rows.shape[0], cum.shape[0]), dtype=torch.float64,
                        device=rows.device).index_add_(
         1, ids, rows[:, :ids.shape[0]].abs().double())
-    ku = (torch.bincount(ids, minlength=cum.shape[0]).double() + 1) \
-        * 2.0 ** -24
-    return 2 * ku / (1 - ku) * asum
+    n = torch.bincount(ids, minlength=cum.shape[0]).double()
+    ku = (n + 1) * 2.0 ** -24
+    return 2 * (ku / (1 - ku) * asum + n * 2.0 ** -126)
 
 
 def segsum_rows(rows: torch.Tensor, cum: torch.Tensor,

@@ -30,10 +30,23 @@ histograms (``utils/logger.py``, result_dir/tb), and at ``eval_steps`` and
 ``save_ply``, ``render_traj`` and ``run_compression`` ("png" or
 "entropy_coding") store, show and compress the scene.
 
+Mesh mode (``mesh_devices`` = G > 1): one process a rank, in a process
+group of G ranks (parallel/launcher.py), each running this Runner on one
+contiguous shard of the Gaussians and B/G of the batch's cameras through
+parallel.distributed.sharded_rasterization (the dense exchange, or the
+capacity-bounded one with ``exchange_cap``). The step's loss is the mean
+over the ranks and each rank's gradients are those of that mean; the
+simulation's and the per-image modules' gradients (replicated parameters)
+are summed over the ranks, the finite gate and the diagnostics are the
+worst over the ranks, and each rank's Adam updates its own shard. A refine
+gathers the per-Gaussian state on every rank, runs with a generator all
+ranks share and keeps the rank's slice; evaluation, rendering, checkpoints,
+the PLY and the codecs run on the gathered splats, and rank 0 alone writes
+files. The sim dither, the random backgrounds and MCMC's position noise
+draw from a generator seeded per rank.
+
 The port loops in Python, one step per iteration; the JAX package's
 ``lax.scan`` chunks (``steps_per_dispatch``) were a TPU dispatch device.
-The options of later slices raise ``NotImplementedError`` naming their
-ROADMAP item.
 """
 
 from __future__ import annotations
@@ -65,10 +78,14 @@ from gscodec_studio_tpu_torch.models.splats import (DEAD_OPACITY_LOGIT,
 from gscodec_studio_tpu_torch.optimizers import (apply_updates,
                                                  build_splat_optimizers)
 from gscodec_studio_tpu_torch.optimizers.builders import AdamGroup, adam_state
+from gscodec_studio_tpu_torch.parallel.distributed import (
+    Mesh, make_mesh, shard_rows, sharded_rasterization)
 from gscodec_studio_tpu_torch.rendering import rasterization
 from gscodec_studio_tpu_torch.strategy import DefaultStrategy, MCMCStrategy
 from gscodec_studio_tpu_torch.training.losses import (combined_loss, psnr,
                                                       ssim)
+from gscodec_studio_tpu_torch.training.lpips import (load_lpips_weights,
+                                                     lpips, lpips_available)
 from gscodec_studio_tpu_torch.utils.bilagrid import (bilagrid_init,
                                                      bilagrid_slice,
                                                      bilagrid_tv_loss,
@@ -83,9 +100,7 @@ from gscodec_studio_tpu_torch.utils.ply import save_ply
 
 @dataclass
 class Config:
-    """The JAX package's Config, field for field and default for default.
-    Fields of options that are not ported yet are accepted at their
-    defaults; ``Runner`` raises for any other value."""
+    """The JAX package's Config, field for field and default for default."""
 
     data_dir: str = "data/garden"
     data_factor: int = 4
@@ -161,7 +176,8 @@ class Config:
     log_composite: bool = False
     isect_cap_max_scale: int = 4
 
-    # Multi-device training (not ported yet)
+    # Gaussian-sharded training over a process group of mesh_devices ranks
+    # (0 or 1: one device); exchange_cap bounds each destination's rows
     mesh_devices: int = 0
     exchange_cap: Optional[int] = None
 
@@ -173,17 +189,10 @@ class Config:
     shN_ada_mask_opt: bool = False
 
 
-def check_ported(cfg: Config, rasterizers=("fused",)) -> None:
-    """Raise NotImplementedError for an option of a later slice."""
-    later = [
-        (cfg.mesh_devices > 1, f"mesh_devices={cfg.mesh_devices}", "A12"),
-        (cfg.rasterizer not in rasterizers, f"rasterizer={cfg.rasterizer!r}",
-         "A13"),
-    ]
-    for bad, what, item in later:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP {item}")
+def check_config(cfg: Config, rasterizers=("fused",)) -> None:
+    """Raise for a value the runner does not take."""
+    if cfg.rasterizer not in rasterizers:
+        raise ValueError(f"unknown rasterizer {cfg.rasterizer!r}")
     if cfg.strategy not in ("default", "mcmc"):
         raise ValueError(f"unknown strategy {cfg.strategy!r}")
     if cfg.grad_dtype not in ("f32", "bf16"):
@@ -249,6 +258,16 @@ PROBE_VERDICTS = ("REPRODUCED (deterministic bug candidate)",
                   "clean on replay (transient signature)")
 
 
+class _NoLogger:
+    """The logger of a rank that writes no files."""
+
+    def scalars(self, values, step):
+        pass
+
+    def histogram(self, tag, values, step, bins=64):
+        pass
+
+
 class Runner:
     """Trains a 3DGS scene. ``parser`` gives ``points`` [N, 3],
     ``points_rgb`` [N, 3] in 0..255 and ``scene_scale``; the datasets give
@@ -259,12 +278,14 @@ class Runner:
     # the cfg.rasterizer values this runner takes
     rasterizers = ("fused", "pallas", "reference")
     injects_noise = True  # MCMC's per-step position noise
+    has_mesh_mode = True  # Gaussian-sharded over mesh_devices ranks
 
     def __init__(self, cfg: Config, parser=None, trainset=None, valset=None,
                  device: DeviceLike = None):
-        check_ported(cfg, self.rasterizers)
+        check_config(cfg, self.rasterizers)
         self.cfg = cfg
         self.device = dev = resolve_device(device)
+        self.mesh: Optional[Mesh] = self._make_mesh(cfg, dev)
         if parser is None:
             from gscodec_studio_tpu_torch.datasets.colmap import (Dataset,
                                                                   Parser)
@@ -296,15 +317,20 @@ class Runner:
             cap = cfg.capacity or 4 * n_init
             strategy = DefaultStrategy()
         cap = max(cap, n_init)
+        if self.mesh is not None:
+            G = self.mesh.size
+            cap = -(-cap // G) * G  # the shards must be equal
         overrides = {k: int(getattr(cfg, k)) for k in (
             "refine_start_iter", "refine_stop_iter", "refine_every")
             if getattr(cfg, k) is not None}
         self.strategy = replace(strategy, **overrides)
-        self.splats = create_splats(
+        # under the mesh every rank makes the whole model from the same
+        # draws and keeps its rows
+        self.splats = self._shard(create_splats(
             points, rgbs, cap=cap, sh_degree=cfg.sh_degree,
             init_opacity=cfg.init_opa, init_scale=cfg.init_scale,
             feature_dim=cfg.app_feature_dim if cfg.app_opt else None,
-            generator=self.generator, device=dev)
+            generator=self.generator, device=dev), cap)
         self.groups, self.opt_states = build_splat_optimizers(
             self.splats, scene_scale=self.scene_scale,
             batch_size=cfg.batch_size, max_steps=cfg.max_steps,
@@ -315,6 +341,14 @@ class Runner:
         else:
             self.strategy_state = self.strategy.initialize_state(
                 cap, self.scene_scale, device=dev)
+        self.strategy_state = self._shard(self.strategy_state)
+        # refines draw from the generator that made the splats, which
+        # under the mesh goes on alike on every rank; the step's draws
+        # come from one seeded per rank
+        self._shared_generator = self.generator
+        if self.mesh is not None:
+            self.generator = torch.Generator(device=dev).manual_seed(
+                cfg.seed + 1_000_003 * (self.mesh.rank + 1))
         self.compression_sim = None
         self.sim_params: Dict[str, torch.Tensor] = {}
         self.sim_groups, self.sim_states = {}, {}
@@ -338,8 +372,86 @@ class Runner:
         self.events: List[dict] = []  # refines, resets, capacity changes
         self._data = None
         os.makedirs(cfg.result_dir, exist_ok=True)
-        self.logger = TrainLogger(os.path.join(cfg.result_dir, "tb"))
+        self.logger = TrainLogger(os.path.join(cfg.result_dir, "tb")) \
+            if self.writes else _NoLogger()
         self._name_ignored()
+
+    # -- the mesh ------------------------------------------------------------
+
+    def _make_mesh(self, cfg: Config, dev: torch.device) -> Optional[Mesh]:
+        """The mesh of cfg.mesh_devices ranks, or None for one device. The
+        batch must split over the ranks, and this process must belong to a
+        process group of exactly that many ranks."""
+        G = cfg.mesh_devices
+        if not G or G <= 1:
+            return None
+        if not self.has_mesh_mode:
+            raise ValueError(f"{type(self).__name__} has no mesh mode (the "
+                             f"JAX package's has none either)")
+        if cfg.batch_size % G:
+            raise ValueError("batch_size must be divisible by mesh_devices")
+        if cfg.rasterizer != "fused":
+            raise ValueError(f"mesh_devices={G} renders through the fused "
+                             f"backend only, not {cfg.rasterizer!r}")
+        return make_mesh(G, device=dev)
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes files: rank 0 under the mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def refine_generator(self) -> torch.Generator:
+        """The refine's draws: under the mesh a generator that every rank
+        holds in the same state."""
+        return self._shared_generator if self.mesh is not None \
+            else self.generator
+
+    def _per_gaussian(self, x, n: int) -> bool:
+        return isinstance(x, torch.Tensor) and x.ndim >= 1 and \
+            x.shape[0] == n
+
+    def _shard(self, tree: Dict, cap: Optional[int] = None) -> Dict:
+        """This rank's rows of the per-Gaussian tensors of ``tree`` (those
+        of the whole capacity ``cap``, by default the runner's; nested
+        dicts too); the tree itself without the mesh."""
+        if self.mesh is None:
+            return tree
+        cap = self.cap if cap is None else cap
+        return {k: self._shard(v, cap) if isinstance(v, dict) else
+                shard_rows(self.mesh, v) if self._per_gaussian(v, cap) else v
+                for k, v in tree.items()}
+
+    def _gather(self, tree: Dict) -> Dict:
+        """The whole model's per-Gaussian tensors of ``tree`` (the ranks'
+        rows in rank order); the tree itself without the mesh."""
+        if self.mesh is None:
+            return tree
+        n = self.splats["means"].shape[0]
+        return {k: self._gather(v) if isinstance(v, dict) else
+                self.mesh.all_gather(v) if self._per_gaussian(v, n) else v
+                for k, v in tree.items()}
+
+    @property
+    def cap(self) -> int:
+        """The whole model's slot count."""
+        n = self.splats["means"].shape[0]
+        return n * self.mesh.size if self.mesh is not None else n
+
+    def _sum_over_ranks(self, grads: Dict[str, torch.Tensor]) -> Dict:
+        """The replicated parameters' gradients summed over the ranks, in
+        one collective."""
+        if self.mesh is None or not grads:
+            return grads
+        names = list(grads)
+        flat = self.mesh.all_reduce(torch.cat([grads[k].reshape(-1)
+                                               for k in names]))
+        out, lo = {}, 0
+        for k in names:
+            n = grads[k].numel()
+            out[k] = flat[lo:lo + n].reshape(grads[k].shape)
+            lo += n
+        return out
 
     def _init_aux(self, n_train: int) -> None:
         """The per-image modules' parameters (``aux_params``, flat names:
@@ -433,8 +545,7 @@ class Runner:
         return self._data
 
     def isect_capacity(self) -> int:
-        cap = self.splats["means"].shape[0]
-        base = self.cfg.isect_capacity or max(cap * 4, 1 << 20)
+        base = self.cfg.isect_capacity or max(self.cap * 4, 1 << 20)
         return base * self.isect_cap_scale
 
     def render_loss(self, params: Dict[str, torch.Tensor], c2w, Ks, target,
@@ -479,17 +590,37 @@ class Runner:
         # inv_ex: a non-finite pose gives a non-finite view for the finite
         # gate to skip, where linalg.inv raises on the card (as jnp's
         # inverse does not)
-        img, _, meta = rasterization(
-            means, quats, scales, opac, colors, torch.linalg.inv_ex(c2w)[0],
-            Ks, W, H, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
-            sh_degree=sh_for_raster, tile_size=cfg.tile_size,
-            backgrounds=bkgd,
-            render_mode="RGB+ED" if cfg.depth_loss else "RGB",
-            rasterize_mode="antialiased" if cfg.antialiased else "classic",
-            isect_capacity=self.isect_capacity(), rasterizer=cfg.rasterizer,
-            cutoff_mode=cfg.cutoff_mode, grad_dtype=cfg.grad_dtype,
-            log_composite=cfg.log_composite, attr_dtype=cfg.attr_dtype,
-            means2d_probe=probe, absgrad_probe=ag_probe, device=dev)
+        viewmats = torch.linalg.inv_ex(c2w)[0]
+        render_mode = "RGB+ED" if cfg.depth_loss else "RGB"
+        if self.mesh is not None:
+            # the rank renders and scores its B/G cameras
+            img, _, meta = sharded_rasterization(
+                self.mesh, means, quats, scales, opac, colors, viewmats, Ks,
+                W, H, sh_for_raster, self.isect_capacity(),
+                near_plane=cfg.near_plane, far_plane=cfg.far_plane,
+                tile_size=cfg.tile_size, backgrounds=bkgd,
+                means2d_probe=probe, absgrad_probe=ag_probe,
+                exchange_cap=cfg.exchange_cap, antialiased=cfg.antialiased,
+                cutoff_mode=cfg.cutoff_mode, grad_dtype=cfg.grad_dtype,
+                attr_dtype=cfg.attr_dtype, log_composite=cfg.log_composite,
+                render_mode=render_mode)
+            target = shard_rows(self.mesh, target)
+            if view is not None:
+                view = {k: shard_rows(self.mesh, v) for k, v in view.items()}
+                idx = view["idx"]
+        else:
+            img, _, meta = rasterization(
+                means, quats, scales, opac, colors, viewmats, Ks, W, H,
+                near_plane=cfg.near_plane, far_plane=cfg.far_plane,
+                sh_degree=sh_for_raster, tile_size=cfg.tile_size,
+                backgrounds=bkgd, render_mode=render_mode,
+                rasterize_mode="antialiased" if cfg.antialiased
+                else "classic",
+                isect_capacity=self.isect_capacity(),
+                rasterizer=cfg.rasterizer, cutoff_mode=cfg.cutoff_mode,
+                grad_dtype=cfg.grad_dtype, log_composite=cfg.log_composite,
+                attr_dtype=cfg.attr_dtype, means2d_probe=probe,
+                absgrad_probe=ag_probe, device=dev)
         if cfg.depth_loss:
             img, depth_map = img[..., :3], img[..., 3:4]
         if cfg.use_bilateral_grid:
@@ -543,7 +674,11 @@ class Runner:
         sim = self.compression_sim
         rparams = params
         if sim is not None:
-            rparams, bits, sim_aux = sim.simulate(params, sim_params, step,
+            sp = sim_params
+            if self.mesh is not None and "ada_mask" in sp:
+                # the shN mask has a slot a Gaussian: the rank's rows
+                sp = dict(sp, ada_mask=shard_rows(self.mesh, sp["ada_mask"]))
+            rparams, bits, sim_aux = sim.simulate(params, sp, step,
                                                   self.generator)
         loss, meta, probe = self.render_loss(rparams, c2w, Ks, target,
                                              sh_degree, step, aux=aux,
@@ -553,11 +688,18 @@ class Runner:
         names = [(t, k) for t, tree in enumerate(trees)
                  for k in jax_leaf_order(tree)]
         leaves = [trees[t][k] for t, k in names] + [probe]
+        # under the mesh the step's loss is the mean of the ranks' losses:
+        # each rank differentiates its share, and the exchange's backward
+        # brings every rank's share to the Gaussians' own rank
+        share = loss / self.mesh.size if self.mesh is not None else loss
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
-            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+            leaves, torch.autograd.grad(share, leaves, allow_unused=True))]
         out = [{}, {}, {}]
         for (t, k), g in zip(names, grads):
             out[t][k] = g
+        out[1] = self._sum_over_ranks(out[1])
+        out[2] = self._sum_over_ranks(out[2])
+        grads = [out[t][k] for t, k in names] + grads[-1:]
         leaf_ok = [torch.isfinite(g).all() for g in grads[:-1]]
         return (loss, meta, out, grads[-1], leaf_ok,
                 () if sim is None else (bits, sim_aux))
@@ -572,13 +714,19 @@ class Runner:
         (``out["probe"]``)."""
         cfg = self.cfg
         sim = self.compression_sim
-        pre = self.generator.get_state() if cfg.skip_probe else None
+        # the skip probe stays off under the mesh, as in the JAX package
+        probe = cfg.skip_probe and self.mesh is None
+        pre = self.generator.get_state() if probe else None
         loss, meta, grads, probe_grad, leaf_ok, extra = \
             self._forward_backward(idx, sh_degree, step)
         # the step's one host sync: loss, intersection count, the
         # simulation's bits and auxiliary loss and the leaves' flags
         stats = torch.cat([x.detach().double().reshape(1) for x in (
-            loss, meta["n_isects"], *extra, *leaf_ok)]).tolist()
+            loss, meta["n_isects"], *extra, *leaf_ok)])
+        exchange = None
+        if self.mesh is not None:
+            stats, exchange = self._reduce_stats(stats, meta, len(extra))
+        stats = stats.tolist()
         flags = stats[2 + len(extra):]
         finite = [math.isfinite(stats[0])] + [bool(f) for f in flags]
         skipped = not all(finite)
@@ -611,12 +759,35 @@ class Runner:
                "skipped": skipped}
         if sim is not None:
             out["bits"], out["sim_aux"] = stats[2], stats[3]
+        if exchange is not None:
+            out["exchange"] = exchange
         if skipped:
             out["bad_leaves"] = [n for n, ok in zip(self.leaf_names(), finite)
                                  if not ok]
-            if cfg.skip_probe:
+            if probe:
                 out["probe"] = self._probe(idx, sh_degree, step, pre)
         return out
+
+    def _reduce_stats(self, stats: torch.Tensor, meta, n_extra: int):
+        """The step's statistics over the ranks: the loss and the
+        simulation's terms their mean, the intersection count (already
+        the largest over the ranks) and the finite flags their worst, and
+        the exchange's diagnostics their largest ({overflow, sent_rows,
+        dense_rows, bytes})."""
+        mesh = self.mesh
+        n_mean = 1 + n_extra
+        means = torch.cat([stats[:1], stats[2:2 + n_mean - 1]])
+        means = mesh.all_reduce(means) / mesh.size
+        keys = ("overflow", "sent_rows", "dense_rows", "bytes")
+        worst = torch.cat([
+            stats[1:2], torch.stack([meta["exchange_" + k].double()
+                                     for k in keys]),
+            -stats[1 + n_mean:]])
+        worst = mesh.all_reduce(worst, "max")
+        out = torch.cat([means[:1], worst[:1], means[1:],
+                         -worst[1 + len(keys):]])
+        return out, {k: int(v) for k, v in zip(keys, worst[1:1 + len(keys)]
+                                               .tolist())}
 
     def _probe(self, idx, sh_degree: int, step: int, pre) -> str:
         """The one-retry probe of a skipped step: the same views, step and
@@ -651,7 +822,9 @@ class Runner:
         if "probe" in out:
             row["probe"] = out["probe"]
             row["probe_replayed"] = "the pre-step state"
-        print(f"  skip fingerprint: {json.dumps(row)}", flush=True)
+        self._say(f"  skip fingerprint: {json.dumps(row)}")
+        if not self.writes:
+            return
         try:
             with open(os.path.join(self.cfg.result_dir, "skips.jsonl"),
                       "a") as f:
@@ -660,6 +833,11 @@ class Runner:
             pass
 
     # -- loop ----------------------------------------------------------------
+
+    def _say(self, msg: str) -> None:
+        """Prints ``msg`` (under the mesh on rank 0 only)."""
+        if self.writes:
+            print(msg, flush=True)
 
     def train(self, max_steps: Optional[int] = None,
               log_every: int = 100) -> List[float]:
@@ -677,9 +855,9 @@ class Runner:
             out = self.train_step(idx, sh_degree, step0)
             step = step0 + 1
             if out["skipped"]:
-                print(f"step {step}: step REJECTED (non-finite loss or "
-                      f"gradients), state carried unchanged "
-                      f"({self.skipped_steps} total)", flush=True)
+                self._say(f"step {step}: step REJECTED (non-finite loss or "
+                          f"gradients), state carried unchanged "
+                          f"({self.skipped_steps} total)")
                 self._fingerprint_skip(step0, out)
             losses.append(out["loss"])
             if (strat.refine_start_iter < step < strat.refine_stop_iter
@@ -695,13 +873,12 @@ class Runner:
             for es in cfg.eval_steps:
                 if es == step < max_steps:
                     m = self.eval(stage=f"val_step{es}")
-                    print(f"step {step}: eval " + json.dumps(m), flush=True)
+                    self._say(f"step {step}: eval " + json.dumps(m))
             if step < max_steps and step in cfg.save_steps:
                 self.save_checkpoint(step)
             if log_every and step % log_every == 0:
-                print(f"step {step}: loss {out['loss']:.4f} isects "
-                      f"{out['n_isects']} ({time.time() - t0:.1f}s)",
-                      flush=True)
+                self._say(f"step {step}: loss {out['loss']:.4f} isects "
+                          f"{out['n_isects']} ({time.time() - t0:.1f}s)")
             self._log(step, out)
         return losses
 
@@ -712,32 +889,46 @@ class Runner:
         if cfg.tb_every and step % cfg.tb_every == 0:
             self.logger.scalars(
                 {"train/loss": out["loss"], "train/n_isects": out["n_isects"],
-                 "train/num_GS": num_live(self.splats),
+                 "train/num_GS": self._num_live(),
                  "train/skipped_steps": self.skipped_steps}, step)
         if cfg.tb_histograms_every and step % cfg.tb_histograms_every == 0:
             for name in ("means", "scales", "opacities"):
                 self.logger.histogram(
-                    f"params/{name}", self.splats[name].detach().cpu()
+                    f"params/{name}", self._gather(
+                        {name: self.splats[name]})[name].detach().cpu()
                     .numpy(), step)
 
+    def _num_live(self) -> int:
+        """The live slots of the whole model (summed over the ranks)."""
+        n = torch.tensor(num_live(self.splats), dtype=torch.int64,
+                         device=self.device)
+        return int(self.mesh.all_reduce(n)) if self.mesh is not None \
+            else int(n)
+
     def _refine(self, step: int) -> None:
-        new = self.strategy.refine(self.splats, self.opt_states,
-                                   self.strategy_state, step,
-                                   generator=self.generator)
+        """The strategy's refine on the whole model: under the mesh every
+        rank gathers the per-Gaussian state, refines it with the shared
+        generator (so every rank computes the same bits) and keeps its
+        rows."""
+        new = self.strategy.refine(
+            self._gather(self.splats), self._gather(self.opt_states),
+            self._gather(self.strategy_state), step,
+            generator=self.refine_generator)
         # the same finite gate as the step, on the refined parameters
         if all(bool(torch.isfinite(v).all()) for v in new[0].values()):
-            self.splats, self.opt_states, self.strategy_state = new
             event = {"step": step, "event": "refine",
-                     "live": num_live(self.splats)}
-            if "allocated" in self.strategy_state:
-                event["allocated"] = int(self.strategy_state["allocated"].sum())
+                     "live": num_live(new[0])}
+            if "allocated" in new[2]:
+                event["allocated"] = int(new[2]["allocated"].sum())
+            self.splats, self.opt_states, self.strategy_state = [
+                self._shard(t) for t in new]
             self.events.append(event)
             self.logger.scalars({"refine/allocated": event.get(
                 "allocated", event["live"]), "refine/live": event["live"]},
                 step)
         else:
-            print(f"step {step}: refine REJECTED (non-finite parameters)",
-                  flush=True)
+            self._say(f"step {step}: refine REJECTED (non-finite "
+                      f"parameters)")
             self.events.append({"step": step, "event": "refine_rejected"})
 
     def _grow_capacity(self, step: int, n_isects: int) -> None:
@@ -752,37 +943,46 @@ class Runner:
             self.events.append({"step": step, "event": "isect_capacity",
                                 "n_isects": n_isects,
                                 "capacity": self.isect_capacity()})
-            print(f"step {step}: ISECT OVERFLOW ({n_isects} >= 95% of "
-                  f"{cap}), capacity doubles", flush=True)
+            self._say(f"step {step}: ISECT OVERFLOW ({n_isects} >= 95% of "
+                      f"{cap}), capacity doubles")
         else:
-            print(f"step {step}: isect buffer saturated ({n_isects} >= 95% "
-                  f"of {cap}, growth bound reached), deepest intersections "
-                  f"truncate", flush=True)
+            self._say(f"step {step}: isect buffer saturated ({n_isects} >= "
+                      f"95% of {cap}, growth bound reached), deepest "
+                      f"intersections truncate")
 
     # -- eval --------------------------------------------------------------
 
+    def _eval_splats(self) -> Dict[str, torch.Tensor]:
+        """The whole model's splats: under the mesh gathered on every rank
+        (a collective: every rank calls it)."""
+        return self._gather(self.splats)
+
     def render_view(self, camtoworld, K, width: int, height: int,
-                    sh_degree: Optional[int] = None) -> torch.Tensor:
-        """[H, W, 3] render of the current splats, clipped to [0, 1]; with
-        appearance, through its MLP with the zero (average) embedding."""
+                    sh_degree: Optional[int] = None,
+                    splats: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+        """[H, W, 3] render of the current splats (or of ``splats``, the
+        whole model), clipped to [0, 1]; with appearance, through its MLP
+        with the zero (average) embedding. Under the mesh every rank calls
+        it and renders the gathered model."""
         cfg = self.cfg
         sh = cfg.sh_degree if sh_degree is None else sh_degree
         dev = self.device
+        splats = self._eval_splats() if splats is None else splats
         with torch.no_grad():
-            means, quats, scales, opac = splat_activations(self.splats)
+            means, quats, scales, opac = splat_activations(splats)
             c2w = _tensor(camtoworld, dev)
             if cfg.app_opt:
                 dirs = means[None, :, :] - c2w[None, None, :3, 3]
                 colors = torch.sigmoid(appearance_opt_apply(
                     torch.zeros((1, cfg.app_embed_dim), device=dev),
-                    self.app_mlp(self.aux_params), self.splats["features"],
+                    self.app_mlp(self.aux_params), splats["features"],
                     torch.zeros(1, dtype=torch.long, device=dev), dirs, sh,
                     sh_degree_max=cfg.sh_degree)
-                    + self.splats["colors"][None])
+                    + splats["colors"][None])
                 sh = None
             else:
-                colors = torch.cat([self.splats["sh0"], self.splats["shN"]],
-                                   1)
+                colors = torch.cat([splats["sh0"], splats["shN"]], 1)
             img, _, _ = rasterization(
                 means, quats, scales, opac, colors,
                 torch.linalg.inv(c2w)[None], _tensor(K, dev)[None], width,
@@ -791,21 +991,43 @@ class Runner:
                 device=dev)
         return torch.clamp(img[0], 0.0, 1.0)
 
+    def _lpips_weights(self) -> Optional[Dict[str, torch.Tensor]]:
+        """LPIPS's weights from GSC_LPIPS_WEIGHTS (training/lpips.py), or
+        None, and then, once a runner, a notice that eval skips it."""
+        if lpips_available():
+            return load_lpips_weights(device=self.device)
+        if not getattr(self, "_lpips_notice_printed", False):
+            self._say("eval: lpips SKIPPED (no weights at GSC_LPIPS_WEIGHTS; "
+                      "psnr/ssim only)")
+            self._lpips_notice_printed = True
+        return None
+
     def eval(self, stage: str = "val") -> Dict[str, float]:
-        """Mean PSNR and SSIM over the validation views; also written to
+        """Mean PSNR and SSIM over the validation views, and LPIPS where
+        its weights are found (``_lpips_weights``); also written to
         result_dir/stats/<stage>.json. With eval_save_images each view's
         render beside its target goes to result_dir/renders/
-        <stage>_<i>.png."""
+        <stage>_<i>.png. Under the mesh every rank evaluates the gathered
+        model and rank 0 writes."""
+        lpips_w = self._lpips_weights()
         metrics = {"psnr": [], "ssim": []}
+        if lpips_w is not None:
+            metrics["lpips"] = []
+        # the whole model, gathered once (under the mesh)
+        kw = {"splats": self._eval_splats()} if self.mesh is not None \
+            else {}
         for i in range(len(self.valset)):
             data = self.valset[i]
             tgt = _tensor(data["image"], self.device)
             h, w = tgt.shape[:2]
-            img = self.render_view(data["camtoworld"], data["K"], w, h)
+            img = self.render_view(data["camtoworld"], data["K"], w, h, **kw)
             with torch.no_grad():
                 metrics["psnr"].append(float(psnr(img, tgt)))
                 metrics["ssim"].append(float(ssim(img[None], tgt[None])))
-            if self.cfg.eval_save_images:
+                if lpips_w is not None:
+                    metrics["lpips"].append(float(lpips(img[None], tgt[None],
+                                                        lpips_w)))
+            if self.cfg.eval_save_images and self.writes:
                 rdir = os.path.join(self.cfg.result_dir, "renders")
                 os.makedirs(rdir, exist_ok=True)
                 pair = np.concatenate([img.cpu().numpy(),
@@ -813,10 +1035,11 @@ class Runner:
                 write_png(os.path.join(rdir, f"{stage}_{i:04d}.png"),
                           (np.clip(pair, 0, 1) * 255).astype(np.uint8))
         out = {k: float(np.mean(v)) for k, v in metrics.items()}
-        stats_dir = os.path.join(self.cfg.result_dir, "stats")
-        os.makedirs(stats_dir, exist_ok=True)
-        with open(os.path.join(stats_dir, f"{stage}.json"), "w") as f:
-            json.dump(out, f)
+        if self.writes:
+            stats_dir = os.path.join(self.cfg.result_dir, "stats")
+            os.makedirs(stats_dir, exist_ok=True)
+            with open(os.path.join(stats_dir, f"{stage}.json"), "w") as f:
+                json.dump(out, f)
         return out
 
     def render_traj(self, step: int = 0, traj: str = "interp",
@@ -842,8 +1065,13 @@ class Runner:
         d0 = self.valset[0] if len(self.valset) else self.trainset[0]
         K = np.asarray(d0["K"])
         h, w = np.asarray(d0["image"]).shape[:2]
-        frames = [(np.clip(self.render_view(c2w, K, w, h).cpu().numpy(), 0, 1)
-                   * 255).astype(np.uint8) for c2w in path]
+        kw = {"splats": self._eval_splats()} if self.mesh is not None \
+            else {}
+        frames = [(np.clip(self.render_view(c2w, K, w, h, **kw).cpu()
+                           .numpy(), 0, 1) * 255).astype(np.uint8)
+                  for c2w in path]
+        if not self.writes:
+            return ""
         out_dir = os.path.join(self.cfg.result_dir, "videos")
         os.makedirs(out_dir, exist_ok=True)
         out = os.path.join(out_dir, f"traj_{traj}_{step}.mp4")
@@ -862,8 +1090,9 @@ class Runner:
 
     def live_splats(self) -> Dict[str, np.ndarray]:
         """Host copies of the live splats: the slots whose opacity is above
-        0.005."""
-        splats = {k: v.detach().cpu().numpy() for k, v in self.splats.items()}
+        0.005 (under the mesh, of the gathered model, on every rank)."""
+        splats = {k: v.detach().cpu().numpy()
+                  for k, v in self._eval_splats().items()}
         keep = 1.0 / (1.0 + np.exp(-splats["opacities"])) > 0.005
         return {k: v[keep] for k, v in splats.items()}
 
@@ -884,13 +1113,17 @@ class Runner:
         """result_dir/ckpts/ckpt_<step>.npz with the JAX package's keys:
         ``step``, ``splats/<name>``, ``sim/<i>`` and ``aux/<i>``
         (_ckpt_leaves). The model only, no optimizer state, as the JAX
-        package saves it. Returns the path."""
+        package saves it. Returns the path. Under the mesh every rank calls
+        it and rank 0 writes the gathered model."""
         ckpt_dir = os.path.join(self.cfg.result_dir, "ckpts")
-        os.makedirs(ckpt_dir, exist_ok=True)
-        arrs = {key: tree[name].detach().cpu().numpy()
-                for key, tree, name in self._ckpt_leaves()}
         path = os.path.join(ckpt_dir, f"ckpt_{step}.npz")
-        np.savez(path, step=step, **arrs)
+        splats = self._eval_splats()
+        arrs = {key: (splats[name] if key.startswith("splats/")
+                      else tree[name]).detach().cpu().numpy()
+                for key, tree, name in self._ckpt_leaves()}
+        if self.writes:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            np.savez(path, step=step, **arrs)
         return path
 
     def load_checkpoint(self, path: str) -> int:
@@ -898,7 +1131,8 @@ class Runner:
         of a checkpoint of either package onto the runner's device; returns
         its step. Each leaf must have the shape of the runner's own (the
         same capacity and configuration); a checkpoint without ``aux/``
-        leaves leaves the modules as they are, as the JAX Runner does."""
+        leaves leaves the modules as they are, as the JAX Runner does. Under
+        the mesh each rank keeps its rows of the splats."""
         dev = self.device
         with np.load(path) as z:
             leaves = [(key, tree, name)
@@ -906,13 +1140,17 @@ class Runner:
                       if not key.startswith("aux/") or "aux/0" in z.files]
             loaded = {}
             for key, tree, name in leaves:
+                want = tuple(tree[name].shape)
+                if key.startswith("splats/"):
+                    want = (self.cap,) + want[1:]
                 got = z[key].shape if key in z.files else "missing"
-                if got != tuple(tree[name].shape):
+                if got != want:
                     raise ValueError(f"{path}: {key} is {got}, the "
-                                     f"runner's {name} "
-                                     f"{tuple(tree[name].shape)}")
+                                     f"runner's {name} {want}")
                 loaded[key] = torch.as_tensor(z[key], dtype=torch.float32,
                                               device=dev)
+                if key.startswith("splats/"):
+                    loaded[key] = self._shard({name: loaded[key]})[name]
             step = int(z["step"])
         for key, tree, name in leaves:
             tree[name] = loaded[key]
@@ -925,7 +1163,9 @@ class Runner:
         if "sh0" not in self.splats:
             raise ValueError("save_ply writes SH colours; under app_opt the "
                              "splats carry features and colors instead")
-        save_ply(path, self.live_splats())
+        live = self.live_splats()
+        if self.writes:
+            save_ply(path, live)
 
     # -- test-time compression ---------------------------------------------
 
@@ -940,30 +1180,38 @@ class Runner:
         (dead slots at opacity -15), evaluate them as stage
         ``compress_<method>`` and restore the trained splats. Returns the
         metrics with ``size_bytes``, the bitstream's bytes on disk; the
-        stages' seconds are left in ``self.compression_seconds``."""
+        stages' seconds are left in ``self.compression_seconds``. Under the
+        mesh rank 0 compresses the gathered model, every rank decodes it
+        and keeps its rows, and the ranks evaluate the decoded model."""
         compress_dir = os.path.join(self.cfg.result_dir,
                                     f"compression_{step}")
         if method == "png":
             codec = PngCompression(device=self.device)
-            codec.compress(compress_dir, self.live_splats())
+            args = {}
         elif method == "entropy_coding":
             codec = EntropyCodingCompression(device=self.device)
-            codec.compress(compress_dir, self.live_splats(),
-                           entropy_models=self.entropy_models())
+            args = {"entropy_models": self.entropy_models()}
         else:
             raise ValueError(method)
+        live = self.live_splats()
+        if self.writes:
+            codec.compress(compress_dir, live, **args)
+        if self.mesh is not None:
+            self.mesh.barrier()  # the stream is on disk
         t0 = time.perf_counter()
         decoded = codec.decompress(compress_dir)
         restored = {}
         for k, v in self.splats.items():
-            arr = np.zeros(tuple(v.shape), np.float32)
+            arr = np.zeros((self.cap,) + tuple(v.shape[1:]), np.float32)
             if arr.size and k in decoded:
                 dec = decoded[k].reshape((-1,) + tuple(v.shape[1:]))
                 arr[:len(dec)] = dec
                 if k == "opacities":
                     arr[len(dec):] = DEAD_OPACITY_LOGIT
             restored[k] = torch.as_tensor(arr, device=self.device)
-        seconds = dict(codec.seconds, decode=time.perf_counter() - t0)
+        restored = self._shard(restored)
+        seconds = dict(getattr(codec, "seconds", {}),
+                       decode=time.perf_counter() - t0)
         backup = self.splats
         self.splats = restored
         t0 = time.perf_counter()

@@ -55,6 +55,7 @@ class Runner2DGS(Runner):
     # surfels relocate and grow but do not random-walk. Reproduced, not
     # repaired.
     injects_noise = False
+    has_mesh_mode = False  # the JAX Runner2DGS has none either
 
     def _visibility(self, meta) -> torch.Tensor:
         """Every row: the JAX Runner2DGS builds SelectiveAdam groups under

@@ -1549,3 +1549,130 @@ def test_seq_codec_on_card_frames_decodes_on_cpu(cuda, tmp_path):
         got = np.sort(dec[1][name].reshape(-1))
         assert float(got.min()) >= lo - step and float(got.max()) <= \
             hi + step
+
+
+def _mesh_scene(n=4000, C=4, W=160, H=120):
+    from gscodec_studio_tpu_torch.utils.scenes import make_scene
+
+    means, quats, scales, opac, colors, vm, _ = make_scene(
+        n=n, width=W, height=H, seed=9)
+    vm = np.concatenate([vm] * C)
+    vm[:, 0, 3] += np.linspace(-0.2, 0.2, C, dtype=np.float32)
+    opac = np.clip(opac, 1e-4, 1 - 1e-4)
+    splats = dict(means=means, quats=quats,
+                  scales=np.log(scales).astype(np.float32),
+                  opacities=np.log(opac / (1 - opac)).astype(np.float32),
+                  sh0=colors[:, :1], shN=colors[:, 1:])
+    f = 0.9 * W
+    Ks = np.array([[[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]]] * C,
+                  np.float32)
+    return splats, vm, Ks, W, H
+
+
+def _single_scalar(splats, vm, Ks, W, H, dev, groups=1):
+    """The render path's pipeline on one device: the scalar radius binned
+    by the fused kernels, as distributed_render bins, the cameras in
+    ``groups`` batches as the ranks split them (under the exact cutoff a
+    camera's render depends on where its batch's table puts its tiles'
+    runs on the 128-row chunk grid)."""
+    from gscodec_studio_tpu_torch.models.splats import splat_activations
+    from gscodec_studio_tpu_torch.rendering import project_and_shade
+
+    sp = {k: torch.as_tensor(v, device=dev) for k, v in splats.items()}
+    with torch.no_grad():
+        m, q, s, o = splat_activations(sp)
+        r, m2, d, con, col, op, _ = project_and_shade(
+            m, q, s, o, torch.cat([sp["sh0"], sp["shN"]], 1),
+            torch.as_tensor(vm, device=dev), torch.as_tensor(Ks, device=dev),
+            W, H, sh_degree=3, elliptical=False)
+        n = len(vm) // groups
+        return torch.cat([tr.rasterize_to_pixels_v2(
+            m2[g:g + n], con[g:g + n], col[g:g + n], op[g:g + n],
+            d[g:g + n], r[g:g + n], W, H, isect_capacity=1 << 20,
+            device=dev)[0] for g in range(0, len(vm), n)])
+
+
+@pytest.fixture
+def nccl_world_1(cuda, tmp_path):
+    """A process group of one rank on NCCL (a file store), destroyed
+    after the test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield cuda
+    finally:
+        dist.destroy_process_group()
+
+
+def test_exchange_on_cuda_world_size_1(nccl_world_1):
+    """The exchange's all_to_all on the card's tensors through NCCL at world
+    size 1: it moves every row to itself, and its backward brings the
+    gradient back unchanged; the bucketed exchange keeps the visible rows
+    first."""
+    from gscodec_studio_tpu_torch.parallel.distributed import (
+        _exchange, _exchange_bucketed, make_mesh)
+
+    dev = nccl_world_1
+    mesh = make_mesh(1, device=dev)
+    assert not mesh.solo
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn(3, 50, 7, generator=g).to(dev).requires_grad_(True)
+    w = torch.randn(3, 50, 7, generator=g).to(dev)
+    y = _exchange(mesh, x)
+    (gx,) = torch.autograd.grad((y * w).sum(), x)
+    assert torch.equal(y, x) and torch.equal(gx, w)
+    radii = torch.zeros(3, 50, dtype=torch.int32, device=dev)
+    radii[1, 10:20] = 3
+    yb, rb, diag = _exchange_bucketed(mesh, x, radii, 16)
+    assert torch.equal(yb[:, :10], x[:, 10:20])
+    assert int(diag["overflow"]) == 0 and int(diag["sent_rows"]) == 48
+    assert bool((rb[:, :10] == torch.tensor([0, 3, 0], device=dev)[:, None]
+                 ).all()) and not bool(rb[:, 10:].any())
+
+
+def test_mesh_render_on_cuda_world_size_1(nccl_world_1):
+    """distributed_render at world size 1 on NCCL against the same
+    projection's single-device render: the forward's tolerance."""
+    from gscodec_studio_tpu_torch.parallel.distributed import (
+        distributed_render, make_mesh)
+
+    dev = nccl_world_1
+    splats, vm, Ks, W, H = _mesh_scene()
+    sp = {k: torch.as_tensor(v, device=dev) for k, v in splats.items()}
+    img = distributed_render(make_mesh(1, device=dev), sp, vm, Ks, W, H,
+                             sh_degree=3, isect_capacity=1 << 20)
+    ref = _single_scalar(splats, vm, Ks, W, H, dev)
+    assert float(ref.mean()) > 0.01
+    assert float((img - ref).abs().max()) <= 1e-4
+
+
+def _gloo_render_rank(rank, world, splats, vm, Ks, W, H):
+    from gscodec_studio_tpu_torch.parallel.distributed import (
+        distributed_render, make_mesh, shard_rows)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(world, device=dev)
+    loc = {k: shard_rows(mesh, torch.as_tensor(v, device=dev))
+           for k, v in splats.items()}
+    out = [distributed_render(mesh, loc, vm, Ks, W, H, sh_degree=3,
+                              isect_capacity=1 << 20, exchange_cap=cap).cpu()
+           for cap in (None, len(splats["means"]) // world)]
+    return out
+
+
+def test_mesh_render_on_cuda_two_gloo_ranks(cuda):
+    """distributed_render over 2 gloo ranks sharing the card, dense and
+    bucketed at a covering cap, against the single-device render: the
+    forward's tolerance."""
+    from gscodec_studio_tpu_torch.parallel import launcher
+
+    splats, vm, Ks, W, H = _mesh_scene()
+    outs = launcher.spawn(_gloo_render_rank, 2, splats, vm, Ks, W, H,
+                          timeout=300)
+    ref = _single_scalar(splats, vm, Ks, W, H, cuda, groups=2).cpu()
+    for dense, bucketed in outs:
+        assert float((dense - ref).abs().max()) <= 1e-4
+        assert float((bucketed - dense).abs().max()) <= 1e-4

@@ -79,7 +79,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "datasets.stg_readers", "compression.seq_codec",
         "compression.stg_compression", "compression.hevc_compression",
         "compression.ges_tm", "utils.mv_preprocess", "dyn_trainer_cli",
-        "compress_ply_sequence")} <= walked
+        "compress_ply_sequence", "parallel", "parallel.distributed",
+        "parallel.launcher", "parallel.dryrun", "training.lpips",
+        "utils.viewer", "ply_loader_renderer", "simple_viewer",
+        "image_fitting", "ges_tm_anchor", "exchange_cap_sweep")} <= walked
 
 
 def test_entry_points_default_to_cuda(rng, monkeypatch, tmp_path):

@@ -409,9 +409,18 @@ def test_finite_gate_skips_a_poisoned_step(fake_scene, tmp_path):
     ("mesh_devices", 2), ("mesh_devices", 4),
 ])
 def test_unported_options_raise(field, value, tmp_path):
+    """The mesh mode's refusals, before the Runner reads its scene: at 2
+    ranks a batch of 1 does not split (ValueError, as the JAX Runner's
+    gscodec_studio_tpu/training/trainer.py:239-242); at 4 ranks with a
+    batch of 4, this process belongs to no process group of 4 ranks."""
     cfg = dataclasses.replace(Config(result_dir=str(tmp_path)),
                               **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if value == 2:
+        match = "batch_size must be divisible by mesh_devices"
+    else:
+        cfg = dataclasses.replace(cfg, batch_size=4)
+        match = "needs a process group of that size; this process's has 1"
+    with pytest.raises(ValueError, match=match):
         Runner(cfg, parser=object(), device="cpu")
 
 
